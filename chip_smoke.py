@@ -1,0 +1,458 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's main path on one NVIDIA card and check it.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout (it imports ``src/repro_torch`` beside it;
+it never imports JAX or the ``repro`` package).  Phases, each fatal:
+
+1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (``nvcc``,
+   printing the ``-Xptxas -v`` register report) and name the card;
+2. hold each kernel against its plain PyTorch version on the card at the
+   main path's shapes (qwen2.5-3b: 16 query heads, 2 KV heads, head_dim 128,
+   page size 16) in bfloat16 and float32, and time kernel, plain version,
+   one PyTorch library call (SDPA; never used by the port) and the bound;
+3. serve the same requests with the reduced qwen2.5-3b engine in float32 on
+   the card and on the CPU (plain kernels), whole-prompt and chunked
+   prefill: the greedy tokens must be identical;
+4. serve 16 requests at the full width of qwen2.5-3b (36 layers, bf16,
+   seeded random weights) with 8 lanes, max_len 1024 and 16-token pages;
+   every request must finish and both kernels must have launched.
+
+Then it prints one JSON line with each kernel's numbers, the card's name
+and power limit, and, last, ``{"ok": true, "device": {...}}``.  Without a
+card, or without the package beside it, it exits non-zero and prints no
+result.
+"""
+import dataclasses
+import json
+import re
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12                      # H100 SXM device memory
+PEAK_FLOPS = {"torch.bfloat16": 989e12,        # dense tensor-core bf16
+              "torch.float32": 67e12}          # float32 outside the tensor cores
+TOL = {"torch.bfloat16": (2e-2, 2e-2),         # both sides round to bf16 (one ulp
+       "torch.float32": (1e-4, 1e-4)}          # near 1 is 2^-8); f32: sum order
+H, HKV, D, PS = 16, 2, 128, 16                 # qwen2.5-3b attention widths
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_report(text: str) -> list[str]:
+    """One line per kernel instantiation from nvcc's ``-Xptxas -v`` output:
+    registers, spills (shared memory is dynamic, sized at launch)."""
+    out, name, spill = [], None, ""
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '.*?(paged_decode_attn|paged_combine|"
+                      r"flash_attn_fwd|flash_attn_mma)I(13__nv_bfloat16|f)?(?:Li(\d+)E)?", line)
+        if m:
+            args = [{"f": "f32", None: ""}.get(m.group(2), "bf16"),
+                    f"D={m.group(3)}" if m.group(3) else ""]
+            name = f"{m.group(1)}<{', '.join(x for x in args if x)}>"
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and name:
+            out.append(f"{name}: {line.split(':', 1)[1].strip()}; {spill}")
+            name = None
+    return out
+
+
+# ---------------------------------------------------------------------------
+# timing
+# ---------------------------------------------------------------------------
+
+
+def time_ms(fn, iters: int = 50) -> float:
+    """Median device time of one call, each launched after a 64 MB write
+    that evicts the 50 MB L2 (the real caller finds its operands cold)."""
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(iters):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        times.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in times)
+
+
+def check_close(name, out, plain, dtype) -> float:
+    atol, rtol = TOL[str(dtype)]
+    err = (out.float() - plain.float()).abs()
+    ok = bool((err <= atol + rtol * plain.float().abs()).all())
+    rel = float(err.max() / plain.float().abs().max().clamp_min(1e-30))
+    log(f"  {name} {dtype}: max_abs_err {float(err.max()):.3e} max_rel_err {rel:.3e} "
+        f"(atol {atol:g}, rtol {rtol:g}) -> {'ok' if ok else 'MISMATCH'}")
+    if not ok or not torch.isfinite(out).all():
+        raise SystemExit(f"chip_smoke: {name} {dtype} disagrees with its plain version")
+    return float(err.max())
+
+
+def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
+    t_mem = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[str(dtype)] * 1e3
+    return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def paged_case(dtype, timed: bool):
+    from repro_torch.kernels import ops, ref
+
+    F = torch.nn.functional
+    lens = [0, 1, 17, 100, 1024, 513, 64, 999]
+    b, p = len(lens), 1024 // PS
+    n_pages = b * p + 8
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    perm = torch.randperm(n_pages, generator=gen, device="cuda")[: b * p]
+    bt = perm.reshape(b, p).to(torch.int32)
+    for i, n in enumerate(lens):
+        bt[i, -(-n // PS):] = -1
+    bt[3, 2] = -1                                 # a hole inside lane 3's length
+    bt[6, 0] = -1                                 # and one at lane 6's start
+    q = torch.randn(b, H, D, generator=gen, device="cuda").to(dtype)
+    kp = torch.randn(n_pages, PS, HKV, D, generator=gen, device="cuda").to(dtype)
+    vp = torch.randn(n_pages, PS, HKV, D, generator=gen, device="cuda").to(dtype)
+    ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
+
+    def plain():
+        return ref.paged_decode_attention(
+            q.view(b, HKV, H // HKV, D), kp.permute(2, 0, 1, 3), vp.permute(2, 0, 1, 3),
+            bt, ln).view(b, H, D)
+
+    def kernel():
+        return ops.paged_attention(q, kp, vp, bt, ln)
+
+    out, want = kernel(), plain()
+    torch.cuda.synchronize()
+    err = check_close("paged_decode_attention", out, want, dtype)
+    if not timed:
+        return None
+    # tokens this run's tables really hold: positions < length on pages != -1
+    valid = (torch.arange(p * PS, device="cuda")[None] < ln[:, None].long()) & (
+        bt >= 0).repeat_interleave(PS, dim=1)
+    tokens = int(valid.sum())
+    item = q.element_size()
+    nbytes = 2 * b * H * D * item + tokens * HKV * D * 2 * item + bt.numel() * 4 + b * 4
+    flops = 4.0 * tokens * H * D
+    # library yardstick: SDPA over a pre-gathered contiguous view (gather untimed)
+    idx = bt.long().clamp(0, n_pages - 1)
+    kg = kp[idx].reshape(b, p * PS, HKV, D).transpose(1, 2).contiguous()
+    vg = vp[idx].reshape(b, p * PS, HKV, D).transpose(1, 2).contiguous()
+    mask = valid[:, None, None, :]
+    q4 = q[:, :, None, :]
+
+    def library():
+        return F.scaled_dot_product_attention(q4, kg, vg, attn_mask=mask, enable_gqa=True)
+
+    b_ms, b_by = bound(nbytes, flops, dtype)
+    return {"name": "paged_decode_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/paged_attn.cu",
+            "replaces": "src/repro/kernels/paged_attn.py:130",
+            "max_abs_err": err, "ms": time_ms(kernel),
+            "plain_ms": time_ms(plain), "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": time_ms(library),
+            "shape": f"8 lanes, {tokens} tokens, H={H} Hkv={HKV} D={D} PS={PS} {dtype}"}
+
+
+def flash_case(dtype, label, sq, sk, q_offset, kv_len, window, timed):
+    from repro_torch.kernels import ops, ref
+
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    # the model's (B, S, H, D) projections, viewed as (B, H, S, D)
+    q = torch.randn(1, sq, H, D, generator=gen, device="cuda").to(dtype).transpose(1, 2)
+    k = torch.randn(1, sk, HKV, D, generator=gen, device="cuda").to(dtype).transpose(1, 2)
+    v = torch.randn(1, sk, HKV, D, generator=gen, device="cuda").to(dtype).transpose(1, 2)
+    kw = dict(causal=True, window=window, q_offset=q_offset, kv_len=kv_len)
+
+    def kernel():
+        return ops.flash_attention(q, k, v, **kw)
+
+    def plain():
+        return ref.flash_attention(q, k, v, **kw)
+
+    out, want = kernel(), plain()
+    torch.cuda.synchronize()
+    err = check_close(f"flash_attention[{label}]", out, want, dtype)
+    if not timed:
+        return None
+    qpos = torch.arange(sq, device="cuda")[:, None] + q_offset
+    kpos = torch.arange(sk, device="cuda")[None, :]
+    mask = (kpos < kv_len) & (qpos >= kpos)
+    if window is not None:
+        mask &= (qpos - kpos) < window
+    pairs = int(mask.sum())
+    item = q.element_size()
+    nbytes = 2 * sq * H * D * item + kv_len * HKV * D * 2 * item
+    flops = 4.0 * pairs * H * D
+
+    def library():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
+
+    b_ms, b_by = bound(nbytes, flops, dtype)
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:87",
+            "max_abs_err": err, "ms": time_ms(kernel),
+            "plain_ms": time_ms(plain), "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": time_ms(library),
+            "shape": f"{label}: Sq={sq} Sk={sk} q_offset={q_offset} kv_len={kv_len} "
+                     f"window={window} H={H} Hkv={HKV} D={D} {dtype}"}
+
+
+# ---------------------------------------------------------------------------
+# phases 3 and 4: the serving engine
+# ---------------------------------------------------------------------------
+
+
+def serve(model, params, ecfg, prompts, max_new, device):
+    from repro_torch.serve import Request, ServeEngine
+
+    eng = ServeEngine(model, params, ecfg, device=device)
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=max_new) for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    done = eng.run()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return reqs, done, eng
+
+
+def decode_breakdown(model, params, vocab, steps: int = 10) -> None:
+    """Decode-step time of 8 running lanes at ~520-token contexts (sync
+    admission, so nothing else runs), and device time per kernel class from
+    a torch.profiler window over as many more steps."""
+    from repro_torch.serve import (
+        AdmissionConfig, CacheConfig, EngineConfig, Request, ServeEngine)
+
+    eng = ServeEngine(model, params, EngineConfig(
+        batch_slots=8, max_len=1024, cache=CacheConfig(page_size=PS),
+        admission=AdmissionConfig(async_prefill=False)), device="cuda")
+    rng = np.random.default_rng(5)
+    for i in range(8):
+        eng.submit(Request(uid=i, max_new_tokens=64, prompt=rng.integers(
+            0, vocab, size=(512,)).astype(np.int32)))
+    s = eng.sched
+    while len(s.running) < 8 or s.waiting or s.admitting or s.ready:
+        eng.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        eng.step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / steps * 1e3
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+    groups: dict[str, float] = {}
+    launches: dict[str, int] = {}
+    top = []
+    for e in prof.key_averages():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        name = e.key.lower()
+        if "paged_decode_attn" in name or "paged_combine" in name:
+            g = "paged_decode_attention (kernel + split merge)"
+        elif "flash_attn" in name:
+            g = "flash_attention"
+        elif any(t in name for t in ("gemm", "gemv", "cutlass", "nvjet", "cublas", "matmul")):
+            g = "matmul (cuBLAS)"
+        else:
+            g = "other (elementwise, norms, copies)"
+        groups[g] = groups.get(g, 0.0) + us / 1e3 / steps
+        launches[g] = launches.get(g, 0) + e.count // steps
+        top.append((us / 1e3 / steps, e.count // steps, e.key[:90]))
+    busy = sum(groups.values())
+    ctx = int(np.mean([st.length for st in s.running.values()]))
+    log(f"  decode step, 8 lanes at ~{ctx}-token contexts: {step_ms:.3f} ms wall "
+        f"(mean of {steps} synced steps, {8 / step_ms * 1e3:.1f} tok/s)")
+    if busy == 0:
+        log("  profiler: no device time recorded (breakdown not measured)")
+        return
+    log(f"  profiler ({steps} steps): device busy {busy:.3f} ms/step = "
+        f"{100 * busy / step_ms:.1f} % of the unprofiled step, idle "
+        f"{100 * (1 - busy / step_ms):.1f} %")
+    for g in sorted(groups, key=groups.get, reverse=True):
+        log(f"    {g}: {groups[g]:.3f} ms/step over {launches[g]} launches/step")
+    for ms, n, name in sorted(top, reverse=True)[:8]:
+        log(f"      {ms:.3f} ms/step, {n} launches: {name}")
+    eng.run()
+
+
+def main() -> int:
+    if not (ROOT / "src" / "repro_torch" / "__init__.py").is_file():
+        print("chip_smoke: src/repro_torch is not beside this script; run it from the "
+              "root of a checkout", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available; this script runs the port on "
+              "the card", file=sys.stderr)
+        return 1
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import build, ops
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_items, tree_map
+    from repro_torch.serve import AdmissionConfig, CacheConfig, EngineConfig
+    t_start = time.perf_counter()
+
+    # -- phase 1 ----------------------------------------------------------------
+    log("== phase 1: build and identify")
+    t0 = time.perf_counter()
+    logs = build.build()
+    log(f"  nvcc: built {sorted(logs) or 'nothing (already built)'} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if logs:
+        log("  ptxas -v per kernel (shared memory is dynamic, sized at launch, so "
+            "ptxas reports none):")
+    for text in logs.values():
+        for line in ptxas_report(text):
+            log(f"    {line}")
+    kind = torch.cuda.get_device_name(0)
+    smi = smi_line()
+    log(f"  device: {kind} (count {torch.cuda.device_count()}); nvidia-smi: {smi}")
+    log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # -- phase 2 ----------------------------------------------------------------
+    log("== phase 2: kernels against their plain versions "
+        f"(H={H}, Hkv={HKV}, D={D}, PS={PS})")
+    rows = {}
+    flash_cases = [("prefill", 512, 512, 0, 512, None),
+                   ("chunk", 128, 1024, 384, 512, None),
+                   ("window", 512, 512, 0, 512, 128)]
+    for dtype in (torch.float32, torch.bfloat16):
+        timed = dtype == torch.bfloat16
+        row = paged_case(dtype, timed)
+        if row:
+            rows["paged_decode_attention"] = row
+        for label, sq, sk, off, kvl, win in flash_cases:
+            row = flash_case(dtype, label, sq, sk, off, kvl, win, timed)
+            if row:
+                log(f"  timing {row['shape']}: kernel {row['ms']:.4f} ms, plain "
+                    f"{row['plain_ms']:.4f} ms, SDPA {row['library_ms']:.4f} ms, bound "
+                    f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+                rows.setdefault("flash_attention", row)
+    r = rows["paged_decode_attention"]
+    log(f"  timing {r['shape']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+        f"SDPA {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    log(f"  (times: median CUDA-event time per call, L2 flushed before each; {smi})")
+
+    # -- phase 3 ----------------------------------------------------------------
+    log("== phase 3: reduced qwen2.5-3b in float32, card against CPU")
+    cfg = dataclasses.replace(get_arch("qwen2.5-3b").reduced(), dtype="float32")
+    model = build_model(cfg)
+    params_cpu = model.init(torch.Generator().manual_seed(0), "cpu")
+    params_gpu = tree_map(lambda t: t.to("cuda"), params_cpu)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, size=(n,)).astype(np.int32)
+               for n in (5, 40, 17, 33, 9, 26)]
+    for chunk in (0, 16):
+        ecfg = EngineConfig(batch_slots=3, max_len=96, cache=CacheConfig(page_size=PS),
+                            admission=AdmissionConfig(prefill_chunk=chunk))
+        got = {}
+        for dev, params in (("cuda", params_gpu), ("cpu", params_cpu)):
+            reqs, done, _ = serve(model, params, ecfg, prompts, 12, dev)
+            if len(done) != len(prompts):
+                raise SystemExit(f"chip_smoke: {dev} engine finished {len(done)} requests")
+            got[dev] = [r.out_tokens for r in reqs]
+        same = got["cuda"] == got["cpu"]
+        log(f"  prefill_chunk={chunk}: {len(prompts)} requests x 12 tokens, card tokens "
+            f"{'identical to' if same else 'DIFFER from'} CPU tokens")
+        if not same:
+            log(f"  card {got['cuda']}\n  cpu  {got['cpu']}")
+            raise SystemExit("chip_smoke: greedy tokens differ between card and CPU")
+
+    # -- phase 4 ----------------------------------------------------------------
+    log("== phase 4: full-width qwen2.5-3b (bf16, random weights) on the card")
+    del params_gpu
+    cfg = get_arch("qwen2.5-3b")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for _, t in tree_items(params))
+    log(f"  init: {n_params / 1e9:.3f} B parameters in {time.perf_counter() - t0:.1f} s")
+    ecfg = EngineConfig(batch_slots=8, max_len=1024, cache=CacheConfig(page_size=PS))
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, size=(int(n),)).astype(np.int32)
+               for n in rng.integers(128, 513, size=16)]
+    # warm-up (cuBLAS handles, first launches), then the measured run
+    serve(model, params, ecfg, prompts[:1], 2, "cuda")
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    reqs, done, eng = serve(model, params, ecfg, prompts, 32, "cuda")
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    stats = eng.stats
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    gen_tokens = sum(len(r.out_tokens) for r in reqs)
+    log(f"  requests done: {len(done)}/{len(reqs)}; prompt tokens prefilled "
+        f"{stats['prefill_tokens']}; decode tokens {stats['decode_tokens']} over "
+        f"{stats['steps']} steps; generated {gen_tokens} tokens in {wall:.2f} s = "
+        f"{gen_tokens / wall:.1f} tok/s end to end ({smi})")
+    log(f"  peak device memory {peak:.2f} GiB; kernel launches {launches}")
+    if len(done) != len(reqs) or not all(r.done and len(r.out_tokens) == 32 for r in reqs):
+        raise SystemExit("chip_smoke: not every full-width request finished")
+    if min(launches.values()) <= 0:
+        raise SystemExit("chip_smoke: a kernel of the main path never launched")
+    if not all(0 <= t < cfg.padded_vocab for r in reqs for t in r.out_tokens):
+        raise SystemExit("chip_smoke: a sampled token lies outside the vocabulary")
+    # the engine's first token agrees with a direct prefill, whose logits are finite
+    logits, _ = model.prefill(params, torch.as_tensor(prompts[0], device="cuda")[None].long())
+    if logits.shape != (1, 1, cfg.padded_vocab) or not torch.isfinite(logits).all():
+        raise SystemExit(f"chip_smoke: bad prefill logits {tuple(logits.shape)}")
+    if int(logits[0, -1].argmax()) != reqs[0].out_tokens[0]:
+        raise SystemExit("chip_smoke: engine's first token differs from a direct prefill")
+    log("  prefill logits finite, shape (1, 1, V); first token matches the engine")
+    decode_breakdown(model, params, cfg.vocab_size)
+
+    for name in ("paged_decode_attention", "flash_attention"):
+        rows[name]["launches"] = launches[name]
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": [{k: rows[n][k] for k in keys} for n in
+                                  ("paged_decode_attention", "flash_attention")]}))
+    print(smi_line())
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

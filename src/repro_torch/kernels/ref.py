@@ -1,0 +1,67 @@
+"""Plain PyTorch versions of the attention kernels.
+
+They mirror the JAX oracles in ``repro/kernels/ref.py`` (same layouts, same
+masks, float32 math) and are what ``kernels.ops`` runs for CPU tensors.  On
+the card they are the reference each CUDA kernel is held against.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def flash_attention(
+    q: torch.Tensor,              # (B, H, Sq, D)
+    k: torch.Tensor,              # (B, Hkv, Sk, D)
+    v: torch.Tensor,              # (B, Hkv, Sk, D)
+    causal: bool = True,
+    window: int | None = None,
+    scale: float | None = None,
+    q_offset: int = 0,            # absolute position of q[:, :, 0]
+    kv_len: int | None = None,    # keys at or past kv_len are masked
+) -> torch.Tensor:
+    """Materialized-logits GQA attention; fully masked rows give zeros."""
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    if hkv != h:
+        k = k.repeat_interleave(h // hkv, dim=1)
+        v = v.repeat_interleave(h // hkv, dim=1)
+    scale = scale if scale is not None else float(d) ** -0.5
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    qpos = torch.arange(sq, device=q.device)[:, None] + q_offset
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = kpos < (sk if kv_len is None else kv_len)
+    if causal:
+        mask = mask & (qpos >= kpos)
+    if window is not None:
+        mask = mask & ((qpos - kpos) < window)
+    logits = logits.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(logits, dim=-1)
+    p = torch.nan_to_num(p, nan=0.0)          # fully masked rows
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
+def paged_decode_attention(
+    q: torch.Tensor,              # (B, Hkv, rep, D) one decode token per lane
+    k_pool: torch.Tensor,         # (Hkv, n_pages, PS, D)
+    v_pool: torch.Tensor,         # (Hkv, n_pages, PS, D)
+    block_table: torch.Tensor,    # (B, P) int32, -1 = unallocated
+    lengths: torch.Tensor,        # (B,) valid tokens per lane
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Gather-then-attend form of the fused paged decode read."""
+    b, hkv, rep, d = q.shape
+    ps = k_pool.shape[2]
+    p = block_table.shape[1]
+    scale = scale if scale is not None else float(d) ** -0.5
+    idx = block_table.long().clamp(0, k_pool.shape[1] - 1)
+    k = k_pool[:, idx]                                   # (Hkv, B, P, PS, D)
+    v = v_pool[:, idx]
+    k = k.permute(1, 0, 2, 3, 4).reshape(b, hkv, p * ps, d)
+    v = v.permute(1, 0, 2, 3, 4).reshape(b, hkv, p * ps, d)
+    s = torch.einsum("bgrd,bgkd->bgrk", q.float() * scale, k.float())
+    kpos = torch.arange(p * ps, device=q.device)
+    valid = (kpos[None] < lengths.long()[:, None]) & (
+        block_table >= 0).repeat_interleave(ps, dim=1)
+    s = s.masked_fill(~valid[:, None, None], float("-inf"))
+    a = torch.nan_to_num(torch.softmax(s, dim=-1), nan=0.0)
+    return torch.einsum("bgrk,bgkd->bgrd", a, v.float()).to(q.dtype)

@@ -1,0 +1,3 @@
+"""Model layer of the port (dense decoder family)."""
+from .api import build_model  # noqa: F401
+from .transformer import DecoderLM  # noqa: F401

@@ -1,0 +1,115 @@
+"""The port's attention wrappers and plain kernels against the JAX package's.
+
+The same numpy inputs (float32, from a seed) go through
+``repro_torch.kernels`` on the CPU (the plain PyTorch versions) and through
+the JAX oracle (``repro.kernels.ref``) and the Pallas kernel in interpret
+mode (``repro.kernels.ops``).  Tolerance: float32 atol = rtol = 1e-5 — both
+sides compute in float32 and only the summation order differs (XLA:CPU vs
+PyTorch).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+
+TOL = dict(atol=1e-5, rtol=1e-5)
+
+# id, b, h, hkv, sq, sk, d, causal, window, q_offset, kv_len
+FLASH_CASES = [
+    ("causal_rep1", 1, 2, 2, 16, 16, 32, True, None, 0, None),
+    ("noncausal_rep2_sq_ne_sk", 2, 4, 2, 10, 30, 64, False, None, 0, None),
+    ("causal_rep4_q_offset", 1, 8, 2, 8, 24, 32, True, None, 16, None),
+    ("window", 1, 4, 2, 32, 32, 32, True, 8, 0, None),
+    ("kv_len", 1, 4, 2, 8, 32, 32, True, None, 12, 20),
+    ("fully_masked_rows", 1, 4, 2, 4, 16, 32, True, 4, 20, 8),
+]
+
+
+def _flash_inputs(b, h, hkv, sq, sk, d, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, h, sq, d)).astype(np.float32),
+            rng.standard_normal((b, hkv, sk, d)).astype(np.float32),
+            rng.standard_normal((b, hkv, sk, d)).astype(np.float32))
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=[c[0] for c in FLASH_CASES])
+def test_flash_attention_matches_jax(case):
+    _, b, h, hkv, sq, sk, d, causal, window, q_offset, kv_len = case
+    q, k, v = _flash_inputs(b, h, hkv, sq, sk, d)
+    got = tops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                               torch.from_numpy(v), causal=causal, window=window,
+                               q_offset=q_offset, kv_len=kv_len).numpy()
+    # the JAX kernels take no kv_len: hand them the first kv_len rows
+    n = sk if kv_len is None else kv_len
+    jq, jk, jv = jnp.asarray(q), jnp.asarray(k[:, :, :n]), jnp.asarray(v[:, :, :n])
+    want = np.asarray(jref.flash_attention(jq, jk, jv, causal=causal, window=window,
+                                           q_offset=q_offset))
+    np.testing.assert_allclose(got, want, **TOL)
+    pallas = np.asarray(jops.flash_attention(jq, jk, jv, causal=causal, window=window,
+                                             q_offset=q_offset, interpret=True))
+    np.testing.assert_allclose(got, pallas, **TOL)
+    if case[0] == "fully_masked_rows":
+        assert np.all(got == 0.0)
+
+
+def _paged_inputs(h, hkv, d=32, ps=4, lens=(5, 0, 11), seed=0):
+    """Ragged lanes: an empty lane, -1 tails and a -1 hole inside lane 2."""
+    rng = np.random.default_rng(seed)
+    b, p = len(lens), 4
+    n = b * p + 2
+    bt = rng.permutation(n)[: b * p].reshape(b, p).astype(np.int32)
+    for i, length in enumerate(lens):
+        bt[i, -(-length // ps):] = -1
+    bt[2, 1] = -1
+    q = rng.standard_normal((b, h, d)).astype(np.float32)
+    kp = rng.standard_normal((n, ps, hkv, d)).astype(np.float32)
+    vp = rng.standard_normal((n, ps, hkv, d)).astype(np.float32)
+    return q, kp, vp, bt, np.asarray(lens, np.int32)
+
+
+@pytest.mark.parametrize("h,hkv", [(4, 4), (4, 2), (8, 2)], ids=["rep1", "rep2", "rep4"])
+def test_paged_attention_matches_jax(h, hkv):
+    q, kp, vp, bt, lens = _paged_inputs(h, hkv)
+    b, d = q.shape[0], q.shape[2]
+    got = tops.paged_attention(torch.from_numpy(q), torch.from_numpy(kp),
+                               torch.from_numpy(vp), torch.from_numpy(bt),
+                               torch.from_numpy(lens)).numpy()
+    jk = jnp.asarray(kp).transpose(2, 0, 1, 3)
+    jv = jnp.asarray(vp).transpose(2, 0, 1, 3)
+    want = np.asarray(jref.paged_decode_attention(
+        jnp.asarray(q).reshape(b, hkv, h // hkv, d), jk, jv, jnp.asarray(bt),
+        jnp.asarray(lens))).reshape(b, h, d)
+    np.testing.assert_allclose(got, want, **TOL)
+    pallas = np.asarray(jops.paged_attention(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(bt),
+        jnp.asarray(lens), interpret=True))
+    np.testing.assert_allclose(got, pallas, **TOL)
+    assert np.all(got[1] == 0.0)                     # the empty lane reads zeros
+    # the plain version alone, in the oracle's own layout
+    plain = tref.paged_decode_attention(
+        torch.from_numpy(q).reshape(b, hkv, h // hkv, d),
+        torch.from_numpy(kp).permute(2, 0, 1, 3), torch.from_numpy(vp).permute(2, 0, 1, 3),
+        torch.from_numpy(bt), torch.from_numpy(lens)).numpy().reshape(b, h, d)
+    np.testing.assert_allclose(plain, want, **TOL)
+
+
+def test_cpu_calls_launch_nothing_and_other_devices_raise():
+    tops.reset_launches()
+    q, k, v = (torch.from_numpy(a) for a in _flash_inputs(1, 4, 2, 8, 8, 32))
+    tops.flash_attention(q, k, v)
+    qp, kp, vp, bt, lens = (torch.from_numpy(a) for a in _paged_inputs(4, 2))
+    tops.paged_attention(qp, kp, vp, bt, lens)
+    assert tops.LAUNCHES == {"paged_decode_attention": 0, "flash_attention": 0}
+    # a tensor on neither the CPU nor a card is refused, never run plain
+    with pytest.raises(ValueError, match="CPU or a CUDA device"):
+        tops.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+    with pytest.raises(ValueError, match="CPU or a CUDA device"):
+        tops.paged_attention(qp.to("meta"), kp.to("meta"), vp.to("meta"), bt, lens)
+    assert tops.LAUNCHES == {"paged_decode_attention": 0, "flash_attention": 0}
