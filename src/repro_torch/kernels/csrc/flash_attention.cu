@@ -12,9 +12,15 @@
 // window, q_offset and kv_len are run-time arguments, so chunked prefill
 // (a nonzero offset against a capacity-length cache) runs the same binary.
 //
-// What bounds it on the H100: operations.  A 512-token causal prefill does
-// ~2 * D flops per (q, k) pair against 2 * itemsize bytes per element read
-// once; at these lengths that is far above the memory line.
+// What bounds it on the H100: bytes for short prompts, operations for long
+// ones.  A causal prefill of S tokens reads q and k, v once and writes the
+// output once, (2 * H + 2 * Hkv) * D * S * itemsize bytes, and does
+// 4 * H * D flops per visible (q, k) pair, about 2 * H * D * S^2.  At the
+// qwen2.5-3b widths in bf16 the two meet near S = 660 (3.35 TB/s against
+// 989 dense Tflop/s): a 512-token prefill is bytes-bound (1.41 us of bytes
+// against 1.09 us of flops), longer prefills are operations-bound.  Both
+// are microseconds at these lengths, so launch latency and occupancy, not
+// either roofline, set the measured time.
 //
 // What the design does about that: one block per (batch, head, 64-row q
 // tile) keeps its q tile on chip and streams K/V tiles through shared

@@ -7,9 +7,10 @@ as ``repro.kernels.ops`` does.  A CPU tensor runs the plain version in
 ``csrc/`` (built on first use by ``kernels.build``) or raises: there is no
 fallback from the card to the plain version.
 
-Each wrapper counts its kernel launches in ``LAUNCHES`` (one per launch, on
-the card only), so a run can show that its main path went through the
-kernels.
+Each wrapper counts the kernels it launches in ``LAUNCHES`` (on the card
+only), so a run can show that its main path went through the kernels.  A
+paged-decode call whose pages are split over blocks launches two: the
+partial pass and the merge of its splits.
 """
 from __future__ import annotations
 
@@ -61,9 +62,9 @@ def reset_launches() -> None:
             LAUNCHES[k] = 0
 
 
-def _count(name: str) -> None:
+def _count(name: str, n: int) -> None:
     with _count_lock:
-        LAUNCHES[name] += 1
+        LAUNCHES[name] += n
 
 
 _entries: dict[str, tuple] = {}
@@ -109,10 +110,10 @@ def _check_index(name: str, t: torch.Tensor, device, shape) -> None:
                          f"shape {tuple(shape)} on {device}")
 
 
-def _launched(lib, name: str, err: int) -> None:
+def _launched(lib, name: str, err: int, kernels: int = 1) -> None:
     if err != 0:
         raise RuntimeError(f"{name} launch failed: {build.error_string(lib, err)}")
-    _count(name)
+    _count(name, kernels)
 
 
 def flash_attention(
@@ -199,5 +200,5 @@ def paged_attention(
              block_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
              None if part is None else part.data_ptr(), b, hkv, rep, ps, p, splits, per,
              *k_pool.stride()[:3], scale, torch.cuda.current_stream(q.device).cuda_stream)
-    _launched(lib, "paged_decode_attention", err)
+    _launched(lib, "paged_decode_attention", err, 2 if splits > 1 else 1)
     return out

@@ -28,7 +28,6 @@ def main(argv=None):
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--max-len", type=int, default=128)
-    ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--pages", type=int, default=0,
                     help="page pool size (0 = dense-equivalent budget)")
@@ -38,9 +37,6 @@ def main(argv=None):
     ap.add_argument("--async-prefill", choices=["on", "off"], default="on",
                     help="run prefill on the admission pipeline thread (on, "
                          "default) or inline per step (off); identical tokens")
-    ap.add_argument("--admission-inflight", type=int, default=2,
-                    help="backpressure: admissions in flight before the "
-                         "pipeline stops admitting")
     args = ap.parse_args(argv)
 
     device = resolve(args.device)
@@ -54,7 +50,6 @@ def main(argv=None):
             policy=args.policy, prefill_chunk=args.prefill_chunk,
             max_step_tokens=args.max_step_tokens,
             async_prefill=args.async_prefill == "on",
-            admission_inflight=args.admission_inflight,
         ),
     )
     eng = ServeEngine(model, params, ecfg, device=device)
@@ -64,10 +59,10 @@ def main(argv=None):
     for i in range(args.requests):
         eng.submit(Request(
             uid=i, prompt=rng.integers(0, cfg.vocab_size, size=(8,)).astype(np.int32),
-            max_new_tokens=args.max_new, temperature=args.temperature,
+            max_new_tokens=args.max_new,
         ))
     t0 = time.time()
-    done = eng.run(torch.Generator(device=device).manual_seed(1))
+    done = eng.run()
     dt = time.time() - t0
     toks = sum(len(r.out_tokens) for r in done)
     print(f"{cfg.name}: {len(done)} requests, {toks} tokens, {toks / dt:.1f} tok/s "

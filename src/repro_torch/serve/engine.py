@@ -47,7 +47,6 @@ class Request:
     uid: int
     prompt: np.ndarray               # (S,) int32
     max_new_tokens: int = 16
-    temperature: float = 0.0
     out_tokens: list = field(default_factory=list)
     done: bool = False
 
@@ -73,22 +72,19 @@ class AdmissionConfig:
     # True runs prefill on a worker thread feeding the ready queue; False
     # runs the identical pipeline inline each step
     async_prefill: bool = True
-    # backpressure: admissions (pages reserved) not yet decoding
-    admission_inflight: int = 2
 
 
 @dataclass
 class EngineConfig:
     batch_slots: int = 4            # decode lanes
     max_len: int = 256              # per-request context capacity
-    eos_id: int | None = None
     cache: CacheConfig = field(default_factory=CacheConfig)
     admission: AdmissionConfig = field(default_factory=AdmissionConfig)
 
 
 class ServeEngine:
-    """Greedy/temperature sampling over the DecoderLM serving API, backed by
-    a paged KV cache, a request scheduler and an admission pipeline."""
+    """Greedy decoding over the DecoderLM serving API, backed by a paged KV
+    cache, a request scheduler and an admission pipeline."""
 
     def __init__(self, model, params, ecfg: EngineConfig, device=None):
         self.device = resolve(device)
@@ -114,9 +110,7 @@ class ServeEngine:
                                   page_size=cc.page_size, max_len=ecfg.max_len,
                                   device=self.device)
         chunk = ac.prefill_chunk if model.supports_chunked_prefill else 0
-        self.sched = Scheduler(SchedulerConfig(
-            policy=ac.policy, prefill_chunk=chunk,
-            max_inflight_prefills=ac.admission_inflight))
+        self.sched = Scheduler(SchedulerConfig(policy=ac.policy, prefill_chunk=chunk))
         self.completed: list[Request] = []
         self.pipeline = AdmissionPipeline(self, ac.async_prefill)
         self._idle_since: float | None = None
@@ -202,8 +196,7 @@ class ServeEngine:
             self.sched.to_ready(st)
             return False
         req.out_tokens.append(tok)
-        if (len(req.out_tokens) >= req.max_new_tokens
-                or (self.ecfg.eos_id is not None and tok == self.ecfg.eos_id)):
+        if len(req.out_tokens) >= req.max_new_tokens:
             self.sched.admitting.remove(st)
             self._retire(st)
             return True
@@ -307,7 +300,7 @@ class ServeEngine:
 
     @decode_loop_only
     @pool_mutator("pools")
-    def _decode_lanes(self, generator):
+    def _decode_lanes(self):
         s, b = self.sched, self.ecfg.batch_slots
         tokens = np.zeros((b, 1), np.int64)
         positions = np.zeros((b,), np.int64)
@@ -323,24 +316,18 @@ class ServeEngine:
             torch.from_numpy(self.cache.block_tables).to(dev),
             torch.from_numpy(tokens).to(dev), torch.from_numpy(positions).to(dev),
             torch.from_numpy(active).to(dev))
-        logits = logits[:, 0]
         # greedy tokens come off the device as B ints, not B vocab rows
-        greedy = logits.argmax(-1).cpu().numpy()
+        greedy = logits[:, 0].argmax(-1).cpu().numpy()
         done = 0
         for lane in sorted(s.running):
             st = s.running[lane]
             req = st.req
-            if req.temperature > 0 and generator is not None:
-                probs = torch.softmax(logits[lane].float() / req.temperature, dim=-1)
-                tok = int(torch.multinomial(probs, 1, generator=generator))
-            else:
-                tok = int(greedy[lane])
+            tok = int(greedy[lane])
             req.out_tokens.append(tok)
             st.length += 1
             st.pending_token = tok
             done += 1
             if (len(req.out_tokens) >= req.max_new_tokens
-                    or (self.ecfg.eos_id is not None and tok == self.ecfg.eos_id)
                     or st.length >= self.ecfg.max_len - 1):
                 self._retire_lane(st)
         with self._lock:
@@ -350,11 +337,10 @@ class ServeEngine:
     # -- step loop -------------------------------------------------------------
 
     @decode_loop_only
-    def step(self, generator: torch.Generator | None = None) -> bool:
+    def step(self) -> bool:
         """One decode-loop round: (sync mode: pump the admission pipeline) →
         drain ready into lanes → one batched decode step.  Returns False when
-        the engine is drained.  ``generator`` samples requests with a
-        temperature; without one every request is greedy."""
+        the engine is drained."""
         if self.pipeline.error is not None:
             err, self.pipeline.error = self.pipeline.error, None
             raise RuntimeError("admission pipeline died") from err
@@ -376,7 +362,7 @@ class ServeEngine:
         if s.running:
             self._ensure_pages()
             if s.running:        # _ensure_pages may have evicted every lane
-                self._decode_lanes(generator)
+                self._decode_lanes()
             progressed = True
         with self._lock:
             self._counters["steps"] += 1
@@ -413,10 +399,10 @@ class ServeEngine:
         return True
 
     @decode_loop_only
-    def run(self, generator: torch.Generator | None = None) -> list[Request]:
+    def run(self) -> list[Request]:
         done_mark = len(self.completed)
         while self.load:
-            self.step(generator)
+            self.step()
         self.pipeline.shutdown()
         return self.completed[done_mark:]
 
@@ -441,11 +427,6 @@ class ServeEngine:
                 "lane_step_sum": c["lane_step_sum"],
                 "lane_slot_sum": c["lane_slot_sum"],
             }
-
-    def reset_stats(self) -> None:
-        with self._lock:
-            self._counters = dict.fromkeys(_COUNTERS, 0)
-            self._occ_sum = self._occ_max = 0.0
 
     def telemetry(self) -> dict:
         with self._lock:

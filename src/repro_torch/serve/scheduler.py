@@ -28,13 +28,14 @@ import numpy as np
 
 from repro_torch.analysis.ownership import admission_api, decode_loop_only
 
+# backpressure: requests admitted or ready but not yet decoding
+MAX_INFLIGHT_PREFILLS = 2
+
 
 @dataclass
 class SchedulerConfig:
     policy: str = "fcfs"            # fcfs | spf
     prefill_chunk: int = 0          # 0 = whole-prompt prefill
-    # backpressure: requests admitted or ready but not yet decoding
-    max_inflight_prefills: int = 2
 
 
 @dataclass
@@ -99,8 +100,7 @@ class Scheduler:
         not fit the free pool.  Pure bookkeeping, under the engine lock."""
         if not self.waiting:
             return None
-        if (len(self.admitting) + len(self.ready)
-                >= self.cfg.max_inflight_prefills):
+        if len(self.admitting) + len(self.ready) >= MAX_INFLIGHT_PREFILLS:
             return None
         i = self._next_waiting_index()
         pages = cache.acquire(len(self.waiting[i].resume_tokens) + 1)

@@ -5,7 +5,7 @@ JAX ``model.init(jax.random.key(0))`` tree converted by
 ``repro_torch.convert``), reduced qwen2.5-3b in float32, and must produce
 identical greedy tokens in every setting: default paged path, ragged
 prompts, chunked prefill, shortest-prompt-first, sync and async admission,
-recompute preemption on a small pool, and the JAX Pallas paged-decode
+the per-step token budget, recompute preemption on a small pool, and the JAX Pallas paged-decode
 kernel (interpret mode) as a second reference.  The JAX engine runs with
 ``preempt_policy="recompute"``, the only policy the port has.
 """
@@ -38,6 +38,12 @@ SETTINGS = {
     "chunk4": (dict(batch_slots=2, max_len=64, prefill_chunk=4), dict(ragged=True), {}),
     "spf": (dict(batch_slots=2, max_len=64, policy="spf"), dict(ragged=True), {}),
     "sync": (dict(batch_slots=2, max_len=64, async_prefill=False), dict(ragged=True), {}),
+    # the token budget: running lanes take their share first, chunks are
+    # cut to what is left, a whole prompt waits for a step with budget
+    "budget_chunk": (dict(batch_slots=2, max_len=64, prefill_chunk=4, async_prefill=False,
+                          max_step_tokens=5), dict(ragged=True), {}),
+    "budget_whole": (dict(batch_slots=3, max_len=64, async_prefill=False,
+                          max_step_tokens=3), dict(ragged=True), {}),
     # 3 lanes on a 7-page pool of 4-token pages: each request reserves 2
     # pages and grows to 5, so the pool runs dry mid-decode
     "recompute": (dict(batch_slots=3, max_len=32, page_size=4, n_pages=7),
@@ -67,7 +73,8 @@ def _reqs(cls, vocab, n=5, plen=6, max_new=4, ragged=False, seed=0):
 
 def _split(knobs):
     cache = {k: knobs[k] for k in ("page_size", "n_pages") if k in knobs}
-    adm = {k: knobs[k] for k in ("policy", "prefill_chunk", "async_prefill") if k in knobs}
+    adm = {k: knobs[k] for k in ("policy", "prefill_chunk", "async_prefill",
+                                 "max_step_tokens") if k in knobs}
     top = {k: knobs[k] for k in ("batch_slots", "max_len")}
     return top, cache, adm
 
@@ -102,6 +109,10 @@ def test_port_engine_matches_jax_engine(models, name):
     if name == "recompute":
         assert teng.sched.n_preemptions > 0 and jeng.sched.n_preemptions > 0
     assert teng.stats["decode_tokens"] + len(treqs) == sum(len(r.out_tokens) for r in treqs)
+    if not adm.get("async_prefill", True):
+        # inline admission is deterministic: the budget paces both engines
+        # through the same steps
+        assert teng.stats["steps"] == jeng.stats["steps"]
 
 
 def test_page_allocator_acquire_release_share_roundtrip():
