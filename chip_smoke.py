@@ -4,20 +4,32 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout (it imports ``src/repro_torch`` beside it;
-it never imports JAX or the ``repro`` package).  Phases, each fatal:
+it never imports JAX or the ``repro`` package).  It drives the port's two
+paths: paged-KV serving of qwen2.5-3b and ConvNet inference of VGG16.
+Phases, each fatal:
 
-1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (``nvcc``,
-   printing the ``-Xptxas -v`` register report) and name the card;
-2. hold each kernel against its plain PyTorch version on the card at the
-   main path's shapes (qwen2.5-3b: 16 query heads, 2 KV heads, head_dim 128,
-   page size 16) in bfloat16 and float32, and time kernel, plain version,
-   one PyTorch library call (SDPA; never used by the port) and the bound;
+1. build the five CUDA kernels from ``src/repro_torch/kernels/csrc``
+   (``nvcc``, printing the ``-Xptxas -v`` register report) and name the card;
+2. hold each kernel against its plain PyTorch version on the card at its
+   path's shapes, in bfloat16 and float32 (attention: qwen2.5-3b's 16 query
+   heads, 2 KV heads, head_dim 128, page size 16; conv: a VGG16 layer of
+   each spatial size, its conv1 and AlexNet's conv1; pool: VGG16's pool1;
+   matmul: fc6; all at batch 16), and time kernel, plain version, one
+   PyTorch library call (SDPA, ``F.conv2d``, ``F.max_pool2d``,
+   ``torch.matmul``; never used by the port) and the bound;
 3. serve the same requests with the reduced qwen2.5-3b engine in float32 on
    the card and on the CPU (plain kernels), whole-prompt and chunked
    prefill: the greedy tokens must be identical;
 4. serve 16 requests at the full width of qwen2.5-3b (36 layers, bf16,
    seeded random weights) with 8 lanes, max_len 1024 and 16-token pages;
-   every request must finish and both kernels must have launched.
+   every request must finish and both attention kernels must have launched;
+5. run a narrow VGG16 (channels / 16, 32-px input) in float32 on the card
+   (kernels) and on the CPU (plain versions) with the same weights: the
+   logits must agree within 1e-4 and the argmax must be equal;
+6. run full-width VGG16 (224 x 224, batch 16, bf16, seeded He-init
+   weights): finite logits, 13 conv, 5 pool and 3 fc kernel launches per
+   forward, images/s and a profiler split of device time per layer type;
+   and two images in float32 on the card against the CPU.
 
 Then it prints one JSON line with each kernel's numbers, the card's name
 and power limit, and, last, ``{"ok": true, "device": {...}}``.  Without a
@@ -43,6 +55,9 @@ PEAK_FLOPS = {"torch.bfloat16": 989e12,        # dense tensor-core bf16
 TOL = {"torch.bfloat16": (2e-2, 2e-2),         # both sides round to bf16 (one ulp
        "torch.float32": (1e-4, 1e-4)}          # near 1 is 2^-8); f32: sum order
 H, HKV, D, PS = 16, 2, 128, 16                 # qwen2.5-3b attention widths
+CNN_BATCH = 16                                 # images per VGG16 forward
+CNN_KERNELS = ("stream_mac_conv", "stream_maxpool", "tiled_matmul")
+SERVE_KERNELS = ("paged_decode_attention", "flash_attention")
 
 
 def log(msg: str) -> None:
@@ -60,12 +75,15 @@ def ptxas_report(text: str) -> list[str]:
     """One line per kernel instantiation from nvcc's ``-Xptxas -v`` output:
     registers, spills (shared memory is dynamic, sized at launch)."""
     out, name, spill = [], None, ""
+    int_arg = {"maxpool_valid": "V", "matmul_tiled": "aligned"}     # else head_dim
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '.*?(paged_decode_attn|paged_combine|"
-                      r"flash_attn_fwd|flash_attn_mma)I(13__nv_bfloat16|f)?(?:Li(\d+)E)?", line)
+                      r"flash_attn_fwd|flash_attn_mma|conv_igemm|maxpool_valid|matmul_tiled)"
+                      r"I(13__nv_bfloat16|f)?(?:L[ib](\d+)E)?", line)
         if m:
+            label = int_arg.get(m.group(1), "D")
             args = [{"f": "f32", None: ""}.get(m.group(2), "bf16"),
-                    f"D={m.group(3)}" if m.group(3) else ""]
+                    f"{label}={m.group(3)}" if m.group(3) else ""]
             name = f"{m.group(1)}<{', '.join(x for x in args if x)}>"
         elif "spill" in line:
             spill = line.strip()
@@ -227,6 +245,235 @@ def flash_case(dtype, label, sq, sk, q_offset, kv_len, window, timed):
                      f"window={window} H={H} Hkv={HKV} D={D} {dtype}"}
 
 
+def conv_case(dtype, l, label, timed):
+    from repro_torch.kernels import ops, ref
+
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.randn(CNN_BATCH, l.yi, l.xi, l.ci, generator=gen, device="cuda").to(dtype)
+    w = (torch.randn(l.kx, l.ky, l.ci, l.co, generator=gen, device="cuda")
+         * (2.0 / (l.kx * l.ky * l.ci)) ** 0.5).to(dtype)
+    stride, pad = (l.sy, l.sx), (l.py, l.px)
+
+    def kernel():
+        return ops.stream_mac_conv(x, w, stride, pad)
+
+    def plain():
+        return ref.stream_mac_conv(x, w, stride, pad)
+
+    out, want = kernel(), plain()
+    torch.cuda.synchronize()
+    err = check_close(f"stream_mac_conv[{label}]", out, want, dtype)
+    if not timed:
+        return None
+    nbytes = (x.numel() + w.numel() + out.numel()) * x.element_size()
+    flops = 2.0 * out.numel() * l.kx * l.ky * l.ci
+    # yardstick: cuDNN on the same memory (NHWC is channels-last NCHW)
+    xc = x.permute(0, 3, 1, 2)
+    wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+
+    def library():
+        return F.conv2d(xc, wc, stride=stride, padding=pad)
+
+    b_ms, b_by = bound(nbytes, flops, dtype)
+    return {"name": "stream_mac_conv", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/stream_mac_conv.cu",
+            "replaces": "src/repro/kernels/stream_mac_conv.py:85",
+            "max_abs_err": err, "ms": time_ms(kernel), "plain_ms": time_ms(plain, 20),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(library),
+            "shape": f"{label}: {CNN_BATCH}x{l.yi}x{l.xi}x{l.ci} -> {l.co}, {l.kx}x{l.ky} "
+                     f"stride {l.sx} pad {l.px}, {dtype}"}
+
+
+def pool_case(dtype, l, label, timed):
+    from repro_torch.kernels import ops, ref
+
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(CNN_BATCH, l.yi, l.xi, l.ci, generator=gen, device="cuda").to(dtype)
+    win, stride = (l.ky, l.kx), (l.sy, l.sx)
+
+    def kernel():
+        return ops.stream_maxpool(x, win, stride)
+
+    def plain():
+        return ref.stream_maxpool(x, win, stride)
+
+    out, want = kernel(), plain()
+    torch.cuda.synchronize()
+    same = torch.equal(out, want)
+    log(f"  stream_maxpool[{label}] {dtype}: bit-equal to the plain version: {same}")
+    if not same:
+        raise SystemExit(f"chip_smoke: stream_maxpool {dtype} differs from its plain version")
+    if not timed:
+        return None
+    nbytes = (x.numel() + out.numel()) * x.element_size()
+    # one comparison per window tap, on the CUDA cores (the float32 rate)
+    b_ms, b_by = bound(nbytes, float(out.numel() * l.kx * l.ky), torch.float32)
+    xc = x.permute(0, 3, 1, 2)
+
+    def library():
+        return F.max_pool2d(xc, win, stride)
+
+    return {"name": "stream_maxpool", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/stream_maxpool.cu",
+            "replaces": "src/repro/kernels/stream_maxpool.py:31",
+            "max_abs_err": 0.0, "ms": time_ms(kernel), "plain_ms": time_ms(plain),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(library),
+            "shape": f"{label}: {CNN_BATCH}x{l.yi}x{l.xi}x{l.ci}, window {l.kx}x{l.ky} "
+                     f"stride {l.sx}, {dtype}"}
+
+
+def fc_case(dtype, l, label, timed):
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    k = l.kx * l.ky * l.ci
+    x = torch.randn(CNN_BATCH, k, generator=gen, device="cuda").to(dtype)
+    w = (torch.randn(k, l.co, generator=gen, device="cuda") * (2.0 / k) ** 0.5).to(dtype)
+
+    def kernel():
+        return ops.tiled_matmul(x, w)
+
+    def plain():
+        return ref.tiled_matmul(x, w)
+
+    out, want = kernel(), plain()
+    torch.cuda.synchronize()
+    err = check_close(f"tiled_matmul[{label}]", out, want, dtype)
+    if not timed:
+        return None
+    nbytes = (x.numel() + w.numel() + out.numel()) * x.element_size()
+
+    def library():
+        return torch.matmul(x, w)
+
+    b_ms, b_by = bound(nbytes, 2.0 * CNN_BATCH * k * l.co, dtype)
+    return {"name": "tiled_matmul", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/tiled_matmul.cu",
+            "replaces": "src/repro/kernels/tiled_matmul.py:38",
+            "max_abs_err": err, "ms": time_ms(kernel), "plain_ms": time_ms(plain),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(library),
+            "shape": f"{label}: ({CNN_BATCH}, {k}) @ ({k}, {l.co}), {dtype}"}
+
+
+def log_row(row) -> None:
+    lib = {"stream_mac_conv": "F.conv2d", "stream_maxpool": "F.max_pool2d",
+           "tiled_matmul": "torch.matmul"}.get(row["name"], "SDPA")
+    log(f"  timing {row['shape']}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+        f"{lib} {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+
+
+# ---------------------------------------------------------------------------
+# phases 5 and 6: ConvNet inference
+# ---------------------------------------------------------------------------
+
+
+def vgg16_forward(smi: str) -> dict[str, int]:
+    """Full-width VGG16 in bf16 at batch 16: the launch counts of one
+    forward (returned), images/s over several, and a profiler split of
+    device time."""
+    from repro_torch.core import zoo
+    from repro_torch.core.convnet import ConvNetExecutor
+    from repro_torch.kernels import ops
+
+    layers = zoo.vgg16()
+    exe = ConvNetExecutor(layers)
+    t0 = time.perf_counter()
+    params = exe.init(torch.Generator(device="cuda").manual_seed(0), "cuda", torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(CNN_BATCH, 224, 224, 3, generator=gen, device="cuda").to(torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for p in params.values() for t in p.values())
+    log(f"  init: {n_params / 1e6:.1f} M parameters in {time.perf_counter() - t0:.1f} s; "
+        f"{exe.flops_per_example() / 2e9:.2f} GMAC per image")
+    for _ in range(2):                                # warm-up: first launches
+        exe.apply(params, x)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    logits = exe.apply(params, x)
+    torch.cuda.synchronize()
+    launches = {k: ops.LAUNCHES[k] for k in CNN_KERNELS}
+    log(f"  one forward: logits {tuple(logits.shape)} {logits.dtype}, kernel launches "
+        f"{launches}")
+    if logits.shape != (CNN_BATCH, 1000) or not torch.isfinite(logits).all():
+        raise SystemExit(f"chip_smoke: bad VGG16 logits {tuple(logits.shape)}")
+    kinds = [l.kind for l in layers]
+    want = {"stream_mac_conv": kinds.count("conv"), "stream_maxpool": kinds.count("pool"),
+            "tiled_matmul": kinds.count("fc")}
+    if launches != want:
+        raise SystemExit(f"chip_smoke: VGG16 forward launched {launches}, want {want}")
+
+    times = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exe.apply(params, x)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    fwd = statistics.median(times)
+    log(f"  forward of {CNN_BATCH} images: median {fwd * 1e3:.2f} ms over {len(times)} "
+        f"(min {min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}) = "
+        f"{CNN_BATCH / fwd:.1f} images/s ({smi})")
+
+    steps = 3
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(steps):
+            exe.apply(params, x)
+        torch.cuda.synchronize()
+    groups: dict[str, float] = {}
+    counts: dict[str, int] = {}
+    for e in prof.key_averages():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        name = e.key.lower()
+        g = ("conv (stream_mac_conv)" if "conv_igemm" in name else
+             "pool (stream_maxpool)" if "maxpool_valid" in name else
+             "fc (tiled_matmul)" if "matmul_tiled" in name else
+             "other (bias, ReLU, Ci pad, split-K counters)")
+        groups[g] = groups.get(g, 0.0) + us / 1e3 / steps
+        counts[g] = counts.get(g, 0) + e.count // steps
+    busy = sum(groups.values())
+    if busy == 0:
+        log("  profiler: no device time recorded (breakdown not measured)")
+        return launches
+    log(f"  profiler ({steps} forwards): device busy {busy:.3f} ms per forward = "
+        f"{100 * busy / (fwd * 1e3):.1f} % of the unprofiled forward")
+    for g in sorted(groups, key=groups.get, reverse=True):
+        log(f"    {g}: {groups[g]:.3f} ms per forward ({100 * groups[g] / busy:.1f} % of busy) "
+            f"over {counts[g]} launches")
+    return launches
+
+
+def vgg16_card_vs_cpu(layers, batch, px) -> None:
+    """float32 logits of the same weights and images on the card (kernels)
+    and on the CPU (plain versions)."""
+    from repro_torch.core.convnet import ConvNetExecutor
+    from repro_torch.models.common import tree_map
+
+    exe = ConvNetExecutor(layers)
+    params = exe.init(torch.Generator().manual_seed(0), "cpu")
+    x = torch.from_numpy(np.random.default_rng(9).standard_normal((batch, px, px, 3))
+                         .astype(np.float32))
+    t0 = time.perf_counter()
+    want = exe.apply(params, x)
+    t_cpu = time.perf_counter() - t0
+    got = exe.apply(tree_map(lambda t: t.to("cuda"), params), x.to("cuda")).cpu()
+    err = (got - want).abs()
+    ok = bool((err <= 1e-4 + 1e-4 * want.abs()).all()) and torch.equal(
+        got.argmax(-1), want.argmax(-1))
+    log(f"  {len(layers)} layers, {batch} images of {px}x{px}: card vs CPU logits max_abs_err "
+        f"{float(err.max()):.3e} (|logit| max {float(want.abs().max()):.3f}; atol = rtol = "
+        f"1e-4), argmax {got.argmax(-1).tolist()} vs {want.argmax(-1).tolist()} -> "
+        f"{'ok' if ok else 'MISMATCH'} (CPU forward {t_cpu:.1f} s)")
+    if not ok:
+        raise SystemExit("chip_smoke: VGG16 logits differ between card and CPU")
+
+
 # ---------------------------------------------------------------------------
 # phases 3 and 4: the serving engine
 # ---------------------------------------------------------------------------
@@ -322,6 +569,8 @@ def main() -> int:
               "the card", file=sys.stderr)
         return 1
     from repro_torch.configs import get_arch
+    from repro_torch.core import zoo
+    from repro_torch.core.convnet import narrow_convnet
     from repro_torch.kernels import build, ops
     from repro_torch.models import build_model
     from repro_torch.models.common import tree_items, tree_map
@@ -362,13 +611,29 @@ def main() -> int:
         for label, sq, sk, off, kvl, win in flash_cases:
             row = flash_case(dtype, label, sq, sk, off, kvl, win, timed)
             if row:
-                log(f"  timing {row['shape']}: kernel {row['ms']:.4f} ms, plain "
-                    f"{row['plain_ms']:.4f} ms, SDPA {row['library_ms']:.4f} ms, bound "
-                    f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+                log_row(row)
                 rows.setdefault("flash_attention", row)
-    r = rows["paged_decode_attention"]
-    log(f"  timing {r['shape']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-        f"SDPA {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    log_row(rows["paged_decode_attention"])
+    vgg = {l.name: l for l in zoo.vgg16()}
+    # (label: the VGG paper's name and the zoo's, layer); the JSON line keeps conv3_2
+    conv_cases = [("conv1_1 (conv0)", vgg["conv0"]), ("conv1_2 (conv1)", vgg["conv1"]),
+                  ("conv2_2 (conv4)", vgg["conv4"]), ("conv3_2 (conv7)", vgg["conv7"]),
+                  ("conv4_2 (conv11)", vgg["conv11"]), ("conv5_2 (conv15)", vgg["conv15"]),
+                  ("alexnet conv1", zoo.alexnet()[0])]
+    log(f"  ConvNet kernels at batch {CNN_BATCH}:")
+    for dtype in (torch.float32, torch.bfloat16):
+        timed = dtype == torch.bfloat16
+        for label, layer in conv_cases:
+            row = conv_case(dtype, layer, label, timed)
+            if row:
+                log_row(row)
+                if label.startswith("conv3_2"):
+                    rows["stream_mac_conv"] = row
+        for name, row in (("stream_maxpool", pool_case(dtype, vgg["pool2"], "pool1 (pool2)", timed)),
+                          ("tiled_matmul", fc_case(dtype, vgg["fc6"], "fc6", timed))):
+            if row:
+                log_row(row)
+                rows[name] = row
     log(f"  (times: median CUDA-event time per call, L2 flushed before each; {smi})")
 
     # -- phase 3 ----------------------------------------------------------------
@@ -417,7 +682,7 @@ def main() -> int:
     t0 = time.perf_counter()
     reqs, done, eng = serve(model, params, ecfg, prompts, 32, "cuda")
     wall = time.perf_counter() - t0
-    launches = dict(ops.LAUNCHES)
+    launches = {k: ops.LAUNCHES[k] for k in SERVE_KERNELS}
     stats = eng.stats
     peak = torch.cuda.max_memory_allocated() / 2**30
     gen_tokens = sum(len(r.out_tokens) for r in reqs)
@@ -440,14 +705,27 @@ def main() -> int:
         raise SystemExit("chip_smoke: engine's first token differs from a direct prefill")
     log("  prefill logits finite, shape (1, 1, V); first token matches the engine")
     decode_breakdown(model, params, cfg.vocab_size)
+    del model, params, eng
+    torch.cuda.empty_cache()
 
-    for name in ("paged_decode_attention", "flash_attention"):
+    # -- phase 5 ----------------------------------------------------------------
+    log("== phase 5: narrow VGG16 (channels / 16, 32 px) in float32, card against CPU")
+    vgg16_card_vs_cpu(narrow_convnet(zoo.vgg16(), channel_div=16, input_px=32), 8, 32)
+
+    # -- phase 6 ----------------------------------------------------------------
+    log(f"== phase 6: full-width VGG16 (224 x 224, batch {CNN_BATCH}, bf16, random weights) "
+        "on the card")
+    launches.update(vgg16_forward(smi))
+    log("  full width in float32, two images, card against CPU:")
+    vgg16_card_vs_cpu(zoo.vgg16(), 2, 224)
+
+    names = SERVE_KERNELS + CNN_KERNELS
+    for name in names:
         rows[name]["launches"] = launches[name]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [{k: rows[n][k] for k in keys} for n in
-                                  ("paged_decode_attention", "flash_attention")]}))
+    print(json.dumps({"kernels": [{k: rows[n][k] for k in keys} for n in names]}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

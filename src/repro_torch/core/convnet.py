@@ -1,0 +1,192 @@
+"""Layer-by-layer execution of the paper's tiled ConvNets (section IV).
+
+``ConvNetExecutor`` runs a ``zoo`` layer list the way the JAX package's
+executor (``repro/core/convnet.py``) does: layer by layer, NHWC activations
+and HWIO weights throughout, so fc6 flattens its input in (h, w, c) order
+as the JAX executor does.  Two implementations:
+
+  * ``impl="kernel"`` (the default; JAX's ``"pallas"``) — conv layers
+    through ``kernels.ops.stream_mac_conv``, max-pool layers through
+    ``ops.stream_maxpool`` (after -inf padding where the layer pads, which
+    gives ``reduce_window``'s padded result), fc layers through
+    ``ops.tiled_matmul``.  On CUDA tensors each is a hand-written kernel, on
+    CPU tensors its plain PyTorch version.
+  * ``impl="tiled"`` — the explicit 4D-tile schedule of section IV-A for
+    the conv layers named in ``tiles``: T_Ci-partial accumulation
+    (``D += A * K_AD`` for each input-channel tile A), each partial through
+    ``ops.stream_mac_conv``.  Every other layer runs as under ``"kernel"``.
+
+JAX's ``impl="xla"`` (``lax.conv_general_dilated``) has no counterpart: the
+port calls no convolution, pooling or matmul library on its path
+(``chip_smoke.py`` times ``F.conv2d`` beside the kernel as a yardstick
+only).  Global average pooling, bias and ReLU are plain tensor ops, as in
+JAX.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from collections.abc import Sequence
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.device import resolve
+from repro_torch.kernels import ops
+
+from .tiling import ConvLayerSpec, Tile4D
+
+Params = dict[str, dict[str, torch.Tensor]]
+IMPLS = ("kernel", "tiled")
+
+
+def init_params(
+    layers: Sequence[ConvLayerSpec], generator: torch.Generator, device,
+    dtype: torch.dtype = torch.float32,
+) -> Params:
+    """He-normal weights ``(kx, ky, ci, co)`` and zero biases for every conv
+    and fc layer, drawn from ``generator`` (on its own device) in layer
+    order.  The numbers differ from ``jax.random``'s; parity tests carry the
+    JAX tree across instead (``repro_torch.convert``)."""
+    params: Params = {}
+    for l in layers:
+        if l.kind == "pool":
+            continue
+        fan_in = l.kx * l.ky * l.ci
+        w = torch.randn((l.kx, l.ky, l.ci, l.co), generator=generator,
+                        device=generator.device) * math.sqrt(2.0 / fan_in)
+        params[l.name] = {"w": w.to(device=device, dtype=dtype),
+                          "b": torch.zeros((l.co,), dtype=dtype, device=device)}
+    return params
+
+
+def _conv(x: torch.Tensor, w: torch.Tensor, l: ConvLayerSpec) -> torch.Tensor:
+    return ops.stream_mac_conv(x, w, stride=(l.sy, l.sx), padding=(l.py, l.px))
+
+
+def _conv_tiled(x: torch.Tensor, w: torch.Tensor, l: ConvLayerSpec,
+                tile: Tile4D) -> torch.Tensor:
+    """Executable model of the 4D-tile schedule: T_Ci-partial accumulation
+    (paper Fig 3d: D += A*K_AD for each input tile A), the partial sums in
+    x's type as in JAX."""
+    if l.ci % tile.tci or l.ci // tile.tci < 2:
+        return _conv(x, w, l)
+    xp = F.pad(x, (0, 0, l.px, l.px, l.py, l.py))
+    acc = None
+    for lo in range(0, l.ci, tile.tci):
+        part = ops.stream_mac_conv(xp[..., lo:lo + tile.tci].contiguous(),
+                                   w[:, :, lo:lo + tile.tci].contiguous(),
+                                   stride=(l.sy, l.sx))
+        acc = part if acc is None else acc + part
+    return acc
+
+
+def _maxpool(x: torch.Tensor, l: ConvLayerSpec) -> torch.Tensor:
+    if l.py or l.px:
+        x = F.pad(x, (0, 0, l.px, l.px, l.py, l.py), value=float("-inf"))
+    return ops.stream_maxpool(x, (l.ky, l.kx), (l.sy, l.sx))
+
+
+class ConvNetExecutor:
+    """Layer-by-layer tiled ConvNet forward/loss (the paper's section IV
+    pipeline).  Runs where its parameters and input lie: on the card through
+    the hand-written kernels, on the CPU through their plain versions."""
+
+    def __init__(
+        self,
+        layers: Sequence[ConvLayerSpec],
+        impl: str = "kernel",
+        tiles: dict[str, Tile4D] | None = None,
+    ):
+        if impl not in IMPLS:
+            raise ValueError(f"impl must be one of {IMPLS}, got {impl!r} (JAX's 'xla' "
+                             "has no counterpart; 'pallas' is 'kernel' here)")
+        self.layers = list(layers)
+        self.impl = impl
+        self.tiles = tiles or {}
+
+    def init(self, generator: torch.Generator, device=None,
+             dtype: torch.dtype = torch.float32) -> Params:
+        """Random weights on the card, or on the CPU when ``device="cpu"``."""
+        return init_params(self.layers, generator, resolve(device), dtype)
+
+    def apply(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        """x: NHWC input volume in the parameters' dtype; returns (N, classes)."""
+        for l in self.layers:
+            if l.kind == "pool":
+                if l.kx >= x.shape[1] and l.sx == 1:   # global avg pool
+                    x = x.mean((1, 2), keepdim=True)
+                else:
+                    x = _maxpool(x, l)
+                continue
+            w, b = params[l.name]["w"], params[l.name]["b"]
+            if l.kind == "fc" and x.ndim == 4 and l.kx == x.shape[1]:
+                n = x.shape[0]
+                x = ops.tiled_matmul(x.reshape(n, -1), w.reshape(-1, l.co))
+                x = x.reshape(n, 1, 1, l.co)
+            elif self.impl == "tiled" and l.name in self.tiles:
+                x = _conv_tiled(x, w, l, self.tiles[l.name])
+            else:
+                x = _conv(x, w, l)
+            x = x.add_(b)                     # x is this layer's own new output
+            if l.act:
+                x = x.relu_()
+        return x.reshape(x.shape[0], -1)
+
+    def loss_fn(self, params: Params, x: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        logits = self.apply(params, x)
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        return -logp.gather(1, labels.long()[:, None]).mean()
+
+    def flops_per_example(self) -> int:
+        return sum(l.flops for l in self.layers if l.kind != "pool")
+
+
+def make_small_convnet(
+    num_classes: int = 10, width: int = 16, input_px: int = 32
+) -> list[ConvLayerSpec]:
+    """A reduced ConvNet of the paper's family for CPU examples and tests."""
+    c = width
+    return [
+        ConvLayerSpec("conv1", input_px, input_px, 3, c, 3, 3, 1, 1, 1, 1),
+        ConvLayerSpec("conv2", input_px, input_px, c, c, 3, 3, 1, 1, 1, 1),
+        ConvLayerSpec("pool1", input_px, input_px, c, c, 2, 2, 2, 2, 0, 0, "pool", False),
+        ConvLayerSpec("conv3", input_px // 2, input_px // 2, c, 2 * c, 3, 3, 1, 1, 1, 1),
+        ConvLayerSpec("pool2", input_px // 2, input_px // 2, 2 * c, 2 * c, 2, 2, 2, 2, 0, 0,
+                      "pool", False),
+        ConvLayerSpec("conv4", input_px // 4, input_px // 4, 2 * c, 2 * c, 3, 3, 1, 1, 1, 1),
+        ConvLayerSpec(
+            "pool3", input_px // 4, input_px // 4, 2 * c, 2 * c,
+            input_px // 4, input_px // 4, 1, 1, 0, 0, "pool", False,
+        ),
+        ConvLayerSpec("fc", 1, 1, 2 * c, num_classes, 1, 1, 1, 1, 0, 0, "fc", False),
+    ]
+
+
+def narrow_convnet(
+    layers: Sequence[ConvLayerSpec], channel_div: int = 16, input_px: int = 32
+) -> list[ConvLayerSpec]:
+    """A zoo network cut in width for checks: every channel count divided by
+    ``channel_div`` (the image's channels and the classes kept) and the
+    input shrunk to ``input_px``, every spatial size scaled alike, so the
+    first fc layer still covers the whole final feature map.  Depth and the
+    layer structure stay.  Needs spatial sizes that scale exactly (the VGG
+    family: 224 to 32 divides every size by 7)."""
+    first, last = layers[0], layers[-1]
+    scale = first.xi // input_px
+
+    def px(v: int) -> int:
+        if v % scale:
+            raise ValueError(f"spatial size {v} does not scale by 1/{scale}")
+        return v // scale
+
+    out = []
+    for l in layers:
+        ci = l.ci if l is first else l.ci // channel_div
+        co = l.co if l is last else l.co // channel_div
+        if l.kind == "fc" and l.xi == 1:         # after the flatten: widths only
+            out.append(dataclasses.replace(l, ci=ci, co=co))
+            continue
+        k = dict(kx=px(l.kx), ky=px(l.ky)) if l.kind == "fc" else {}
+        out.append(dataclasses.replace(l, xi=px(l.xi), yi=px(l.yi), ci=ci, co=co, **k))
+    return out

@@ -1,8 +1,9 @@
-"""Public attention wrappers with the JAX package's layouts.
+"""Public kernel wrappers with the JAX package's layouts.
 
 ``flash_attention`` takes q (B, H, Sq, D) and k/v (B, Hkv, Sk, D);
-``paged_attention`` takes q (B, H, D) and page pools (n_pages, PS, Hkv, D),
-as ``repro.kernels.ops`` does.  A CPU tensor runs the plain version in
+``paged_attention`` takes q (B, H, D) and page pools (n_pages, PS, Hkv, D);
+``stream_mac_conv`` takes NHWC x and HWIO w, ``stream_maxpool`` NHWC x and
+``tiled_matmul`` (M, K) and (K, N) matrices, as ``repro.kernels.ops`` does.  A CPU tensor runs the plain version in
 ``kernels.ref``.  A CUDA tensor launches the hand-written kernel from
 ``csrc/`` (built on first use by ``kernels.build``) or raises: there is no
 fallback from the card to the plain version.
@@ -18,10 +19,12 @@ import ctypes
 import threading
 
 import torch
+import torch.nn.functional as F
 
 from . import build, ref
 
-LAUNCHES = {"paged_decode_attention": 0, "flash_attention": 0}
+LAUNCHES = {"paged_decode_attention": 0, "flash_attention": 0, "stream_mac_conv": 0,
+            "stream_maxpool": 0, "tiled_matmul": 0}
 _count_lock = threading.Lock()
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -36,6 +39,11 @@ _SIGNATURES = {
         [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
          _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _I, _I, _I, _I, _F, _P],
     ),
+    "stream_mac_conv_launch": (
+        "stream_mac_conv", [_I, _P, _P, _P] + [_I] * 12 + [_P]),
+    "stream_maxpool_launch": ("stream_maxpool", [_I, _I, _P, _P] + [_I] * 8 + [_P]),
+    "tiled_matmul_launch": ("tiled_matmul", [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "tiled_matmul_plan": ("tiled_matmul", [_I] * 5 + [ctypes.POINTER(_I)]),
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128, 256)     # the head sizes the kernels are built for
@@ -45,13 +53,17 @@ MAX_REP = 16                       # query heads per KV head in paged decode
 _sm_counts: dict[int, int] = {}
 
 
-def _splits(device: torch.device, lanes: int, hkv: int, pages: int) -> tuple[int, int]:
-    """(splits, pages per split) for paged decode: enough blocks for about
-    two per SM, never more splits than block-table slots."""
+def _sm_count(device: torch.device) -> int:
     idx = device.index if device.index is not None else torch.cuda.current_device()
     if idx not in _sm_counts:
         _sm_counts[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    want = max(1, min(pages, -(-2 * _sm_counts[idx] // (lanes * hkv))))
+    return _sm_counts[idx]
+
+
+def _splits(device: torch.device, lanes: int, hkv: int, pages: int) -> tuple[int, int]:
+    """(splits, pages per split) for paged decode: enough blocks for about
+    two per SM, never more splits than block-table slots."""
+    want = max(1, min(pages, -(-2 * _sm_count(device) // (lanes * hkv))))
     per = -(-pages // want)
     return -(-pages // per), per
 
@@ -101,6 +113,28 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> int:
             raise ValueError(f"{name}: operands need a contiguous last dim, "
                              f"16-byte aligned rows (strides {t.stride()})")
     return _DTYPES[t0.dtype]
+
+
+def _check_dense(name: str, *tensors: torch.Tensor) -> int:
+    """Validate operands that a kernel reads as dense row-major arrays;
+    returns the dtype code."""
+    t0 = tensors[0]
+    if t0.device.type != "cuda":
+        raise ValueError(f"{name}: tensors must be on the CPU or a CUDA device, "
+                         f"got {t0.device}")
+    if t0.dtype not in _DTYPES:
+        raise TypeError(f"{name}: dtype {t0.dtype} not supported "
+                        "(float32 or bfloat16)")
+    for t in tensors:
+        if t.device != t0.device or t.dtype != t0.dtype:
+            raise ValueError(f"{name}: operands differ in device or dtype")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")
+    return _DTYPES[t0.dtype]
+
+
+def _aligned16(*tensors: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def _check_index(name: str, t: torch.Tensor, device, shape) -> None:
@@ -201,4 +235,100 @@ def paged_attention(
              None if part is None else part.data_ptr(), b, hkv, rep, ps, p, splits, per,
              *k_pool.stride()[:3], scale, torch.cuda.current_stream(q.device).cuda_stream)
     _launched(lib, "paged_decode_attention", err, 2 if splits > 1 else 1)
+    return out
+
+
+def stream_mac_conv(
+    x: torch.Tensor,              # (N, H, W, Ci)
+    w: torch.Tensor,              # (KH, KW, Ci, Co)
+    stride: tuple[int, int] = (1, 1),
+    padding: tuple[int, int] = (0, 0),
+) -> torch.Tensor:
+    """NHWC x HWIO strided convolution with symmetric zero padding (the
+    paper's CONV layer); float accumulation, output in x's type.  The card
+    path loads 16 bytes at a time, so a Ci that is not a multiple of 8 is
+    zero-padded to one on x and w (VGG16's conv1 has Ci = 3), and w's Co to a
+    multiple of 8; the output keeps Co."""
+    n, h, wd, ci = x.shape
+    kh, kw, wci, co = w.shape
+    sy, sx = stride
+    py, px = padding
+    if wci != ci or min(sy, sx) < 1 or min(py, px) < 0 or h + 2 * py < kh \
+            or wd + 2 * px < kw:
+        raise ValueError(f"stream_mac_conv: bad shapes x {tuple(x.shape)} w "
+                         f"{tuple(w.shape)} stride {stride} padding {padding}")
+    if x.device.type == "cpu":
+        return ref.stream_mac_conv(x, w, stride=stride, padding=padding)
+    code = _check_dense("stream_mac_conv", x, w)
+    pad_ci, pad_co = -ci % 8, -co % 8
+    if pad_ci:
+        x = F.pad(x, (0, pad_ci))
+        w = F.pad(w, (0, 0, 0, pad_ci))
+    if pad_co:
+        w = F.pad(w, (0, pad_co))
+    if not _aligned16(x, w):
+        raise ValueError("stream_mac_conv: operands must be 16-byte aligned")
+    yo = (h + 2 * py - kh) // sy + 1
+    wo = (wd + 2 * px - kw) // sx + 1
+    out = torch.empty((n, yo, wo, co), dtype=x.dtype, device=x.device)
+    lib, fn = _entry("stream_mac_conv_launch")
+    err = fn(code, x.data_ptr(), w.data_ptr(), out.data_ptr(), n, h, wd, ci + pad_ci, kh, kw,
+             co, co + pad_co, sy, sx, py, px, torch.cuda.current_stream(x.device).cuda_stream)
+    _launched(lib, "stream_mac_conv", err)
+    return out
+
+
+def stream_maxpool(
+    x: torch.Tensor,              # (N, H, W, C)
+    window: tuple[int, int],
+    stride: tuple[int, int],
+) -> torch.Tensor:
+    """VALID NHWC max-pooling, exact (the result is bit-equal to the plain
+    version's)."""
+    n, h, wd, c = x.shape
+    kh, kw = window
+    sy, sx = stride
+    if min(kh, kw, sy, sx) < 1 or h < kh or wd < kw:
+        raise ValueError(f"stream_maxpool: bad window {window} stride {stride} for "
+                         f"x {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return ref.stream_maxpool(x, window, stride)
+    code = _check_dense("stream_maxpool", x)
+    vec = c % (16 // x.element_size()) == 0 and _aligned16(x)
+    out = torch.empty((n, (h - kh) // sy + 1, (wd - kw) // sx + 1, c), dtype=x.dtype,
+                      device=x.device)
+    lib, fn = _entry("stream_maxpool_launch")
+    err = fn(code, int(vec), x.data_ptr(), out.data_ptr(), n, h, wd, c, kh, kw, sy, sx,
+             torch.cuda.current_stream(x.device).cuda_stream)
+    _launched(lib, "stream_maxpool", err)
+    return out
+
+
+def tiled_matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """(M, K) @ (K, N) with float accumulation, output in x's type.  On the
+    card K may be split over blocks (one launch all the same: the last block
+    of each output tile sums the partials)."""
+    if x.ndim != 2 or y.ndim != 2 or x.shape[1] != y.shape[0]:
+        raise ValueError(f"tiled_matmul: shapes {tuple(x.shape)} @ {tuple(y.shape)}")
+    m, k = x.shape
+    n = y.shape[1]
+    if x.device.type == "cpu":
+        return ref.tiled_matmul(x, y)
+    code = _check_dense("tiled_matmul", x, y)
+    vec = 16 // x.element_size()
+    aligned = k % vec == 0 and n % vec == 0 and _aligned16(x, y)
+    lib, plan = _entry("tiled_matmul_plan")
+    tiles = ctypes.c_int()
+    splits = plan(code, m, n, k, _sm_count(x.device), ctypes.byref(tiles))
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    ws = counters = None
+    if splits > 1:
+        ws = torch.empty(splits * m * n, dtype=torch.float32, device=x.device)
+        counters = torch.zeros(tiles.value, dtype=torch.int32, device=x.device)
+    _, fn = _entry("tiled_matmul_launch")
+    err = fn(code, int(aligned), x.data_ptr(), y.data_ptr(), out.data_ptr(),
+             None if ws is None else ws.data_ptr(),
+             None if counters is None else counters.data_ptr(), m, n, k, splits,
+             torch.cuda.current_stream(x.device).cuda_stream)
+    _launched(lib, "tiled_matmul", err)
     return out

@@ -1,12 +1,15 @@
-"""Plain PyTorch versions of the attention kernels.
+"""Plain PyTorch versions of the kernels.
 
 They mirror the JAX oracles in ``repro/kernels/ref.py`` (same layouts, same
 masks, float32 math) and are what ``kernels.ops`` runs for CPU tensors.  On
-the card they are the reference each CUDA kernel is held against.
+the card they are the reference each CUDA kernel is held against, so they
+repeat the kernels' arithmetic with plain tensor ops and call no
+convolution or pooling library (a float32 cuDNN convolution would run TF32).
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def flash_attention(
@@ -65,3 +68,52 @@ def paged_decode_attention(
     s = s.masked_fill(~valid[:, None, None], float("-inf"))
     a = torch.nan_to_num(torch.softmax(s, dim=-1), nan=0.0)
     return torch.einsum("bgrk,bgkd->bgrd", a, v.float()).to(q.dtype)
+
+
+def tiled_matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """(M, K) @ (K, N) in float32, cast to x's type."""
+    return (x.float() @ y.float()).to(x.dtype)
+
+
+def stream_mac_conv(
+    x: torch.Tensor,              # (N, H, W, Ci)
+    w: torch.Tensor,              # (KH, KW, Ci, Co)
+    stride: tuple[int, int] = (1, 1),
+    padding: tuple[int, int] = (0, 0),
+) -> torch.Tensor:
+    """Strided NHWC x HWIO convolution with symmetric zero padding: a loop
+    over the taps (dy, dx) of ``strided patch @ w[dy, dx]`` in float32,
+    cast to x's type."""
+    n, h, wd, _ = x.shape
+    kh, kw, _, co = w.shape
+    sy, sx = stride
+    py, px = padding
+    yo = (h + 2 * py - kh) // sy + 1
+    wo = (wd + 2 * px - kw) // sx + 1
+    xp = F.pad(x.float(), (0, 0, px, px, py, py))
+    wf = w.float()
+    out = torch.zeros((n, yo, wo, co), dtype=torch.float32, device=x.device)
+    for dy in range(kh):
+        for dx in range(kw):
+            patch = xp[:, dy:dy + (yo - 1) * sy + 1:sy, dx:dx + (wo - 1) * sx + 1:sx]
+            out += patch @ wf[dy, dx]
+    return out.to(x.dtype)
+
+
+def stream_maxpool(
+    x: torch.Tensor,              # (N, H, W, C)
+    window: tuple[int, int],
+    stride: tuple[int, int],
+) -> torch.Tensor:
+    """VALID max-pooling as a loop of ``torch.maximum`` over the window's taps."""
+    _, h, wd, _ = x.shape
+    kh, kw = window
+    sy, sx = stride
+    yo = (h - kh) // sy + 1
+    wo = (wd - kw) // sx + 1
+    out = None
+    for dy in range(kh):
+        for dx in range(kw):
+            tap = x[:, dy:dy + (yo - 1) * sy + 1:sy, dx:dx + (wo - 1) * sx + 1:sx]
+            out = tap if out is None else torch.maximum(out, tap)
+    return out.contiguous()

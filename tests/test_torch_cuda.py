@@ -1,5 +1,5 @@
 """Card-only tests of the port: each CUDA kernel against its plain version,
-and the served tokens on the card against the CPU.
+the served tokens and the ConvNet logits on the card against the CPU.
 
 Marked ``cuda``; they skip (from a fixture, so every pytest worker collects
 the same tests) when no card is present.  On a machine with a card:
@@ -29,6 +29,7 @@ BF16 = dict(atol=2e-2, rtol=2e-2)
 def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False     # the plain versions in float32
     return torch.device("cuda")
 
 
@@ -100,3 +101,83 @@ def test_served_tokens_on_card_match_cpu(card):
         eng.run()
         out[str(dev)] = [r.out_tokens for r in reqs]
     assert out["cpu"] == out["cuda"]
+
+
+def _tol(dtype):
+    return F32 if dtype == "float32" else BF16
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+# ragged pixel counts (not a multiple of the 128-pixel tile), Co not a
+# multiple of 64, Ci = 3 (padded to 8), Ci past one 32-channel slice, stride 4
+@pytest.mark.parametrize("n,h,w,ci,co,k,s,p", [
+    (2, 15, 13, 3, 64, 3, 1, 1),
+    (1, 35, 35, 3, 96, 11, 4, 0),
+    (3, 9, 11, 40, 72, 3, 2, 1),
+    (1, 7, 7, 130, 6, 5, 1, 2),
+    (2, 14, 14, 512, 512, 3, 1, 1),
+])
+def test_conv_kernel_matches_plain(card, dtype, n, h, w, ci, co, k, s, p):
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=card).manual_seed(2)
+    x = torch.randn(n, h, w, ci, generator=g, device=card).to(dt)
+    wt = (torch.randn(k, k, ci, co, generator=g, device=card) / (k * k * ci) ** 0.5).to(dt)
+    before = ops.LAUNCHES["stream_mac_conv"]
+    got = ops.stream_mac_conv(x, wt, stride=(s, s), padding=(p, p))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["stream_mac_conv"] == before + 1
+    want = ref.stream_mac_conv(x, wt, stride=(s, s), padding=(p, p))
+    assert got.shape == want.shape and got.dtype == dt
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,hw,c,k,s", [
+    (2, 13, 16, 3, 2), (2, 8, 5, 2, 2), (1, 7, 130, 3, 1), (3, 224, 64, 2, 2)])
+def test_maxpool_kernel_bit_equal_to_plain(card, dtype, n, hw, c, k, s):
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=card).manual_seed(3)
+    x = torch.randn(n, hw, hw, c, generator=g, device=card).to(dt)
+    before = ops.LAUNCHES["stream_maxpool"]
+    got = ops.stream_maxpool(x, (k, k), (s, s))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["stream_maxpool"] == before + 1
+    assert torch.equal(got, ref.stream_maxpool(x, (k, k), (s, s)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+# M, N, K that do not fill a 64 x 128 tile or a k slice: 16-byte aligned
+# rows, unaligned rows (element copies), and fc shapes that split K
+@pytest.mark.parametrize("m,k,n", [
+    (33, 264, 200), (200, 300, 100), (1, 7, 5), (16, 4096, 1000), (16, 25088, 512)])
+def test_matmul_kernel_matches_plain(card, dtype, m, k, n):
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=card).manual_seed(4)
+    x = torch.randn(m, k, generator=g, device=card).to(dt)
+    y = (torch.randn(k, n, generator=g, device=card) / k ** 0.5).to(dt)
+    before = ops.LAUNCHES["tiled_matmul"]
+    got = ops.tiled_matmul(x, y)
+    again = ops.tiled_matmul(x, y)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["tiled_matmul"] == before + 2
+    assert torch.equal(got, again)              # split partials summed in a fixed order
+    torch.testing.assert_close(got.float(), ref.tiled_matmul(x, y).float(), **_tol(dtype))
+
+
+def test_convnet_logits_on_card_match_cpu(card):
+    from repro_torch.core import zoo
+    from repro_torch.core.convnet import ConvNetExecutor, narrow_convnet
+    from repro_torch.models.common import tree_map
+
+    exe = ConvNetExecutor(narrow_convnet(zoo.vgg16(), channel_div=16, input_px=32))
+    params = exe.init(torch.Generator().manual_seed(0), "cpu")
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((4, 32, 32, 3))
+                         .astype(np.float32))
+    want = exe.apply(params, x)
+    ops.reset_launches()
+    got = exe.apply(tree_map(lambda t: t.to(card), params), x.to(card))
+    torch.cuda.synchronize()
+    assert (ops.LAUNCHES["stream_mac_conv"], ops.LAUNCHES["stream_maxpool"],
+            ops.LAUNCHES["tiled_matmul"]) == (13, 5, 3)
+    torch.testing.assert_close(got.cpu(), want, **F32)
+    assert torch.equal(got.cpu().argmax(-1), want.argmax(-1))
