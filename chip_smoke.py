@@ -56,8 +56,21 @@ TOL = {"torch.bfloat16": (2e-2, 2e-2),         # both sides round to bf16 (one u
        "torch.float32": (1e-4, 1e-4)}          # near 1 is 2^-8); f32: sum order
 H, HKV, D, PS = 16, 2, 128, 16                 # qwen2.5-3b attention widths
 CNN_BATCH = 16                                 # images per VGG16 forward
-CNN_KERNELS = ("stream_mac_conv", "stream_maxpool", "tiled_matmul")
 SERVE_KERNELS = ("paged_decode_attention", "flash_attention")
+CNN_KERNELS = ("stream_mac_conv", "stream_maxpool", "tiled_matmul")
+# kernel: (its source, the TPU kernel it replaces, the library yardstick)
+KERNELS = {
+    "paged_decode_attention": ("src/repro_torch/kernels/csrc/paged_attn.cu",
+                               "src/repro/kernels/paged_attn.py:130", "SDPA"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:87", "SDPA"),
+    "stream_mac_conv": ("src/repro_torch/kernels/csrc/stream_mac_conv.cu",
+                        "src/repro/kernels/stream_mac_conv.py:85", "F.conv2d"),
+    "stream_maxpool": ("src/repro_torch/kernels/csrc/stream_maxpool.cu",
+                       "src/repro/kernels/stream_maxpool.py:31", "F.max_pool2d"),
+    "tiled_matmul": ("src/repro_torch/kernels/csrc/tiled_matmul.cu",
+                     "src/repro/kernels/tiled_matmul.py:38", "torch.matmul"),
+}
 
 
 def log(msg: str) -> None:
@@ -135,6 +148,23 @@ def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
     return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
 
 
+def timed_row(name, err, kernel, plain, library, nbytes, flops, dtype, shape,
+              plain_iters=50) -> dict:
+    """The kernels-line entry of one checked case: kernel, plain and
+    library times and the bound (``dtype`` names the peak rate)."""
+    source, replaces, _ = KERNELS[name]
+    b_ms, b_by = bound(nbytes, flops, dtype)
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "max_abs_err": err, "ms": time_ms(kernel), "plain_ms": time_ms(plain, plain_iters),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(library), "shape": shape}
+
+
+def log_row(row) -> None:
+    log(f"  timing {row['shape']}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+        f"{KERNELS[row['name']][2]} {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']})")
+
+
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -189,14 +219,8 @@ def paged_case(dtype, timed: bool):
     def library():
         return F.scaled_dot_product_attention(q4, kg, vg, attn_mask=mask, enable_gqa=True)
 
-    b_ms, b_by = bound(nbytes, flops, dtype)
-    return {"name": "paged_decode_attention", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/paged_attn.cu",
-            "replaces": "src/repro/kernels/paged_attn.py:130",
-            "max_abs_err": err, "ms": time_ms(kernel),
-            "plain_ms": time_ms(plain), "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": time_ms(library),
-            "shape": f"8 lanes, {tokens} tokens, H={H} Hkv={HKV} D={D} PS={PS} {dtype}"}
+    return timed_row("paged_decode_attention", err, kernel, plain, library, nbytes, flops,
+                     dtype, f"8 lanes, {tokens} tokens, H={H} Hkv={HKV} D={D} PS={PS} {dtype}")
 
 
 def flash_case(dtype, label, sq, sk, q_offset, kv_len, window, timed):
@@ -234,15 +258,9 @@ def flash_case(dtype, label, sq, sk, q_offset, kv_len, window, timed):
     def library():
         return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
 
-    b_ms, b_by = bound(nbytes, flops, dtype)
-    return {"name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-            "replaces": "src/repro/kernels/flash_attention.py:87",
-            "max_abs_err": err, "ms": time_ms(kernel),
-            "plain_ms": time_ms(plain), "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": time_ms(library),
-            "shape": f"{label}: Sq={sq} Sk={sk} q_offset={q_offset} kv_len={kv_len} "
-                     f"window={window} H={H} Hkv={HKV} D={D} {dtype}"}
+    return timed_row("flash_attention", err, kernel, plain, library, nbytes, flops, dtype,
+                     f"{label}: Sq={sq} Sk={sk} q_offset={q_offset} kv_len={kv_len} "
+                     f"window={window} H={H} Hkv={HKV} D={D} {dtype}")
 
 
 def conv_case(dtype, l, label, timed):
@@ -275,14 +293,9 @@ def conv_case(dtype, l, label, timed):
     def library():
         return F.conv2d(xc, wc, stride=stride, padding=pad)
 
-    b_ms, b_by = bound(nbytes, flops, dtype)
-    return {"name": "stream_mac_conv", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/stream_mac_conv.cu",
-            "replaces": "src/repro/kernels/stream_mac_conv.py:85",
-            "max_abs_err": err, "ms": time_ms(kernel), "plain_ms": time_ms(plain, 20),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(library),
-            "shape": f"{label}: {CNN_BATCH}x{l.yi}x{l.xi}x{l.ci} -> {l.co}, {l.kx}x{l.ky} "
-                     f"stride {l.sx} pad {l.px}, {dtype}"}
+    return timed_row("stream_mac_conv", err, kernel, plain, library, nbytes, flops, dtype,
+                     f"{label}: {CNN_BATCH}x{l.yi}x{l.xi}x{l.ci} -> {l.co}, {l.kx}x{l.ky} "
+                     f"stride {l.sx} pad {l.px}, {dtype}", plain_iters=20)
 
 
 def pool_case(dtype, l, label, timed):
@@ -308,20 +321,16 @@ def pool_case(dtype, l, label, timed):
     if not timed:
         return None
     nbytes = (x.numel() + out.numel()) * x.element_size()
-    # one comparison per window tap, on the CUDA cores (the float32 rate)
-    b_ms, b_by = bound(nbytes, float(out.numel() * l.kx * l.ky), torch.float32)
     xc = x.permute(0, 3, 1, 2)
 
     def library():
         return F.max_pool2d(xc, win, stride)
 
-    return {"name": "stream_maxpool", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/stream_maxpool.cu",
-            "replaces": "src/repro/kernels/stream_maxpool.py:31",
-            "max_abs_err": 0.0, "ms": time_ms(kernel), "plain_ms": time_ms(plain),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(library),
-            "shape": f"{label}: {CNN_BATCH}x{l.yi}x{l.xi}x{l.ci}, window {l.kx}x{l.ky} "
-                     f"stride {l.sx}, {dtype}"}
+    # one comparison per window tap, on the CUDA cores (the float32 rate)
+    return timed_row("stream_maxpool", 0.0, kernel, plain, library, nbytes,
+                     float(out.numel() * l.kx * l.ky), torch.float32,
+                     f"{label}: {CNN_BATCH}x{l.yi}x{l.xi}x{l.ci}, window {l.kx}x{l.ky} "
+                     f"stride {l.sx}, {dtype}")
 
 
 def fc_case(dtype, l, label, timed):
@@ -348,20 +357,9 @@ def fc_case(dtype, l, label, timed):
     def library():
         return torch.matmul(x, w)
 
-    b_ms, b_by = bound(nbytes, 2.0 * CNN_BATCH * k * l.co, dtype)
-    return {"name": "tiled_matmul", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/tiled_matmul.cu",
-            "replaces": "src/repro/kernels/tiled_matmul.py:38",
-            "max_abs_err": err, "ms": time_ms(kernel), "plain_ms": time_ms(plain),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(library),
-            "shape": f"{label}: ({CNN_BATCH}, {k}) @ ({k}, {l.co}), {dtype}"}
-
-
-def log_row(row) -> None:
-    lib = {"stream_mac_conv": "F.conv2d", "stream_maxpool": "F.max_pool2d",
-           "tiled_matmul": "torch.matmul"}.get(row["name"], "SDPA")
-    log(f"  timing {row['shape']}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-        f"{lib} {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    return timed_row("tiled_matmul", err, kernel, plain, library, nbytes,
+                     2.0 * CNN_BATCH * k * l.co, dtype,
+                     f"{label}: ({CNN_BATCH}, {k}) @ ({k}, {l.co}), {dtype}")
 
 
 # ---------------------------------------------------------------------------
@@ -629,8 +627,9 @@ def main() -> int:
                 log_row(row)
                 if label.startswith("conv3_2"):
                     rows["stream_mac_conv"] = row
-        for name, row in (("stream_maxpool", pool_case(dtype, vgg["pool2"], "pool1 (pool2)", timed)),
-                          ("tiled_matmul", fc_case(dtype, vgg["fc6"], "fc6", timed))):
+        for name, row in (
+                ("stream_maxpool", pool_case(dtype, vgg["pool2"], "pool1 (pool2)", timed)),
+                ("tiled_matmul", fc_case(dtype, vgg["fc6"], "fc6", timed))):
             if row:
                 log_row(row)
                 rows[name] = row
@@ -719,13 +718,12 @@ def main() -> int:
     log("  full width in float32, two images, card against CPU:")
     vgg16_card_vs_cpu(zoo.vgg16(), 2, 224)
 
-    names = SERVE_KERNELS + CNN_KERNELS
-    for name in names:
+    for name in KERNELS:
         rows[name]["launches"] = launches[name]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [{k: rows[n][k] for k in keys} for n in names]}))
+    print(json.dumps({"kernels": [{k: rows[n][k] for k in keys} for n in KERNELS]}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -3,10 +3,11 @@
 ``flash_attention`` takes q (B, H, Sq, D) and k/v (B, Hkv, Sk, D);
 ``paged_attention`` takes q (B, H, D) and page pools (n_pages, PS, Hkv, D);
 ``stream_mac_conv`` takes NHWC x and HWIO w, ``stream_maxpool`` NHWC x and
-``tiled_matmul`` (M, K) and (K, N) matrices, as ``repro.kernels.ops`` does.  A CPU tensor runs the plain version in
-``kernels.ref``.  A CUDA tensor launches the hand-written kernel from
-``csrc/`` (built on first use by ``kernels.build``) or raises: there is no
-fallback from the card to the plain version.
+``tiled_matmul`` (M, K) and (K, N) matrices, as ``repro.kernels.ops`` does.
+A CPU tensor runs the plain version in ``kernels.ref``.  A CUDA tensor
+launches the hand-written kernel from ``csrc/`` (built on first use by
+``kernels.build``) or raises: there is no fallback from the card to the
+plain version.
 
 Each wrapper counts the kernels it launches in ``LAUNCHES`` (on the card
 only), so a run can show that its main path went through the kernels.  A
@@ -95,8 +96,10 @@ def _entry(fn_name: str):
     return got
 
 
-def _check_cuda(name: str, *tensors: torch.Tensor) -> int:
-    """Validate the float operands of a kernel launch; returns the dtype code."""
+def _check_cuda(name: str, *tensors: torch.Tensor, dense: bool = False) -> int:
+    """Validate the float operands of a kernel launch; returns the dtype
+    code.  The operands must be contiguous (``dense``), or else have a
+    contiguous last dim and 16-byte aligned rows."""
     t0 = tensors[0]
     if t0.device.type != "cuda":
         raise ValueError(f"{name}: tensors must be on the CPU or a CUDA device, "
@@ -108,28 +111,13 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> int:
     for t in tensors:
         if t.device != t0.device or t.dtype != t0.dtype:
             raise ValueError(f"{name}: operands differ in device or dtype")
-        if t.stride(-1) != 1 or any(s % vec for s in t.stride()[:-1]) \
+        if dense:
+            if not t.is_contiguous():
+                raise ValueError(f"{name}: operands must be contiguous")
+        elif t.stride(-1) != 1 or any(s % vec for s in t.stride()[:-1]) \
                 or t.data_ptr() % 16:
             raise ValueError(f"{name}: operands need a contiguous last dim, "
                              f"16-byte aligned rows (strides {t.stride()})")
-    return _DTYPES[t0.dtype]
-
-
-def _check_dense(name: str, *tensors: torch.Tensor) -> int:
-    """Validate operands that a kernel reads as dense row-major arrays;
-    returns the dtype code."""
-    t0 = tensors[0]
-    if t0.device.type != "cuda":
-        raise ValueError(f"{name}: tensors must be on the CPU or a CUDA device, "
-                         f"got {t0.device}")
-    if t0.dtype not in _DTYPES:
-        raise TypeError(f"{name}: dtype {t0.dtype} not supported "
-                        "(float32 or bfloat16)")
-    for t in tensors:
-        if t.device != t0.device or t.dtype != t0.dtype:
-            raise ValueError(f"{name}: operands differ in device or dtype")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: operands must be contiguous")
     return _DTYPES[t0.dtype]
 
 
@@ -259,7 +247,7 @@ def stream_mac_conv(
                          f"{tuple(w.shape)} stride {stride} padding {padding}")
     if x.device.type == "cpu":
         return ref.stream_mac_conv(x, w, stride=stride, padding=padding)
-    code = _check_dense("stream_mac_conv", x, w)
+    code = _check_cuda("stream_mac_conv", x, w, dense=True)
     pad_ci, pad_co = -ci % 8, -co % 8
     if pad_ci:
         x = F.pad(x, (0, pad_ci))
@@ -293,7 +281,7 @@ def stream_maxpool(
                          f"x {tuple(x.shape)}")
     if x.device.type == "cpu":
         return ref.stream_maxpool(x, window, stride)
-    code = _check_dense("stream_maxpool", x)
+    code = _check_cuda("stream_maxpool", x, dense=True)
     vec = c % (16 // x.element_size()) == 0 and _aligned16(x)
     out = torch.empty((n, (h - kh) // sy + 1, (wd - kw) // sx + 1, c), dtype=x.dtype,
                       device=x.device)
@@ -314,7 +302,7 @@ def tiled_matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     n = y.shape[1]
     if x.device.type == "cpu":
         return ref.tiled_matmul(x, y)
-    code = _check_dense("tiled_matmul", x, y)
+    code = _check_cuda("tiled_matmul", x, y, dense=True)
     vec = 16 // x.element_size()
     aligned = k % vec == 0 and n % vec == 0 and _aligned16(x, y)
     lib, plan = _entry("tiled_matmul_plan")

@@ -164,12 +164,17 @@ def test_matmul_kernel_matches_plain(card, dtype, m, k, n):
     torch.testing.assert_close(got.float(), ref.tiled_matmul(x, y).float(), **_tol(dtype))
 
 
-def test_convnet_logits_on_card_match_cpu(card):
+@pytest.mark.parametrize("impl", ["kernel", "tiled"])
+def test_convnet_logits_on_card_match_cpu(card, impl):
     from repro_torch.core import zoo
     from repro_torch.core.convnet import ConvNetExecutor, narrow_convnet
+    from repro_torch.core.tiling import Tile4D
     from repro_torch.models.common import tree_map
 
-    exe = ConvNetExecutor(narrow_convnet(zoo.vgg16(), channel_div=16, input_px=32))
+    layers = narrow_convnet(zoo.vgg16(), channel_div=16, input_px=32)
+    tiles = {l.name: Tile4D(10, 10, max(l.ci // 2, 1), l.co)
+             for l in layers if l.kind == "conv"}
+    exe = ConvNetExecutor(layers, impl=impl, tiles=tiles)
     params = exe.init(torch.Generator().manual_seed(0), "cpu")
     x = torch.from_numpy(np.random.default_rng(0).standard_normal((4, 32, 32, 3))
                          .astype(np.float32))
@@ -177,7 +182,10 @@ def test_convnet_logits_on_card_match_cpu(card):
     ops.reset_launches()
     got = exe.apply(tree_map(lambda t: t.to(card), params), x.to(card))
     torch.cuda.synchronize()
+    # every T_Ci partial of the tiled schedule is a conv launch of its own
+    convs = 13 if impl == "kernel" else sum(
+        l.ci // tiles[l.name].tci for l in layers if l.kind == "conv")
     assert (ops.LAUNCHES["stream_mac_conv"], ops.LAUNCHES["stream_maxpool"],
-            ops.LAUNCHES["tiled_matmul"]) == (13, 5, 3)
+            ops.LAUNCHES["tiled_matmul"]) == (convs, 5, 3)
     torch.testing.assert_close(got.cpu(), want, **F32)
     assert torch.equal(got.cpu().argmax(-1), want.argmax(-1))
