@@ -4,19 +4,23 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout (it imports ``src/repro_torch`` beside it;
-it never imports JAX or the ``repro`` package).  It drives the port's two
-paths: paged-KV serving of qwen2.5-3b and ConvNet inference of VGG16.
-Phases, each fatal:
+it never imports JAX or the ``repro`` package).  It drives the port's
+paths: paged-KV serving of qwen2.5-3b, ConvNet inference of VGG16, serving
+of mamba2-130m, and the gather decode path.  Phases, each fatal:
 
-1. build the five CUDA kernels from ``src/repro_torch/kernels/csrc``
+1. build the seven CUDA kernels from ``src/repro_torch/kernels/csrc``
    (``nvcc``, printing the ``-Xptxas -v`` register report) and name the card;
 2. hold each kernel against its plain PyTorch version on the card at its
    path's shapes, in bfloat16 and float32 (attention: qwen2.5-3b's 16 query
    heads, 2 KV heads, head_dim 128, page size 16; conv: a VGG16 layer of
    each spatial size, its conv1 and AlexNet's conv1; pool: VGG16's pool1;
-   matmul: fc6; all at batch 16), and time kernel, plain version, one
-   PyTorch library call (SDPA, ``F.conv2d``, ``F.max_pool2d``,
-   ``torch.matmul``; never used by the port) and the bound;
+   matmul: fc6; all at batch 16; ``ssd_scan``: full-width mamba2-130m, a
+   512-token prompt in 256-token chunks from zero and from a carried state,
+   and a ragged 44-token slice; ``paged_gather``: a full-width qwen2.5-3b
+   cache leaf, 36 layers, 8 lanes x 64 slots with -1 holes, bit-equal), and
+   time kernel, plain version, one PyTorch library call (SDPA, ``F.conv2d``,
+   ``F.max_pool2d``, ``torch.matmul``, ``index_select``; never used by the
+   port; none computes ``ssd_scan``) and the bound;
 3. serve the same requests with the reduced qwen2.5-3b engine in float32 on
    the card and on the CPU (plain kernels), whole-prompt and chunked
    prefill: the greedy tokens must be identical;
@@ -29,7 +33,20 @@ Phases, each fatal:
 6. run full-width VGG16 (224 x 224, batch 16, bf16, seeded He-init
    weights): finite logits, 13 conv, 5 pool and 3 fc kernel launches per
    forward, images/s and a profiler split of device time per layer type;
-   and two images in float32 on the card against the CPU.
+   and two images in float32 on the card against the CPU;
+7. serve the same requests with the reduced mamba2-130m engine in float32 on
+   the card and on the CPU, whole-prompt and chunked prefill: identical
+   greedy tokens;
+8. serve 16 requests of 128-512 prompt tokens at the full width of
+   mamba2-130m (24 layers, bf16, seeded random weights) with 8 lanes,
+   256-token prefill chunks and 32 new tokens each: every request finishes,
+   ``ssd_scan`` launches; tok/s, prefill ms, decode-step ms and the
+   device-busy share (the decode step runs no port kernel: it is the plain
+   ``ssm_decode``);
+9. the gather decode path: reduced qwen2.5-3b in float32 with
+   ``decode_path="gather"`` gives the CPU's tokens and the card's paged
+   tokens; full-width qwen2.5-3b with it serves 16 requests through
+   ``paged_gather``, and its decode step is timed beside the paged path's.
 
 Then it prints one JSON line with each kernel's numbers, the card's name
 and power limit, and, last, ``{"ok": true, "device": {...}}``.  Without a
@@ -58,6 +75,7 @@ H, HKV, D, PS = 16, 2, 128, 16                 # qwen2.5-3b attention widths
 CNN_BATCH = 16                                 # images per VGG16 forward
 SERVE_KERNELS = ("paged_decode_attention", "flash_attention")
 CNN_KERNELS = ("stream_mac_conv", "stream_maxpool", "tiled_matmul")
+SSM = dict(h=24, p=64, n=128, chunk=256)       # mamba2-130m's SSD widths
 # kernel: (its source, the TPU kernel it replaces, the library yardstick)
 KERNELS = {
     "paged_decode_attention": ("src/repro_torch/kernels/csrc/paged_attn.cu",
@@ -70,6 +88,10 @@ KERNELS = {
                        "src/repro/kernels/stream_maxpool.py:31", "F.max_pool2d"),
     "tiled_matmul": ("src/repro_torch/kernels/csrc/tiled_matmul.cu",
                      "src/repro/kernels/tiled_matmul.py:38", "torch.matmul"),
+    "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan.py:89", None),
+    "paged_gather": ("src/repro_torch/kernels/csrc/paged_gather.cu",
+                     "src/repro/kernels/paged_attn.py:45", "index_select"),
 }
 
 
@@ -89,14 +111,16 @@ def ptxas_report(text: str) -> list[str]:
     registers, spills (shared memory is dynamic, sized at launch)."""
     out, name, spill = [], None, ""
     int_arg = {"maxpool_valid": "V", "matmul_tiled": "aligned"}     # else head_dim
+    types = {"f": "f32", "13__nv_bfloat16": "bf16", "5uint4": "16 B", "5uint2": "8 B",
+             "j": "4 B", "t": "2 B", "h": "1 B", None: ""}
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '.*?(paged_decode_attn|paged_combine|"
-                      r"flash_attn_fwd|flash_attn_mma|conv_igemm|maxpool_valid|matmul_tiled)"
-                      r"I(13__nv_bfloat16|f)?(?:L[ib](\d+)E)?", line)
+                      r"flash_attn_fwd|flash_attn_mma|conv_igemm|maxpool_valid|matmul_tiled|"
+                      r"ssd_chunk_scan|gather_rows)"
+                      r"I(13__nv_bfloat16|5uint4|5uint2|f|j|t|h)?(?:L[ib](\d+)E)?", line)
         if m:
             label = int_arg.get(m.group(1), "D")
-            args = [{"f": "f32", None: ""}.get(m.group(2), "bf16"),
-                    f"{label}={m.group(3)}" if m.group(3) else ""]
+            args = [types[m.group(2)], f"{label}={m.group(3)}" if m.group(3) else ""]
             name = f"{m.group(1)}<{', '.join(x for x in args if x)}>"
         elif "spill" in line:
             spill = line.strip()
@@ -156,13 +180,16 @@ def timed_row(name, err, kernel, plain, library, nbytes, flops, dtype, shape,
     b_ms, b_by = bound(nbytes, flops, dtype)
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "max_abs_err": err, "ms": time_ms(kernel), "plain_ms": time_ms(plain, plain_iters),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(library), "shape": shape}
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None if library is None else time_ms(library), "shape": shape}
 
 
 def log_row(row) -> None:
+    lib = KERNELS[row["name"]][2]
+    lib = (f"{lib} {row['library_ms']:.4f} ms" if lib else
+           "no single PyTorch call computes it")
     log(f"  timing {row['shape']}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-        f"{KERNELS[row['name']][2]} {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-        f"({row['bound_by']})")
+        f"{lib}, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
 
 
 # ---------------------------------------------------------------------------
@@ -362,6 +389,85 @@ def fc_case(dtype, l, label, timed):
                      f"{label}: ({CNN_BATCH}, {k}) @ ({k}, {l.co}), {dtype}")
 
 
+def ssd_case(dtype, label, seq, carried, timed):
+    """``ssd_scan`` at mamba2-130m's widths, x/B/C strided views of one conv
+    output as the model hands them over."""
+    from repro_torch.kernels import ops, ref
+
+    h, p, n, chunk = SSM["h"], SSM["p"], SSM["n"], SSM["chunk"]
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    conv = (torch.randn(1, seq, h * p + 2 * n, generator=gen, device="cuda") * 0.5).to(dtype)
+    xh = conv[..., :h * p].reshape(1, seq, h, p)
+    bb, cc = conv[..., h * p:h * p + n], conv[..., h * p + n:]
+    dt = torch.rand(1, seq, h, generator=gen, device="cuda") * 0.49 + 0.01
+    a = -(torch.rand(h, generator=gen, device="cuda") + 0.5)
+    st = torch.randn(1, h, p, n, generator=gen, device="cuda") if carried else None
+
+    def kernel():
+        return ops.ssd_scan(xh, bb, cc, dt, a, chunk, st)
+
+    def plain():
+        return ref.ssd_scan(xh, bb, cc, dt, a, chunk, st)
+
+    (y, fin), (want_y, want_fin) = kernel(), plain()
+    torch.cuda.synchronize()
+    # y and the state are float32 whatever the inputs: float32 tolerance
+    err = max(check_close(f"ssd_scan[{label}] y", y, want_y, torch.float32),
+              check_close(f"ssd_scan[{label}] final state", fin, want_fin, torch.float32))
+    if not timed:
+        return None
+    q = min(chunk, seq)
+    # the causal half of each chunk's C.B^T (once, head-free) and of the
+    # y contraction, plus C.S and the state update
+    flops = 2.0 * (seq // q) * (q * (q + 1) / 2 * (n + h * p) + 2 * q * n * h * p)
+    nbytes = (seq * (h * p + 2 * n) * conv.element_size() + seq * h * 4 + h * 4
+              + seq * h * p * 4 + (2 if carried else 1) * h * p * n * 4)
+    return timed_row("ssd_scan", err, kernel, plain, None, nbytes, flops, torch.float32,
+                     f"{label}: S={seq} H={h} P={p} N={n} chunk={chunk} {dtype}")
+
+
+def gather_case(dtype, timed):
+    """``paged_gather`` of one full-width qwen2.5-3b cache leaf (36 layers,
+    16-token pages of 2 x 128), 8 lanes x 64 slots with -1 holes."""
+    from repro_torch.kernels import ops, ref
+
+    layers, lanes, slots = 36, 8, 1024 // PS
+    n_pages = lanes * slots + 8
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    pool = torch.randn(layers, n_pages, PS * HKV * D, generator=gen, device="cuda").to(dtype)
+    bt = torch.randperm(n_pages, generator=gen, device="cuda")[: lanes * slots].reshape(
+        lanes, slots).to(torch.int32)
+    for i, n in enumerate([0, 1, 17, 100, 1024, 513, 64, 999]):
+        bt[i, -(-n // PS):] = -1
+    bt[3, 2] = -1                                   # a hole inside lane 3
+    idx = bt.long().clamp(0, n_pages - 1).reshape(-1)
+
+    def kernel():
+        return ops.paged_gather(pool, bt)
+
+    def plain():
+        return ref.paged_gather(pool, bt)
+
+    out, want = kernel(), plain()
+    torch.cuda.synchronize()
+    same = torch.equal(out, want)
+    log(f"  paged_gather {dtype}: bit-equal to the plain version: {same}")
+    if not same:
+        raise SystemExit(f"chip_smoke: paged_gather {dtype} differs from its plain version")
+    if not timed:
+        return None
+    row = PS * HKV * D * pool.element_size()
+    filled = int((bt >= 0).sum())
+    nbytes = layers * (lanes * slots + filled) * row + bt.numel() * 4
+
+    def library():          # the same copy, holes read as page 0 (not zeroed)
+        return torch.index_select(pool, 1, idx)
+
+    return timed_row("paged_gather", 0.0, kernel, plain, library, nbytes, 0.0, dtype,
+                     f"{layers} layers x {lanes} lanes x {slots} slots ({filled} filled), "
+                     f"page {PS}x{HKV}x{D} {dtype}")
+
+
 # ---------------------------------------------------------------------------
 # phases 5 and 6: ConvNet inference
 # ---------------------------------------------------------------------------
@@ -490,16 +596,69 @@ def serve(model, params, ecfg, prompts, max_new, device):
     return reqs, done, eng
 
 
-def decode_breakdown(model, params, vocab, steps: int = 10) -> None:
+def device_groups(fn, steps: int) -> tuple[dict, dict, list]:
+    """Device time (ms per call of ``fn``) and launches per call by kernel
+    class, and the top kernels, from a torch.profiler window of ``steps``
+    calls."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    groups: dict[str, float] = {}
+    launches: dict[str, float] = {}
+    top = []
+    for e in prof.key_averages():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        name = e.key.lower()
+        if "paged_decode_attn" in name or "paged_combine" in name:
+            g = "paged_decode_attention (kernel + split merge)"
+        elif "flash_attn" in name:
+            g = "flash_attention"
+        elif "ssd_chunk_scan" in name:
+            g = "ssd_scan"
+        elif "gather_rows" in name:
+            g = "paged_gather"
+        elif any(t in name for t in ("gemm", "gemv", "cutlass", "nvjet", "cublas", "matmul")):
+            g = "matmul (cuBLAS)"
+        else:
+            g = "other (elementwise, norms, copies)"
+        groups[g] = groups.get(g, 0.0) + us / 1e3 / steps
+        launches[g] = launches.get(g, 0) + e.count / steps
+        top.append((us / 1e3 / steps, e.count / steps, e.key[:90]))
+    return groups, launches, sorted(top, reverse=True)[:8]
+
+
+def log_groups(what: str, wall_ms: float, groups, launches, top) -> None:
+    busy = sum(groups.values())
+    if busy == 0:
+        log("  profiler: no device time recorded (breakdown not measured)")
+        return
+    log(f"  profiler: device busy {busy:.3f} ms per {what} = {100 * busy / wall_ms:.1f} % of "
+        f"the unprofiled {what}, idle {100 * (1 - busy / wall_ms):.1f} %")
+    for g in sorted(groups, key=groups.get, reverse=True):
+        log(f"    {g}: {groups[g]:.3f} ms per {what} over {launches[g]:g} launches")
+    for ms, n, name in top:
+        log(f"      {ms:.3f} ms, {n:g} launches: {name}")
+
+
+def decode_breakdown(model, params, vocab, steps: int = 10, prefill_chunk: int = 0,
+                     decode_path: str = "paged", profile: bool = True) -> float:
     """Decode-step time of 8 running lanes at ~520-token contexts (sync
     admission, so nothing else runs), and device time per kernel class from
-    a torch.profiler window over as many more steps."""
+    a torch.profiler window over as many more steps.  Returns the step's
+    wall ms."""
     from repro_torch.serve import (
         AdmissionConfig, CacheConfig, EngineConfig, Request, ServeEngine)
 
     eng = ServeEngine(model, params, EngineConfig(
-        batch_slots=8, max_len=1024, cache=CacheConfig(page_size=PS),
-        admission=AdmissionConfig(async_prefill=False)), device="cuda")
+        batch_slots=8, max_len=1024, cache=CacheConfig(page_size=PS, decode_path=decode_path),
+        admission=AdmissionConfig(async_prefill=False, prefill_chunk=prefill_chunk)),
+        device="cuda")
     rng = np.random.default_rng(5)
     for i in range(8):
         eng.submit(Request(uid=i, max_new_tokens=64, prompt=rng.integers(
@@ -513,47 +672,111 @@ def decode_breakdown(model, params, vocab, steps: int = 10) -> None:
         eng.step()
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / steps * 1e3
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(steps):
-            eng.step()
-        torch.cuda.synchronize()
-    groups: dict[str, float] = {}
-    launches: dict[str, int] = {}
-    top = []
-    for e in prof.key_averages():
-        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        name = e.key.lower()
-        if "paged_decode_attn" in name or "paged_combine" in name:
-            g = "paged_decode_attention (kernel + split merge)"
-        elif "flash_attn" in name:
-            g = "flash_attention"
-        elif any(t in name for t in ("gemm", "gemv", "cutlass", "nvjet", "cublas", "matmul")):
-            g = "matmul (cuBLAS)"
-        else:
-            g = "other (elementwise, norms, copies)"
-        groups[g] = groups.get(g, 0.0) + us / 1e3 / steps
-        launches[g] = launches.get(g, 0) + e.count // steps
-        top.append((us / 1e3 / steps, e.count // steps, e.key[:90]))
-    busy = sum(groups.values())
     ctx = int(np.mean([st.length for st in s.running.values()]))
-    log(f"  decode step, 8 lanes at ~{ctx}-token contexts: {step_ms:.3f} ms wall "
-        f"(mean of {steps} synced steps, {8 / step_ms * 1e3:.1f} tok/s)")
-    if busy == 0:
-        log("  profiler: no device time recorded (breakdown not measured)")
-        return
-    log(f"  profiler ({steps} steps): device busy {busy:.3f} ms/step = "
-        f"{100 * busy / step_ms:.1f} % of the unprofiled step, idle "
-        f"{100 * (1 - busy / step_ms):.1f} %")
-    for g in sorted(groups, key=groups.get, reverse=True):
-        log(f"    {g}: {groups[g]:.3f} ms/step over {launches[g]} launches/step")
-    for ms, n, name in sorted(top, reverse=True)[:8]:
-        log(f"      {ms:.3f} ms/step, {n} launches: {name}")
+    log(f"  decode step ({decode_path} path), 8 lanes at ~{ctx}-token contexts: {step_ms:.3f} "
+        f"ms wall (mean of {steps} synced steps, {8 / step_ms * 1e3:.1f} tok/s)")
+    if profile:
+        log_groups("step", step_ms, *device_groups(eng.step, steps))
     eng.run()
+    return step_ms
+
+
+def serve_full_width(model, params, prompts, ecfg, kernels, smi):
+    """The measured full-width run: every request finishes with 32 tokens
+    inside the vocabulary, and each kernel in ``kernels`` launched.  Returns
+    (requests, launch counts of this run)."""
+    from repro_torch.kernels import ops
+
+    serve(model, params, ecfg, prompts[:1], 2, "cuda")        # warm-up: first launches
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    reqs, done, eng = serve(model, params, ecfg, prompts, 32, "cuda")
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    stats = eng.stats
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    gen_tokens = sum(len(r.out_tokens) for r in reqs)
+    log(f"  requests done: {len(done)}/{len(reqs)}; prompt tokens prefilled "
+        f"{stats['prefill_tokens']}; decode tokens {stats['decode_tokens']} over "
+        f"{stats['steps']} steps; generated {gen_tokens} tokens in {wall:.2f} s = "
+        f"{gen_tokens / wall:.1f} tok/s end to end ({smi})")
+    log(f"  peak device memory {peak:.2f} GiB; kernel launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    if len(done) != len(reqs) or not all(r.done and len(r.out_tokens) == 32 for r in reqs):
+        raise SystemExit("chip_smoke: not every full-width request finished")
+    if min(launches[k] for k in kernels) <= 0:
+        raise SystemExit("chip_smoke: a kernel of the main path never launched")
+    vocab = model.cfg.padded_vocab
+    if not all(0 <= t < vocab for r in reqs for t in r.out_tokens):
+        raise SystemExit("chip_smoke: a sampled token lies outside the vocabulary")
+    return reqs, launches
+
+
+def card_vs_cpu_tokens(arch, cases, smi) -> None:
+    """The same requests through the reduced ``arch`` engine in float32 on
+    the card and on the CPU; each case is (label, prompt lengths, engine
+    config, and the decode path whose card tokens must equal too)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_map
+
+    cfg = dataclasses.replace(get_arch(arch).reduced(), dtype="float32")
+    model = build_model(cfg)
+    params_cpu = model.init(torch.Generator().manual_seed(0), "cpu")
+    params_gpu = tree_map(lambda t: t.to("cuda"), params_cpu)
+    for label, lengths, ecfg, also in cases:
+        rng = np.random.default_rng(3)
+        prompts = [rng.integers(0, cfg.vocab_size, size=(n,)).astype(np.int32)
+                   for n in lengths]
+        got = {}
+        runs = [("cuda", params_gpu, ecfg), ("cpu", params_cpu, ecfg)]
+        if also:
+            runs.append((f"cuda {also}", params_gpu, dataclasses.replace(
+                ecfg, cache=dataclasses.replace(ecfg.cache, decode_path=also))))
+        for name, params, e in runs:
+            reqs, done, _ = serve(model, params, e, prompts, 12, name.split()[0])
+            if len(done) != len(prompts):
+                raise SystemExit(f"chip_smoke: {name} engine finished {len(done)} requests")
+            got[name] = [r.out_tokens for r in reqs]
+        same = all(v == got["cpu"] for v in got.values())
+        log(f"  {label}: {len(prompts)} requests x 12 tokens, card tokens "
+            f"{'identical to' if same else 'DIFFER from'} CPU tokens"
+            + (f" and to the card's {also}-path tokens" if also else ""))
+        if not same:
+            for name, toks in got.items():
+                log(f"  {name}: {toks}")
+            raise SystemExit("chip_smoke: greedy tokens differ between card and CPU")
+
+
+def ssm_prefill_ms(model, params, vocab, seq: int = 512) -> None:
+    """One ``seq``-token prompt prefilled in 256-token slices (as the
+    engine's chunked prefill runs it): wall ms and the device split."""
+    from repro_torch.models.common import tree_map
+
+    toks = torch.as_tensor(np.random.default_rng(6).integers(0, vocab, size=(1, seq)),
+                           device="cuda").long()
+    chunk = SSM["chunk"]
+
+    def run():
+        cache = tree_map(lambda sp: torch.zeros(sp.shape, dtype=sp.dtype, device="cuda"),
+                         model.cache_specs(1, seq))
+        for i in range(0, seq, chunk):
+            logits, cache = model.extend_step(params, cache, toks[:, i:i + chunk], i)
+        return logits
+
+    run()
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    ms = statistics.median(times) * 1e3
+    log(f"  prefill of one {seq}-token prompt in {chunk}-token slices: {ms:.3f} ms wall "
+        f"(median of 5) = {seq / ms * 1e3:.0f} prompt tokens/s")
+    log_groups("prefill", ms, *device_groups(run, 3))
 
 
 def main() -> int:
@@ -633,36 +856,31 @@ def main() -> int:
             if row:
                 log_row(row)
                 rows[name] = row
+    log("  mamba2-130m SSD scan (H=24, P=64, N=128, chunk 256):")
+    for dtype in (torch.float32, torch.bfloat16):
+        timed = dtype == torch.bfloat16
+        for label, seq, carried in (("prompt", 512, False), ("carried", 512, True),
+                                    ("ragged slice", 44, True)):
+            row = ssd_case(dtype, label, seq, carried, timed and label == "prompt")
+            if row:
+                log_row(row)
+                rows["ssd_scan"] = row
+        row = gather_case(dtype, timed)
+        if row:
+            log_row(row)
+            rows["paged_gather"] = row
     log(f"  (times: median CUDA-event time per call, L2 flushed before each; {smi})")
 
     # -- phase 3 ----------------------------------------------------------------
     log("== phase 3: reduced qwen2.5-3b in float32, card against CPU")
-    cfg = dataclasses.replace(get_arch("qwen2.5-3b").reduced(), dtype="float32")
-    model = build_model(cfg)
-    params_cpu = model.init(torch.Generator().manual_seed(0), "cpu")
-    params_gpu = tree_map(lambda t: t.to("cuda"), params_cpu)
-    rng = np.random.default_rng(3)
-    prompts = [rng.integers(0, cfg.vocab_size, size=(n,)).astype(np.int32)
-               for n in (5, 40, 17, 33, 9, 26)]
-    for chunk in (0, 16):
-        ecfg = EngineConfig(batch_slots=3, max_len=96, cache=CacheConfig(page_size=PS),
-                            admission=AdmissionConfig(prefill_chunk=chunk))
-        got = {}
-        for dev, params in (("cuda", params_gpu), ("cpu", params_cpu)):
-            reqs, done, _ = serve(model, params, ecfg, prompts, 12, dev)
-            if len(done) != len(prompts):
-                raise SystemExit(f"chip_smoke: {dev} engine finished {len(done)} requests")
-            got[dev] = [r.out_tokens for r in reqs]
-        same = got["cuda"] == got["cpu"]
-        log(f"  prefill_chunk={chunk}: {len(prompts)} requests x 12 tokens, card tokens "
-            f"{'identical to' if same else 'DIFFER from'} CPU tokens")
-        if not same:
-            log(f"  card {got['cuda']}\n  cpu  {got['cpu']}")
-            raise SystemExit("chip_smoke: greedy tokens differ between card and CPU")
+    card_vs_cpu_tokens("qwen2.5-3b", [
+        (f"prefill_chunk={chunk}", (5, 40, 17, 33, 9, 26),
+         EngineConfig(batch_slots=3, max_len=96, cache=CacheConfig(page_size=PS),
+                      admission=AdmissionConfig(prefill_chunk=chunk)), None)
+        for chunk in (0, 16)], smi)
 
     # -- phase 4 ----------------------------------------------------------------
     log("== phase 4: full-width qwen2.5-3b (bf16, random weights) on the card")
-    del params_gpu
     cfg = get_arch("qwen2.5-3b")
     model = build_model(cfg)
     t0 = time.perf_counter()
@@ -672,39 +890,21 @@ def main() -> int:
     log(f"  init: {n_params / 1e9:.3f} B parameters in {time.perf_counter() - t0:.1f} s")
     ecfg = EngineConfig(batch_slots=8, max_len=1024, cache=CacheConfig(page_size=PS))
     rng = np.random.default_rng(4)
-    prompts = [rng.integers(0, cfg.vocab_size, size=(int(n),)).astype(np.int32)
-               for n in rng.integers(128, 513, size=16)]
-    # warm-up (cuBLAS handles, first launches), then the measured run
-    serve(model, params, ecfg, prompts[:1], 2, "cuda")
-    ops.reset_launches()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    reqs, done, eng = serve(model, params, ecfg, prompts, 32, "cuda")
-    wall = time.perf_counter() - t0
-    launches = {k: ops.LAUNCHES[k] for k in SERVE_KERNELS}
-    stats = eng.stats
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    gen_tokens = sum(len(r.out_tokens) for r in reqs)
-    log(f"  requests done: {len(done)}/{len(reqs)}; prompt tokens prefilled "
-        f"{stats['prefill_tokens']}; decode tokens {stats['decode_tokens']} over "
-        f"{stats['steps']} steps; generated {gen_tokens} tokens in {wall:.2f} s = "
-        f"{gen_tokens / wall:.1f} tok/s end to end ({smi})")
-    log(f"  peak device memory {peak:.2f} GiB; kernel launches {launches}")
-    if len(done) != len(reqs) or not all(r.done and len(r.out_tokens) == 32 for r in reqs):
-        raise SystemExit("chip_smoke: not every full-width request finished")
-    if min(launches.values()) <= 0:
-        raise SystemExit("chip_smoke: a kernel of the main path never launched")
-    if not all(0 <= t < cfg.padded_vocab for r in reqs for t in r.out_tokens):
-        raise SystemExit("chip_smoke: a sampled token lies outside the vocabulary")
+    qwen_prompts = [rng.integers(0, cfg.vocab_size, size=(int(n),)).astype(np.int32)
+                    for n in rng.integers(128, 513, size=16)]
+    reqs, run = serve_full_width(model, params, qwen_prompts, ecfg, SERVE_KERNELS, smi)
+    launches = {k: run[k] for k in SERVE_KERNELS}
+    paged_tokens = [r.out_tokens for r in reqs]
     # the engine's first token agrees with a direct prefill, whose logits are finite
-    logits, _ = model.prefill(params, torch.as_tensor(prompts[0], device="cuda")[None].long())
+    logits, _ = model.prefill(params, torch.as_tensor(qwen_prompts[0],
+                                                      device="cuda")[None].long())
     if logits.shape != (1, 1, cfg.padded_vocab) or not torch.isfinite(logits).all():
         raise SystemExit(f"chip_smoke: bad prefill logits {tuple(logits.shape)}")
     if int(logits[0, -1].argmax()) != reqs[0].out_tokens[0]:
         raise SystemExit("chip_smoke: engine's first token differs from a direct prefill")
     log("  prefill logits finite, shape (1, 1, V); first token matches the engine")
     decode_breakdown(model, params, cfg.vocab_size)
-    del model, params, eng
+    del model, params
     torch.cuda.empty_cache()
 
     # -- phase 5 ----------------------------------------------------------------
@@ -717,6 +917,74 @@ def main() -> int:
     launches.update(vgg16_forward(smi))
     log("  full width in float32, two images, card against CPU:")
     vgg16_card_vs_cpu(zoo.vgg16(), 2, 224)
+
+    # -- phase 7 ----------------------------------------------------------------
+    log("== phase 7: reduced mamba2-130m in float32, card against CPU")
+    card_vs_cpu_tokens("mamba2-130m", [
+        ("whole prompts (<= one 32-token chunk or a multiple)", (5, 32, 17, 9, 26, 64),
+         EngineConfig(batch_slots=3, max_len=96, cache=CacheConfig(page_size=PS)), None),
+        ("prefill_chunk=16", (5, 40, 17, 33, 9, 26),
+         EngineConfig(batch_slots=3, max_len=96, cache=CacheConfig(page_size=PS),
+                      admission=AdmissionConfig(prefill_chunk=16)), None)], smi)
+
+    # -- phase 8 ----------------------------------------------------------------
+    log("== phase 8: full-width mamba2-130m (bf16, random weights) on the card")
+    cfg = get_arch("mamba2-130m")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    log(f"  {cfg.n_layers} layers, d_model {cfg.d_model}, SSD H={SSM['h']} P={SSM['p']} "
+        f"N={SSM['n']} chunk {SSM['chunk']}; "
+        f"{sum(t.numel() for _, t in tree_items(params)) / 1e6:.1f} M parameters")
+    ecfg = EngineConfig(batch_slots=8, max_len=1024, cache=CacheConfig(page_size=PS),
+                        admission=AdmissionConfig(prefill_chunk=SSM["chunk"]))
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(0, cfg.vocab_size, size=(int(n),)).astype(np.int32)
+               for n in rng.integers(128, 513, size=16)]
+    reqs, run = serve_full_width(model, params, prompts, ecfg, ("ssd_scan",), smi)
+    launches["ssd_scan"] = run["ssd_scan"]
+    cache = tree_map(lambda sp: torch.zeros(sp.shape, dtype=sp.dtype, device="cuda"),
+                     model.cache_specs(1, len(prompts[0])))
+    toks = torch.as_tensor(prompts[0], device="cuda")[None].long()
+    for i in range(0, toks.shape[1], SSM["chunk"]):
+        logits, cache = model.extend_step(params, cache, toks[:, i:i + SSM["chunk"]], i)
+    if logits.shape[-1] != cfg.padded_vocab or not torch.isfinite(logits).all():
+        raise SystemExit(f"chip_smoke: bad mamba2 prefill logits {tuple(logits.shape)}")
+    if int(logits[0, -1].argmax()) != reqs[0].out_tokens[0]:
+        raise SystemExit("chip_smoke: mamba2 engine's first token differs from a direct "
+                         "chunked prefill")
+    log("  chunked-prefill logits finite; first token matches the engine")
+    ssm_prefill_ms(model, params, cfg.vocab_size)
+    decode_breakdown(model, params, cfg.vocab_size, prefill_chunk=SSM["chunk"])
+    log("  (the decode step runs no port kernel: ssm_decode is plain torch, as the "
+        "JAX package leaves it to XLA)")
+    del model, params
+    torch.cuda.empty_cache()
+
+    # -- phase 9 ----------------------------------------------------------------
+    log("== phase 9: the gather decode path")
+    card_vs_cpu_tokens("qwen2.5-3b", [
+        ("decode_path=gather, prefill_chunk=16", (5, 40, 17, 33, 9, 26),
+         EngineConfig(batch_slots=3, max_len=96,
+                      cache=CacheConfig(page_size=PS, decode_path="gather"),
+                      admission=AdmissionConfig(prefill_chunk=16)), "paged")], smi)
+    cfg = get_arch("qwen2.5-3b")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+    log("  full-width qwen2.5-3b (bf16, phase 4's weights and requests), decode_path=gather:")
+    ecfg = EngineConfig(batch_slots=8, max_len=1024,
+                        cache=CacheConfig(page_size=PS, decode_path="gather"))
+    reqs, run = serve_full_width(model, params, qwen_prompts, ecfg, ("paged_gather",), smi)
+    launches["paged_gather"] = run["paged_gather"]
+    same = sum(r.out_tokens == t for r, t in zip(reqs, paged_tokens))
+    log(f"  {same}/{len(reqs)} requests gave the paged path's tokens (bf16: the plain "
+        "decode attention rounds otherwise than the paged kernel)")
+    paged_ms = decode_breakdown(model, params, cfg.vocab_size, profile=False)
+    gather_ms = decode_breakdown(model, params, cfg.vocab_size, decode_path="gather")
+    log(f"  decode step, same call: paged {paged_ms:.3f} ms, gather {gather_ms:.3f} ms "
+        f"({gather_ms / paged_ms:.2f}x)")
+    del model, params
+    torch.cuda.empty_cache()
 
     for name in KERNELS:
         rows[name]["launches"] = launches[name]

@@ -2,8 +2,9 @@
 
 The same fields, registry and ``reduced()`` numbers as
 ``repro/configs/base.py``, with a ``torch_dtype`` property in place of the
-JAX dtype.  Only ``family="dense"`` is served by this port so far; the other
-families' fields are kept so every registered architecture loads.
+JAX dtype.  Only ``family="dense"`` and ``family="ssm"`` are served by this
+port so far; the other families' fields are kept so every registered
+architecture loads.
 """
 from __future__ import annotations
 
@@ -34,6 +35,12 @@ class SSMConfig:
     head_dim: int = 64
     chunk: int = 256
     factorized: bool = True
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def n_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
 
 
 @dataclass(frozen=True)

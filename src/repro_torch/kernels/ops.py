@@ -3,7 +3,11 @@
 ``flash_attention`` takes q (B, H, Sq, D) and k/v (B, Hkv, Sk, D);
 ``paged_attention`` takes q (B, H, D) and page pools (n_pages, PS, Hkv, D);
 ``stream_mac_conv`` takes NHWC x and HWIO w, ``stream_maxpool`` NHWC x and
-``tiled_matmul`` (M, K) and (K, N) matrices, as ``repro.kernels.ops`` does.
+``tiled_matmul`` (M, K) and (K, N) matrices, ``ssd_scan`` xh (B, S, H, P)
+with B/C (B, S, N), and ``paged_gather`` a (..., n_pages, F) pool with a
+(B, P) table, as ``repro.kernels.ops`` does (``ssd_scan`` also takes an
+initial state and returns the final one, and ``paged_gather`` keeps the
+leading layers dim instead of moving it).
 A CPU tensor runs the plain version in ``kernels.ref``.  A CUDA tensor
 launches the hand-written kernel from ``csrc/`` (built on first use by
 ``kernels.build``) or raises: there is no fallback from the card to the
@@ -25,7 +29,7 @@ import torch.nn.functional as F
 from . import build, ref
 
 LAUNCHES = {"paged_decode_attention": 0, "flash_attention": 0, "stream_mac_conv": 0,
-            "stream_maxpool": 0, "tiled_matmul": 0}
+            "stream_maxpool": 0, "tiled_matmul": 0, "ssd_scan": 0, "paged_gather": 0}
 _count_lock = threading.Lock()
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -45,6 +49,8 @@ _SIGNATURES = {
     "stream_maxpool_launch": ("stream_maxpool", [_I, _I, _P, _P] + [_I] * 8 + [_P]),
     "tiled_matmul_launch": ("tiled_matmul", [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "tiled_matmul_plan": ("tiled_matmul", [_I] * 5 + [ctypes.POINTER(_I)]),
+    "ssd_scan_launch": ("ssd_scan", [_I] + [_P] * 8 + [_I] * 6 + [_L] * 6 + [_P]),
+    "paged_gather_launch": ("paged_gather", [_P, _P, _P, _L, _I, _I, _I, _L, _I, _P]),
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128, 256)     # the head sizes the kernels are built for
@@ -96,10 +102,11 @@ def _entry(fn_name: str):
     return got
 
 
-def _check_cuda(name: str, *tensors: torch.Tensor, dense: bool = False) -> int:
+def _check_cuda(name: str, *tensors: torch.Tensor, dense: bool = False,
+                aligned: bool = True) -> int:
     """Validate the float operands of a kernel launch; returns the dtype
     code.  The operands must be contiguous (``dense``), or else have a
-    contiguous last dim and 16-byte aligned rows."""
+    contiguous last dim and (``aligned``) 16-byte aligned rows."""
     t0 = tensors[0]
     if t0.device.type != "cuda":
         raise ValueError(f"{name}: tensors must be on the CPU or a CUDA device, "
@@ -114,8 +121,8 @@ def _check_cuda(name: str, *tensors: torch.Tensor, dense: bool = False) -> int:
         if dense:
             if not t.is_contiguous():
                 raise ValueError(f"{name}: operands must be contiguous")
-        elif t.stride(-1) != 1 or any(s % vec for s in t.stride()[:-1]) \
-                or t.data_ptr() % 16:
+        elif t.stride(-1) != 1 or aligned and (
+                any(s % vec for s in t.stride()[:-1]) or t.data_ptr() % 16):
             raise ValueError(f"{name}: operands need a contiguous last dim, "
                              f"16-byte aligned rows (strides {t.stride()})")
     return _DTYPES[t0.dtype]
@@ -319,4 +326,85 @@ def tiled_matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
              None if counters is None else counters.data_ptr(), m, n, k, splits,
              torch.cuda.current_stream(x.device).cuda_stream)
     _launched(lib, "tiled_matmul", err)
+    return out
+
+
+def _check_f32(name: str, device, **tensors) -> None:
+    for arg, t in tensors.items():
+        if t is not None and (t.device != device or t.dtype != torch.float32
+                              or not t.is_contiguous()):
+            raise ValueError(f"{name}: {arg} must be contiguous float32 on {device}")
+
+
+def ssd_scan(
+    xh: torch.Tensor,             # (B, S, H, P)
+    b: torch.Tensor,              # (B, S, N)
+    c: torch.Tensor,              # (B, S, N)
+    dt: torch.Tensor,             # (B, S, H) float32, post-softplus
+    a: torch.Tensor,              # (H,) float32, negative
+    chunk: int,
+    init_state: torch.Tensor | None = None,   # (B, H, P, N) float32
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mamba-2 SSD sequence mix over chunks of ``min(chunk, S)`` tokens →
+    (y (B, S, H, P) float32, final state (B, H, P, N) float32); no D-skip.
+    S must be a multiple of the chunk, as in ``ssd_chunked``.  The card
+    path takes xh, b and c as strided views (contiguous last dims, as the
+    model slices them out of one projection) in float32 or bfloat16, and N
+    a multiple of 4."""
+    bsz, sl, h, p = xh.shape
+    n = b.shape[-1]
+    q = min(int(chunk), sl)
+    if b.shape != (bsz, sl, n) or c.shape != b.shape or dt.shape != (bsz, sl, h) \
+            or a.shape != (h,) or (init_state is not None
+                                   and init_state.shape != (bsz, h, p, n)):
+        raise ValueError(f"ssd_scan: shapes xh {tuple(xh.shape)} b {tuple(b.shape)} "
+                         f"c {tuple(c.shape)} dt {tuple(dt.shape)} a {tuple(a.shape)}")
+    if q < 1 or sl % q:
+        raise ValueError(f"ssd_scan: sequence length {sl} is not a multiple of "
+                         f"the chunk {q}")
+    if xh.device.type == "cpu":
+        return ref.ssd_scan(xh, b, c, dt, a, q, init_state)
+    code = _check_cuda("ssd_scan", xh, b, c, aligned=False)
+    _check_f32("ssd_scan", xh.device, dt=dt, a=a, init_state=init_state)
+    if xh.stride(2) != p or n % 4:
+        raise ValueError(f"ssd_scan: xh needs contiguous (H, P) rows (strides "
+                         f"{xh.stride()}) and N a multiple of 4 (N={n})")
+    y = torch.empty((bsz, sl, h, p), dtype=torch.float32, device=xh.device)
+    final = torch.empty((bsz, h, p, n), dtype=torch.float32, device=xh.device)
+    lib, fn = _entry("ssd_scan_launch")
+    err = fn(code, xh.data_ptr(), b.data_ptr(), c.data_ptr(), dt.data_ptr(), a.data_ptr(),
+             None if init_state is None else init_state.data_ptr(), y.data_ptr(),
+             final.data_ptr(), bsz, sl, h, p, n, q, *xh.stride()[:2], *b.stride()[:2],
+             *c.stride()[:2], torch.cuda.current_stream(xh.device).cuda_stream)
+    _launched(lib, "ssd_scan", err)
+    return y, final
+
+
+def paged_gather(pool: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
+    """Block-table gather of page pools: pool (..., n_pages, F) of any type
+    and table (B, P) int32 → (..., B, P, F), with ``-1`` entries read as
+    zeros; a bit-exact copy.  The leading dims (the layers) stay in front,
+    so one launch gathers every layer of a cache leaf.  On the card the
+    pool must be contiguous and entries other than -1 must name pages (not
+    checked: that would read the table back to the host)."""
+    if pool.ndim < 2 or pool.shape[-2] < 1 or block_table.ndim != 2:
+        raise ValueError(f"paged_gather: pool {tuple(pool.shape)} and table "
+                         f"{tuple(block_table.shape)}")
+    if pool.device.type == "cpu":
+        return ref.paged_gather(pool, block_table)
+    if pool.device.type != "cuda":
+        raise ValueError(f"paged_gather: tensors must be on the CPU or a CUDA device, "
+                         f"got {pool.device}")
+    if not pool.is_contiguous():
+        raise ValueError("paged_gather: the pool must be contiguous")
+    _check_index("paged_gather", block_table, pool.device, block_table.shape)
+    n, f = pool.shape[-2:]
+    lanes, slots = block_table.shape
+    out = torch.empty(pool.shape[:-2] + (lanes, slots, f), dtype=pool.dtype,
+                      device=pool.device)
+    lib, fn = _entry("paged_gather_launch")
+    err = fn(pool.data_ptr(), block_table.data_ptr(), out.data_ptr(),
+             pool.numel() // (n * f), n, lanes, slots, f * pool.element_size(),
+             _sm_count(pool.device), torch.cuda.current_stream(pool.device).cuda_stream)
+    _launched(lib, "paged_gather", err)
     return out

@@ -5,6 +5,9 @@ masks, float32 math) and are what ``kernels.ops`` runs for CPU tensors.  On
 the card they are the reference each CUDA kernel is held against, so they
 repeat the kernels' arithmetic with plain tensor ops and call no
 convolution or pooling library (a float32 cuDNN convolution would run TF32).
+``ssd_scan`` is the chunked, factorized form of ``repro/models/ssm.py``'s
+``ssd_chunked`` (the JAX oracle of the TPU kernel is the sequential
+recurrence, which it equals up to rounding).
 """
 from __future__ import annotations
 
@@ -117,3 +120,60 @@ def stream_maxpool(
             tap = x[:, dy:dy + (yo - 1) * sy + 1:sy, dx:dx + (wo - 1) * sx + 1:sx]
             out = tap if out is None else torch.maximum(out, tap)
     return out.contiguous()
+
+
+def paged_gather(pool: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
+    """Block-table gather: pool (..., n_pages, F) and table (B, P) int32 →
+    (..., B, P, F) with ``out[..., b, p, :] = pool[..., bt[b, p], :]`` and
+    zeros where the entry is -1."""
+    idx = block_table.long().clamp(0, pool.shape[-2] - 1)
+    view = pool.index_select(-2, idx.reshape(-1)).unflatten(-2, tuple(block_table.shape))
+    mask = (block_table >= 0)[..., None]
+    return torch.where(mask, view, torch.zeros((), dtype=pool.dtype, device=pool.device))
+
+
+def ssd_scan(
+    xh: torch.Tensor,             # (B, S, H, P)
+    b: torch.Tensor,              # (B, S, N)
+    c: torch.Tensor,              # (B, S, N)
+    dt: torch.Tensor,             # (B, S, H) post-softplus
+    a: torch.Tensor,              # (H,) negative decay rates
+    chunk: int,
+    init_state: torch.Tensor | None = None,   # (B, H, P, N)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mamba-2 SSD sequence mix over chunks of ``min(chunk, S)`` tokens
+    (S must be a multiple), in float32 → (y (B, S, H, P), final state
+    (B, H, P, N)).  Per chunk: the log-decay cumsum ``seg``; the causal
+    ``C·Bᵀ`` times ``dt·x·e_in``, times ``e_out`` (the decay factored at the
+    chunk midpoint, exponents clipped to ±60); ``C·S·exp(seg)`` from the
+    state before the chunk; then ``S' = exp(Σ dt·a)·S + Σ_j exp(seg_Q −
+    seg_j)·dt_j·B_j⊗x_j``.  No D-skip."""
+    bsz, sl, h, p = xh.shape
+    n = b.shape[-1]
+    q = min(chunk, sl)
+    nc = sl // q
+    xf = xh.float().reshape(bsz, nc, q, h, p)
+    bc = b.float().reshape(bsz, nc, q, n)
+    cc = c.float().reshape(bsz, nc, q, n)
+    dtc = dt.float().reshape(bsz, nc, q, h)
+    dac = dtc * a.float()
+    seg = torch.cumsum(dac, dim=2)                                  # (B, NC, Q, H)
+    causal = torch.ones(q, q, dtype=torch.bool, device=xh.device).tril()
+    scores = torch.einsum("bcin,bcjn->bcij", cc, bc)
+    c_mid = 0.5 * (seg[:, :, :1] + seg[:, :, -1:])
+    e_out = torch.exp(torch.clamp(seg - c_mid, -60.0, 60.0))
+    e_in = torch.exp(torch.clamp(c_mid - seg, -60.0, 60.0))
+    z = dtc[..., None] * xf * e_in[..., None]
+    sm = torch.where(causal, scores, 0.0)
+    y_diag = torch.einsum("bcij,bcjhp->bcihp", sm, z) * e_out[..., None]
+    decay_to_end = torch.exp(seg[:, :, -1:] - seg)
+    states = torch.einsum("bcjh,bcjn,bcjhp->bchpn", decay_to_end * dtc, bc, xf)
+    chunk_decay = torch.exp(dac.sum(dim=2))                         # (B, NC, H)
+    state = (torch.zeros((bsz, h, p, n), dtype=torch.float32, device=xh.device)
+             if init_state is None else init_state.float())
+    prev = []
+    for ci in range(nc):
+        prev.append(state)
+        state = state * chunk_decay[:, ci, :, None, None] + states[:, ci]
+    y_off = torch.einsum("bcin,bcih,bchpn->bcihp", cc, torch.exp(seg), torch.stack(prev, 1))
+    return (y_diag + y_off).reshape(bsz, sl, h, p), state

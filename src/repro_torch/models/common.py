@@ -46,6 +46,16 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+def tree_map_with_path(fn, tree, path=()):
+    """Map ``fn(path, leaf)`` over the leaves of nested dicts/lists; ``path``
+    is the tuple of keys and indices leading to the leaf."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map_with_path(fn, v, path + (i,)) for i, v in enumerate(tree)]
+    return fn(path, tree)
+
+
 def tree_items(tree, path=()):
     """(path, leaf) pairs of nested dicts/lists, dict keys in sorted order."""
     if isinstance(tree, dict):

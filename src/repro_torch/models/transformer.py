@@ -1,19 +1,28 @@
-"""Decoder-only LM, dense family: the port of ``repro/models/transformer.py``.
+"""Decoder-only LM, dense and ssm families: the port of
+``repro/models/transformer.py``.
 
 Parameters keep the JAX package's tree: ``embed``, ``final_norm``
-[, ``lm_head``] and one stacked segment ``seg0 = {"s0_dense": {...}}`` whose
-leaves carry a leading layers dim.  The port loops over layers in Python
-(PyTorch runs eagerly; there is no scan to keep the graph small).
+[, ``lm_head``] and one stacked segment ``seg0 = {"s0_<kind>": {...}}``
+whose leaves carry a leading layers dim: ``("dense",) × L`` for the dense
+family, ``("ssm",) × L`` (mamba2) for the ssm family.  The port loops over
+layers in Python (PyTorch runs eagerly; there is no scan to keep the graph
+small).
 
-Each layer is pre-norm attention + residual, pre-norm gated MLP + residual.
-Attention goes through ``models.attention``: ``attend`` (the flash kernel)
-for prefill and chunked prefill, ``paged_decode`` (the paged-decode kernel)
-for the serving engine's decode step.  Projections and the MLP stay
-``torch.matmul``, as the JAX package leaves them to XLA.
+A dense layer is pre-norm attention + residual, pre-norm gated MLP +
+residual.  Attention goes through ``models.attention``: ``attend`` (the
+flash kernel) for prefill and chunked prefill, ``paged_decode`` (the
+paged-decode kernel) for the serving engine's paged decode step, and the
+plain ``decode_attention`` for the dense ``decode_step`` of the gather
+path.  An ssm layer is pre-norm Mamba-2 + residual (``models.ssm``; its
+prefill runs the ``ssd_scan`` kernel, its decode step is plain torch).
+Projections and the MLP stay ``torch.matmul``, as the JAX package leaves
+them to XLA.
 
 Caches are written in place: ``extend_step`` into the caller's private
-prefill tree, ``decode_step_paged`` into the page pools (the serving
-engine's decode loop is their only writer).
+prefill tree, ``decode_step_paged`` into the page pools and the per-lane
+state leaves (the serving engine's decode loop is their only writer), and
+``decode_step`` into the gathered views' k/v (its new recurrent state comes
+back as new tensors, which ``absorb_decode`` keeps for active lanes only).
 """
 from __future__ import annotations
 
@@ -21,7 +30,8 @@ import torch
 
 from repro_torch.device import resolve
 
-from .attention import attend, paged_decode
+from . import ssm as _ssm
+from .attention import attend, decode_attention, paged_decode
 from .common import (
     PSpec,
     TensorSpec,
@@ -32,7 +42,8 @@ from .common import (
     rope_tables,
 )
 
-SEG = "s0_dense"      # the dense family's one segment pattern: ("dense",) x L
+# the ported families; each is one segment of one layer kind, (family,) x L
+FAMILIES = ("dense", "ssm")
 
 
 def attn_specs(cfg) -> dict:
@@ -63,14 +74,16 @@ def mlp_specs(cfg) -> dict:
     }
 
 
-def layer_specs(cfg) -> dict:
+def layer_specs(cfg, kind: str) -> dict:
     ln_init = "zeros" if cfg.rms_plus_one else "ones"
-    return {
-        "ln1": PSpec((cfg.d_model,), torch.float32, ln_init),
-        "attn": attn_specs(cfg),
-        "ln2": PSpec((cfg.d_model,), torch.float32, ln_init),
-        "mlp": mlp_specs(cfg),
-    }
+    s: dict = {"ln1": PSpec((cfg.d_model,), torch.float32, ln_init)}
+    if kind == "ssm":
+        s["mix"] = _ssm.ssm_specs(cfg)
+        return s
+    s["attn"] = attn_specs(cfg)
+    s["ln2"] = PSpec((cfg.d_model,), torch.float32, ln_init)
+    s["mlp"] = mlp_specs(cfg)
+    return s
 
 
 def _stack(tree: dict, n: int) -> dict:
@@ -116,18 +129,23 @@ def mlp_apply(cfg, p, x):
 
 
 class DecoderLM:
-    """Dense decoder-only LM over the JAX package's parameter layout."""
+    """Decoder-only LM over the JAX package's parameter layout: the dense
+    family and the ssm family (mamba2)."""
 
     supports_chunked_prefill = True
 
     def __init__(self, cfg):
-        if cfg.family != "dense":
+        if cfg.family not in FAMILIES:
             raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet (dense only)")
+                f"family {cfg.family!r} is not ported yet (dense and ssm only)")
         if cfg.sliding_window is not None or cfg.learned_positions:
             raise NotImplementedError(
                 "sliding-window and learned-position attention are not ported")
+        if cfg.family == "ssm" and not cfg.ssm.factorized:
+            raise NotImplementedError("only the factorized SSD decay is ported")
         self.cfg = cfg
+        self.kind = cfg.family
+        self.seg = f"s0_{self.kind}"
 
     # -- parameters ---------------------------------------------------------
 
@@ -138,7 +156,7 @@ class DecoderLM:
             "embed": PSpec((cfg.padded_vocab, cfg.d_model), dt, scale=1.0),
             "final_norm": PSpec((cfg.d_model,), torch.float32,
                                 "zeros" if cfg.rms_plus_one else "ones"),
-            "seg0": {SEG: _stack(layer_specs(cfg), cfg.n_layers)},
+            "seg0": {self.seg: _stack(layer_specs(cfg, self.kind), cfg.n_layers)},
         }
         if not cfg.tie_embeddings:
             specs["lm_head"] = PSpec((cfg.d_model, cfg.padded_vocab), dt)
@@ -172,8 +190,14 @@ class DecoderLM:
     def _mlp_block(self, p, x):
         return x + mlp_apply(self.cfg, p["mlp"], self._norm(p["ln2"], x))
 
+    def _attn_out(self, p, out, x):
+        """x + the attention output (B, S, H, hd) projected, then the MLP block."""
+        b, s = out.shape[:2]
+        x = x + out.reshape(b, s, self.cfg.n_heads * self.cfg.hd) @ p["attn"]["wo"]
+        return self._mlp_block(p, x)
+
     def _layers(self, params):
-        seg = params["seg0"][SEG]
+        seg = params["seg0"][self.seg]
         return (_layer(seg, r) for r in range(self.cfg.n_layers))
 
     # -- serving API ----------------------------------------------------------
@@ -182,44 +206,108 @@ class DecoderLM:
     def prefill(self, params, tokens):
         """tokens (B, S) → (logits (B, 1, V) at the last position, cache).
         The cache has the ``cache_specs(B, S)`` layout: one segment dict with
-        k/v leaves (layers, B, S, Hkv, hd)."""
+        k/v leaves (layers, B, S, Hkv, hd), or (ssm) the state leaves
+        (layers, B, H, P, N) and (layers, B, K-1, conv_dim).  An ssm prompt
+        longer than the chunk must be a multiple of it (``ssd_chunked``)."""
         cfg = self.cfg
         x = self._embed(params, tokens)
         b, s, _ = x.shape
+        if self.kind == "ssm":
+            states, convs = [], []
+            for p in self._layers(params):
+                y, st, cv = _ssm.ssm_block(cfg, p["mix"], self._norm(p["ln1"], x))
+                x = x + y
+                states.append(st)
+                convs.append(cv)
+            cache = [{self.seg: {"state": torch.stack(states), "conv": torch.stack(convs)}}]
+            return self._head(params, x[:, -1:]), cache
         tables = self._rope(torch.arange(s, device=x.device)[None])
         ks, vs = [], []
         for p in self._layers(params):
             q, k, v = _qkv(cfg, p["attn"], self._norm(p["ln1"], x))
             q, k = _rope_qk(q, k, tables)
-            out = attend(q, k, v, causal=True)
-            x = x + out.reshape(b, s, cfg.n_heads * cfg.hd) @ p["attn"]["wo"]
-            x = self._mlp_block(p, x)
+            x = self._attn_out(p, attend(q, k, v, causal=True), x)
             ks.append(k)
             vs.append(v)
-        cache = [{SEG: {"k": torch.stack(ks), "v": torch.stack(vs)}}]
+        cache = [{self.seg: {"k": torch.stack(ks), "v": torch.stack(vs)}}]
         return self._head(params, x[:, -1:]), cache
 
     @torch.no_grad()
     def extend_step(self, params, cache, tokens, position: int):
         """Chunked prefill: tokens (B, C) at absolute positions
-        [position, position + C) → (logits (B, C, V), cache).  Writes the
-        chunk's k/v into ``cache`` (the ``cache_specs(B, capacity)`` layout)
-        in place and attends against rows [0, position + C) of it."""
+        [position, position + C) → (logits (B, C, V), cache).  Dense: writes
+        the chunk's k/v into ``cache`` (the ``cache_specs(B, capacity)``
+        layout) in place and attends against rows [0, position + C) of it.
+        ssm: steps the state leaves in place through the chunk (in slices
+        of at most ``chunk`` tokens, so any length runs)."""
         cfg = self.cfg
         x = self._embed(params, tokens)
         b, c, _ = x.shape
+        seg = cache[0][self.seg]
+        if self.kind == "ssm":
+            for r, p in enumerate(self._layers(params)):
+                y, st, cv = _ssm.ssm_extend(cfg, p["mix"], self._norm(p["ln1"], x),
+                                            seg["state"][r], seg["conv"][r])
+                seg["state"][r].copy_(st)
+                seg["conv"][r].copy_(cv)
+                x = x + y
+            return self._head(params, x), cache
         tables = self._rope(position + torch.arange(c, device=x.device)[None])
-        seg = cache[0][SEG]
         for r, p in enumerate(self._layers(params)):
             q, k, v = _qkv(cfg, p["attn"], self._norm(p["ln1"], x))
             q, k = _rope_qk(q, k, tables)
             kc, vc = seg["k"][r], seg["v"][r]
             kc[:, position:position + c] = k
             vc[:, position:position + c] = v
-            out = attend(q, kc, vc, causal=True, q_offset=position,
-                         kv_len=position + c)
-            x = x + out.reshape(b, c, cfg.n_heads * cfg.hd) @ p["attn"]["wo"]
-            x = self._mlp_block(p, x)
+            out = attend(q, kc, vc, causal=True, q_offset=position, kv_len=position + c)
+            x = self._attn_out(p, out, x)
+        return self._head(params, x), cache
+
+    def _ssm_decode_layers(self, params, x, seg, keep=None):
+        """Step every ssm layer once for each lane; returns (x, states,
+        convs), the new per-layer state of every lane.  With ``keep`` (B,)
+        bool, lanes where it is False keep their state: the new state is
+        written into ``seg``'s leaves in place for the others."""
+        states, convs = [], []
+        for r, p in enumerate(self._layers(params)):
+            st_r, cv_r = seg["state"][r], seg["conv"][r]
+            y, st, cv = _ssm.ssm_decode(self.cfg, p["mix"], self._norm(p["ln1"], x),
+                                        st_r, cv_r)
+            x = x + y
+            if keep is not None:
+                st_r.copy_(torch.where(keep[:, None, None, None], st, st_r))
+                cv_r.copy_(torch.where(keep[:, None, None], cv, cv_r))
+            states.append(st)
+            convs.append(cv)
+        return x, states, convs
+
+    @torch.no_grad()
+    def decode_step(self, params, cache, tokens, positions):
+        """Dense-cache decode (the gather path): one token per lane,
+        tokens (B, 1) at per-lane ``positions`` (B,) against per-lane views
+        (the ``cache_specs(B, S)`` layout) → (logits (B, 1, V), cache).
+        Dense: writes each lane's k/v at its position into the views in
+        place and attends over rows [0, position] with the plain
+        ``decode_attention``.  ssm: the returned tree carries every lane's
+        new state as new tensors; the given state leaves are not written."""
+        cfg = self.cfg
+        x = self._embed(params, tokens)
+        b = x.shape[0]
+        seg = cache[0][self.seg]
+        if self.kind == "ssm":
+            x, states, convs = self._ssm_decode_layers(params, x, seg)
+            new = [{self.seg: {"state": torch.stack(states), "conv": torch.stack(convs)}}]
+            return self._head(params, x), new
+        positions = positions.long()
+        rows = torch.arange(b, device=x.device)
+        tables = self._rope(positions[:, None])
+        for r, p in enumerate(self._layers(params)):
+            q, k, v = _qkv(cfg, p["attn"], self._norm(p["ln1"], x))
+            q, k = _rope_qk(q, k, tables)
+            kc, vc = seg["k"][r], seg["v"][r]
+            kc[rows, positions] = k[:, 0].to(kc.dtype)
+            vc[rows, positions] = v[:, 0].to(vc.dtype)
+            x = self._attn_out(p, decode_attention(q, kc, vc, positions), x)
         return self._head(params, x), cache
 
     @torch.no_grad()
@@ -229,15 +317,19 @@ class DecoderLM:
         tokens (B, 1), block_tables (B, P) int32, positions (B,), active (B,)
         bool → (logits (B, 1, V), pools).
 
-        Each layer writes the new k/v into the lane's current page (idle
-        lanes and lanes whose page is unallocated write nothing) and then
-        runs the paged-decode kernel over the pages the block table names,
-        reading ``positions + 1`` tokens per active lane and none for an idle
-        one.  The pools are updated in place."""
+        Dense: each layer writes the new k/v into the lane's current page
+        (idle lanes and lanes whose page is unallocated write nothing) and
+        then runs the paged-decode kernel over the pages the block table
+        names, reading ``positions + 1`` tokens per active lane and none for
+        an idle one.  ssm: each layer steps the per-lane state leaves; idle
+        lanes keep theirs.  The pools are updated in place."""
         cfg = self.cfg
         x = self._embed(params, tokens)
         b = x.shape[0]
-        seg = pools[0][SEG]
+        seg = pools[0][self.seg]
+        if self.kind == "ssm":
+            x, _, _ = self._ssm_decode_layers(params, x, seg, keep=active)
+            return self._head(params, x), pools
         ps = seg["k"].shape[2]
         positions = positions.long()
         page = block_tables.gather(1, (positions // ps)[:, None])[:, 0]
@@ -256,22 +348,29 @@ class DecoderLM:
             vp[w_page, w_off] = v[lanes, 0].to(vp.dtype)
             out = paged_decode(q.reshape(b, cfg.n_heads, cfg.hd), kp, vp,
                                block_tables, lengths)
-            x = x + out.reshape(b, 1, cfg.n_heads * cfg.hd) @ p["attn"]["wo"]
-            x = self._mlp_block(p, x)
+            x = self._attn_out(p, out.reshape(b, 1, cfg.n_heads, cfg.hd), x)
         return self._head(params, x), pools
 
     # -- cache layouts ----------------------------------------------------------
 
     def cache_specs(self, batch: int, max_len: int) -> list:
         cfg = self.cfg
+        if self.kind == "ssm":
+            tree = {k: TensorSpec((cfg.n_layers,) + t.shape, t.dtype)
+                    for k, t in _ssm.ssm_cache_spec(cfg, batch).items()}
+            return [{self.seg: tree}]
         shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
         leaf = TensorSpec(shape, cfg.torch_dtype)
-        return [{SEG: {"k": leaf, "v": leaf}}]
+        return [{self.seg: {"k": leaf, "v": leaf}}]
 
     def cache_page_specs(self, lanes: int, n_pages: int, page_size: int) -> list:
         """The ``cache_specs(lanes, page_size)`` tree with each seq leaf's
-        lane dim swapped for a page-pool dim: (layers, n_pages, PS, Hkv, hd)."""
+        lane dim swapped for a page-pool dim: (layers, n_pages, PS, Hkv, hd).
+        Recurrent-state leaves (ssm) keep the per-lane layout: they are the
+        one "page" per request the scheduler never splits."""
+        if self.kind == "ssm":
+            return self.cache_specs(lanes, page_size)
         cfg = self.cfg
         shape = (cfg.n_layers, n_pages, page_size, cfg.n_kv_heads, cfg.hd)
         leaf = TensorSpec(shape, cfg.torch_dtype)
-        return [{SEG: {"k": leaf, "v": leaf}}]
+        return [{self.seg: {"k": leaf, "v": leaf}}]

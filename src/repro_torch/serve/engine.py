@@ -3,13 +3,19 @@
 
 * The **decode loop** (``step``/``run``, the caller's thread) owns the page
   pools and block tables exclusively: lane assignment, page growth,
-  recompute preemption and the batched decode step
-  (``DecoderLM.decode_step_paged``, which runs the paged-decode kernel).
+  recompute preemption and the batched decode step.  The decode path is
+  ``CacheConfig.decode_path``: ``"paged"`` (default) runs
+  ``DecoderLM.decode_step_paged`` (the paged-decode kernel for attention
+  layers; per-lane state steps for ssm layers), ``"gather"`` gathers the
+  pools into dense per-lane views (the ``paged_gather`` kernel), runs the
+  dense ``DecoderLM.decode_step`` and folds its updates back
+  (``absorb_decode``): the oracle the paged path is held against.
 * The **admission pipeline** (``serve.admission.AdmissionPipeline``) runs
   prefill (whole prompt, or chunks through ``extend_step``; both run the
-  flash kernel) on a worker thread (``AdmissionConfig.async_prefill``,
-  default on) or inline, computing into *private* per-request caches and
-  handing finished requests to the decode loop through the ready queue.
+  flash kernel, or the ``ssd_scan`` kernel for ssm layers) on a worker
+  thread (``AdmissionConfig.async_prefill``, default on) or inline,
+  computing into *private* per-request caches and handing finished requests
+  to the decode loop through the ready queue.
 
 Shared bookkeeping (queues, free list, counters) lives under one engine
 lock; no tensor work runs inside it.  Both pipeline modes give identical
@@ -18,7 +24,9 @@ tokens.
 The engine runs on the card unless ``device="cpu"`` is passed (then every
 kernel runs its plain PyTorch version); the parameters must already live on
 that device.  Not ported yet: the host tier and swap preemption, prefix
-sharing, the gather decode path, tracing and inter-cube migration.
+sharing, tracing and inter-cube migration.  A state-only model (ssm)
+still acquires pages per token, as in the JAX package, so page accounting,
+preemption and step counts match it.
 """
 from __future__ import annotations
 
@@ -34,7 +42,7 @@ from repro_torch.device import resolve
 from repro_torch.models.common import tree_map
 
 from .admission import AdmissionPipeline, prefill_logits_token
-from .paged_cache import PagedKVCache
+from .paged_cache import PagedKVCache, absorb_decode, gather_views
 from .scheduler import Scheduler, SchedulerConfig
 
 _COUNTERS = ("steps", "prefill_tokens", "decode_tokens", "lane_step_sum",
@@ -58,6 +66,10 @@ class CacheConfig:
 
     page_size: int = 16
     n_pages: int | None = None      # None → batch_slots * max_len / page_size
+    # 'paged' hands block tables straight to the model (decode_step_paged);
+    # 'gather' materializes dense per-lane views, decodes and scatters the
+    # written column back: the oracle the paged path is held against
+    decode_path: str = "paged"
 
 
 @dataclass
@@ -87,6 +99,8 @@ class ServeEngine:
     cache, a request scheduler and an admission pipeline."""
 
     def __init__(self, model, params, ecfg: EngineConfig, device=None):
+        if ecfg.cache.decode_path not in ("paged", "gather"):
+            raise ValueError(f"unknown decode_path: {ecfg.cache.decode_path!r}")
         self.device = resolve(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"parameters live on {params['embed'].device}, "
@@ -247,7 +261,7 @@ class ServeEngine:
                 self._cv.notify_all()    # ready drained: backpressure lifts
         for st in take:
             self.cache.assign_lane(st.lane, st.pages)
-            self.cache.write_prefill(st.pages, st.prefill_cache)
+            self.cache.write_prefill(st.pages, st.prefill_cache, lane=st.lane)
             st.prefill_cache = None
         return bool(take)
 
@@ -311,11 +325,18 @@ class ServeEngine:
             active[lane] = True
         n_active = int(active.sum())
         dev = self.device
-        logits, self.cache.pools = self.model.decode_step_paged(
-            self.params, self.cache.pools,
-            torch.from_numpy(self.cache.block_tables).to(dev),
-            torch.from_numpy(tokens).to(dev), torch.from_numpy(positions).to(dev),
-            torch.from_numpy(active).to(dev))
+        bt = torch.from_numpy(self.cache.block_tables).to(dev)
+        tokens = torch.from_numpy(tokens).to(dev)
+        positions = torch.from_numpy(positions).to(dev)
+        active = torch.from_numpy(active).to(dev)
+        if self.ecfg.cache.decode_path == "gather":
+            views = gather_views(self.cache.pools, bt)
+            logits, new_views = self.model.decode_step(self.params, views, tokens, positions)
+            self.cache.pools = absorb_decode(self.cache.pools, new_views, bt, positions,
+                                             active, self.cache.page_size)
+        else:
+            logits, self.cache.pools = self.model.decode_step_paged(
+                self.params, self.cache.pools, bt, tokens, positions, active)
         # greedy tokens come off the device as B ints, not B vocab rows
         greedy = logits[:, 0].argmax(-1).cpu().numpy()
         done = 0

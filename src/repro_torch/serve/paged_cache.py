@@ -4,10 +4,15 @@ The cache is a pool of fixed-size pages plus a per-lane block table.  Seq
 leaves of the model's cache (attention k/v) become pools
 ``(layers, n_pages, page_size, Hkv, hd)`` shared by all lanes; the block
 tables are host int32 arrays ``(lanes, pages_per_lane)`` with -1 for an
-unallocated slot.  The decode loop is the only writer of both.
+unallocated slot.  Recurrent-state leaves (ssm) keep a per-lane row
+``(layers, lanes, ...)``: the one "page" of each request.  The decode loop
+is the only writer of all of them.
 
-Not ported yet: the host tier (swap preemption), the prefix index and the
-gather decode path.
+``gather_views`` and ``absorb_decode`` are the gather decode path's tree
+transforms: pools → dense per-lane views (through the ``paged_gather``
+kernel on the card) and one decode step's updates back into the pools.
+
+Not ported yet: the host tier (swap preemption) and the prefix index.
 """
 from __future__ import annotations
 
@@ -17,7 +22,53 @@ import numpy as np
 import torch
 
 from repro_torch.analysis.ownership import pool_mutator
-from repro_torch.models.common import SEQ_CACHE_KEYS, tree_items, tree_map
+from repro_torch.kernels import ops as kops
+from repro_torch.models.common import SEQ_CACHE_KEYS, tree_items, tree_map, tree_map_with_path
+
+
+def _is_seq(path) -> bool:
+    return path[-1] in SEQ_CACHE_KEYS
+
+
+def gather_views(pools, block_tables: torch.Tensor):
+    """Per-lane contiguous views of the page pools: seq leaves
+    (layers, n_pages, PS, *t) and table (lanes, P) → (layers, lanes, P*PS, *t),
+    one ``paged_gather`` per leaf; unallocated (-1) pages read as zeros.
+    State leaves pass through (the same tensors)."""
+    bt = block_tables.to(torch.int32).contiguous()
+    lanes, p = bt.shape
+
+    def leaf(path, x):
+        if not _is_seq(path):
+            return x
+        reps, n, ps = x.shape[:3]
+        view = kops.paged_gather(x.reshape(reps, n, -1), bt)    # (layers, lanes, P, row)
+        return view.reshape((reps, lanes, p * ps) + tuple(x.shape[3:]))
+
+    return tree_map_with_path(leaf, pools)
+
+
+def absorb_decode(pools, new_views, block_tables: torch.Tensor, positions: torch.Tensor,
+                  active: torch.Tensor, page_size: int):
+    """Fold one decode step's cache updates back into the pools, in place
+    (returns ``pools``).  Seq leaves: the column each active lane wrote at
+    its position goes into that position's page (idle lanes and lanes whose
+    page is unallocated write nothing).  State leaves: the new state is kept
+    for active lanes only."""
+    positions = positions.long()
+    page = block_tables.long().gather(1, (positions // page_size)[:, None])[:, 0]
+    lanes = torch.nonzero(active & (page >= 0)).squeeze(1)
+    w_page, w_off = page[lanes], (positions % page_size)[lanes]
+    w_pos = positions[lanes]
+    keep = torch.nonzero(active).squeeze(1)
+    views = dict(tree_items(new_views))
+    for path, pool in tree_items(pools):
+        view = views[path]
+        if _is_seq(path):
+            pool[:, w_page, w_off] = view[:, lanes, w_pos].to(pool.dtype)
+        else:
+            pool[:, keep] = view[:, keep].to(pool.dtype)
+    return pools
 
 
 class PageAllocator:
@@ -145,20 +196,25 @@ class PagedKVCache:
         assert not stale, f"free pages still mapped by a lane: {sorted(stale)}"
 
     @pool_mutator("pools")
-    def write_prefill(self, pages: list[int], cache) -> None:
+    def write_prefill(self, pages: list[int], cache, lane: int | None = None) -> None:
         """Scatter a prefill cache (seq leaves (layers, 1, s, Hkv, hd)) into
-        ``pages``, in place.  Leaves shorter than the page span are
-        zero-padded; longer ones (a chunked prefill's capacity-length private
-        tree) are cut — rows past the reserved pages are unwritten zeros."""
-        if not pages:
+        ``pages``, in place; state leaves go to ``lane``'s row when given.
+        Seq leaves shorter than the page span are zero-padded; longer ones (a
+        chunked prefill's capacity-length private tree) are cut — rows past
+        the reserved pages are unwritten zeros."""
+        if not pages and lane is None:
             return
         ps = self.page_size
         cap = len(pages) * ps
         pool_leaves = dict(tree_items(self.pools))
         for path, pc in tree_items(cache):
-            if path[-1] not in SEQ_CACHE_KEYS:
-                continue
             pool = pool_leaves[path]
+            if not _is_seq(path):
+                if lane is not None:
+                    pool[:, lane] = pc[:, 0].to(pool.dtype)
+                continue
+            if not pages:
+                continue
             pc = pc[:, 0, :cap]
             s = pc.shape[1]
             if s < cap:
@@ -166,3 +222,6 @@ class PagedKVCache:
             idx = torch.as_tensor(pages, dtype=torch.long, device=pool.device)
             pool[:, idx] = pc.reshape(
                 (pc.shape[0], len(pages), ps) + pc.shape[2:]).to(pool.dtype)
+
+    def has_state_leaves(self) -> bool:
+        return any(not _is_seq(path) for path, _ in tree_items(self.pools))

@@ -1,5 +1,6 @@
 """Card-only tests of the port: each CUDA kernel against its plain version,
-the served tokens and the ConvNet logits on the card against the CPU.
+the served tokens (dense and mamba2, paged and gather decode paths) and the
+ConvNet logits on the card against the CPU.
 
 Marked ``cuda``; they skip (from a fixture, so every pytest worker collects
 the same tests) when no card is present.  On a machine with a card:
@@ -81,26 +82,97 @@ def test_paged_kernel_matches_plain(card, dtype, p, lengths, kernels):
     assert torch.all(got[0] == 0)
 
 
-def test_served_tokens_on_card_match_cpu(card):
+# (arch, prompt lengths, prefill chunk, decode path): mamba2's whole prompts
+# are at most one 32-token chunk or a multiple of it
+SERVE_CASES = [
+    ("qwen2.5-3b", (5, 19, 11), 8, "paged"),
+    ("qwen2.5-3b", (5, 19, 11), 8, "gather"),
+    ("mamba2-130m", (5, 32, 11), 0, "paged"),
+    ("mamba2-130m", (5, 40, 11), 16, "paged"),
+    ("mamba2-130m", (5, 40, 11), 16, "gather"),
+]
+
+
+@pytest.mark.parametrize("arch,lengths,chunk,path", SERVE_CASES)
+def test_served_tokens_on_card_match_cpu(card, arch, lengths, chunk, path):
     from repro_torch.configs import get_arch
     from repro_torch.models import build_model
     from repro_torch.models.common import tree_map
-    from repro_torch.serve import AdmissionConfig, EngineConfig, Request, ServeEngine
+    from repro_torch.serve import (
+        AdmissionConfig, CacheConfig, EngineConfig, Request, ServeEngine)
 
-    model = build_model(dataclasses.replace(get_arch("qwen2.5-3b").reduced(), dtype="float32"))
+    model = build_model(dataclasses.replace(get_arch(arch).reduced(), dtype="float32"))
     params = model.init(torch.Generator().manual_seed(0), "cpu")
     rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, 512, size=(n,)).astype(np.int32) for n in (5, 19, 11)]
-    ecfg = EngineConfig(batch_slots=2, max_len=64, admission=AdmissionConfig(prefill_chunk=8))
+    prompts = [rng.integers(0, 512, size=(n,)).astype(np.int32) for n in lengths]
+    ecfg = EngineConfig(batch_slots=2, max_len=64, cache=CacheConfig(decode_path=path),
+                        admission=AdmissionConfig(prefill_chunk=chunk))
     out = {}
     for dev, p in (("cpu", params), (card, tree_map(lambda t: t.to(card), params))):
         eng = ServeEngine(model, p, ecfg, device=dev)
         reqs = [Request(uid=i, prompt=pr, max_new_tokens=6) for i, pr in enumerate(prompts)]
         for r in reqs:
             eng.submit(r)
+        ops.reset_launches()
         eng.run()
         out[str(dev)] = [r.out_tokens for r in reqs]
     assert out["cpu"] == out["cuda"]
+    kernel = "ssd_scan" if arch.startswith("mamba2") else "flash_attention"
+    assert ops.LAUNCHES[kernel] > 0
+    assert (ops.LAUNCHES["paged_gather"] > 0) == (path == "gather" and kernel != "ssd_scan")
+
+
+# F32 holds for bf16 inputs too: kernel and plain version widen them to
+# float32 and both write float32
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,p,n,chunk,init,pad", [
+    (1, 512, 24, 64, 128, 256, False, 0),  # full-width mamba2-130m, a 512-token prompt
+    (1, 256, 24, 64, 128, 256, True, 0),   # a chunked-prefill slice with carried state
+    (2, 44, 4, 32, 16, 256, True, 0),      # a ragged 44-token slice
+    (1, 96, 3, 8, 8, 32, False, 0),        # P under one 16-column slice, N = 8
+    (2, 96, 2, 16, 12, 32, True, 1),       # rows that are not 16-byte aligned: element loads
+])
+def test_ssd_scan_kernel_matches_plain(card, dtype, b, s, h, p, n, chunk, init, pad):
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=card).manual_seed(5)
+    # x, B and C as the model slices them out of one conv output
+    conv = (torch.randn(b, s, h * p + 2 * n + pad, generator=g, device=card) * 0.5).to(dt)
+    xh = conv[..., :h * p].reshape(b, s, h, p)
+    bb, cc = conv[..., h * p:h * p + n], conv[..., h * p + n:h * p + 2 * n]
+    dts = torch.rand(b, s, h, generator=g, device=card) * 0.49 + 0.01
+    a = -(torch.rand(h, generator=g, device=card) + 0.5)
+    st = torch.randn(b, h, p, n, generator=g, device=card) if init else None
+    before = ops.LAUNCHES["ssd_scan"]
+    y, fin = ops.ssd_scan(xh, bb, cc, dts, a, chunk, st)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ssd_scan"] == before + 1
+    want_y, want_fin = ref.ssd_scan(xh, bb, cc, dts, a, chunk, st)
+    torch.testing.assert_close(y, want_y, **F32)
+    torch.testing.assert_close(fin, want_fin, **F32)
+
+
+@pytest.mark.parametrize("dtype,row", [
+    ("bfloat16", 16 * 2 * 128),            # a qwen2.5-3b page: 16 tokens x 2 heads x 128
+    ("float32", 4 * 2 * 32),
+    ("uint8", 13),                         # rows that are not 16-byte multiples
+    ("int16", 7),
+])
+def test_paged_gather_kernel_bit_equal_to_plain(card, dtype, row):
+    g = torch.Generator(device=card).manual_seed(6)
+    layers, n_pages, lanes, slots = 3, 40, 5, 8
+    pool = (torch.randn(layers, n_pages, row, generator=g, device=card) * 100).to(
+        getattr(torch, dtype))
+    bt = torch.randperm(n_pages, generator=g, device=card)[: lanes * slots].reshape(
+        lanes, slots).int()
+    bt[0] = -1
+    bt[1, 3:] = -1
+    bt[2, 1] = -1                                            # a hole inside lane 2
+    before = ops.LAUNCHES["paged_gather"]
+    got = ops.paged_gather(pool, bt)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["paged_gather"] == before + 1
+    assert torch.equal(got, ref.paged_gather(pool, bt))
+    assert torch.all(got[:, 0] == 0)
 
 
 def _tol(dtype):
