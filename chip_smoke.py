@@ -6,9 +6,10 @@
 Run from the root of a checkout (it imports ``src/repro_torch`` beside it;
 it never imports JAX or the ``repro`` package).  It drives the port's
 paths: paged-KV serving of qwen2.5-3b, ConvNet inference of VGG16, serving
-of mamba2-130m, and the gather decode path.  Phases, each fatal:
+of mamba2-130m, the gather decode path, and training of qwen2.5-3b.  Every
+path runs at full width and full depth.  Phases, each fatal:
 
-1. build the seven CUDA kernels from ``src/repro_torch/kernels/csrc``
+1. build the eight CUDA kernels from ``src/repro_torch/kernels/csrc``
    (``nvcc``, printing the ``-Xptxas -v`` register report) and name the card;
 2. hold each kernel against its plain PyTorch version on the card at its
    path's shapes, in bfloat16 and float32 (attention: qwen2.5-3b's 16 query
@@ -17,9 +18,12 @@ of mamba2-130m, and the gather decode path.  Phases, each fatal:
    matmul: fc6; all at batch 16; ``ssd_scan``: full-width mamba2-130m, a
    512-token prompt in 256-token chunks from zero and from a carried state,
    and a ragged 44-token slice; ``paged_gather``: a full-width qwen2.5-3b
-   cache leaf, 36 layers, 8 lanes x 64 slots with -1 holes, bit-equal), and
-   time kernel, plain version, one PyTorch library call (SDPA, ``F.conv2d``,
-   ``F.max_pool2d``, ``torch.matmul``, ``index_select``; never used by the
+   cache leaf, 36 layers, 8 lanes x 64 slots with -1 holes, bit-equal;
+   ``stream_gd``: full-width qwen2.5-3b's largest leaf, seg0's mlp.w_up, in
+   the sgd launch, the two mixed-type in-place momentum launches and J = 3
+   and 4 in float32, each bit-equal), and time kernel, plain version, one
+   PyTorch library call (SDPA, ``F.conv2d``, ``F.max_pool2d``,
+   ``torch.matmul``, ``index_select``, ``torch.add``; never used by the
    port; none computes ``ssd_scan``) and the bound;
 3. serve the same requests with the reduced qwen2.5-3b engine in float32 on
    the card and on the CPU (plain kernels), whole-prompt and chunked
@@ -46,7 +50,18 @@ of mamba2-130m, and the gather decode path.  Phases, each fatal:
 9. the gather decode path: reduced qwen2.5-3b in float32 with
    ``decode_path="gather"`` gives the CPU's tokens and the card's paged
    tokens; full-width qwen2.5-3b with it serves 16 requests through
-   ``paged_gather``, and its decode step is timed beside the paged path's.
+   ``paged_gather``, and its decode step is timed beside the paged path's;
+10. train reduced qwen2.5-3b in float32 on the card and on the CPU from the
+    same weights and batches, 4 steps of sgd, momentum and adamw with 1 and
+    2 microbatches: losses and grad norms within 1e-4 relative at every
+    step, parameters within 1e-4; and a card Trainer run with a crash
+    injected at step 6 resumes from its checkpoint (under ``build/``) to
+    step 12 with the clean run's final loss;
+11. train full-width qwen2.5-3b through ``repro_torch.launch.train --full``
+    (bf16, seeded random weights, momentum, seq 1024, global batch 8 in 4
+    microbatches, remat full) for 6 steps: every loss finite, 28
+    ``stream_gd`` launches per step; step ms, trained tokens/s, peak memory
+    and a profiled step's split into forward+backward, update and the rest.
 
 Then it prints one JSON line with each kernel's numbers, the card's name
 and power limit, and, last, ``{"ok": true, "device": {...}}``.  Without a
@@ -54,8 +69,10 @@ card, or without the package beside it, it exits non-zero and prints no
 result.
 """
 import dataclasses
+import gc
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -92,6 +109,8 @@ KERNELS = {
                  "src/repro/kernels/ssd_scan.py:89", None),
     "paged_gather": ("src/repro_torch/kernels/csrc/paged_gather.cu",
                      "src/repro/kernels/paged_attn.py:45", "index_select"),
+    "stream_gd": ("src/repro_torch/kernels/csrc/stream_gd.cu",
+                  "src/repro/kernels/stream_gd.py:28", "torch.add"),
 }
 
 
@@ -110,13 +129,14 @@ def ptxas_report(text: str) -> list[str]:
     """One line per kernel instantiation from nvcc's ``-Xptxas -v`` output:
     registers, spills (shared memory is dynamic, sized at launch)."""
     out, name, spill = [], None, ""
-    int_arg = {"maxpool_valid": "V", "matmul_tiled": "aligned"}     # else head_dim
+    int_arg = {"maxpool_valid": "V", "matmul_tiled": "aligned",
+               "stream_gd_update": "J"}                              # else head_dim
     types = {"f": "f32", "13__nv_bfloat16": "bf16", "5uint4": "16 B", "5uint2": "8 B",
              "j": "4 B", "t": "2 B", "h": "1 B", None: ""}
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '.*?(paged_decode_attn|paged_combine|"
                       r"flash_attn_fwd|flash_attn_mma|conv_igemm|maxpool_valid|matmul_tiled|"
-                      r"ssd_chunk_scan|gather_rows)"
+                      r"ssd_chunk_scan|gather_rows|stream_gd_update)"
                       r"I(13__nv_bfloat16|5uint4|5uint2|f|j|t|h)?(?:L[ib](\d+)E)?", line)
         if m:
             label = int_arg.get(m.group(1), "D")
@@ -578,6 +598,70 @@ def vgg16_card_vs_cpu(layers, batch, px) -> None:
         raise SystemExit("chip_smoke: VGG16 logits differ between card and CPU")
 
 
+def stream_gd_cases() -> dict:
+    """``stream_gd`` on the largest full-width qwen2.5-3b leaf (seg0's
+    mlp.w_up, 36 x 2048 x 11008 elements) in each form a training step
+    launches it: sgd (bf16 w, bf16 g, in place), the two momentum launches
+    (f32 m from a bf16 g, then bf16 w from the f32 m, both in place), and
+    J = 3 and 4 in float32.  Each is bit-equal to the plain version.  The
+    row times the sgd launch; the library yardstick is ``torch.add(w, g,
+    alpha=-lr, out=w)`` (Eq. 1 with C0 = 1, one call)."""
+    from repro_torch.kernels import ops, ref
+
+    shape = (36, 2048, 11008)
+    m_el = 36 * 2048 * 11008
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    bf, f32 = torch.bfloat16, torch.float32
+    w = torch.randn(shape, generator=gen, device="cuda").mul_(0.02).to(bf)
+    g = torch.randn(shape, generator=gen, device="cuda").mul_(1e-3).to(bf)
+    m = torch.randn(shape, generator=gen, device="cuda").mul_(1e-3)
+    lr, wd, beta = 1e-3, 0.01, 0.9
+    sgd_c = (1.0 - lr * wd, -lr)
+
+    def check(label, out, streams, coeffs):
+        want = ref.stream_gd(streams, ops.coeffs_f32(coeffs), out.dtype)
+        got = ops.stream_gd_into(out, streams, coeffs)
+        torch.cuda.synchronize()
+        same = torch.equal(got, want)
+        log(f"  stream_gd[{label}]: bit-equal to the plain version: {same}")
+        if not same:
+            raise SystemExit(f"chip_smoke: stream_gd {label} differs from its plain version")
+        del want
+
+    check("sgd: w bf16 <- (w bf16, g bf16), in place", w, (w, g), sgd_c)
+    check("momentum 1: m f32 <- (m f32, g bf16), in place", m, (m, g), (beta, 1.0))
+    check("momentum 2: w bf16 <- (w bf16, m f32), in place", w, (w, m), sgd_c)
+    x = [torch.randn(shape, generator=gen, device="cuda") for _ in range(3)]
+    out = torch.empty(shape, device="cuda")
+    check("J=3 float32", out, x, (0.5, -1.0, 0.25))
+    check("J=4 float32", out, x + [m], (0.5, -1.0, 0.25, 2.0))
+    del x, out
+    torch.cuda.empty_cache()
+
+    def sgd_kernel():
+        return ops.stream_gd_into(w, (w, g), sgd_c)
+
+    def sgd_plain():
+        return ref.stream_gd((w, g), ops.coeffs_f32(sgd_c), bf)
+
+    def library():
+        return torch.add(w, g, alpha=-lr, out=w)
+
+    def momentum_kernel():
+        ops.stream_gd_into(m, (m, g), (beta, 1.0))
+        return ops.stream_gd_into(w, (w, m), sgd_c)
+
+    row = timed_row("stream_gd", 0.0, sgd_kernel, sgd_plain, library, 6.0 * m_el,
+                    3.0 * m_el, f32, f"sgd, seg0 mlp.w_up {shape} bf16 in place")
+    mom_ms = time_ms(momentum_kernel, 20)
+    mom_bound, _ = bound(18.0 * m_el, 6.0 * m_el, f32)
+    log(f"  momentum step of the leaf (two launches): {mom_ms:.4f} ms, bound "
+        f"{mom_bound:.4f} ms (18 B per element)")
+    del w, g, m
+    torch.cuda.empty_cache()
+    return row
+
+
 # ---------------------------------------------------------------------------
 # phases 3 and 4: the serving engine
 # ---------------------------------------------------------------------------
@@ -779,6 +863,223 @@ def ssm_prefill_ms(model, params, vocab, seq: int = 512) -> None:
     log_groups("prefill", ms, *device_groups(run, 3))
 
 
+# ---------------------------------------------------------------------------
+# phases 10 and 11: training
+# ---------------------------------------------------------------------------
+
+
+# learning rates of phase 10: adamw at its default (3e-4).  Its step is
+# lr * m / (sqrt(v) + eps), which for a gradient element near eps turns
+# sum-order noise into a change of up to lr: at lr 1e-2 two of 65,536
+# elements moved 3.8e-4 apart between card and CPU (both right)
+LR = {"sgd": {"lr": 1e-2}, "momentum": {"lr": 1e-2}, "adamw": {}}
+
+
+def train_card_vs_cpu(smi) -> None:
+    """Reduced qwen2.5-3b in float32: 4 steps of each optimizer with 1 and 2
+    microbatches from the same weights and batches on the card and on the
+    CPU; losses and grad norms within 1e-4 relative at every step,
+    parameters within 1e-4 (atol = rtol)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_items, tree_map
+    from repro_torch.optim import get_optimizer
+    from repro_torch.train.train_step import make_train_step
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise SystemExit("chip_smoke: TF32 matmuls are on; float32 would not be float32")
+    cfg = dataclasses.replace(get_arch("qwen2.5-3b").reduced(), dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(10)
+    batches = [rng.integers(0, cfg.vocab_size, size=(4, 33)).astype(np.int32) for _ in range(4)]
+    for opt in ("sgd", "momentum", "adamw"):
+        for n_micro in (1, 2):
+            runs = {}
+            for dev in ("cpu", "cuda"):
+                o = get_optimizer(opt, **LR[opt])
+                p = tree_map(lambda t, d=dev: t.to(d, copy=True), params)
+                state = o.init(p)
+                step = make_train_step(model, o, n_microbatches=n_micro)
+                ops.reset_launches()
+                metrics = []
+                for toks in batches:
+                    t = torch.from_numpy(toks).to(dev)
+                    p, state, mt = step(p, state, {"tokens": t[:, :-1], "targets": t[:, 1:]})
+                    metrics.append((float(mt["loss"]), float(mt["grad_norm"])))
+                runs[dev] = (np.array(metrics), p, ops.LAUNCHES["stream_gd"])
+            (cm, cp, _), (gm, gp, launches) = runs["cpu"], runs["cuda"]
+            rel = float(np.max(np.abs(gm - cm) / np.abs(cm)))
+            perr = max(float(((a.cpu() - b).abs() / (1e-4 + 1e-4 * b.abs())).max())
+                       for (_, a), (_, b) in zip(tree_items(gp), tree_items(cp)))
+            log(f"  {opt}, {n_micro} microbatch(es): losses {['%.5f' % x for x in gm[:, 0]]}, "
+                f"max rel diff of loss/grad norm {rel:.2e}, params at {perr:.3f} of the "
+                f"1e-4 tolerance; {launches} stream_gd launches on the card")
+            if rel > 1e-4 or perr > 1.0 or not np.isfinite(gm).all():
+                raise SystemExit(f"chip_smoke: {opt} training on the card differs from the CPU")
+            want = {"sgd": 14, "momentum": 28, "adamw": 0}[opt] * len(batches)
+            if launches != want:
+                raise SystemExit(f"chip_smoke: {launches} stream_gd launches, expected {want}")
+
+
+def train_fault_on_card() -> None:
+    """The Trainer on the card (reduced qwen2.5-3b, sgd, checkpoints every 4
+    steps under build/): a crash injected at step 6 restores step 4 and
+    resumes to step 12 with the clean run's final loss."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.dist.fault import FaultInjector
+    from repro_torch.models import build_model
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = get_arch("qwen2.5-3b").reduced()
+    root = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    out = {}
+    for label, fault in (("faulty", FaultInjector(fail_at={6})), ("clean", None)):
+        data = SyntheticLMData(cfg, batch=2, seq=16, device="cuda")
+        tcfg = TrainerConfig(total_steps=12, ckpt_dir=str(root / label), ckpt_every=4,
+                             optimizer="sgd", lr=1e-3, log_every=100)
+        tr = Trainer(build_model(cfg), data, tcfg, fault_injector=fault, device="cuda")
+        out[label] = tr.run_with_restarts(0)
+    shutil.rmtree(root, ignore_errors=True)
+    (fs, fr), (cs, cr) = out["faulty"], out["clean"]
+    log(f"  Trainer with a crash at step 6: {fr} restart(s), step {fs.step}, last loss "
+        f"{fs.losses[-1]:.6f}; clean run: step {cs.step}, last loss {cs.losses[-1]:.6f}")
+    if (fr, fs.step, cr, cs.step) != (1, 12, 0, 12) or \
+            abs(fs.losses[-1] - cs.losses[-1]) > 1e-4 * abs(cs.losses[-1]):
+        raise SystemExit("chip_smoke: crash -> restore -> resume did not reproduce the clean run")
+
+
+def step_split(tr, state) -> tuple[float, dict]:
+    """One more step of ``tr`` under torch.profiler: device ms of all
+    kernels, of the update (``stream_gd`` kernels), of the gradient sums,
+    division and norm (the ``train_step.accumulate`` ranges), of cuBLAS,
+    and the step's wall ms.  The rest of the device time is the forward
+    and backward (whose kernels autograd launches from its own thread)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    tr.tcfg.total_steps = state.step + 1
+    with torch.profiler.profile(activities=acts) as prof:
+        tr.run(state)
+        torch.cuda.synchronize()
+    split = {"busy": 0.0, "update": 0.0, "update_launches": 0, "accumulate": 0.0,
+             "matmul": 0.0, "launches": 0, "top": []}
+    for e in prof.key_averages():
+        cuda = str(getattr(e, "device_type", "")).endswith("CUDA")
+        if e.key.startswith(("train_step.", "ProfilerStep")):
+            if not cuda and e.key == "train_step.accumulate":
+                split["accumulate"] += e.device_time_total / 1e3
+            continue
+        if not cuda:
+            continue
+        ms = e.self_device_time_total / 1e3
+        split["busy"] += ms
+        split["launches"] += e.count
+        split["top"].append((ms, e.count, e.key[:100]))
+        name = e.key.lower()
+        if "stream_gd" in name:
+            split["update"] += ms
+            split["update_launches"] += e.count
+        elif any(t in name for t in ("gemm", "gemv", "cutlass", "nvjet", "cublas", "matmul")):
+            split["matmul"] += ms
+    return state.step_s[-1] * 1e3, split
+
+
+def train_full_width(smi) -> int:
+    """Full-width qwen2.5-3b through the launcher: bf16, seeded random
+    weights, momentum, seq 1024, global batch 8 in 4 microbatches, remat
+    full.  Every loss finite and 28 stream_gd launches per step; prints
+    step ms, tokens/s, peak memory and a profiled step's split.  Returns
+    the stream_gd launches of the run."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.models.common import tree_items
+
+    steps, batch, seq = 6, 8, 1024
+    gc.collect()                      # earlier phases' engines and weights
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    tr, state, restarts = train_main(
+        ["--arch", "qwen2.5-3b", "--full", "--optimizer", "momentum", "--steps", str(steps),
+         "--batch", str(batch), "--seq", str(seq), "--lr", "1e-4"])
+    torch.cuda.synchronize()
+    launches = ops.LAUNCHES["stream_gd"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    cfg = tr.model.cfg
+    leaves = [t for _, t in tree_items(state.params)]
+    n_params = sum(t.numel() for t in leaves)
+    log(f"  {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, remat {cfg.remat}, "
+        f"{tr.tcfg.n_microbatches} microbatches; {n_params / 1e9:.3f} B parameters in "
+        f"{len(leaves)} leaves")
+    log(f"  losses {['%.4f' % x for x in state.losses]}; restarts {restarts}")
+    timed = state.step_s[1:]
+    step_ms = statistics.median(timed) * 1e3
+    log(f"  step {step_ms:.1f} ms (median of steps 2-{steps}; first step "
+        f"{state.step_s[0] * 1e3:.1f} ms), {batch * seq / step_ms * 1e3:.0f} trained tokens/s, "
+        f"peak device memory {peak:.2f} GiB, {held:.2f} GiB of it held before the run ({smi})")
+    log(f"  stream_gd launches {launches} = {launches / steps:g} per step")
+    if state.step != steps or not all(np.isfinite(state.losses)):
+        raise SystemExit("chip_smoke: full-width training gave a non-finite loss")
+    if launches != 28 * steps:
+        raise SystemExit(f"chip_smoke: {launches} stream_gd launches, expected {28 * steps}")
+    wall_ms, split = step_split(tr, state)
+    busy = split["busy"]
+    # m <- (m f32, g) then w <- (w, m f32): each stream read once, each output
+    # written once; the grads are float32 with more than one microbatch
+    g_size = 4 if tr.tcfg.n_microbatches > 1 else None
+    bytes_update = sum(t.numel() * (4 + (g_size or t.element_size()) + 4
+                                    + t.element_size() + 4 + t.element_size())
+                       for t in leaves)
+    bound_update = bytes_update / HBM_BYTES_PER_S * 1e3
+    if busy == 0:
+        raise SystemExit("chip_smoke: the profiler recorded no device time for a step")
+    fb = busy - split["update"] - split["accumulate"]
+    log(f"  profiled step: {wall_ms:.1f} ms wall (profiler on), device busy {busy:.1f} ms "
+        f"over {split['launches']} launches = {100 * busy / step_ms:.1f} % of the unprofiled "
+        f"step, idle {100 * (1 - busy / step_ms):.1f} %")
+    log(f"    forward+backward (remat recompute included): {fb:.1f} ms "
+        f"({100 * fb / busy:.1f} %), of which cuBLAS {split['matmul']:.1f} ms")
+    log(f"    update (stream_gd, {split['update_launches']} launches): {split['update']:.2f} ms "
+        f"({100 * split['update'] / busy:.1f} %) against a bound of {bound_update:.2f} ms "
+        f"({bytes_update / 1e9:.1f} GB at 3.35 TB/s)")
+    log(f"    rest (float32 gradient sums, division, grad norm): {split['accumulate']:.1f} ms "
+        f"({100 * split['accumulate'] / busy:.1f} %)")
+    for ms, n, name in sorted(split["top"], reverse=True)[:10]:
+        log(f"      {ms:.1f} ms, {n} launches: {name}")
+    save_params_once(state.params, state.step)
+    del tr, state, leaves
+    torch.cuda.empty_cache()
+    return launches
+
+
+def save_params_once(params, step) -> None:
+    """Time one synchronous checkpoint of the full-width parameters (6.2 GB,
+    under build/, deleted after) where the disk has room for three."""
+    from repro_torch.models.common import tree_items
+    from repro_torch.train import checkpoint
+
+    nbytes = sum(t.numel() * t.element_size() for _, t in tree_items(params))
+    root = ROOT / "build" / "chip_smoke_full_ckpt"
+    free = shutil.disk_usage(ROOT).free
+    if free < 3 * nbytes:
+        log(f"  checkpoint of the parameters: not measured ({free / 1e9:.1f} GB free, "
+            f"{nbytes / 1e9:.1f} GB to write)")
+        return
+    t0 = time.perf_counter()
+    checkpoint.save(str(root), step, params, keep=1)
+    dt = time.perf_counter() - t0
+    ok = checkpoint.latest_step(str(root)) == step
+    shutil.rmtree(root, ignore_errors=True)
+    log(f"  checkpoint of the parameters ({nbytes / 1e9:.2f} GB, host copy + npz + fsync'd "
+        f"META): {dt:.1f} s = {nbytes / dt / 1e9:.2f} GB/s; complete: {ok}")
+    if not ok:
+        raise SystemExit("chip_smoke: the full-width checkpoint is incomplete")
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke: src/repro_torch is not beside this script; run it from the "
@@ -869,6 +1170,9 @@ def main() -> int:
         if row:
             log_row(row)
             rows["paged_gather"] = row
+    log("  stream_gd on full-width qwen2.5-3b's largest leaf (seg0 mlp.w_up):")
+    rows["stream_gd"] = stream_gd_cases()
+    log_row(rows["stream_gd"])
     log(f"  (times: median CUDA-event time per call, L2 flushed before each; {smi})")
 
     # -- phase 3 ----------------------------------------------------------------
@@ -985,6 +1289,16 @@ def main() -> int:
         f"({gather_ms / paged_ms:.2f}x)")
     del model, params
     torch.cuda.empty_cache()
+
+    # -- phase 10 ---------------------------------------------------------------
+    log("== phase 10: reduced qwen2.5-3b training in float32, card against CPU")
+    train_card_vs_cpu(smi)
+    train_fault_on_card()
+
+    # -- phase 11 ---------------------------------------------------------------
+    log("== phase 11: full-width qwen2.5-3b training (bf16, random weights, momentum) "
+        "on the card")
+    launches["stream_gd"] = train_full_width(smi)
 
     for name in KERNELS:
         rows[name]["launches"] = launches[name]

@@ -108,7 +108,8 @@ class ArchConfig:
     encoder: EncoderConfig | None = None
     vision: VisionStubConfig | None = None
     # numerics / execution (the execution knobs are the JAX package's; the
-    # port reads only dtype)
+    # port reads dtype, attn_chunk, remat ("none" or "full") and
+    # train_microbatches)
     dtype: str = "bfloat16"
     attn_chunk: int = 1024
     remat: str = "full"

@@ -28,6 +28,16 @@ def params_from_numpy(tree, device="cpu"):
     return tree_map(leaf, tree)
 
 
+def opt_state_from_numpy(state, device="cpu"):
+    """An optimizer state of the JAX package (``{"m": …[, "v": …], "count":
+    …}`` with numpy leaves) → the port's state: moment trees leaf for leaf,
+    in their own types (bf16 moments stay bf16), and ``count`` an int32
+    scalar tensor."""
+    if "count" not in state or not set(state) <= {"m", "v", "count"}:
+        raise ValueError(f"not an optimizer state of sgd/momentum/adamw: keys {sorted(state)}")
+    return params_from_numpy(state, device)
+
+
 def params_to_numpy(params):
     """The port's tensors → numpy arrays (bfloat16 leaves as float32)."""
 

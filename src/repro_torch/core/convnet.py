@@ -99,8 +99,9 @@ class ConvNetExecutor:
         tiles: dict[str, Tile4D] | None = None,
     ):
         if impl not in IMPLS:
-            raise ValueError(f"impl must be one of {IMPLS}, got {impl!r} (JAX's 'xla' "
-                             "has no counterpart; 'pallas' is 'kernel' here)")
+            raise ValueError(f"impl must be one of {IMPLS}, got {impl!r} (the JAX "
+                             "executor's 'xla' convolutions have no counterpart in this "
+                             "executor; 'pallas' is 'kernel' here)")
         self.layers = list(layers)
         self.impl = impl
         self.tiles = tiles or {}

@@ -21,7 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("paged_attn", "flash_attention", "stream_mac_conv", "stream_maxpool",
-           "tiled_matmul", "ssd_scan", "paged_gather")
+           "tiled_matmul", "ssd_scan", "paged_gather", "stream_gd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

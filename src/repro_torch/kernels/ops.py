@@ -4,14 +4,19 @@
 ``paged_attention`` takes q (B, H, D) and page pools (n_pages, PS, Hkv, D);
 ``stream_mac_conv`` takes NHWC x and HWIO w, ``stream_maxpool`` NHWC x and
 ``tiled_matmul`` (M, K) and (K, N) matrices, ``ssd_scan`` xh (B, S, H, P)
-with B/C (B, S, N), and ``paged_gather`` a (..., n_pages, F) pool with a
-(B, P) table, as ``repro.kernels.ops`` does (``ssd_scan`` also takes an
-initial state and returns the final one, and ``paged_gather`` keeps the
-leading layers dim instead of moving it).
+with B/C (B, S, N), ``paged_gather`` a (..., n_pages, F) pool with a
+(B, P) table, and ``stream_gd`` (J, *shape) streams with J coefficients, as
+``repro.kernels.ops`` does (``ssd_scan`` also takes an initial state and
+returns the final one, ``paged_gather`` keeps the leading layers dim
+instead of moving it, and ``stream_gd_into`` is the optimizer's form of
+``stream_gd``: separate streams of their own types, written in place).
 A CPU tensor runs the plain version in ``kernels.ref``.  A CUDA tensor
 launches the hand-written kernel from ``csrc/`` (built on first use by
 ``kernels.build``) or raises: there is no fallback from the card to the
-plain version.
+plain version.  No kernel has a backward, so every wrapper refuses an
+input that requires grad while grad mode is on (on the CPU too, so the
+CPU tests see what the card would do): its output would carry no
+gradient and training would go silently wrong.
 
 Each wrapper counts the kernels it launches in ``LAUNCHES`` (on the card
 only), so a run can show that its main path went through the kernels.  A
@@ -29,7 +34,8 @@ import torch.nn.functional as F
 from . import build, ref
 
 LAUNCHES = {"paged_decode_attention": 0, "flash_attention": 0, "stream_mac_conv": 0,
-            "stream_maxpool": 0, "tiled_matmul": 0, "ssd_scan": 0, "paged_gather": 0}
+            "stream_maxpool": 0, "tiled_matmul": 0, "ssd_scan": 0, "paged_gather": 0,
+            "stream_gd": 0}
 _count_lock = threading.Lock()
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -51,6 +57,8 @@ _SIGNATURES = {
     "tiled_matmul_plan": ("tiled_matmul", [_I] * 5 + [ctypes.POINTER(_I)]),
     "ssd_scan_launch": ("ssd_scan", [_I] + [_P] * 8 + [_I] * 6 + [_L] * 6 + [_P]),
     "paged_gather_launch": ("paged_gather", [_P, _P, _P, _L, _I, _I, _I, _L, _I, _P]),
+    "stream_gd_launch": ("stream_gd", [_I, ctypes.POINTER(_P), ctypes.POINTER(_I),
+                                       ctypes.POINTER(_F), _P, _I, _L, _I, _P]),
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128, 256)     # the head sizes the kernels are built for
@@ -128,6 +136,16 @@ def _check_cuda(name: str, *tensors: torch.Tensor, dense: bool = False,
     return _DTYPES[t0.dtype]
 
 
+def _no_grad(name: str, *tensors) -> None:
+    """Refuse inputs that would need a gradient through a kernel that has
+    no backward."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: the kernel has no backward; call it under "
+                           "torch.no_grad() or on tensors that do not require grad "
+                           "(training attends with impl='xla')")
+
+
 def _aligned16(*tensors: torch.Tensor) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in tensors)
 
@@ -158,6 +176,7 @@ def flash_attention(
     """Blocked GQA attention; masks keys at or past ``kv_len``, and (as
     asked) keys after each query (causal, query positions shifted by
     ``q_offset``) or ``window`` or more positions behind it."""
+    _no_grad("flash_attention", q, k, v)
     b, h, sq, d = q.shape
     _, hkv, sk, _ = k.shape
     if h % hkv:
@@ -197,6 +216,7 @@ def paged_attention(
     """Fused paged decode-attention read (GQA grouped, online softmax).
     Table entries other than -1 must name pages of the pools; the card path
     does not check them (that would read the table back to the host)."""
+    _no_grad("paged_attention", q, k_pool, v_pool)
     b, h, d = q.shape
     _, ps, hkv, _ = k_pool.shape
     if h % hkv:
@@ -244,6 +264,7 @@ def stream_mac_conv(
     path loads 16 bytes at a time, so a Ci that is not a multiple of 8 is
     zero-padded to one on x and w (VGG16's conv1 has Ci = 3), and w's Co to a
     multiple of 8; the output keeps Co."""
+    _no_grad("stream_mac_conv", x, w)
     n, h, wd, ci = x.shape
     kh, kw, wci, co = w.shape
     sy, sx = stride
@@ -280,6 +301,7 @@ def stream_maxpool(
 ) -> torch.Tensor:
     """VALID NHWC max-pooling, exact (the result is bit-equal to the plain
     version's)."""
+    _no_grad("stream_maxpool", x)
     n, h, wd, c = x.shape
     kh, kw = window
     sy, sx = stride
@@ -303,6 +325,7 @@ def tiled_matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """(M, K) @ (K, N) with float accumulation, output in x's type.  On the
     card K may be split over blocks (one launch all the same: the last block
     of each output tile sums the partials)."""
+    _no_grad("tiled_matmul", x, y)
     if x.ndim != 2 or y.ndim != 2 or x.shape[1] != y.shape[0]:
         raise ValueError(f"tiled_matmul: shapes {tuple(x.shape)} @ {tuple(y.shape)}")
     m, k = x.shape
@@ -351,6 +374,7 @@ def ssd_scan(
     path takes xh, b and c as strided views (contiguous last dims, as the
     model slices them out of one projection) in float32 or bfloat16, and N
     a multiple of 4."""
+    _no_grad("ssd_scan", xh, b, c, dt, a, init_state)
     bsz, sl, h, p = xh.shape
     n = b.shape[-1]
     q = min(int(chunk), sl)
@@ -387,6 +411,7 @@ def paged_gather(pool: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
     so one launch gathers every layer of a cache leaf.  On the card the
     pool must be contiguous and entries other than -1 must name pages (not
     checked: that would read the table back to the host)."""
+    _no_grad("paged_gather", pool)
     if pool.ndim < 2 or pool.shape[-2] < 1 or block_table.ndim != 2:
         raise ValueError(f"paged_gather: pool {tuple(pool.shape)} and table "
                          f"{tuple(block_table.shape)}")
@@ -408,3 +433,60 @@ def paged_gather(pool: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
              _sm_count(pool.device), torch.cuda.current_stream(pool.device).cuda_stream)
     _launched(lib, "paged_gather", err)
     return out
+
+
+MAX_STREAMS = 8                    # streams one stream_gd launch takes
+
+
+def coeffs_f32(coeffs) -> list[float]:
+    """The coefficients as Python floats rounded to float32 (what the kernel
+    gets, and what JAX makes of weak-typed scalars)."""
+    if isinstance(coeffs, torch.Tensor):
+        coeffs = coeffs.detach().float().cpu().tolist()
+    return [ctypes.c_float(float(c)).value for c in coeffs]
+
+
+def stream_gd_into(out: torch.Tensor, streams, coeffs) -> torch.Tensor:
+    """Eq. 1 into ``out``: ``out = sum_j coeffs[j] * streams[j]`` over
+    equally shaped contiguous tensors, each float32 or bfloat16 on its own,
+    summed in float32 in stream order and rounded once to ``out``'s type.
+    ``out`` may be one of the streams (the optimizer updates in place).
+    Returns ``out``."""
+    streams = list(streams)
+    c = coeffs_f32(coeffs)
+    _no_grad("stream_gd", out, *streams)
+    if not 1 <= len(streams) <= MAX_STREAMS or len(c) != len(streams):
+        raise ValueError(f"stream_gd: 1 to {MAX_STREAMS} streams with one coefficient "
+                         f"each, got {len(streams)} streams and {len(c)} coefficients")
+    tensors = (out, *streams)
+    if any(t.shape != out.shape or t.device != out.device or t.dtype not in _DTYPES
+           or not t.is_contiguous() for t in tensors):
+        got = [(tuple(t.shape), t.dtype, str(t.device), t.is_contiguous()) for t in tensors]
+        raise ValueError("stream_gd: streams and output must be contiguous float32 or "
+                         f"bfloat16 tensors of one shape on one device, got {got}")
+    if out.device.type == "cpu":
+        return out.copy_(ref.stream_gd(streams, c, out.dtype))
+    if out.device.type != "cuda":
+        raise ValueError(f"stream_gd: tensors must be on the CPU or a CUDA device, "
+                         f"got {out.device}")
+    if out.numel() == 0:
+        return out
+    j = len(streams)
+    lib, fn = _entry("stream_gd_launch")
+    err = fn(j, (_P * j)(*(t.data_ptr() for t in streams)),
+             (_I * j)(*(_DTYPES[t.dtype] for t in streams)), (_F * j)(*c),
+             out.data_ptr(), _DTYPES[out.dtype], out.numel(), _sm_count(out.device),
+             torch.cuda.current_stream(out.device).cuda_stream)
+    _launched(lib, "stream_gd", err)
+    return out
+
+
+def stream_gd(derivs: torch.Tensor, coeffs) -> torch.Tensor:
+    """Eq. 1 over arbitrary-shaped weights: derivs (J, *shape) of one type
+    and J coefficients → (*shape) in derivs' type (the JAX wrapper's
+    layout)."""
+    if derivs.ndim < 1:
+        raise ValueError("stream_gd: derivs must have a leading streams dim")
+    derivs = derivs.contiguous()
+    out = torch.empty(derivs.shape[1:], dtype=derivs.dtype, device=derivs.device)
+    return stream_gd_into(out, derivs.unbind(0), coeffs)

@@ -5,7 +5,9 @@ masks, float32 math) and are what ``kernels.ops`` runs for CPU tensors.  On
 the card they are the reference each CUDA kernel is held against, so they
 repeat the kernels' arithmetic with plain tensor ops and call no
 convolution or pooling library (a float32 cuDNN convolution would run TF32).
-``ssd_scan`` is the chunked, factorized form of ``repro/models/ssm.py``'s
+``stream_gd`` takes the optimizer's separate streams (JAX's oracle takes
+one stacked array; ``ops.stream_gd`` unstacks it).  ``ssd_scan`` is the
+chunked, factorized form of ``repro/models/ssm.py``'s
 ``ssd_chunked`` (the JAX oracle of the TPU kernel is the sequential
 recurrence, which it equals up to rounding).
 """
@@ -177,3 +179,15 @@ def ssd_scan(
         state = state * chunk_decay[:, ci, :, None, None] + states[:, ci]
     y_off = torch.einsum("bcin,bcih,bchpn->bcihp", cc, torch.exp(seg), torch.stack(prev, 1))
     return (y_diag + y_off).reshape(bsz, sl, h, p), state
+
+
+def stream_gd(streams, coeffs, out_dtype: torch.dtype) -> torch.Tensor:
+    """Paper Eq. 1, ``sum_j C_j * W^(j)``, as separate torch ops: each
+    stream widened to float32 and multiplied by its float32 coefficient,
+    the products added in stream order, the sum rounded once to
+    ``out_dtype``."""
+    acc = None
+    for x, c in zip(streams, coeffs):
+        term = x.float() * torch.tensor(c, dtype=torch.float32)
+        acc = term if acc is None else acc + term
+    return acc.to(out_dtype)

@@ -1,0 +1,65 @@
+"""Training launcher: ``python -m repro_torch.launch.train --arch <id> [...]``.
+
+Trains the reduced config of ``--arch`` (or, with ``--full``, the published
+one with ``cfg.train_microbatches`` microbatches) from seeded random
+weights on synthetic data, on the card unless ``--device cpu`` is given.
+The flags are those of ``python -m repro.launch.train`` that one card
+needs (no mesh, no overlap flags) plus ``--device``; ``--ckpt`` names a
+checkpoint directory to save into and resume from (none by default).
+The dense family trains; the others raise.
+"""
+import argparse
+
+from repro_torch.configs import get_arch
+from repro_torch.data.pipeline import SyntheticLMData
+from repro_torch.device import resolve
+from repro_torch.kernels import build
+from repro_torch.models import build_model
+from repro_torch.train.trainer import Trainer, TrainerConfig
+
+
+def main(argv=None):
+    """Returns (trainer, final state, restarts)."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--optimizer", default="adamw", choices=["sgd", "momentum", "adamw"])
+    ap.add_argument("--ckpt", default=None,
+                    help="checkpoint directory (saved every 25 steps and at the end; "
+                         "a rerun resumes from it); none by default")
+    ap.add_argument("--full", action="store_true",
+                    help="the published config, cfg.train_microbatches microbatches")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu (the plain PyTorch kernels)")
+    args = ap.parse_args(argv)
+
+    device = resolve(args.device)
+    cfg = get_arch(args.arch)
+    if not args.full:
+        cfg = cfg.reduced()
+    model = build_model(cfg)
+    data = SyntheticLMData(cfg, batch=args.batch, seq=args.seq, device=device)
+    tcfg = TrainerConfig(
+        total_steps=args.steps, ckpt_dir=args.ckpt, ckpt_every=25,
+        optimizer=args.optimizer, lr=args.lr,
+        n_microbatches=cfg.train_microbatches if args.full else 1,
+    )
+    if device.type == "cuda":
+        build.build()             # compile the kernels before the first step
+    print(f"training {cfg.name} on {device} for {args.steps} steps "
+          f"({tcfg.n_microbatches} microbatches of {args.batch // tcfg.n_microbatches})",
+          flush=True)
+    tr = Trainer(model, data, tcfg, device=device)
+    state, restarts = tr.run_with_restarts(0)
+    first = sum(state.losses[:10]) / max(len(state.losses[:10]), 1)
+    last = sum(state.losses[-10:]) / max(len(state.losses[-10:]), 1)
+    print(f"done: step={state.step} loss {first:.3f} -> {last:.3f} "
+          f"(restarts={restarts})", flush=True)
+    return tr, state, restarts
+
+
+if __name__ == "__main__":
+    main()

@@ -1,6 +1,8 @@
-"""Attention entry points of the model: whole-sequence / chunk attention and
-the paged decode read, both through the kernels of ``kernels.ops``, and the
-dense-cache decode read of the gather path in plain torch.
+"""Attention entry points of the model: whole-sequence / chunk attention
+(through the flash kernel of ``kernels.ops`` for serving, or the
+differentiable chunked scan ``flash_attention_xla`` for training), the
+paged decode read through the paged kernel, and the dense-cache decode
+read of the gather path in plain torch.
 
 Layouts follow ``repro/models/attention.py``: q (B, Sq, H, D) and k/v
 (B, Sk, Hkv, D) for ``attend``; one query per lane (B, H, D) against the
@@ -16,13 +18,96 @@ import torch
 from repro_torch.kernels import ops as kops
 
 
+NEG_INF = -1e30
+
+
+def _mask(qpos, kpos, causal: bool, window: int | None, kv_len):
+    m = kpos[None, :] < kv_len
+    if causal:
+        m = m & (qpos[:, None] >= kpos[None, :])
+    if window is not None:
+        m = m & ((qpos[:, None] - kpos[None, :]) < window)
+    return m            # (Sq, Sk_chunk)
+
+
+def flash_attention_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int | None = None,
+                        scale: float | None = None, q_offset: int = 0,
+                        kv_len: int | None = None, chunk: int = 1024) -> torch.Tensor:
+    """Nested-chunk streaming attention in plain, differentiable torch: the
+    port of ``repro/models/attention.py:flash_attention_xla`` with its
+    numerics.  q (B, Sq, H, D), k/v (B, Sk, Hkv, D) → (B, Sq, H, D).  Each q
+    block of ``chunk`` rows runs an online softmax over kv blocks of
+    ``chunk`` rows: the scaled query in q's type, scores, running max and
+    sum and the accumulator in float32, masked scores ``NEG_INF`` (the
+    causal / ``window`` / ``kv_len`` mask of ``_mask``), probabilities in
+    v's type for the PV product, and a final division by max(l, 1e-30).
+    The q blocks are not checkpointed one by one (JAX checkpoints them): the
+    model's per-layer remat bounds what a training step keeps."""
+    b, sq, h, d = q.shape
+    _, sk, hkv, _ = k.shape
+    rep = h // hkv
+    scale = scale if scale is not None else float(d) ** -0.5
+    kv_len = kv_len if kv_len is not None else sk
+    dev = q.device
+    qpos = q_offset + torch.arange(sq, device=dev)
+    kchunk = min(chunk, sk)
+    nk = -(-sk // kchunk)
+    kpad = nk * kchunk - sk
+    if kpad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, kpad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, kpad))
+    qchunk = min(chunk, sq)
+    nq = -(-sq // qchunk)
+    qpad = nq * qchunk - sq
+    qf = (q.reshape(b, sq, hkv, rep, d) * scale).float()
+    if qpad:
+        qf = torch.nn.functional.pad(qf, (0, 0, 0, 0, 0, 0, 0, qpad))
+        qpos = torch.nn.functional.pad(qpos, (0, qpad))
+    outs = []
+    for qi in range(nq):
+        qc = qf[:, qi * qchunk:(qi + 1) * qchunk].to(k.dtype).float()   # (B,qc,Hkv,rep,D)
+        qp = qpos[qi * qchunk:(qi + 1) * qchunk]
+        m_run = torch.full((b, hkv, rep, qchunk), NEG_INF, dtype=torch.float32, device=dev)
+        l_run = torch.zeros((b, hkv, rep, qchunk), dtype=torch.float32, device=dev)
+        acc = torch.zeros((b, hkv, rep, qchunk, d), dtype=torch.float32, device=dev)
+        for ki in range(nk):
+            kb = k[:, ki * kchunk:(ki + 1) * kchunk]
+            vb = v[:, ki * kchunk:(ki + 1) * kchunk]
+            kpos = torch.arange(ki * kchunk, (ki + 1) * kchunk, device=dev)
+            s = torch.einsum("bqgrd,bkgd->bgrqk", qc, kb.float())
+            msk = _mask(qp, kpos, causal, window, kv_len)
+            s = torch.where(msk, s, NEG_INF)
+            m_new = torch.maximum(m_run, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            p = torch.where(msk, p, 0.0)
+            alpha = torch.exp(m_run - m_new)
+            l_run = l_run * alpha + p.sum(dim=-1)
+            pv = torch.einsum("bgrqk,bkgd->bgrqd", p.to(vb.dtype).float(), vb.float())
+            acc = acc * alpha[..., None] + pv
+            m_run = m_new
+        out = acc / torch.clamp(l_run[..., None], min=1e-30)
+        outs.append(out.permute(0, 3, 1, 2, 4))                         # (B,qc,Hkv,rep,D)
+    out = torch.cat(outs, dim=1) if nq > 1 else outs[0]
+    return out.reshape(b, nq * qchunk, h, d)[:, :sq].to(q.dtype)
+
+
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
            window: int | None = None, scale: float | None = None, q_offset: int = 0,
-           kv_len: int | None = None) -> torch.Tensor:
+           kv_len: int | None = None, impl: str = "kernel",
+           chunk: int = 1024) -> torch.Tensor:
     """Blocked GQA attention → (B, Sq, H, D).  ``q_offset`` is the absolute
     position of q[:, 0] and ``kv_len`` the number of valid cache rows, both
     run-time values (chunked prefill attends a chunk at an offset against a
-    capacity-length cache)."""
+    capacity-length cache).  ``impl="kernel"`` (serving) runs the flash
+    kernel, which has no backward; ``impl="xla"`` (training, as JAX's train
+    step attends) the differentiable ``flash_attention_xla`` in blocks of
+    ``chunk``."""
+    if impl == "xla":
+        return flash_attention_xla(q, k, v, causal=causal, window=window, scale=scale,
+                                   q_offset=q_offset, kv_len=kv_len, chunk=chunk)
+    if impl != "kernel":
+        raise ValueError(f"attend: impl must be 'kernel' or 'xla', got {impl!r}")
     out = kops.flash_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=causal,
         window=window, scale=scale, q_offset=q_offset, kv_len=kv_len)

@@ -11,22 +11,27 @@ small).
 A dense layer is pre-norm attention + residual, pre-norm gated MLP +
 residual.  Attention goes through ``models.attention``: ``attend`` (the
 flash kernel) for prefill and chunked prefill, ``paged_decode`` (the
-paged-decode kernel) for the serving engine's paged decode step, and the
+paged-decode kernel) for the serving engine's paged decode step, the
 plain ``decode_attention`` for the dense ``decode_step`` of the gather
-path.  An ssm layer is pre-norm Mamba-2 + residual (``models.ssm``; its
-prefill runs the ``ssd_scan`` kernel, its decode step is plain torch).
-Projections and the MLP stay ``torch.matmul``, as the JAX package leaves
-them to XLA.
+path, and ``attend(impl="xla")`` (the differentiable chunked scan) for the
+training ``forward``/``loss``, which the dense family has.  An ssm layer is
+pre-norm Mamba-2 + residual (``models.ssm``; its prefill runs the
+``ssd_scan`` kernel, its decode step is plain torch).  Projections and the
+MLP stay ``torch.matmul``, as the JAX package leaves them to XLA.
 
-Caches are written in place: ``extend_step`` into the caller's private
-prefill tree, ``decode_step_paged`` into the page pools and the per-lane
-state leaves (the serving engine's decode loop is their only writer), and
+The training forward is functional (autograd runs through it) and shares
+``_qkv``, ``_rope_qk`` and ``mlp_apply`` with serving; the serving methods
+run under ``torch.no_grad()``, and their caches are written in place:
+``extend_step`` into the caller's private prefill tree,
+``decode_step_paged`` into the page pools and the per-lane state leaves
+(the serving engine's decode loop is their only writer), and
 ``decode_step`` into the gathered views' k/v (its new recurrent state comes
 back as new tensors, which ``absorb_decode`` keeps for active lanes only).
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve
 
@@ -95,6 +100,15 @@ def _stack(tree: dict, n: int) -> dict:
 def _layer(tree: dict, r: int) -> dict:
     """Layer r's view of a stacked tree (no copies)."""
     return {k: _layer(v, r) if isinstance(v, dict) else v[r] for k, v in tree.items()}
+
+
+def _unstack(tree: dict, n: int) -> list[dict]:
+    """The n layers' views of a stacked tree through one ``unbind`` per leaf,
+    whose backward stacks the n layer gradients once (indexing each layer
+    would add a full-size zero-padded gradient per layer)."""
+    views = {k: _unstack(v, n) if isinstance(v, dict) else v.unbind(0)
+             for k, v in tree.items()}
+    return [{k: v[r] for k, v in views.items()} for r in range(n)]
 
 
 def _proj(x, w, bias=None):
@@ -199,6 +213,61 @@ class DecoderLM:
     def _layers(self, params):
         seg = params["seg0"][self.seg]
         return (_layer(seg, r) for r in range(self.cfg.n_layers))
+
+    # -- training API -------------------------------------------------------
+
+    def _train_layer(self, p, x, tables, impl):
+        q, k, v = _qkv(self.cfg, p["attn"], self._norm(p["ln1"], x))
+        q, k = _rope_qk(q, k, tables)
+        out = attend(q, k, v, causal=True, impl=impl, chunk=self.cfg.attn_chunk)
+        return self._attn_out(p, out, x)
+
+    def forward(self, params, tokens, impl: str = "xla"):
+        """tokens (B, S) → (logits (B, S, V) in the model's type, aux loss
+        (a float32 zero: the dense family has no MoE)).  Differentiable;
+        ``cfg.remat == "full"`` recomputes each layer in the backward
+        (``torch.utils.checkpoint``, one per layer), ``"none"`` keeps every
+        activation.  ``impl="xla"`` attends with the chunked scan, as JAX's
+        train step does; ``"kernel"`` runs the flash kernel, which has no
+        backward and refuses grad-requiring inputs."""
+        cfg = self.cfg
+        if self.kind != "dense":
+            raise NotImplementedError(
+                f"training of the {self.kind!r} family is not ported (its ssd_chunked "
+                "has no differentiable form in the port yet)")
+        if cfg.remat not in ("none", "full"):
+            raise NotImplementedError(f"remat={cfg.remat!r} is not ported ('none' or 'full')")
+        x = self._embed(params, tokens.long())
+        s = x.shape[1]
+        tables = self._rope(torch.arange(s, device=x.device)[None])
+        layers = _unstack(params["seg0"][self.seg], cfg.n_layers)
+        for p in layers:
+            if cfg.remat == "full":
+                x = checkpoint(self._train_layer, p, x, tables, impl, use_reentrant=False)
+            else:
+                x = self._train_layer(p, x, tables, impl)
+        return self._head(params, x), torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def loss(self, params, batch, impl: str = "xla"):
+        """Mean next-token cross-entropy + aux.  batch: {"tokens",
+        "targets"[, "loss_mask"]}; the padded vocabulary is masked with -1e30
+        and the log-softmax taken in float32, as in JAX."""
+        cfg = self.cfg
+        logits, aux = self.forward(params, batch["tokens"], impl)
+        targets = batch["targets"].long()
+        logits = logits.float()
+        if cfg.padded_vocab != cfg.vocab_size:
+            col = torch.arange(logits.shape[-1], device=logits.device) >= cfg.vocab_size
+            logits = torch.where(col, -1e30, logits)
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -logp.gather(-1, targets[..., None])[..., 0]
+        mask = batch.get("loss_mask")
+        if mask is not None:
+            nll = nll * mask
+            denom = torch.clamp(mask.sum(), min=1.0)
+        else:
+            denom = nll.numel()
+        return nll.sum() / denom + aux
 
     # -- serving API ----------------------------------------------------------
 

@@ -1,6 +1,7 @@
 """Card-only tests of the port: each CUDA kernel against its plain version,
-the served tokens (dense and mamba2, paged and gather decode paths) and the
-ConvNet logits on the card against the CPU.
+the served tokens (dense and mamba2, paged and gather decode paths), the
+ConvNet logits and the reduced qwen2.5-3b train step on the card against
+the CPU.
 
 Marked ``cuda``; they skip (from a fixture, so every pytest worker collects
 the same tests) when no card is present.  On a machine with a card:
@@ -261,3 +262,77 @@ def test_convnet_logits_on_card_match_cpu(card, impl):
             ops.LAUNCHES["tiled_matmul"]) == (convs, 5, 3)
     torch.testing.assert_close(got.cpu(), want, **F32)
     assert torch.equal(got.cpu().argmax(-1), want.argmax(-1))
+
+
+# (streams' types, output type, in place): the optimizer's launches (sgd; the
+# momentum's moment and weight updates, with f32 or bf16 grads), J = 3, 4, 8
+GD_CASES = [
+    (("bfloat16", "bfloat16"), "bfloat16", True),
+    (("float32", "bfloat16"), "float32", True),
+    (("float32", "float32"), "float32", True),
+    (("bfloat16", "float32"), "bfloat16", True),
+    (("float32",) * 3, "float32", False),
+    (("float32",) * 4, "float32", False),
+    (("bfloat16", "float32") * 4, "float32", False),
+]
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("m", [8 * 4099, 1003])
+@pytest.mark.parametrize("types,out_t,in_place", GD_CASES)
+def test_stream_gd_kernel_bit_equal_to_plain(card, types, out_t, in_place, m, offset):
+    """Separate float32 products and sums in stream order on both sides: the
+    same bits.  ``offset`` 1 puts every stream off 16 bytes (element path);
+    m = 1003 leaves a tail past the last 8."""
+    g = torch.Generator(device=card).manual_seed(len(types))
+    streams = [torch.randn(m + offset, generator=g, device=card).to(getattr(torch, t))[offset:]
+               for t in types]
+    coeffs = [0.999, -0.05, 0.5, 1.0, -2.0, 0.25, 3.0, -0.125][:len(types)]
+    want = ref.stream_gd([t.clone() for t in streams], ops.coeffs_f32(coeffs),
+                         getattr(torch, out_t))
+    out = (streams[0] if in_place else
+           torch.empty(m + offset, dtype=getattr(torch, out_t), device=card)[offset:])
+    before = ops.LAUNCHES["stream_gd"]
+    got = ops.stream_gd_into(out, streams, coeffs)
+    torch.cuda.synchronize()
+    assert got is out and ops.LAUNCHES["stream_gd"] == before + 1
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n_micro", [1, 2])
+@pytest.mark.parametrize("opt", ["sgd", "momentum", "adamw"])
+def test_train_steps_on_card_match_cpu(card, opt, n_micro):
+    """Reduced qwen2.5-3b in float32: the same weights and batches on the
+    card (stream_gd kernel, cuBLAS in full float32) and on the CPU; losses,
+    grad norms and parameters within 1e-4 (sum orders differ)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_items, tree_map
+    from repro_torch.optim import get_optimizer
+    from repro_torch.train.train_step import make_train_step
+
+    model = build_model(dataclasses.replace(get_arch("qwen2.5-3b").reduced(), dtype="float32"))
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    runs = {}
+    for dev in ("cpu", card):
+        # adamw at its default lr (3e-4): its step lr * m / (sqrt(v) + eps)
+        # turns sum-order noise in a gradient element near eps into a change
+        # of up to lr (at lr 1e-2, 3.8e-4 on two of 65,536 elements)
+        o = get_optimizer(opt, **({} if opt == "adamw" else {"lr": 1e-2}))
+        p = tree_map(lambda t: t.to(dev, copy=True), params)
+        state = o.init(p)
+        step = make_train_step(model, o, n_microbatches=n_micro)
+        rng = np.random.default_rng(0)
+        ops.reset_launches()
+        metrics = []
+        for _ in range(3):
+            toks = torch.from_numpy(rng.integers(0, 512, size=(4, 25)).astype(np.int32)).to(dev)
+            p, state, m = step(p, state, {"tokens": toks[:, :-1], "targets": toks[:, 1:]})
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        runs[str(dev)] = (metrics, p, ops.LAUNCHES["stream_gd"])
+    (cm, cp, cl), (gm, gp, gl) = runs["cpu"], runs["cuda"]
+    per_step = {"sgd": 14, "momentum": 28, "adamw": 0}[opt]
+    assert (cl, gl) == (0, 3 * per_step)
+    np.testing.assert_allclose(gm, cm, rtol=1e-4)
+    for (_, a), (_, b) in zip(tree_items(gp), tree_items(cp)):
+        torch.testing.assert_close(a.cpu(), b, **F32)

@@ -14,6 +14,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -84,6 +85,23 @@ def test_entry_points_raise_without_a_card():
         model.init(torch.Generator().manual_seed(0), "cuda")
     eng = ServeEngine(model, params, EngineConfig(batch_slots=1, max_len=32), device="cpu")
     assert eng.device.type == "cpu"
+
+
+def test_train_launcher_raises_without_a_card_unless_asked_for_the_cpu():
+    _no_card()
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.launch.train import main
+
+    args = ["--arch", "qwen2.5-3b", "--steps", "2", "--batch", "2", "--seq", "8",
+            "--optimizer", "momentum"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(args)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SyntheticLMData(get_arch("qwen2.5-3b").reduced(), batch=2, seq=8)
+    _, state, restarts = main(args + ["--device", "cpu"])
+    assert state.step == 2 and restarts == 0
+    assert all(np.isfinite(state.losses))
 
 
 def test_chip_smoke_refuses_without_card_and_alone(tmp_path):

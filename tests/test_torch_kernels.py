@@ -22,7 +22,7 @@ from repro_torch.kernels import ref as tref  # noqa: E402
 TOL = dict(atol=1e-5, rtol=1e-5)
 # every kernel the port counts launches of
 KERNELS = ("paged_decode_attention", "flash_attention", "stream_mac_conv", "stream_maxpool",
-           "tiled_matmul", "ssd_scan", "paged_gather")
+           "tiled_matmul", "ssd_scan", "paged_gather", "stream_gd")
 
 # id, b, h, hkv, sq, sk, d, causal, window, q_offset, kv_len
 FLASH_CASES = [
@@ -112,6 +112,7 @@ def test_cpu_calls_launch_nothing_and_other_devices_raise():
     tops.ssd_scan(torch.zeros(1, 8, 2, 4), torch.zeros(1, 8, 4), torch.zeros(1, 8, 4),
                   torch.zeros(1, 8, 2), torch.zeros(2), 4)
     tops.paged_gather(kp.flatten(1), bt)
+    tops.stream_gd(torch.zeros(2, 8), [1.0, -0.1])
     assert tops.LAUNCHES == dict.fromkeys(KERNELS, 0)
     # a tensor on neither the CPU nor a card is refused, never run plain
     with pytest.raises(ValueError, match="CPU or a CUDA device"):
@@ -120,4 +121,6 @@ def test_cpu_calls_launch_nothing_and_other_devices_raise():
         tops.paged_attention(qp.to("meta"), kp.to("meta"), vp.to("meta"), bt, lens)
     with pytest.raises(ValueError, match="CPU or a CUDA device"):
         tops.paged_gather(kp.flatten(1).to("meta"), bt)
+    with pytest.raises(ValueError, match="CPU or a CUDA device"):
+        tops.stream_gd(torch.zeros(2, 8, device="meta"), [1.0, -0.1])
     assert tops.LAUNCHES == dict.fromkeys(KERNELS, 0)
