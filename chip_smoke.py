@@ -14,11 +14,14 @@ path runs at full width and full depth.  Phases, each fatal:
 2. hold each kernel against its plain PyTorch version on the card at its
    path's shapes, in bfloat16 and float32 (attention: qwen2.5-3b's 16 query
    heads, 2 KV heads, head_dim 128, page size 16; conv: a VGG16 layer of
-   each spatial size, its conv1 and AlexNet's conv1; pool: VGG16's pool1;
-   matmul: fc6; all at batch 16; ``ssd_scan``: full-width mamba2-130m, a
-   512-token prompt in 256-token chunks from zero and from a carried state,
-   and a ragged 44-token slice; ``paged_gather``: a full-width qwen2.5-3b
-   cache leaf, 36 layers, 8 lanes x 64 slots with -1 holes, bit-equal;
+   each spatial size, its conv1 and AlexNet's conv1, each with the design
+   it took and its bias + ReLU epilogue held bit-equal to the kernel
+   followed by ``add_`` and ``relu_``; pool: VGG16's pool1; matmul: fc6,
+   fc7 and fc8, two calls bit-equal; all at batch 16; ``ssd_scan``:
+   full-width mamba2-130m, a 512-token prompt in 256-token chunks from zero
+   and from a carried state, and a ragged 44-token slice; ``paged_gather``:
+   a full-width qwen2.5-3b cache leaf, 36 layers, 8 lanes x 64 slots with
+   -1 holes, bit-equal;
    ``stream_gd``: full-width qwen2.5-3b's largest leaf, seg0's mlp.w_up, in
    the sgd launch, the two mixed-type in-place momentum launches and J = 3
    and 4 in float32, each bit-equal), and time kernel, plain version, one
@@ -36,8 +39,10 @@ path runs at full width and full depth.  Phases, each fatal:
    logits must agree within 1e-4 and the argmax must be equal;
 6. run full-width VGG16 (224 x 224, batch 16, bf16, seeded He-init
    weights): finite logits, 13 conv, 5 pool and 3 fc kernel launches per
-   forward, images/s and a profiler split of device time per layer type;
-   and two images in float32 on the card against the CPU;
+   forward and at most 11 other launches (the conv layers' bias and ReLU
+   run in the kernel's epilogue), images/s, a profiler split of device
+   time per layer type and the conv kernels' TFLOP/s; and two images in
+   float32 on the card against the CPU;
 7. serve the same requests with the reduced mamba2-130m engine in float32 on
    the card and on the CPU, whole-prompt and chunked prefill: identical
    greedy tokens;
@@ -130,18 +135,20 @@ def ptxas_report(text: str) -> list[str]:
     registers, spills (shared memory is dynamic, sized at launch)."""
     out, name, spill = [], None, ""
     int_arg = {"maxpool_valid": "V", "matmul_tiled": "aligned",
-               "stream_gd_update": "J"}                              # else head_dim
+               "stream_gd_update": "J", "conv_igemm_wgmma": "BN"}   # else head_dim
     types = {"f": "f32", "13__nv_bfloat16": "bf16", "5uint4": "16 B", "5uint2": "8 B",
              "j": "4 B", "t": "2 B", "h": "1 B", None: ""}
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '.*?(paged_decode_attn|paged_combine|"
-                      r"flash_attn_fwd|flash_attn_mma|conv_igemm|maxpool_valid|matmul_tiled|"
+                      r"flash_attn_fwd|flash_attn_mma|conv_igemm_wgmma|conv_igemm|"
+                      r"maxpool_valid|matmul_tiled_stream|matmul_tiled|"
                       r"ssd_chunk_scan|gather_rows|stream_gd_update)"
-                      r"I(13__nv_bfloat16|5uint4|5uint2|f|j|t|h)?(?:L[ib](\d+)E)?", line)
+                      r"(?:I(13__nv_bfloat16|5uint4|5uint2|f|j|t|h)?(?:L[ib](\d+)E)?)?", line)
         if m:
             label = int_arg.get(m.group(1), "D")
             args = [types[m.group(2)], f"{label}={m.group(3)}" if m.group(3) else ""]
-            name = f"{m.group(1)}<{', '.join(x for x in args if x)}>"
+            args = ", ".join(x for x in args if x)
+            name = f"{m.group(1)}<{args}>" if args else m.group(1)
         elif "spill" in line:
             spill = line.strip()
         elif "Used" in line and name:
@@ -328,7 +335,16 @@ def conv_case(dtype, l, label, timed):
 
     out, want = kernel(), plain()
     torch.cuda.synchronize()
-    err = check_close(f"stream_mac_conv[{label}]", out, want, dtype)
+    path = ops.PATHS["stream_mac_conv"]
+    err = check_close(f"stream_mac_conv[{label}] ({path})", out, want, dtype)
+    # the fused bias + ReLU epilogue against the kernel, then add_ and relu_
+    b = (torch.randn(l.co, generator=gen, device="cuda") * 0.5).to(dtype)
+    fused = ops.stream_mac_conv(x, w, stride, pad, bias=b, relu=True)
+    same = torch.equal(fused, kernel().add_(b).relu_())
+    log(f"  stream_mac_conv[{label}] {dtype}: bias + ReLU epilogue bit-equal to add_, relu_: "
+        f"{same}")
+    if not same:
+        raise SystemExit(f"chip_smoke: the fused conv epilogue differs ({label}, {dtype})")
     if not timed:
         return None
     nbytes = (x.numel() + w.numel() + out.numel()) * x.element_size()
@@ -396,7 +412,10 @@ def fc_case(dtype, l, label, timed):
 
     out, want = kernel(), plain()
     torch.cuda.synchronize()
-    err = check_close(f"tiled_matmul[{label}]", out, want, dtype)
+    path = ops.PATHS["tiled_matmul"]
+    err = check_close(f"tiled_matmul[{label}] ({path})", out, want, dtype)
+    if not torch.equal(out, kernel()):
+        raise SystemExit(f"chip_smoke: tiled_matmul[{label}] {dtype} differs between calls")
     if not timed:
         return None
     nbytes = (x.numel() + w.numel() + out.numel()) * x.element_size()
@@ -558,7 +577,7 @@ def vgg16_forward(smi: str) -> dict[str, int]:
         g = ("conv (stream_mac_conv)" if "conv_igemm" in name else
              "pool (stream_maxpool)" if "maxpool_valid" in name else
              "fc (tiled_matmul)" if "matmul_tiled" in name else
-             "other (bias, ReLU, Ci pad, split-K counters)")
+             "other (fc bias and ReLU, Ci pad)")
         groups[g] = groups.get(g, 0.0) + us / 1e3 / steps
         counts[g] = counts.get(g, 0) + e.count // steps
     busy = sum(groups.values())
@@ -570,6 +589,16 @@ def vgg16_forward(smi: str) -> dict[str, int]:
     for g in sorted(groups, key=groups.get, reverse=True):
         log(f"    {g}: {groups[g]:.3f} ms per forward ({100 * groups[g] / busy:.1f} % of busy) "
             f"over {counts[g]} launches")
+    conv_ms = groups.get("conv (stream_mac_conv)", 0.0)
+    conv_flops = CNN_BATCH * sum(l.flops for l in layers if l.kind == "conv")
+    log(f"    conv: {conv_flops / 1e9:.1f} GFLOP per forward at "
+        f"{conv_flops / (conv_ms * 1e-3) / 1e12:.1f} TFLOP/s "
+        f"({100 * conv_flops / (conv_ms * 1e-3) / PEAK_FLOPS['torch.bfloat16']:.1f} % of "
+        f"the bf16 peak; {smi})")
+    other = [g for g in counts if g.startswith("other")]
+    if other and counts[other[0]] > 11:
+        raise SystemExit(f"chip_smoke: {counts[other[0]]} launches besides the kernels per "
+                         "VGG16 forward (bias and ReLU should be in the conv epilogue)")
     return launches
 
 
@@ -1106,8 +1135,8 @@ def main() -> int:
     log(f"  nvcc: built {sorted(logs) or 'nothing (already built)'} in "
         f"{time.perf_counter() - t0:.1f} s")
     if logs:
-        log("  ptxas -v per kernel (shared memory is dynamic, sized at launch, so "
-            "ptxas reports none):")
+        log("  ptxas -v per kernel (the ring buffers are dynamic shared memory, sized at "
+            "launch; ptxas reports only the static part):")
     for text in logs.values():
         for line in ptxas_report(text):
             log(f"    {line}")
@@ -1151,12 +1180,15 @@ def main() -> int:
                 log_row(row)
                 if label.startswith("conv3_2"):
                     rows["stream_mac_conv"] = row
-        for name, row in (
-                ("stream_maxpool", pool_case(dtype, vgg["pool2"], "pool1 (pool2)", timed)),
-                ("tiled_matmul", fc_case(dtype, vgg["fc6"], "fc6", timed))):
+        row = pool_case(dtype, vgg["pool2"], "pool1 (pool2)", timed)
+        if row:
+            log_row(row)
+            rows["stream_maxpool"] = row
+        for fc in ("fc6", "fc7", "fc8"):            # the JSON line keeps fc6
+            row = fc_case(dtype, vgg[fc], fc, timed)
             if row:
                 log_row(row)
-                rows[name] = row
+                rows.setdefault("tiled_matmul", row)
     log("  mamba2-130m SSD scan (H=24, P=64, N=128, chunk 256):")
     for dtype in (torch.float32, torch.bfloat16):
         timed = dtype == torch.bfloat16

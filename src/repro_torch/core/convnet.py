@@ -6,7 +6,9 @@ and HWIO weights throughout, so fc6 flattens its input in (h, w, c) order
 as the JAX executor does.  Two implementations:
 
   * ``impl="kernel"`` (the default; JAX's ``"pallas"``) — conv layers
-    through ``kernels.ops.stream_mac_conv``, max-pool layers through
+    through ``kernels.ops.stream_mac_conv`` with the bias and ReLU in its
+    epilogue (rounded as JAX's ``conv + b``, then ``relu``, in x's type),
+    max-pool layers through
     ``ops.stream_maxpool`` (after -inf padding where the layer pads, which
     gives ``reduce_window``'s padded result), fc layers through
     ``ops.tiled_matmul``.  On CUDA tensors each is a hand-written kernel, on
@@ -19,8 +21,8 @@ as the JAX executor does.  Two implementations:
 JAX's ``impl="xla"`` (``lax.conv_general_dilated``) has no counterpart: the
 port calls no convolution, pooling or matmul library on its path
 (``chip_smoke.py`` times ``F.conv2d`` beside the kernel as a yardstick
-only).  Global average pooling, bias and ReLU are plain tensor ops, as in
-JAX.
+only).  Global average pooling, and the bias and ReLU of fc layers and of
+the tiled schedule's summed partials, are plain tensor ops, as in JAX.
 """
 from __future__ import annotations
 
@@ -60,8 +62,10 @@ def init_params(
     return params
 
 
-def _conv(x: torch.Tensor, w: torch.Tensor, l: ConvLayerSpec) -> torch.Tensor:
-    return ops.stream_mac_conv(x, w, stride=(l.sy, l.sx), padding=(l.py, l.px))
+def _conv(x: torch.Tensor, w: torch.Tensor, l: ConvLayerSpec,
+          bias: torch.Tensor | None = None, relu: bool = False) -> torch.Tensor:
+    return ops.stream_mac_conv(x, w, stride=(l.sy, l.sx), padding=(l.py, l.px),
+                               bias=bias, relu=relu)
 
 
 def _conv_tiled(x: torch.Tensor, w: torch.Tensor, l: ConvLayerSpec,
@@ -126,9 +130,10 @@ class ConvNetExecutor:
                 x = ops.tiled_matmul(x.reshape(n, -1), w.reshape(-1, l.co))
                 x = x.reshape(n, 1, 1, l.co)
             elif self.impl == "tiled" and l.name in self.tiles:
-                x = _conv_tiled(x, w, l, self.tiles[l.name])
+                x = _conv_tiled(x, w, l, self.tiles[l.name])   # bias after the partials
             else:
-                x = _conv(x, w, l)
+                x = _conv(x, w, l, b, l.act)          # bias and ReLU in the epilogue
+                continue
             x = x.add_(b)                     # x is this layer's own new output
             if l.act:
                 x = x.relu_()

@@ -19,7 +19,9 @@ CPU tests see what the card would do): its output would carry no
 gradient and training would go silently wrong.
 
 Each wrapper counts the kernels it launches in ``LAUNCHES`` (on the card
-only), so a run can show that its main path went through the kernels.  A
+only), so a run can show that its main path went through the kernels.
+``stream_mac_conv`` and ``tiled_matmul`` choose between two designs by
+shape; ``PATHS`` names the one their last card call took.  A
 paged-decode call whose pages are split over blocks launches two: the
 partial pass and the merge of its splits.
 """
@@ -37,6 +39,10 @@ LAUNCHES = {"paged_decode_attention": 0, "flash_attention": 0, "stream_mac_conv"
             "stream_maxpool": 0, "tiled_matmul": 0, "ssd_scan": 0, "paged_gather": 0,
             "stream_gd": 0}
 _count_lock = threading.Lock()
+# the design the last card call of a kernel that has several took, by name
+PATHS: dict[str, str] = {}
+CONV_PATHS = ("mma.sync 128x64", "wgmma+TMA 128x64", "wgmma+TMA 128x128", "wgmma+TMA 128x256")
+MATMUL_PATHS = ("tiles 64x128", "TMA weight stream 16x128")
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
@@ -51,10 +57,11 @@ _SIGNATURES = {
          _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _I, _I, _I, _I, _F, _P],
     ),
     "stream_mac_conv_launch": (
-        "stream_mac_conv", [_I, _P, _P, _P] + [_I] * 12 + [_P]),
+        "stream_mac_conv", [_I, _P, _P, _P, _P] + [_I] * 14 + [ctypes.POINTER(_I), _P]),
     "stream_maxpool_launch": ("stream_maxpool", [_I, _I, _P, _P] + [_I] * 8 + [_P]),
     "tiled_matmul_launch": ("tiled_matmul", [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
-    "tiled_matmul_plan": ("tiled_matmul", [_I] * 5 + [ctypes.POINTER(_I)]),
+    "tiled_matmul_plan": ("tiled_matmul", [_I] * 6 + [ctypes.POINTER(_I)]),
+    "tiled_matmul_path": ("tiled_matmul", [_I] * 3),
     "ssd_scan_launch": ("ssd_scan", [_I] + [_P] * 8 + [_I] * 6 + [_L] * 6 + [_P]),
     "paged_gather_launch": ("paged_gather", [_P, _P, _P, _L, _I, _I, _I, _L, _I, _P]),
     "stream_gd_launch": ("stream_gd", [_I, ctypes.POINTER(_P), ctypes.POINTER(_I),
@@ -258,13 +265,18 @@ def stream_mac_conv(
     w: torch.Tensor,              # (KH, KW, Ci, Co)
     stride: tuple[int, int] = (1, 1),
     padding: tuple[int, int] = (0, 0),
+    bias: torch.Tensor | None = None,   # (Co,) in x's type
+    relu: bool = False,
 ) -> torch.Tensor:
     """NHWC x HWIO strided convolution with symmetric zero padding (the
-    paper's CONV layer); float accumulation, output in x's type.  The card
-    path loads 16 bytes at a time, so a Ci that is not a multiple of 8 is
-    zero-padded to one on x and w (VGG16's conv1 has Ci = 3), and w's Co to a
-    multiple of 8; the output keeps Co."""
-    _no_grad("stream_mac_conv", x, w)
+    paper's CONV layer); float accumulation, output in x's type.  With
+    ``bias`` and ``relu`` the epilogue adds the bias and applies ReLU, each
+    rounded as ``conv(...).add_(bias).relu_()`` rounds them, so the fused
+    call is bit-equal to the unfused sequence.  The card path loads 16 bytes
+    at a time, so a Ci that is not a multiple of 8 is zero-padded to one on
+    x and w (VGG16's conv1 has Ci = 3), and w's Co to a multiple of 8; the
+    output keeps Co."""
+    _no_grad("stream_mac_conv", x, w, bias)
     n, h, wd, ci = x.shape
     kh, kw, wci, co = w.shape
     sy, sx = stride
@@ -273,9 +285,13 @@ def stream_mac_conv(
             or wd + 2 * px < kw:
         raise ValueError(f"stream_mac_conv: bad shapes x {tuple(x.shape)} w "
                          f"{tuple(w.shape)} stride {stride} padding {padding}")
+    if bias is not None and tuple(bias.shape) != (co,):
+        raise ValueError(f"stream_mac_conv: bias of shape {tuple(bias.shape)} for Co={co}")
     if x.device.type == "cpu":
-        return ref.stream_mac_conv(x, w, stride=stride, padding=padding)
-    code = _check_cuda("stream_mac_conv", x, w, dense=True)
+        return ref.stream_mac_conv(x, w, stride=stride, padding=padding, bias=bias,
+                                   relu=relu)
+    code = _check_cuda("stream_mac_conv", x, w, *(() if bias is None else (bias,)),
+                       dense=True)
     pad_ci, pad_co = -ci % 8, -co % 8
     if pad_ci:
         x = F.pad(x, (0, pad_ci))
@@ -288,9 +304,13 @@ def stream_mac_conv(
     wo = (wd + 2 * px - kw) // sx + 1
     out = torch.empty((n, yo, wo, co), dtype=x.dtype, device=x.device)
     lib, fn = _entry("stream_mac_conv_launch")
-    err = fn(code, x.data_ptr(), w.data_ptr(), out.data_ptr(), n, h, wd, ci + pad_ci, kh, kw,
-             co, co + pad_co, sy, sx, py, px, torch.cuda.current_stream(x.device).cuda_stream)
+    path = ctypes.c_int(-1)
+    err = fn(code, x.data_ptr(), w.data_ptr(), None if bias is None else bias.data_ptr(),
+             out.data_ptr(), n, h, wd, ci + pad_ci, kh, kw, co, co + pad_co, sy, sx, py, px,
+             int(relu), _sm_count(x.device), ctypes.byref(path),
+             torch.cuda.current_stream(x.device).cuda_stream)
     _launched(lib, "stream_mac_conv", err)
+    PATHS["stream_mac_conv"] = CONV_PATHS[path.value]
     return out
 
 
@@ -321,10 +341,29 @@ def stream_maxpool(
     return out
 
 
+_counters: dict[tuple, torch.Tensor] = {}
+_plans: dict[tuple, tuple[int, int, str]] = {}  # (splits, tiles, design) of a matmul shape
+
+
+def _split_counters(device: torch.device, stream, tiles: int) -> torch.Tensor:
+    """One zeroed int per output tile for split-K calls on ``stream``.  The
+    kernel's last block of each tile sets its counter back to zero, so the
+    buffer is zeroed once, when it is made or grown, and not per call."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    key = (idx, stream.cuda_stream)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < tiles:
+        buf = _counters[key] = torch.zeros(max(tiles, 256), dtype=torch.int32,
+                                           device=device)
+    return buf
+
+
 def tiled_matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """(M, K) @ (K, N) with float accumulation, output in x's type.  On the
-    card K may be split over blocks (one launch all the same: the last block
-    of each output tile sums the partials)."""
+    card a bf16 product with M <= 16 streams the weight by TMA, others run
+    64 x 128 tiles; K may be split over blocks (one launch all the same: the
+    last block of each output tile sums the partials in a fixed order, so
+    two calls give the same bits)."""
     _no_grad("tiled_matmul", x, y)
     if x.ndim != 2 or y.ndim != 2 or x.shape[1] != y.shape[0]:
         raise ValueError(f"tiled_matmul: shapes {tuple(x.shape)} @ {tuple(y.shape)}")
@@ -334,20 +373,25 @@ def tiled_matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         return ref.tiled_matmul(x, y)
     code = _check_cuda("tiled_matmul", x, y, dense=True)
     vec = 16 // x.element_size()
-    aligned = k % vec == 0 and n % vec == 0 and _aligned16(x, y)
-    lib, plan = _entry("tiled_matmul_plan")
-    tiles = ctypes.c_int()
-    splits = plan(code, m, n, k, _sm_count(x.device), ctypes.byref(tiles))
+    aligned = int(k % vec == 0 and n % vec == 0 and _aligned16(x, y))
+    key = (code, aligned, m, n, k, _sm_count(x.device))
+    if key not in _plans:
+        tiles = ctypes.c_int()
+        splits = _entry("tiled_matmul_plan")[1](*key, ctypes.byref(tiles))
+        design = MATMUL_PATHS[_entry("tiled_matmul_path")[1](code, aligned, m)]
+        _plans[key] = splits, tiles.value, design
+    splits, tiles, PATHS["tiled_matmul"] = _plans[key]
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    stream = torch.cuda.current_stream(x.device)
     ws = counters = None
     if splits > 1:
         ws = torch.empty(splits * m * n, dtype=torch.float32, device=x.device)
-        counters = torch.zeros(tiles.value, dtype=torch.int32, device=x.device)
-    _, fn = _entry("tiled_matmul_launch")
-    err = fn(code, int(aligned), x.data_ptr(), y.data_ptr(), out.data_ptr(),
+        counters = _split_counters(x.device, stream, tiles)
+    lib, fn = _entry("tiled_matmul_launch")
+    err = fn(code, aligned, x.data_ptr(), y.data_ptr(), out.data_ptr(),
              None if ws is None else ws.data_ptr(),
              None if counters is None else counters.data_ptr(), m, n, k, splits,
-             torch.cuda.current_stream(x.device).cuda_stream)
+             stream.cuda_stream)
     _launched(lib, "tiled_matmul", err)
     return out
 

@@ -85,10 +85,13 @@ def stream_mac_conv(
     w: torch.Tensor,              # (KH, KW, Ci, Co)
     stride: tuple[int, int] = (1, 1),
     padding: tuple[int, int] = (0, 0),
+    bias: torch.Tensor | None = None,   # (Co,)
+    relu: bool = False,
 ) -> torch.Tensor:
     """Strided NHWC x HWIO convolution with symmetric zero padding: a loop
     over the taps (dy, dx) of ``strided patch @ w[dy, dx]`` in float32,
-    cast to x's type."""
+    cast to x's type; then, as asked, ``+ bias`` (in float32, rounded to
+    x's type again, as a bf16 ``add_`` rounds) and ReLU."""
     n, h, wd, _ = x.shape
     kh, kw, _, co = w.shape
     sy, sx = stride
@@ -102,7 +105,10 @@ def stream_mac_conv(
         for dx in range(kw):
             patch = xp[:, dy:dy + (yo - 1) * sy + 1:sy, dx:dx + (wo - 1) * sx + 1:sx]
             out += patch @ wf[dy, dx]
-    return out.to(x.dtype)
+    out = out.to(x.dtype)
+    if bias is not None:
+        out = (out.float() + bias.float()).to(x.dtype)
+    return torch.relu(out) if relu else out
 
 
 def stream_maxpool(

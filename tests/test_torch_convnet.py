@@ -78,6 +78,38 @@ def test_stream_mac_conv_matches_jax(n, hw, ci, co, k, s, p):
     np.testing.assert_allclose(got, np.asarray(pallas), **TOL)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("relu", [False, True])
+def test_stream_mac_conv_epilogue_bit_equal_to_unfused(dtype, relu):
+    """conv(bias, relu) rounds as conv, then + b in x's type, then ReLU."""
+    rng = _rng(3)
+    dt = getattr(torch, dtype)
+    x = torch.from_numpy(rng.standard_normal((2, 9, 9, 16)).astype(np.float32)).to(dt)
+    w = torch.from_numpy((rng.standard_normal((3, 3, 16, 24)) / 12).astype(np.float32)).to(dt)
+    b = torch.from_numpy(rng.standard_normal(24).astype(np.float32)).to(dt)
+    got = tops.stream_mac_conv(x, w, stride=(2, 1), padding=(1, 1), bias=b, relu=relu)
+    want = tops.stream_mac_conv(x, w, stride=(2, 1), padding=(1, 1)) + b
+    if relu:
+        want = torch.relu(want)
+    assert got.dtype == dt and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("n,hw,ci,co,k,s,p", [(1, 16, 8, 16, 3, 1, 1), (2, 12, 3, 8, 5, 2, 2)])
+def test_stream_mac_conv_epilogue_matches_jax(relu, n, hw, ci, co, k, s, p):
+    rng = _rng(4)
+    x = rng.standard_normal((n, hw, hw, ci)).astype(np.float32)
+    w = (rng.standard_normal((k, k, ci, co)) / np.sqrt(k * k * ci)).astype(np.float32)
+    b = rng.standard_normal(co).astype(np.float32)
+    got = tops.stream_mac_conv(torch.from_numpy(x), torch.from_numpy(w), stride=(s, s),
+                               padding=(p, p), bias=torch.from_numpy(b), relu=relu).numpy()
+    want = jops.stream_mac_conv(jnp.asarray(x), jnp.asarray(w), stride=(s, s),
+                                padding=(p, p), interpret=True) + b
+    if relu:
+        want = jax.nn.relu(want)
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+
+
 def test_stream_mac_conv_asymmetric_stride_matches_jax():
     rng = _rng(2)
     x = rng.standard_normal((1, 12, 10, 4)).astype(np.float32)

@@ -180,28 +180,65 @@ def _tol(dtype):
     return F32 if dtype == "float32" else BF16
 
 
+def _conv_inputs(card, dt, n, h, w, ci, co, k, seed=2):
+    g = torch.Generator(device=card).manual_seed(seed)
+    x = torch.randn(n, h, w, ci, generator=g, device=card).to(dt)
+    wt = (torch.randn(k, k, ci, co, generator=g, device=card) / (k * k * ci) ** 0.5).to(dt)
+    b = (torch.randn(co, generator=g, device=card) * 0.5).to(dt)
+    return x, wt, b
+
+
+def _conv_path(dtype, ci):
+    """The design the kernel takes: wgmma + TMA for bf16 with Ci >= 64."""
+    return "wgmma" if dtype == "bfloat16" and ci >= 64 else "mma.sync"
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 # ragged pixel counts (not a multiple of the 128-pixel tile), Co not a
-# multiple of 64, Ci = 3 (padded to 8), Ci past one 32-channel slice, stride 4
+# multiple of 64, Ci = 3 (padded to 8), Ci past one 32-channel slice, stride 4;
+# then the bf16 wgmma path: Ci 64 and 256, Co 64, 128, 96 and 512, ragged
+# pixel counts, Ci past a 64-channel slice (130 -> 136), stride 2, conv5_x
 @pytest.mark.parametrize("n,h,w,ci,co,k,s,p", [
     (2, 15, 13, 3, 64, 3, 1, 1),
     (1, 35, 35, 3, 96, 11, 4, 0),
     (3, 9, 11, 40, 72, 3, 2, 1),
     (1, 7, 7, 130, 6, 5, 1, 2),
     (2, 14, 14, 512, 512, 3, 1, 1),
+    (2, 30, 29, 64, 64, 3, 1, 1),
+    (1, 19, 23, 256, 128, 3, 2, 1),
+    (3, 13, 11, 64, 512, 3, 1, 1),
+    (2, 28, 28, 256, 96, 3, 1, 1),
+    (16, 14, 14, 512, 512, 3, 1, 1),
 ])
 def test_conv_kernel_matches_plain(card, dtype, n, h, w, ci, co, k, s, p):
     dt = getattr(torch, dtype)
-    g = torch.Generator(device=card).manual_seed(2)
-    x = torch.randn(n, h, w, ci, generator=g, device=card).to(dt)
-    wt = (torch.randn(k, k, ci, co, generator=g, device=card) / (k * k * ci) ** 0.5).to(dt)
+    x, wt, _ = _conv_inputs(card, dt, n, h, w, ci, co, k)
     before = ops.LAUNCHES["stream_mac_conv"]
     got = ops.stream_mac_conv(x, wt, stride=(s, s), padding=(p, p))
     torch.cuda.synchronize()
     assert ops.LAUNCHES["stream_mac_conv"] == before + 1
+    assert ops.PATHS["stream_mac_conv"].startswith(_conv_path(dtype, ci))
     want = ref.stream_mac_conv(x, wt, stride=(s, s), padding=(p, p))
     assert got.shape == want.shape and got.dtype == dt
     torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("n,h,w,ci,co,k,s,p", [
+    (2, 15, 13, 3, 64, 3, 1, 1), (1, 19, 23, 256, 128, 3, 2, 1), (2, 30, 29, 64, 72, 3, 1, 1)])
+def test_conv_epilogue_bit_equal_to_unfused(card, dtype, relu, n, h, w, ci, co, k, s, p):
+    """The fused bias and ReLU give the bits of conv, then add_, then relu_."""
+    dt = getattr(torch, dtype)
+    x, wt, b = _conv_inputs(card, dt, n, h, w, ci, co, k, seed=5)
+    got = ops.stream_mac_conv(x, wt, stride=(s, s), padding=(p, p), bias=b, relu=relu)
+    want = ops.stream_mac_conv(x, wt, stride=(s, s), padding=(p, p)).add_(b)
+    if relu:
+        want = want.relu_()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    plain = ref.stream_mac_conv(x, wt, stride=(s, s), padding=(p, p), bias=b, relu=relu)
+    torch.testing.assert_close(got.float(), plain.float(), **_tol(dtype))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -235,6 +272,41 @@ def test_matmul_kernel_matches_plain(card, dtype, m, k, n):
     assert ops.LAUNCHES["tiled_matmul"] == before + 2
     assert torch.equal(got, again)              # split partials summed in a fixed order
     torch.testing.assert_close(got.float(), ref.tiled_matmul(x, y).float(), **_tol(dtype))
+
+
+# VGG16's fc6, fc7 and fc8 at batch 1, 16 (the weight stream) and 17 (tiles)
+@pytest.mark.parametrize("m", [1, 16, 17])
+@pytest.mark.parametrize("k,n", [(25088, 4096), (4096, 4096), (4096, 1000)],
+                         ids=["fc6", "fc7", "fc8"])
+def test_matmul_fc_shapes_deterministic(card, m, k, n):
+    g = torch.Generator(device=card).manual_seed(6)
+    x = torch.randn(m, k, generator=g, device=card).to(torch.bfloat16)
+    y = (torch.randn(k, n, generator=g, device=card) / k ** 0.5).to(torch.bfloat16)
+    got = ops.tiled_matmul(x, y)
+    assert ops.PATHS["tiled_matmul"] == ("TMA weight stream 16x128" if m <= 16
+                                         else "tiles 64x128")
+    again = ops.tiled_matmul(x, y)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), ref.tiled_matmul(x, y).float(), **BF16)
+
+
+@pytest.mark.parametrize("m", [16, 17])
+def test_matmul_launches_only_itself(card, m):
+    """A split call is one kernel: no counter memset, no second pass."""
+    g = torch.Generator(device=card).manual_seed(7)
+    x = torch.randn(m, 25088, generator=g, device=card).to(torch.bfloat16)
+    y = torch.randn(25088, 4096, generator=g, device=card).to(torch.bfloat16)
+    ops.tiled_matmul(x, y)                      # first call: makes the counter buffer
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(3):
+            ops.tiled_matmul(x, y)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    assert len(kernels) == 3 and all("matmul_tiled" in k for k in kernels), kernels
 
 
 @pytest.mark.parametrize("impl", ["kernel", "tiled"])
