@@ -23,11 +23,15 @@ path runs at full width and full depth.  Phases, each fatal:
    a full-width qwen2.5-3b cache leaf, 36 layers, 8 lanes x 64 slots with
    -1 holes, bit-equal;
    ``stream_gd``: full-width qwen2.5-3b's largest leaf, seg0's mlp.w_up, in
-   the sgd launch, the two mixed-type in-place momentum launches and J = 3
-   and 4 in float32, each bit-equal), and time kernel, plain version, one
+   the sgd launch, the two mixed-type in-place momentum launches, J = 3
+   and 4 in float32 and the fused two-stage momentum launch, and the
+   full-width VGG16 parameter tree (32 leaves) in one sgd and one fused
+   momentum launch, each bit-equal), and time kernel, plain version, one
    PyTorch library call (SDPA, ``F.conv2d``, ``F.max_pool2d``,
    ``torch.matmul``, ``index_select``, ``torch.add``; never used by the
-   port; none computes ``ssd_scan``) and the bound;
+   port; none computes ``ssd_scan``) and the bound; the fused momentum
+   and the VGG16 tree are timed beside one launch per leaf and stage (and
+   the tree's sgd beside ``torch._foreach_add_``);
 3. serve the same requests with the reduced qwen2.5-3b engine in float32 on
    the card and on the CPU (plain kernels), whole-prompt and chunked
    prefill: the greedy tokens must be identical;
@@ -59,14 +63,17 @@ path runs at full width and full depth.  Phases, each fatal:
 10. train reduced qwen2.5-3b in float32 on the card and on the CPU from the
     same weights and batches, 4 steps of sgd, momentum and adamw with 1 and
     2 microbatches: losses and grad norms within 1e-4 relative at every
-    step, parameters within 1e-4; and a card Trainer run with a crash
+    step, parameters within 1e-4, one ``stream_gd`` launch per sgd or
+    momentum step; and a card Trainer run with a crash
     injected at step 6 resumes from its checkpoint (under ``build/``) to
     step 12 with the clean run's final loss;
 11. train full-width qwen2.5-3b through ``repro_torch.launch.train --full``
     (bf16, seeded random weights, momentum, seq 1024, global batch 8 in 4
-    microbatches, remat full) for 6 steps: every loss finite, 28
-    ``stream_gd`` launches per step; step ms, trained tokens/s, peak memory
-    and a profiled step's split into forward+backward, update and the rest.
+    microbatches, remat full) for 6 steps: every loss finite, one
+    ``stream_gd`` launch per step (14 leaves, two stages); step ms, trained
+    tokens/s, peak memory and a profiled step's split into
+    forward+backward, update (against its one-pass bound, 16 B per
+    parameter, and the two-pass one) and the rest.
 
 Then it prints one JSON line with each kernel's numbers, the card's name
 and power limit, and, last, ``{"ok": true, "device": {...}}``.  Without a
@@ -76,6 +83,7 @@ result.
 import dataclasses
 import gc
 import json
+import math
 import re
 import shutil
 import statistics
@@ -135,7 +143,7 @@ def ptxas_report(text: str) -> list[str]:
     registers, spills (shared memory is dynamic, sized at launch)."""
     out, name, spill = [], None, ""
     int_arg = {"maxpool_valid": "V", "matmul_tiled": "aligned",
-               "stream_gd_update": "J", "conv_igemm_wgmma": "BN"}   # else head_dim
+               "stream_gd_update": "J1, J2", "conv_igemm_wgmma": "BN"}   # else head_dim
     types = {"f": "f32", "13__nv_bfloat16": "bf16", "5uint4": "16 B", "5uint2": "8 B",
              "j": "4 B", "t": "2 B", "h": "1 B", None: ""}
     for line in text.splitlines():
@@ -143,10 +151,12 @@ def ptxas_report(text: str) -> list[str]:
                       r"flash_attn_fwd|flash_attn_mma|conv_igemm_wgmma|conv_igemm|"
                       r"maxpool_valid|matmul_tiled_stream|matmul_tiled|"
                       r"ssd_chunk_scan|gather_rows|stream_gd_update)"
-                      r"(?:I(13__nv_bfloat16|5uint4|5uint2|f|j|t|h)?(?:L[ib](\d+)E)?)?", line)
+                      r"(?:I(13__nv_bfloat16|5uint4|5uint2|f|j|t|h)?(?:L[ib](\d+)E)?"
+                      r"(?:Li(\d+)E)?)?", line)
         if m:
             label = int_arg.get(m.group(1), "D")
-            args = [types[m.group(2)], f"{label}={m.group(3)}" if m.group(3) else ""]
+            ints = ", ".join(x for x in m.group(3, 4) if x)
+            args = [types[m.group(2)], f"{label}={ints}" if ints else ""]
             args = ", ".join(x for x in args if x)
             name = f"{m.group(1)}<{args}>" if args else m.group(1)
         elif "spill" in line:
@@ -627,14 +637,34 @@ def vgg16_card_vs_cpu(layers, batch, px) -> None:
         raise SystemExit("chip_smoke: VGG16 logits differ between card and CPU")
 
 
+def device_ms(fn, iters: int = 10) -> float:
+    """Mean device time per call of the kernels ``fn`` launches, from the
+    profiler: the host's issue of the call is not in it."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")) / iters / 1e3
+
+
 def stream_gd_cases() -> dict:
-    """``stream_gd`` on the largest full-width qwen2.5-3b leaf (seg0's
-    mlp.w_up, 36 x 2048 x 11008 elements) in each form a training step
-    launches it: sgd (bf16 w, bf16 g, in place), the two momentum launches
-    (f32 m from a bf16 g, then bf16 w from the f32 m, both in place), and
-    J = 3 and 4 in float32.  Each is bit-equal to the plain version.  The
-    row times the sgd launch; the library yardstick is ``torch.add(w, g,
-    alpha=-lr, out=w)`` (Eq. 1 with C0 = 1, one call)."""
+    """``stream_gd`` in each form a training step launches it, each bit-equal
+    to the plain version.  On the largest full-width qwen2.5-3b leaf (seg0's
+    mlp.w_up, 36 x 2048 x 11008 elements): sgd (bf16 w, bf16 g, in place),
+    the two one-stage momentum launches (f32 m from a bf16 g, then bf16 w
+    from the f32 m), J = 3 and 4 in float32, and the fused two-stage
+    momentum step (also bit-equal to the two one-stage calls).  On the
+    full-width VGG16 parameter tree (32 leaves): sgd (bf16 w and g) and
+    fused momentum (bf16 w, f32 g and m), one launch each.  The row times
+    the w_up sgd launch; its library yardstick is ``torch.add(w, g,
+    alpha=-lr, out=w)`` (Eq. 1 with C0 = 1, one call).  The fused momentum
+    is timed beside the two launches, the tree beside one launch per leaf
+    and stage and beside ``torch._foreach_add_``, each against its bound."""
+    from repro_torch.core import zoo
     from repro_torch.kernels import ops, ref
 
     shape = (36, 2048, 11008)
@@ -646,16 +676,38 @@ def stream_gd_cases() -> dict:
     m = torch.randn(shape, generator=gen, device="cuda").mul_(1e-3)
     lr, wd, beta = 1e-3, 0.01, 0.9
     sgd_c = (1.0 - lr * wd, -lr)
+    mom_c = [(beta, 1.0), sgd_c]
+
+    def verdict(label, same):
+        log(f"  stream_gd[{label}]: bit-equal to the plain version: {same}")
+        if not same:
+            raise SystemExit(f"chip_smoke: stream_gd {label} differs from its plain version")
 
     def check(label, out, streams, coeffs):
         want = ref.stream_gd(streams, ops.coeffs_f32(coeffs), out.dtype)
         got = ops.stream_gd_into(out, streams, coeffs)
         torch.cuda.synchronize()
-        same = torch.equal(got, want)
-        log(f"  stream_gd[{label}]: bit-equal to the plain version: {same}")
-        if not same:
-            raise SystemExit(f"chip_smoke: stream_gd {label} differs from its plain version")
+        verdict(label, torch.equal(got, want))
         del want
+
+    def check_foreach(label, leaves, coeffs):
+        """One launch over ``leaves`` against the plain version on copies."""
+        copies = {}
+        for leaf in leaves:
+            for out, streams in leaf:
+                for t in (out, *streams):
+                    if t is not ops.STAGE1 and id(t) not in copies:
+                        copies[id(t)] = t.clone()
+        plain = [[(copies[id(out)], [s if s is ops.STAGE1 else copies[id(s)] for s in streams])
+                  for out, streams in leaf] for leaf in leaves]
+        ref.stream_gd_foreach(plain, [ops.coeffs_f32(c) for c in coeffs])
+        before = ops.LAUNCHES["stream_gd"]
+        ops.stream_gd_foreach(leaves, coeffs)
+        torch.cuda.synchronize()
+        launched = ops.LAUNCHES["stream_gd"] - before
+        verdict(f"{label}, {launched} launch(es)",
+                launched == 1 and all(torch.equal(o, p[0]) for leaf, pl in zip(leaves, plain)
+                                      for (o, _), p in zip(leaf, pl)))
 
     check("sgd: w bf16 <- (w bf16, g bf16), in place", w, (w, g), sgd_c)
     check("momentum 1: m f32 <- (m f32, g bf16), in place", m, (m, g), (beta, 1.0))
@@ -665,6 +717,17 @@ def stream_gd_cases() -> dict:
     check("J=3 float32", out, x, (0.5, -1.0, 0.25))
     check("J=4 float32", out, x + [m], (0.5, -1.0, 0.25, 2.0))
     del x, out
+    torch.cuda.empty_cache()
+    # the fused step against the two one-stage launches, then against the plain version
+    w2, m2 = w.clone(), m.clone()
+    ops.stream_gd_into(m2, (m2, g), (beta, 1.0))
+    ops.stream_gd_into(w2, (w2, m2), sgd_c)
+    ops.stream_gd_foreach([((m, (m, g)), (w, (w, ops.STAGE1)))], mom_c)
+    torch.cuda.synchronize()
+    verdict("fused momentum: m f32, w bf16 <- one two-stage launch = the two one-stage "
+            "launches", torch.equal(w, w2) and torch.equal(m, m2))
+    del w2, m2
+    check_foreach("fused momentum on w_up", [((m, (m, g)), (w, (w, ops.STAGE1)))], mom_c)
     torch.cuda.empty_cache()
 
     def sgd_kernel():
@@ -676,17 +739,72 @@ def stream_gd_cases() -> dict:
     def library():
         return torch.add(w, g, alpha=-lr, out=w)
 
-    def momentum_kernel():
+    def momentum_two():
         ops.stream_gd_into(m, (m, g), (beta, 1.0))
         return ops.stream_gd_into(w, (w, m), sgd_c)
 
+    def momentum_fused():
+        ops.stream_gd_foreach([((m, (m, g)), (w, (w, ops.STAGE1)))], mom_c)
+
     row = timed_row("stream_gd", 0.0, sgd_kernel, sgd_plain, library, 6.0 * m_el,
                     3.0 * m_el, f32, f"sgd, seg0 mlp.w_up {shape} bf16 in place")
-    mom_ms = time_ms(momentum_kernel, 20)
-    mom_bound, _ = bound(18.0 * m_el, 6.0 * m_el, f32)
-    log(f"  momentum step of the leaf (two launches): {mom_ms:.4f} ms, bound "
-        f"{mom_bound:.4f} ms (18 B per element)")
+    log(f"  w_up sgd, device time alone (profiler): kernel {device_ms(sgd_kernel):.4f} ms, "
+        f"torch.add {device_ms(library):.4f} ms")
+    two_ms, fused_ms = time_ms(momentum_two, 20), time_ms(momentum_fused, 20)
+    log(f"  w_up momentum step, same call: fused (1 launch) {fused_ms:.4f} ms against its "
+        f"bound {bound(14.0 * m_el, 6.0 * m_el, f32)[0]:.4f} ms (14 B per element); two "
+        f"launches {two_ms:.4f} ms against {bound(18.0 * m_el, 6.0 * m_el, f32)[0]:.4f} ms "
+        "(18 B)")
     del w, g, m
+    torch.cuda.empty_cache()
+
+    # the full-width VGG16 parameter tree: 13 conv and 3 fc layers, w and b each
+    shapes = [s for l in zoo.vgg16() if l.kind != "pool" for s in ((l.kx, l.ky, l.ci, l.co),
+                                                                   (l.co,))]
+    n_el = sum(math.prod(s) for s in shapes)
+    ws = [torch.randn(s, generator=gen, device="cuda").mul_(0.02).to(bf) for s in shapes]
+    gs = [torch.randn(s, generator=gen, device="cuda").mul_(1e-3).to(bf) for s in shapes]
+    g32 = [torch.randn(s, generator=gen, device="cuda").mul_(1e-3) for s in shapes]
+    ms = [torch.randn(s, generator=gen, device="cuda").mul_(1e-3) for s in shapes]
+    sgd_leaves = [((w, (w, g)),) for w, g in zip(ws, gs)]
+    mom_leaves = [((m, (m, g)), (w, (w, ops.STAGE1))) for w, g, m in zip(ws, g32, ms)]
+    log(f"  full-width VGG16 parameter tree: {len(shapes)} leaves, {n_el / 1e6:.1f} M elements")
+    check_foreach("VGG16 tree sgd: w bf16 <- (w bf16, g bf16)", sgd_leaves, [sgd_c])
+    check_foreach("VGG16 tree fused momentum: m f32 <- (m f32, g f32), w bf16 <- (w, m)",
+                  mom_leaves, mom_c)
+
+    def tree_sgd():
+        ops.stream_gd_foreach(sgd_leaves, [sgd_c])
+
+    def tree_sgd_per_leaf():
+        for w, g in zip(ws, gs):
+            ops.stream_gd_into(w, (w, g), sgd_c)
+
+    def tree_library():
+        torch._foreach_add_(ws, gs, alpha=-lr)
+
+    def tree_momentum():
+        ops.stream_gd_foreach(mom_leaves, mom_c)
+
+    def tree_momentum_per_leaf():
+        for w, g, m in zip(ws, g32, ms):
+            ops.stream_gd_into(m, (m, g), (beta, 1.0))
+            ops.stream_gd_into(w, (w, m), sgd_c)
+
+    log("  (VGG16 tree: each event window holds the host's issue of the call's launches "
+        "as well as the device work, which is what one launch per step saves)")
+    lib_ms, lib_dev = time_ms(tree_library, 20), device_ms(tree_library)
+    for label, one, per_leaf, nb, per_leaf_label in (
+            ("sgd", tree_sgd, tree_sgd_per_leaf, 6.0, "per leaf"),
+            ("fused momentum", tree_momentum, tree_momentum_per_leaf, 16.0,
+             "per leaf and stage")):
+        lib = (f", torch._foreach_add_ {lib_ms:.4f} ms (device {lib_dev:.4f})"
+               if one is tree_sgd else "")
+        log(f"  VGG16 tree {label}, same call: one launch {time_ms(one, 20):.4f} ms (device "
+            f"{device_ms(one):.4f}), one launch {per_leaf_label} {time_ms(per_leaf, 20):.4f} ms "
+            f"(device {device_ms(per_leaf):.4f}){lib}; bound "
+            f"{bound(nb * n_el, 3.0 * n_el, f32)[0]:.4f} ms ({nb:g} B per element)")
+    del ws, gs, g32, ms, sgd_leaves, mom_leaves
     torch.cuda.empty_cache()
     return row
 
@@ -947,7 +1065,7 @@ def train_card_vs_cpu(smi) -> None:
                 f"1e-4 tolerance; {launches} stream_gd launches on the card")
             if rel > 1e-4 or perr > 1.0 or not np.isfinite(gm).all():
                 raise SystemExit(f"chip_smoke: {opt} training on the card differs from the CPU")
-            want = {"sgd": 14, "momentum": 28, "adamw": 0}[opt] * len(batches)
+            want = {"sgd": 1, "momentum": 1, "adamw": 0}[opt] * len(batches)
             if launches != want:
                 raise SystemExit(f"chip_smoke: {launches} stream_gd launches, expected {want}")
 
@@ -1018,7 +1136,7 @@ def step_split(tr, state) -> tuple[float, dict]:
 def train_full_width(smi) -> int:
     """Full-width qwen2.5-3b through the launcher: bf16, seeded random
     weights, momentum, seq 1024, global batch 8 in 4 microbatches, remat
-    full.  Every loss finite and 28 stream_gd launches per step; prints
+    full.  Every loss finite and one stream_gd launch per step; prints
     step ms, tokens/s, peak memory and a profiled step's split.  Returns
     the stream_gd launches of the run."""
     from repro_torch.kernels import ops
@@ -1053,16 +1171,17 @@ def train_full_width(smi) -> int:
     log(f"  stream_gd launches {launches} = {launches / steps:g} per step")
     if state.step != steps or not all(np.isfinite(state.losses)):
         raise SystemExit("chip_smoke: full-width training gave a non-finite loss")
-    if launches != 28 * steps:
-        raise SystemExit(f"chip_smoke: {launches} stream_gd launches, expected {28 * steps}")
+    if launches != steps:
+        raise SystemExit(f"chip_smoke: {launches} stream_gd launches, expected {steps}")
     wall_ms, split = step_split(tr, state)
     busy = split["busy"]
-    # m <- (m f32, g) then w <- (w, m f32): each stream read once, each output
-    # written once; the grads are float32 with more than one microbatch
+    # one pass: m (f32) and w read, g read, m and w written, each once; the
+    # grads are float32 with more than one microbatch.  Two one-stage passes
+    # also read the new m back (4 more bytes per parameter).
     g_size = 4 if tr.tcfg.n_microbatches > 1 else None
-    bytes_update = sum(t.numel() * (4 + (g_size or t.element_size()) + 4
-                                    + t.element_size() + 4 + t.element_size())
-                       for t in leaves)
+    bytes_update = sum(t.numel() * (4 + (g_size or t.element_size()) + t.element_size()
+                                    + 4 + t.element_size()) for t in leaves)
+    bytes_two_pass = bytes_update + 4 * n_params
     bound_update = bytes_update / HBM_BYTES_PER_S * 1e3
     if busy == 0:
         raise SystemExit("chip_smoke: the profiler recorded no device time for a step")
@@ -1072,9 +1191,11 @@ def train_full_width(smi) -> int:
         f"step, idle {100 * (1 - busy / step_ms):.1f} %")
     log(f"    forward+backward (remat recompute included): {fb:.1f} ms "
         f"({100 * fb / busy:.1f} %), of which cuBLAS {split['matmul']:.1f} ms")
-    log(f"    update (stream_gd, {split['update_launches']} launches): {split['update']:.2f} ms "
+    log(f"    update (stream_gd, {split['update_launches']} launch(es)): {split['update']:.2f} ms "
         f"({100 * split['update'] / busy:.1f} %) against a bound of {bound_update:.2f} ms "
-        f"({bytes_update / 1e9:.1f} GB at 3.35 TB/s)")
+        f"({bytes_update / 1e9:.1f} GB, {bytes_update / n_params:.0f} B per parameter, at "
+        f"3.35 TB/s); two one-stage passes would move {bytes_two_pass / 1e9:.1f} GB, bound "
+        f"{bytes_two_pass / HBM_BYTES_PER_S * 1e3:.2f} ms")
     log(f"    rest (float32 gradient sums, division, grad norm): {split['accumulate']:.1f} ms "
         f"({100 * split['accumulate'] / busy:.1f} %)")
     for ms, n, name in sorted(split["top"], reverse=True)[:10]:

@@ -8,8 +8,11 @@ with B/C (B, S, N), ``paged_gather`` a (..., n_pages, F) pool with a
 (B, P) table, and ``stream_gd`` (J, *shape) streams with J coefficients, as
 ``repro.kernels.ops`` does (``ssd_scan`` also takes an initial state and
 returns the final one, ``paged_gather`` keeps the leading layers dim
-instead of moving it, and ``stream_gd_into`` is the optimizer's form of
-``stream_gd``: separate streams of their own types, written in place).
+instead of moving it, and ``stream_gd_foreach`` is the optimizer's form
+of ``stream_gd``: a list of leaves in one launch, each with separate
+streams of their own types written in place, and an optional second stage
+that reads the first's output; ``stream_gd_into`` is its one-leaf,
+one-stage call).
 A CPU tensor runs the plain version in ``kernels.ref``.  A CUDA tensor
 launches the hand-written kernel from ``csrc/`` (built on first use by
 ``kernels.build``) or raises: there is no fallback from the card to the
@@ -23,12 +26,15 @@ only), so a run can show that its main path went through the kernels.
 ``stream_mac_conv`` and ``tiled_matmul`` choose between two designs by
 shape; ``PATHS`` names the one their last card call took.  A
 paged-decode call whose pages are split over blocks launches two: the
-partial pass and the merge of its splits.
+partial pass and the merge of its splits; a ``stream_gd_foreach`` call
+whose leaves outgrow one launch's table launches one grid per table.
 """
 from __future__ import annotations
 
 import ctypes
 import threading
+from array import array
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -64,8 +70,9 @@ _SIGNATURES = {
     "tiled_matmul_path": ("tiled_matmul", [_I] * 3),
     "ssd_scan_launch": ("ssd_scan", [_I] + [_P] * 8 + [_I] * 6 + [_L] * 6 + [_P]),
     "paged_gather_launch": ("paged_gather", [_P, _P, _P, _L, _I, _I, _I, _L, _I, _P]),
-    "stream_gd_launch": ("stream_gd", [_I, ctypes.POINTER(_P), ctypes.POINTER(_I),
-                                       ctypes.POINTER(_F), _P, _I, _L, _I, _P]),
+    "stream_gd_launch": ("stream_gd", [_I, _I, _I, ctypes.POINTER(_F), _I, _P, _P, _P, _P,
+                                       ctypes.POINTER(_I)]),
+    "stream_gd_capacity": ("stream_gd", [_I, _I]),
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128, 256)     # the head sizes the kernels are built for
@@ -479,7 +486,9 @@ def paged_gather(pool: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
     return out
 
 
-MAX_STREAMS = 8                    # streams one stream_gd launch takes
+MAX_STREAMS = 8                    # streams of a one-stage stream_gd launch
+MAX_STAGE_STREAMS = 4              # streams of each stage of a two-stage launch
+STAGE1 = ref.STAGE1                # a stage-2 stream: stage 1's output of its leaf
 
 
 def coeffs_f32(coeffs) -> list[float]:
@@ -490,38 +499,159 @@ def coeffs_f32(coeffs) -> list[float]:
     return [ctypes.c_float(float(c)).value for c in coeffs]
 
 
+class _GdLeaf(NamedTuple):
+    """One checked leaf of ``stream_gd_foreach``, packed for the kernel."""
+    stages: list          # (out, [streams]) per stage
+    device: torch.device
+    marks: list           # where stage 2's streams name STAGE1
+    spans: dict           # id -> (pointer, bytes, type code) of each distinct tensor
+    row: list             # stream pointers (0 at STAGE1), then the two outputs'
+    types: int            # bit k: stream k is bf16; bits 16, 17: the outputs
+    numel: int
+
+
+def _gd_leaf(leaf, coeffs, limit: int, grad: bool) -> _GdLeaf:
+    """Checks one leaf of ``stream_gd_foreach`` and packs it."""
+    stages = [(out, list(streams)) for out, streams in leaf]
+    if len(stages) != len(coeffs):
+        raise ValueError(f"stream_gd: every leaf has one (out, streams) pair per stage "
+                         f"({len(coeffs)}), got {len(stages)}")
+    for (_, streams), c in zip(stages, coeffs):
+        if not 1 <= len(streams) <= limit or len(c) != len(streams):
+            raise ValueError(f"stream_gd: 1 to {limit} streams with one coefficient each, "
+                             f"got {len(streams)} streams and {len(c)} coefficients")
+    ins = [t for _, streams in stages for t in streams]
+    outs = [out for out, _ in stages]
+    marks = [t is STAGE1 for t in stages[1][1]] if len(stages) == 2 else []
+    n_marks = marks.count(True)
+    if n_marks > 1 or [t is STAGE1 for t in ins + outs].count(True) != n_marks:
+        raise ValueError("stream_gd: only stage 2 may read stage 1's output (STAGE1), "
+                         "and once")
+    spans = {}
+    shape = device = None
+    for t in outs + ins:
+        if t is STAGE1 or id(t) in spans:
+            continue
+        if shape is None and isinstance(t, torch.Tensor):
+            shape, device = t.shape, t.device
+        if not isinstance(t, torch.Tensor) or t.shape != shape or t.device != device \
+                or t.dtype not in _DTYPES or not t.is_contiguous():
+            got = [(tuple(u.shape), u.dtype, str(u.device), u.is_contiguous())
+                   if isinstance(u, torch.Tensor) else type(u).__name__
+                   for u in outs + ins if u is not STAGE1]
+            raise ValueError("stream_gd: streams and output must be contiguous float32 or "
+                             f"bfloat16 tensors of one shape on one device, got {got}")
+        if grad and t.requires_grad:
+            _no_grad("stream_gd", t)
+        spans[id(t)] = (t.data_ptr(), t.nbytes, _DTYPES[t.dtype])
+    row = [0 if t is STAGE1 else spans[id(t)][0] for t in ins]
+    row += [spans[id(out)][0] for out in outs] + [0] * (2 - len(outs))
+    bits = 0
+    for i, t in enumerate(ins):
+        if t is not STAGE1:
+            bits |= spans[id(t)][2] << i
+    for k, out in enumerate(outs):
+        bits |= spans[id(out)][2] << (16 + k)
+    return _GdLeaf(stages, device, marks, spans, row, bits, outs[0].numel())
+
+
+def _check_gd_aliases(stages, spans) -> None:
+    """An output may be one of its own stage's streams, or stage 2's one of
+    stage 1's, and overlaps nothing else.  Stage 2 reads stage 1's output
+    only as ``STAGE1``: one pass reads every input before it writes, so it
+    would see the old values."""
+    for out, _ in stages:
+        p, n, dt = spans[id(out)]
+        for q, m, du in spans.values():
+            if p < q + m and q < p + n and (p != q or dt != du):
+                raise ValueError("stream_gd: an output partly overlaps another tensor of "
+                                 "its leaf")
+    if len(stages) == 2:
+        p, n, _ = spans[id(stages[0][0])]
+        for t in stages[1][1]:
+            if t is not STAGE1:
+                q, m, _ = spans[id(t)]
+                if p < q + m and q < p + n:
+                    raise ValueError("stream_gd: stage 2 reads stage 1's output only as "
+                                     "ops.STAGE1 (one pass would read the old values)")
+
+
+def stream_gd_foreach(leaves, stage_coeffs) -> None:
+    """Eq. 1 over a list of leaves in one launch (more when the list
+    outgrows one launch's leaf table, ``stream_gd_capacity``).  Each leaf is
+    one or two ``(out, streams)`` stages; ``stage_coeffs`` holds one
+    coefficient list per stage, shared by every leaf.  A stage computes
+    ``out = sum_j coeffs[j] * streams[j]`` over equally shaped contiguous
+    tensors, each float32 or bfloat16 on its own, summed in float32 in
+    stream order and rounded once to ``out``'s type (1 to 8 streams with
+    one stage, 1 to 4 per stage with two).  Stage 2 may name stage 1's
+    output as a stream through ``STAGE1`` (at the same place in every
+    leaf), and reads it as stored.  Outputs may be streams of their own
+    stage (the optimizers update in place), stage 2's one of stage 1's.
+    All leaves lie on one device; different leaves must not share memory
+    (not checked).  Two stages give the bits of two one-stage calls per
+    leaf, stage 1's first."""
+    coeffs = [coeffs_f32(c) for c in stage_coeffs]
+    if not 1 <= len(coeffs) <= 2:
+        raise ValueError(f"stream_gd: 1 or 2 stages, got {len(coeffs)}")
+    limit = MAX_STREAMS if len(coeffs) == 1 else MAX_STAGE_STREAMS
+    grad = torch.is_grad_enabled()
+    checked = [_gd_leaf(leaf, coeffs, limit, grad) for leaf in leaves]
+    if not checked:
+        return
+    device, marks = checked[0].device, checked[0].marks
+    for c in checked:
+        if c.device != device:
+            raise ValueError(f"stream_gd: every leaf must lie on one device, got "
+                             f"{device} and {c.device}")
+        if c.marks != marks:
+            raise ValueError("stream_gd: STAGE1 must stand at the same place in every leaf")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"stream_gd: tensors must be on the CPU or a CUDA device, "
+                         f"got {device}")
+    for c in checked:
+        _check_gd_aliases(c.stages, c.spans)
+    if device.type == "cpu":
+        ref.stream_gd_foreach([c.stages for c in checked], coeffs)
+        return
+    marker = marks.index(True) if True in marks else -1
+    _count("stream_gd", _gd_launch(checked, coeffs, marker,
+                                   torch.cuda.current_stream(device).cuda_stream))
+
+
+def _gd_launch(checked: list[_GdLeaf], coeffs, marker: int, stream: int) -> int:
+    """Launches the kernel over packed leaves; returns the number of grids
+    launched."""
+    j1 = len(coeffs[0])
+    j2 = len(coeffs[1]) if len(coeffs) == 2 else 0
+    ptrs = array("Q", [p for c in checked for p in c.row])
+    types = array("I", [c.types for c in checked])
+    numel = array("q", [c.numel for c in checked])
+    launches = ctypes.c_int()
+    lib, fn = _entry("stream_gd_launch")
+    err = fn(j1, j2, marker,
+             (_F * (j1 + j2))(*coeffs[0], *coeffs[-1][:j2]), len(checked),
+             ptrs.buffer_info()[0], types.buffer_info()[0], numel.buffer_info()[0], stream,
+             ctypes.byref(launches))
+    if err != 0:
+        raise RuntimeError(f"stream_gd launch failed: {build.error_string(lib, err)}")
+    return launches.value
+
+
+def stream_gd_capacity(stage_streams) -> int:
+    """Leaves one ``stream_gd_foreach`` launch takes, for stages of the
+    given numbers of streams (builds the kernel)."""
+    j1, j2 = (list(stage_streams) + [0])[:2]
+    return _entry("stream_gd_capacity")[1](j1, j2)
+
+
 def stream_gd_into(out: torch.Tensor, streams, coeffs) -> torch.Tensor:
     """Eq. 1 into ``out``: ``out = sum_j coeffs[j] * streams[j]`` over
     equally shaped contiguous tensors, each float32 or bfloat16 on its own,
     summed in float32 in stream order and rounded once to ``out``'s type.
-    ``out`` may be one of the streams (the optimizer updates in place).
-    Returns ``out``."""
-    streams = list(streams)
-    c = coeffs_f32(coeffs)
-    _no_grad("stream_gd", out, *streams)
-    if not 1 <= len(streams) <= MAX_STREAMS or len(c) != len(streams):
-        raise ValueError(f"stream_gd: 1 to {MAX_STREAMS} streams with one coefficient "
-                         f"each, got {len(streams)} streams and {len(c)} coefficients")
-    tensors = (out, *streams)
-    if any(t.shape != out.shape or t.device != out.device or t.dtype not in _DTYPES
-           or not t.is_contiguous() for t in tensors):
-        got = [(tuple(t.shape), t.dtype, str(t.device), t.is_contiguous()) for t in tensors]
-        raise ValueError("stream_gd: streams and output must be contiguous float32 or "
-                         f"bfloat16 tensors of one shape on one device, got {got}")
-    if out.device.type == "cpu":
-        return out.copy_(ref.stream_gd(streams, c, out.dtype))
-    if out.device.type != "cuda":
-        raise ValueError(f"stream_gd: tensors must be on the CPU or a CUDA device, "
-                         f"got {out.device}")
-    if out.numel() == 0:
-        return out
-    j = len(streams)
-    lib, fn = _entry("stream_gd_launch")
-    err = fn(j, (_P * j)(*(t.data_ptr() for t in streams)),
-             (_I * j)(*(_DTYPES[t.dtype] for t in streams)), (_F * j)(*c),
-             out.data_ptr(), _DTYPES[out.dtype], out.numel(), _sm_count(out.device),
-             torch.cuda.current_stream(out.device).cuda_stream)
-    _launched(lib, "stream_gd", err)
+    ``out`` may be one of the streams.  A one-leaf, one-stage
+    ``stream_gd_foreach``; returns ``out``."""
+    stream_gd_foreach([((out, streams),)], [coeffs])
     return out
 
 

@@ -6,8 +6,9 @@ the card they are the reference each CUDA kernel is held against, so they
 repeat the kernels' arithmetic with plain tensor ops and call no
 convolution or pooling library (a float32 cuDNN convolution would run TF32).
 ``stream_gd`` takes the optimizer's separate streams (JAX's oracle takes
-one stacked array; ``ops.stream_gd`` unstacks it).  ``ssd_scan`` is the
-chunked, factorized form of ``repro/models/ssm.py``'s
+one stacked array; ``ops.stream_gd`` unstacks it), and
+``stream_gd_foreach`` runs it over a list of leaves, stage by stage.
+``ssd_scan`` is the chunked, factorized form of ``repro/models/ssm.py``'s
 ``ssd_chunked`` (the JAX oracle of the TPU kernel is the sequential
 recurrence, which it equals up to rounding).
 """
@@ -197,3 +198,27 @@ def stream_gd(streams, coeffs, out_dtype: torch.dtype) -> torch.Tensor:
         term = x.float() * torch.tensor(c, dtype=torch.float32)
         acc = term if acc is None else acc + term
     return acc.to(out_dtype)
+
+
+class _Stage1:
+    """The type of ``STAGE1``."""
+
+    def __repr__(self) -> str:
+        return "STAGE1"
+
+
+# a stage-2 stream of ``stream_gd_foreach``: stage 1's output of the same leaf
+STAGE1 = _Stage1()
+
+
+def stream_gd_foreach(leaves, stage_coeffs) -> None:
+    """``stream_gd`` over a list of leaves, each one or two ``(out,
+    streams)`` stages with one coefficient list per stage: stage 1 is
+    computed and written into its output, then stage 2, which reads that
+    output back wherever its streams name ``STAGE1``."""
+    for leaf in leaves:
+        written = None
+        for (out, streams), coeffs in zip(leaf, stage_coeffs):
+            streams = [written if s is STAGE1 else s for s in streams]
+            out.copy_(stream_gd(streams, coeffs, out.dtype))
+            written = out

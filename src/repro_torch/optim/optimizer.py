@@ -2,11 +2,12 @@
 ``repro/optim/optimizer.py``.
 
 ``sgd`` and ``momentum`` are the paper's STREAM_GD form (Eq. 1), ``W = C0·W
-+ C1·dW``, and every leaf's update is one ``kernels.ops.stream_gd_into``
-launch (two for momentum): the hand-written kernel on the card, its plain
-version on the CPU.  ``adamw`` is not of that form and stays plain torch
-elementwise ops, as the JAX package leaves it to XLA; its moments may be
-kept in bfloat16 (``state_dtype``).
++ C1·dW``, and a step's update is one ``kernels.ops.stream_gd_foreach``
+call over every leaf (momentum's two stages, the moment and then the
+weight, in one pass): one launch of the hand-written kernel on the card,
+its plain version on the CPU.  ``adamw`` is not of that form and stays
+plain torch elementwise ops, as the JAX package leaves it to XLA; its
+moments may be kept in bfloat16 (``state_dtype``).
 
 ``update(grads, state, params)`` runs under ``torch.no_grad()`` and writes
 the new parameters and state into the storage of ``params`` and ``state``,
@@ -43,16 +44,15 @@ def _leaves(*trees):
 
 
 def sgd(lr: float = 1e-2, weight_decay: float = 0.0) -> Optimizer:
-    """Paper Eq. 1 with C0 = (1 - lr·λ), C1 = -lr: one launch per leaf."""
+    """Paper Eq. 1 with C0 = (1 - lr·λ), C1 = -lr: one launch per step."""
 
     def init(params):
         return {"count": _count0(params)}
 
     @torch.no_grad()
     def update(grads, state, params):
-        coeffs = (1.0 - lr * weight_decay, -lr)
-        for w, g in _leaves(params, grads):
-            ops.stream_gd_into(w, (w, g), coeffs)
+        ops.stream_gd_foreach([((w, (w, g)),) for w, g in _leaves(params, grads)],
+                              [(1.0 - lr * weight_decay, -lr)])
         state["count"] += 1
         return params, state
 
@@ -60,8 +60,9 @@ def sgd(lr: float = 1e-2, weight_decay: float = 0.0) -> Optimizer:
 
 
 def momentum(lr: float = 1e-2, beta: float = 0.9, weight_decay: float = 0.0) -> Optimizer:
-    """Heavy-ball momentum as two Eq. 1 launches per leaf: m ← β·m + 1·g
-    into the float32 moment, then w ← (1 - lr·λ)·w - lr·m."""
+    """Heavy-ball momentum as two chained Eq. 1 stages, one launch per step:
+    m ← β·m + 1·g into the float32 moment, then w ← (1 - lr·λ)·w - lr·m
+    from the new m (the bits of two passes, in one)."""
 
     def init(params):
         return {"m": tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
@@ -70,9 +71,10 @@ def momentum(lr: float = 1e-2, beta: float = 0.9, weight_decay: float = 0.0) -> 
 
     @torch.no_grad()
     def update(grads, state, params):
-        for w, g, m in _leaves(params, grads, state["m"]):
-            ops.stream_gd_into(m, (m, g), (beta, 1.0))
-            ops.stream_gd_into(w, (w, m), (1.0 - lr * weight_decay, -lr))
+        ops.stream_gd_foreach(
+            [((m, (m, g)), (w, (w, ops.STAGE1)))
+             for w, g, m in _leaves(params, grads, state["m"])],
+            [(beta, 1.0), (1.0 - lr * weight_decay, -lr)])
         state["count"] += 1
         return params, state
 

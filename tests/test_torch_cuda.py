@@ -349,26 +349,97 @@ GD_CASES = [
 ]
 
 
+def _plain_foreach(leaves, coeffs):
+    """The plain version of ``stream_gd_foreach`` on copies of ``leaves``."""
+    copies = {}
+    for leaf in leaves:
+        for out, streams in leaf:
+            for t in (out, *streams):
+                if t is not ops.STAGE1 and id(t) not in copies:
+                    copies[id(t)] = t.clone()
+    plain = [[(copies[id(out)], [s if s is ops.STAGE1 else copies[id(s)] for s in streams])
+              for out, streams in leaf] for leaf in leaves]
+    ref.stream_gd_foreach(plain, [ops.coeffs_f32(c) for c in coeffs])
+    return plain
+
+
+def _gd_leaf(g, n, types, out_t, in_place, offset, two_stages, card):
+    """One leaf: stage 1 over ``types`` (into the first stream, or a fresh
+    output); with ``two_stages``, stage 2 w <- (w bf16, STAGE1) in place."""
+    def new(dt):
+        return torch.randn(n + offset, generator=g, device=card).to(getattr(torch, dt))[offset:]
+
+    streams = [new(t) for t in types]
+    out = streams[0] if in_place else new(out_t)
+    leaf = [(out, streams)]
+    if two_stages:
+        w = new("bfloat16")
+        leaf.append((w, [w, ops.STAGE1]))
+    return leaf
+
+
 @pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "unaligned"])
 @pytest.mark.parametrize("m", [8 * 4099, 1003])
 @pytest.mark.parametrize("types,out_t,in_place", GD_CASES)
-def test_stream_gd_kernel_bit_equal_to_plain(card, types, out_t, in_place, m, offset):
+@pytest.mark.parametrize("form", ["one leaf", "foreach", "two stages"])
+def test_stream_gd_kernel_bit_equal_to_plain(card, form, types, out_t, in_place, m, offset):
     """Separate float32 products and sums in stream order on both sides: the
     same bits.  ``offset`` 1 puts every stream off 16 bytes (element path);
-    m = 1003 leaves a tail past the last 8."""
+    m = 1003 leaves a tail past the last 8.  "one leaf" is ``stream_gd_into``;
+    "foreach" one launch over leaves of 1, 7, 64 and m elements; "two stages"
+    the same leaves with a second stage that reads the first's output (two
+    stages take at most 4 streams each, so the 8-stream case keeps its
+    first 4)."""
     g = torch.Generator(device=card).manual_seed(len(types))
-    streams = [torch.randn(m + offset, generator=g, device=card).to(getattr(torch, t))[offset:]
-               for t in types]
     coeffs = [0.999, -0.05, 0.5, 1.0, -2.0, 0.25, 3.0, -0.125][:len(types)]
-    want = ref.stream_gd([t.clone() for t in streams], ops.coeffs_f32(coeffs),
-                         getattr(torch, out_t))
-    out = (streams[0] if in_place else
-           torch.empty(m + offset, dtype=getattr(torch, out_t), device=card)[offset:])
     before = ops.LAUNCHES["stream_gd"]
-    got = ops.stream_gd_into(out, streams, coeffs)
+    if form == "one leaf":
+        (out, streams), = _gd_leaf(g, m, types, out_t, in_place, offset, False, card)
+        want = ref.stream_gd([t.clone() for t in streams], ops.coeffs_f32(coeffs),
+                             getattr(torch, out_t))
+        got = ops.stream_gd_into(out, streams, coeffs)
+        torch.cuda.synchronize()
+        assert got is out and ops.LAUNCHES["stream_gd"] == before + 1
+        assert got.dtype == want.dtype and torch.equal(got, want)
+        return
+    two = form == "two stages"
+    if two:
+        types, coeffs = types[:4], coeffs[:4]
+    stage_coeffs = [coeffs] + ([[0.999, -1e-3]] if two else [])
+    leaves = [_gd_leaf(g, n, types, out_t, in_place, offset, two, card) for n in (1, 7, 64, m)]
+    plain = _plain_foreach(leaves, stage_coeffs)
+    ops.stream_gd_foreach(leaves, stage_coeffs)
     torch.cuda.synchronize()
-    assert got is out and ops.LAUNCHES["stream_gd"] == before + 1
-    assert got.dtype == want.dtype and torch.equal(got, want)
+    assert ops.LAUNCHES["stream_gd"] == before + 1
+    for leaf, want in zip(leaves, plain):
+        for (got, _), (w, _) in zip(leaf, want):
+            assert got.dtype == w.dtype and torch.equal(got, w)
+
+
+@pytest.mark.parametrize("two_stages", [False, True], ids=["one stage", "two stages"])
+def test_stream_gd_foreach_splits_a_long_leaf_list(card, two_stages):
+    """A leaf list longer than one launch's table goes out in several
+    launches, each counted, and still gives the plain version's bits."""
+    cap = ops.stream_gd_capacity((2, 2) if two_stages else (2,))
+    g = torch.Generator(device=card).manual_seed(5)
+    leaves = []
+    for i in range(cap + 3):
+        m = torch.randn(1 + (i * 37) % 300, generator=g, device=card)
+        grad = torch.randn(m.shape, generator=g, device=card).to(torch.bfloat16)
+        leaf = [(m, [m, grad])]
+        if two_stages:
+            w = torch.randn(m.shape, generator=g, device=card).to(torch.bfloat16)
+            leaf.append((w, [w, ops.STAGE1]))
+        leaves.append(leaf)
+    coeffs = [[0.9, 1.0]] + ([[0.999, -1e-3]] if two_stages else [])
+    plain = _plain_foreach(leaves, coeffs)
+    before = ops.LAUNCHES["stream_gd"]
+    ops.stream_gd_foreach(leaves, coeffs)
+    torch.cuda.synchronize()
+    assert cap > 14 and ops.LAUNCHES["stream_gd"] == before + 2
+    for leaf, want in zip(leaves, plain):
+        for (got, _), (w, _) in zip(leaf, want):
+            assert torch.equal(got, w)
 
 
 @pytest.mark.parametrize("n_micro", [1, 2])
@@ -403,7 +474,7 @@ def test_train_steps_on_card_match_cpu(card, opt, n_micro):
             metrics.append((float(m["loss"]), float(m["grad_norm"])))
         runs[str(dev)] = (metrics, p, ops.LAUNCHES["stream_gd"])
     (cm, cp, cl), (gm, gp, gl) = runs["cpu"], runs["cuda"]
-    per_step = {"sgd": 14, "momentum": 28, "adamw": 0}[opt]
+    per_step = {"sgd": 1, "momentum": 1, "adamw": 0}[opt]       # one launch over 14 leaves
     assert (cl, gl) == (0, 3 * per_step)
     np.testing.assert_allclose(gm, cm, rtol=1e-4)
     for (_, a), (_, b) in zip(tree_items(gp), tree_items(cp)):
