@@ -6,8 +6,9 @@
 Run from the root of a checkout (it imports ``src/repro_torch`` beside it;
 it never imports JAX or the ``repro`` package).  It drives the port's
 paths: paged-KV serving of qwen2.5-3b, ConvNet inference of VGG16, serving
-of mamba2-130m, the gather decode path, and training of qwen2.5-3b.  Every
-path runs at full width and full depth.  Phases, each fatal:
+of mamba2-130m, the gather decode path, training of qwen2.5-3b, ConvNet
+training (VGG16) and training of mamba2-130m.  Every path runs at full
+width and full depth.  Phases, each fatal:
 
 1. build the eight CUDA kernels from ``src/repro_torch/kernels/csrc``
    (``nvcc``, printing the ``-Xptxas -v`` register report) and name the card;
@@ -73,15 +74,46 @@ path runs at full width and full depth.  Phases, each fatal:
     ``stream_gd`` launch per step (14 leaves, two stages); step ms, trained
     tokens/s, peak memory and a profiled step's split into
     forward+backward, update (against its one-pass bound, 16 B per
-    parameter, and the two-pass one) and the rest.
+    parameter, and the two-pass one) and the rest;
+12. train ``examples/torch_train_convnet.py``'s small net in float32 on the
+    card and on the CPU from the same weights and batches, 6 steps of
+    momentum (with cuDNN and without) and of adamw (without: cuDNN's
+    Winograd weight gradients leave ~5e-8 where the CPU's are exactly 0,
+    which adamw amplifies; that drift is printed as a measurement): losses
+    within 1e-4 relative at every step, parameters within 1e-4, one
+    ``stream_gd`` launch per momentum step, and the card's checkpoint
+    restores bit-exactly;
+13. train full-width VGG16 (``impl="xla"``: cuDNN convolutions through
+    autograd, 224 x 224, batch 32, bf16 weights from a seeded He init,
+    float32 momentum at lr 3e-3) for 6 steps on ``SyntheticImageData``
+    batches put on the card beforehand: every loss finite, one
+    ``stream_gd`` launch per step (32 leaves); step ms (median of steps
+    2-6), the host's batch-generation ms apart, trained images/s, peak
+    memory and a profiled step's split (the update against its bound,
+    14 B per parameter); then the trained weights through
+    ``impl="kernel"`` (``stream_mac_conv``, ``stream_maxpool``,
+    ``tiled_matmul``) on 16 images: logits within the bf16 tolerance of
+    phase 2 of ``impl="xla"``'s, and the argmax agreement;
+14. train reduced mamba2-130m as phase 10 does qwen2.5-3b (64 tokens, two
+    32-token chunks), card against CPU; then full-width mamba2-130m
+    through ``repro_torch.launch.train --full`` (bf16, momentum, seq 1024,
+    global batch 16 in 8 microbatches, remat full, the differentiable
+    plain-torch SSD) for 6 steps: every loss finite, one ``stream_gd``
+    launch per step; step ms, trained tokens/s, peak memory, the profiled
+    split; and an eval loss of the trained weights through ``ssd_scan``
+    (``impl="kernel"``) within the bf16 tolerance of ``impl="xla"``'s.
 
-Then it prints one JSON line with each kernel's numbers, the card's name
+A kernel's ``launches`` in the JSON line sums its counts over the paths
+that drive it (serving, VGG16 inference, the gather path, the three
+training paths), each counted from 0 around its own run.  Then it prints
+one JSON line with each kernel's numbers, the card's name
 and power limit, and, last, ``{"ok": true, "device": {...}}``.  Without a
 card, or without the package beside it, it exits non-zero and prints no
 result.
 """
 import dataclasses
 import gc
+import importlib.util
 import json
 import math
 import re
@@ -1022,8 +1054,8 @@ def ssm_prefill_ms(model, params, vocab, seq: int = 512) -> None:
 LR = {"sgd": {"lr": 1e-2}, "momentum": {"lr": 1e-2}, "adamw": {}}
 
 
-def train_card_vs_cpu(smi) -> None:
-    """Reduced qwen2.5-3b in float32: 4 steps of each optimizer with 1 and 2
+def train_card_vs_cpu(arch: str, seq: int) -> None:
+    """Reduced ``arch`` in float32: 4 steps of each optimizer with 1 and 2
     microbatches from the same weights and batches on the card and on the
     CPU; losses and grad norms within 1e-4 relative at every step,
     parameters within 1e-4 (atol = rtol)."""
@@ -1036,11 +1068,12 @@ def train_card_vs_cpu(smi) -> None:
 
     if torch.backends.cuda.matmul.allow_tf32:
         raise SystemExit("chip_smoke: TF32 matmuls are on; float32 would not be float32")
-    cfg = dataclasses.replace(get_arch("qwen2.5-3b").reduced(), dtype="float32")
+    cfg = dataclasses.replace(get_arch(arch).reduced(), dtype="float32")
     model = build_model(cfg)
     params = model.init(torch.Generator().manual_seed(0), "cpu")
     rng = np.random.default_rng(10)
-    batches = [rng.integers(0, cfg.vocab_size, size=(4, 33)).astype(np.int32) for _ in range(4)]
+    batches = [rng.integers(0, cfg.vocab_size, size=(4, seq + 1)).astype(np.int32)
+               for _ in range(4)]
     for opt in ("sgd", "momentum", "adamw"):
         for n_micro in (1, 2):
             runs = {}
@@ -1099,19 +1132,20 @@ def train_fault_on_card() -> None:
         raise SystemExit("chip_smoke: crash -> restore -> resume did not reproduce the clean run")
 
 
-def step_split(tr, state) -> tuple[float, dict]:
-    """One more step of ``tr`` under torch.profiler: device ms of all
-    kernels, of the update (``stream_gd`` kernels), of the gradient sums,
-    division and norm (the ``train_step.accumulate`` ranges), of cuBLAS,
-    and the step's wall ms.  The rest of the device time is the forward
-    and backward (whose kernels autograd launches from its own thread)."""
+def profile_split(fn) -> dict:
+    """``fn()`` under torch.profiler: device ms of all kernels, of the update
+    (``stream_gd`` kernels), of the gradient sums, division and norm (the
+    ``train_step.accumulate`` ranges), of cuBLAS and cuDNN, and the largest
+    kernels.  The rest of the device time is the forward and backward (whose
+    kernels autograd launches from its own thread)."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    tr.tcfg.total_steps = state.step + 1
     with torch.profiler.profile(activities=acts) as prof:
-        tr.run(state)
+        fn()
         torch.cuda.synchronize()
     split = {"busy": 0.0, "update": 0.0, "update_launches": 0, "accumulate": 0.0,
-             "matmul": 0.0, "launches": 0, "top": []}
+             "library": 0.0, "launches": 0, "top": []}
+    library = ("gemm", "gemv", "cutlass", "nvjet", "cublas", "matmul", "cudnn", "conv",
+               "xmma", "implicit", "wgrad", "dgrad")
     for e in prof.key_averages():
         cuda = str(getattr(e, "device_type", "")).endswith("CUDA")
         if e.key.startswith(("train_step.", "ProfilerStep")):
@@ -1128,30 +1162,73 @@ def step_split(tr, state) -> tuple[float, dict]:
         if "stream_gd" in name:
             split["update"] += ms
             split["update_launches"] += e.count
-        elif any(t in name for t in ("gemm", "gemv", "cutlass", "nvjet", "cublas", "matmul")):
-            split["matmul"] += ms
+        elif any(t in name for t in library):
+            split["library"] += ms
+    if split["busy"] == 0:
+        raise SystemExit("chip_smoke: the profiler recorded no device time for a step")
+    return split
+
+
+def step_split(tr, state) -> tuple[float, dict]:
+    """One more step of the Trainer ``tr`` under the profiler: its wall ms
+    (profiler on) and ``profile_split``'s split."""
+    tr.tcfg.total_steps = state.step + 1
+    split = profile_split(lambda: tr.run(state))
     return state.step_s[-1] * 1e3, split
 
 
-def train_full_width(smi) -> int:
-    """Full-width qwen2.5-3b through the launcher: bf16, seeded random
-    weights, momentum, seq 1024, global batch 8 in 4 microbatches, remat
-    full.  Every loss finite and one stream_gd launch per step; prints
-    step ms, tokens/s, peak memory and a profiled step's split.  Returns
-    the stream_gd launches of the run."""
+def log_split(wall_ms, split, step_ms, bytes_update, n_params, two_pass=False) -> None:
+    """Print a profiled step: busy and idle share of the unprofiled step,
+    forward+backward, the update against its bound (``bytes_update`` at
+    3.35 TB/s) and the rest."""
+    busy = split["busy"]
+    bound_update = bytes_update / HBM_BYTES_PER_S * 1e3
+    fb = busy - split["update"] - split["accumulate"]
+    log(f"  profiled step: {wall_ms:.1f} ms wall (profiler on), device busy {busy:.1f} ms "
+        f"over {split['launches']} launches = {100 * busy / step_ms:.1f} % of the unprofiled "
+        f"step, idle {100 * (1 - busy / step_ms):.1f} %")
+    log(f"    forward+backward (remat recompute included): {fb:.2f} ms "
+        f"({100 * fb / busy:.1f} %), of which cuBLAS/cuDNN {split['library']:.2f} ms")
+    two = (f"; two one-stage passes would move {(bytes_update + 4 * n_params) / 1e9:.1f} GB, "
+           f"bound {(bytes_update + 4 * n_params) / HBM_BYTES_PER_S * 1e3:.2f} ms"
+           if two_pass else "")
+    log(f"    update (stream_gd, {split['update_launches']} launch(es)): {split['update']:.3f} ms "
+        f"({100 * split['update'] / busy:.1f} %) against a bound of {bound_update:.3f} ms "
+        f"({bytes_update / 1e9:.2f} GB, {bytes_update / n_params:.0f} B per parameter, at "
+        f"3.35 TB/s){two}")
+    log(f"    rest (float32 gradient sums, division, grad norm): {split['accumulate']:.2f} ms "
+        f"({100 * split['accumulate'] / busy:.1f} %)")
+    for ms, n, name in sorted(split["top"], reverse=True)[:10]:
+        log(f"      {ms:.2f} ms, {n} launches: {name}")
+
+
+def update_bytes(leaves, grad_size=None) -> int:
+    """Bytes of one fused momentum update: m (f32) and w read, g read, m and
+    w written, each once (``grad_size``: the gradients' element size when it
+    is not the weight's, as for float32 microbatch sums)."""
+    return sum(t.numel() * (4 + (grad_size or t.element_size()) + t.element_size()
+                            + 4 + t.element_size()) for t in leaves)
+
+
+def train_full_width(smi, arch: str, batch: int, seq: int, lr: str):
+    """Full-width ``arch`` through the launcher (``--full``: bf16, seeded
+    random weights, ``cfg.train_microbatches`` microbatches, remat full),
+    momentum, 6 steps.  Every loss finite and one stream_gd launch per step;
+    prints step ms, tokens/s, peak memory and a profiled step's split.
+    Returns (stream_gd launches, trainer, state)."""
     from repro_torch.kernels import ops
     from repro_torch.launch.train import main as train_main
     from repro_torch.models.common import tree_items
 
-    steps, batch, seq = 6, 8, 1024
+    steps = 6
     gc.collect()                      # earlier phases' engines and weights
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated() / 2**30
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     tr, state, restarts = train_main(
-        ["--arch", "qwen2.5-3b", "--full", "--optimizer", "momentum", "--steps", str(steps),
-         "--batch", str(batch), "--seq", str(seq), "--lr", "1e-4"])
+        ["--arch", arch, "--full", "--optimizer", "momentum", "--steps", str(steps),
+         "--batch", str(batch), "--seq", str(seq), "--lr", lr])
     torch.cuda.synchronize()
     launches = ops.LAUNCHES["stream_gd"]
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1160,50 +1237,23 @@ def train_full_width(smi) -> int:
     n_params = sum(t.numel() for t in leaves)
     log(f"  {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, "
         f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, remat {cfg.remat}, "
-        f"{tr.tcfg.n_microbatches} microbatches; {n_params / 1e9:.3f} B parameters in "
+        f"{tr.tcfg.n_microbatches} microbatches; {n_params / 1e9:.4f} B parameters in "
         f"{len(leaves)} leaves")
     log(f"  losses {['%.4f' % x for x in state.losses]}; restarts {restarts}")
-    timed = state.step_s[1:]
-    step_ms = statistics.median(timed) * 1e3
+    step_ms = statistics.median(state.step_s[1:]) * 1e3
     log(f"  step {step_ms:.1f} ms (median of steps 2-{steps}; first step "
         f"{state.step_s[0] * 1e3:.1f} ms), {batch * seq / step_ms * 1e3:.0f} trained tokens/s, "
         f"peak device memory {peak:.2f} GiB, {held:.2f} GiB of it held before the run ({smi})")
     log(f"  stream_gd launches {launches} = {launches / steps:g} per step")
     if state.step != steps or not all(np.isfinite(state.losses)):
-        raise SystemExit("chip_smoke: full-width training gave a non-finite loss")
+        raise SystemExit(f"chip_smoke: full-width {arch} training gave a non-finite loss")
     if launches != steps:
         raise SystemExit(f"chip_smoke: {launches} stream_gd launches, expected {steps}")
     wall_ms, split = step_split(tr, state)
-    busy = split["busy"]
-    # one pass: m (f32) and w read, g read, m and w written, each once; the
-    # grads are float32 with more than one microbatch.  Two one-stage passes
-    # also read the new m back (4 more bytes per parameter).
-    g_size = 4 if tr.tcfg.n_microbatches > 1 else None
-    bytes_update = sum(t.numel() * (4 + (g_size or t.element_size()) + t.element_size()
-                                    + 4 + t.element_size()) for t in leaves)
-    bytes_two_pass = bytes_update + 4 * n_params
-    bound_update = bytes_update / HBM_BYTES_PER_S * 1e3
-    if busy == 0:
-        raise SystemExit("chip_smoke: the profiler recorded no device time for a step")
-    fb = busy - split["update"] - split["accumulate"]
-    log(f"  profiled step: {wall_ms:.1f} ms wall (profiler on), device busy {busy:.1f} ms "
-        f"over {split['launches']} launches = {100 * busy / step_ms:.1f} % of the unprofiled "
-        f"step, idle {100 * (1 - busy / step_ms):.1f} %")
-    log(f"    forward+backward (remat recompute included): {fb:.1f} ms "
-        f"({100 * fb / busy:.1f} %), of which cuBLAS {split['matmul']:.1f} ms")
-    log(f"    update (stream_gd, {split['update_launches']} launch(es)): {split['update']:.2f} ms "
-        f"({100 * split['update'] / busy:.1f} %) against a bound of {bound_update:.2f} ms "
-        f"({bytes_update / 1e9:.1f} GB, {bytes_update / n_params:.0f} B per parameter, at "
-        f"3.35 TB/s); two one-stage passes would move {bytes_two_pass / 1e9:.1f} GB, bound "
-        f"{bytes_two_pass / HBM_BYTES_PER_S * 1e3:.2f} ms")
-    log(f"    rest (float32 gradient sums, division, grad norm): {split['accumulate']:.1f} ms "
-        f"({100 * split['accumulate'] / busy:.1f} %)")
-    for ms, n, name in sorted(split["top"], reverse=True)[:10]:
-        log(f"      {ms:.1f} ms, {n} launches: {name}")
-    save_params_once(state.params, state.step)
-    del tr, state, leaves
-    torch.cuda.empty_cache()
-    return launches
+    # the grads are float32 sums with more than one microbatch
+    grad_size = 4 if tr.tcfg.n_microbatches > 1 else None
+    log_split(wall_ms, split, step_ms, update_bytes(leaves, grad_size), n_params, two_pass=True)
+    return launches, tr, state
 
 
 def save_params_once(params, step) -> None:
@@ -1228,6 +1278,227 @@ def save_params_once(params, step) -> None:
         f"META): {dt:.1f} s = {nbytes / dt / 1e9:.2f} GB/s; complete: {ok}")
     if not ok:
         raise SystemExit("chip_smoke: the full-width checkpoint is incomplete")
+
+
+# ---------------------------------------------------------------------------
+# phases 12 and 13: ConvNet training
+# ---------------------------------------------------------------------------
+
+CNN_TRAIN_BATCH = 32                           # the JAX example's default batch
+
+
+def load_example(name: str):
+    """An ``examples/<name>.py`` of the checkout, as a module."""
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def convnet_train_card_vs_cpu(ex) -> None:
+    """``examples/torch_train_convnet.py``'s small net in float32 from the
+    same weights and batches, 6 steps of momentum and of adamw (the example's
+    settings) on the card and on the CPU: losses within 1e-4 relative at
+    every step, parameters within 1e-4 (atol = rtol), one stream_gd launch
+    per momentum step, and the card's checkpoint (under build/) restores
+    bit-exactly.
+
+    cuDNN computes conv4's float32 weight gradient with a Winograd
+    transform, which leaves ~5e-8 where the true gradient is exactly 0 (a
+    dead channel); adamw (eps 1e-8) turns that into steps of ~0.8 lr for
+    weights the CPU leaves in place.  So momentum is held to the CPU with
+    cuDNN and without it, and adamw without it (im2col and cuBLAS, which
+    keep exact zeros); adamw's drift with cuDNN is printed as a
+    measurement, not held to the tolerance."""
+    from repro_torch.core.convnet import ConvNetExecutor, make_small_convnet
+    from repro_torch.kernels import ops
+    from repro_torch.models.common import tree_items, tree_map
+    from repro_torch.train import checkpoint
+
+    steps = 6
+    init = ConvNetExecutor(make_small_convnet(10, 16, 16), impl="xla").init(
+        torch.Generator().manual_seed(0), "cpu")
+    root = ROOT / "build" / "chip_smoke_convnet_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def run(opt, dev, cudnn):
+        ops.reset_launches()
+        ckpt = str(root / f"{opt}_{dev}_{cudnn}")
+        enabled = torch.backends.cudnn.enabled
+        torch.backends.cudnn.enabled = cudnn
+        try:
+            losses, params, _ = ex.train(steps=steps, opt=opt, ckpt=ckpt, device=dev,
+                                         init_params=init, ckpt_every=3)
+        finally:
+            torch.backends.cudnn.enabled = enabled
+        return np.array(losses), params, ops.LAUNCHES["stream_gd"], ckpt
+
+    def gap(card, cpu):
+        rel = float(np.max(np.abs(card[0] - cpu[0]) / np.abs(cpu[0])))
+        perr = max(float(((a.cpu() - b).abs() / (1e-4 + 1e-4 * b.abs())).max())
+                   for (_, a), (_, b) in zip(tree_items(card[1]), tree_items(cpu[1])))
+        return rel, perr
+
+    cpu = {opt: run(opt, "cpu", True) for opt in ("momentum", "adamw")}
+    for opt, cudnn in (("momentum", True), ("momentum", False), ("adamw", False)):
+        card = run(opt, "cuda", cudnn)
+        gl, gp, launches, ckpt = card
+        rel, perr = gap(card, cpu[opt])
+        got, extra, step = checkpoint.restore(ckpt, gp, device="cuda")
+        exact = step == steps and extra == {"data": {"seed": 0, "step": steps}} and all(
+            torch.equal(a, b) for (_, a), (_, b) in zip(tree_items(got), tree_items(gp)))
+        log(f"  {opt}, cuDNN {'on' if cudnn else 'off'}: card losses "
+            f"{['%.5f' % x for x in gl]}, max rel diff to the CPU {rel:.2e}, params at "
+            f"{perr:.3f} of the 1e-4 tolerance; {launches} stream_gd launches on the card; "
+            f"checkpoint of step {step} restores bit-exactly: {exact}")
+        if rel > 1e-4 or perr > 1.0 or not np.isfinite(gl).all():
+            raise SystemExit(f"chip_smoke: ConvNet {opt} training on the card differs from "
+                             "the CPU")
+        want = steps if opt == "momentum" else 0
+        if launches != want:
+            raise SystemExit(f"chip_smoke: {launches} stream_gd launches, expected {want}")
+        if not exact:
+            raise SystemExit("chip_smoke: the ConvNet checkpoint does not restore bit-exactly")
+    rel, perr = gap(run("adamw", "cuda", True), cpu["adamw"])
+    log(f"  measured, not held to the tolerance: adamw, cuDNN on: max rel loss diff "
+        f"{rel:.2e}, params at {perr:.3f} of the 1e-4 tolerance")
+    # why: the first step's gradients, card (cuDNN) against CPU, and the
+    # weight-gradient kernels cuDNN picked
+    from repro_torch.data.pipeline import SyntheticImageData
+    from repro_torch.train.train_step import value_and_grad
+
+    exe = ConvNetExecutor(make_small_convnet(10, 16, 16), impl="xla")
+    x, y = SyntheticImageData(px=16, channels=3, classes=10, batch=32).next()
+    _, want = value_and_grad(exe.loss_fn, init, torch.from_numpy(x), torch.from_numpy(y))
+    card = tree_map(lambda t: t.to("cuda", copy=True), init)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        _, got = value_and_grad(exe.loss_fn, card, torch.from_numpy(x).to("cuda"),
+                                torch.from_numpy(y).to("cuda"))
+        torch.cuda.synchronize()
+    for (path, w), (_, g) in zip(tree_items(want), tree_items(got)):
+        g = g.cpu()
+        stray = (w == 0) & (g != 0)
+        if stray.any():
+            log(f"    step 1, {'.'.join(path)}: {int(stray.sum())} of {w.numel()} gradient "
+                f"elements are 0 on the CPU and up to {float(g[stray].abs().max()):.1e} on "
+                f"the card (largest |gradient| {float(w.abs().max()):.2f})")
+    wgrad = sorted({e.key.split("(")[0][:80] for e in prof.key_averages()
+                    if "wgrad" in e.key.lower()})
+    log(f"    weight-gradient kernels on the card: {wgrad}")
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def vgg16_train(ex, smi) -> dict[str, int]:
+    """Full-width VGG16 training on the card: ``impl="xla"``, 224 x 224,
+    batch 32, bf16 weights from a seeded He init, float32 momentum (lr 3e-3),
+    6 steps on batches of ``SyntheticImageData`` put on the card beforehand.
+    Then the trained weights through ``impl="kernel"`` on 16 images against
+    ``"xla"``.  Returns the launches of the path: stream_gd in training,
+    the three ConvNet kernels in the kernel forward."""
+    from repro_torch.core import zoo
+    from repro_torch.core.convnet import ConvNetExecutor
+    from repro_torch.data.pipeline import SyntheticImageData
+    from repro_torch.kernels import ops
+    from repro_torch.models.common import tree_items
+
+    steps = 6
+    gc.collect()
+    torch.cuda.empty_cache()
+    layers = zoo.vgg16()
+    exe = ConvNetExecutor(layers, impl="xla")
+    opt = ex.make_optimizer("momentum")
+    params = exe.init(torch.Generator(device="cuda").manual_seed(0), "cuda", torch.bfloat16)
+    state = opt.init(params)
+    step = ex.make_step(exe, opt)
+    leaves = [t for _, t in tree_items(params)]
+    n_params = sum(t.numel() for t in leaves)
+    t0 = time.perf_counter()
+    data = SyntheticImageData(px=224, channels=3, classes=1000, batch=CNN_TRAIN_BATCH)
+    t_templates = time.perf_counter() - t0
+    batches, gen_ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        x, y = data.next()
+        gen_ms.append((time.perf_counter() - t0) * 1e3)
+        batches.append((torch.from_numpy(x).to("cuda", torch.bfloat16),
+                        torch.from_numpy(y).to("cuda")))
+    torch.cuda.synchronize()
+    log(f"  {n_params / 1e6:.1f} M parameters in {len(leaves)} leaves; "
+        f"{3 * exe.flops_per_example() * CNN_TRAIN_BATCH / 1e12:.2f} TFLOP per step "
+        f"(3 x the forward); data: class templates {t_templates:.1f} s once, then "
+        f"{statistics.median(gen_ms):.1f} ms per batch of {CNN_TRAIN_BATCH} on the host "
+        f"(median, not in the step time)")
+    held = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    losses, step_s = [], []
+    for x, y in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, x, y)
+        losses.append(float(loss))                   # waits for the step
+        step_s.append(time.perf_counter() - t0)
+    launches = ops.LAUNCHES["stream_gd"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step_ms = statistics.median(step_s[1:]) * 1e3
+    log(f"  losses {['%.4f' % x for x in losses]}")
+    log(f"  step {step_ms:.2f} ms (median of steps 2-{steps}; first step "
+        f"{step_s[0] * 1e3:.1f} ms) = {CNN_TRAIN_BATCH / step_ms * 1e3:.1f} trained images/s, "
+        f"peak device memory {peak:.2f} GiB, {held:.2f} GiB of it held before the steps; "
+        f"stream_gd launches {launches} = {launches / steps:g} per step ({smi})")
+    if not all(np.isfinite(losses)):
+        raise SystemExit("chip_smoke: full-width VGG16 training gave a non-finite loss")
+    if launches != steps:
+        raise SystemExit(f"chip_smoke: {launches} stream_gd launches, expected {steps}")
+    t0 = time.perf_counter()
+    split = profile_split(lambda: step(params, state, *batches[0]))
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    log_split(wall_ms, split, step_ms, update_bytes(leaves), n_params)
+
+    n = 16
+    kexe = ConvNetExecutor(layers)                    # impl="kernel"
+    x16 = batches[-1][0][:n]
+    ops.reset_launches()
+    with torch.no_grad():
+        got = kexe.apply(params, x16)
+        torch.cuda.synchronize()
+        run = {k: ops.LAUNCHES[k] for k in CNN_KERNELS}
+        want = exe.apply(params, x16)
+    kinds = [l.kind for l in layers]
+    expect = {"stream_mac_conv": kinds.count("conv"), "stream_maxpool": kinds.count("pool"),
+              "tiled_matmul": kinds.count("fc")}
+    log(f"  trained weights, {n} images through impl='kernel': launches {run}")
+    check_close("VGG16 logits, kernel against xla", got, want, torch.bfloat16)
+    same = int((got.argmax(-1) == want.argmax(-1)).sum())
+    log(f"  argmax agreement {same}/{n}")
+    if run != expect:
+        raise SystemExit(f"chip_smoke: the kernel forward launched {run}, want {expect}")
+    del params, state, batches, data
+    torch.cuda.empty_cache()
+    return {"stream_gd": launches, **run}
+
+
+def mamba2_eval_kernel_vs_xla(tr, state) -> int:
+    """The eval loss of the trained full-width mamba2 weights on one batch
+    of the trainer's stream with ``impl="kernel"`` (``ssd_scan``) and with
+    ``impl="xla"``, within the bf16 tolerance.  Returns the ssd_scan
+    launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.train.train_step import make_eval_step
+
+    batch = {k: v[:4] for k, v in tr.data.next().items()}
+    ops.reset_launches()
+    got = make_eval_step(tr.model, "kernel")(state.params, batch)
+    torch.cuda.synchronize()
+    launches = ops.LAUNCHES["ssd_scan"]
+    want = make_eval_step(tr.model, "xla")(state.params, batch)
+    log(f"  eval loss on a fresh batch {tuple(batch['tokens'].shape)}: kernel "
+        f"{float(got):.5f}, xla {float(want):.5f}; ssd_scan launches {launches}")
+    check_close("mamba2 eval loss, kernel against xla", got, want, torch.bfloat16)
+    if launches != tr.model.cfg.n_layers:
+        raise SystemExit(f"chip_smoke: {launches} ssd_scan launches, expected one per layer")
+    return launches
 
 
 def main() -> int:
@@ -1445,13 +1716,39 @@ def main() -> int:
 
     # -- phase 10 ---------------------------------------------------------------
     log("== phase 10: reduced qwen2.5-3b training in float32, card against CPU")
-    train_card_vs_cpu(smi)
+    train_card_vs_cpu("qwen2.5-3b", 32)
     train_fault_on_card()
 
     # -- phase 11 ---------------------------------------------------------------
     log("== phase 11: full-width qwen2.5-3b training (bf16, random weights, momentum) "
         "on the card")
-    launches["stream_gd"] = train_full_width(smi)
+    launches["stream_gd"], tr, state = train_full_width(smi, "qwen2.5-3b", 8, 1024, "1e-4")
+    save_params_once(state.params, state.step)
+    del tr, state
+    torch.cuda.empty_cache()
+
+    # -- phase 12 ---------------------------------------------------------------
+    log("== phase 12: ConvNet training (examples/torch_train_convnet.py's small net, "
+        "float32), card against CPU")
+    ex = load_example("torch_train_convnet")
+    convnet_train_card_vs_cpu(ex)
+
+    # -- phase 13 ---------------------------------------------------------------
+    log(f"== phase 13: full-width VGG16 training (224 x 224, batch {CNN_TRAIN_BATCH}, bf16, "
+        "float32 momentum, impl='xla') on the card")
+    for name, n in vgg16_train(ex, smi).items():
+        launches[name] += n
+
+    # -- phase 14 ---------------------------------------------------------------
+    log("== phase 14: mamba2-130m training")
+    log("  reduced mamba2-130m in float32, card against CPU (64 tokens, two 32-token chunks):")
+    train_card_vs_cpu("mamba2-130m", 64)
+    log("  full-width mamba2-130m (bf16, random weights, momentum) through the launcher:")
+    n, tr, state = train_full_width(smi, "mamba2-130m", 16, 1024, "1e-4")
+    launches["stream_gd"] += n
+    launches["ssd_scan"] += mamba2_eval_kernel_vs_xla(tr, state)
+    del tr, state
+    torch.cuda.empty_cache()
 
     for name in KERNELS:
         rows[name]["launches"] = launches[name]

@@ -3,7 +3,7 @@
 ``ConvNetExecutor`` runs a ``zoo`` layer list the way the JAX package's
 executor (``repro/core/convnet.py``) does: layer by layer, NHWC activations
 and HWIO weights throughout, so fc6 flattens its input in (h, w, c) order
-as the JAX executor does.  Two implementations:
+as the JAX executor does.  Three implementations:
 
   * ``impl="kernel"`` (the default; JAX's ``"pallas"``) — conv layers
     through ``kernels.ops.stream_mac_conv`` with the bias and ReLU in its
@@ -12,17 +12,24 @@ as the JAX executor does.  Two implementations:
     ``ops.stream_maxpool`` (after -inf padding where the layer pads, which
     gives ``reduce_window``'s padded result), fc layers through
     ``ops.tiled_matmul``.  On CUDA tensors each is a hand-written kernel, on
-    CPU tensors its plain PyTorch version.
+    CPU tensors its plain PyTorch version.  The kernels have no backward:
+    they refuse inputs that require grad.
   * ``impl="tiled"`` — the explicit 4D-tile schedule of section IV-A for
     the conv layers named in ``tiles``: T_Ci-partial accumulation
     (``D += A * K_AD`` for each input-channel tile A), each partial through
     ``ops.stream_mac_conv``.  Every other layer runs as under ``"kernel"``.
+  * ``impl="xla"`` — the differentiable form that JAX's training example
+    runs (``lax.conv_general_dilated`` and the padded ``reduce_window``):
+    ``F.conv2d`` on permuted views of the NHWC activation and the HWIO
+    weight (NCHW and OIHW, channels-last in memory; weight axis 0 is the
+    H axis, with stride ``sy`` and padding ``py``, as in JAX), the bias
+    added after the convolution in x's type, ``F.max_pool2d`` after -inf
+    padding, and ``torch.matmul`` for fc layers.  Autograd runs through it
+    end to end.  It is the training path; no path switches to it, or away
+    from it, by itself.
 
-JAX's ``impl="xla"`` (``lax.conv_general_dilated``) has no counterpart: the
-port calls no convolution, pooling or matmul library on its path
-(``chip_smoke.py`` times ``F.conv2d`` beside the kernel as a yardstick
-only).  Global average pooling, and the bias and ReLU of fc layers and of
-the tiled schedule's summed partials, are plain tensor ops, as in JAX.
+Global average pooling, and the bias and ReLU of fc layers and of the
+tiled schedule's summed partials, are plain tensor ops, as in JAX.
 """
 from __future__ import annotations
 
@@ -39,7 +46,7 @@ from repro_torch.kernels import ops
 from .tiling import ConvLayerSpec, Tile4D
 
 Params = dict[str, dict[str, torch.Tensor]]
-IMPLS = ("kernel", "tiled")
+IMPLS = ("kernel", "tiled", "xla")
 
 
 def init_params(
@@ -85,10 +92,33 @@ def _conv_tiled(x: torch.Tensor, w: torch.Tensor, l: ConvLayerSpec,
     return acc
 
 
-def _maxpool(x: torch.Tensor, l: ConvLayerSpec) -> torch.Tensor:
+def _pad_inf(x: torch.Tensor, l: ConvLayerSpec) -> torch.Tensor:
     if l.py or l.px:
         x = F.pad(x, (0, 0, l.px, l.px, l.py, l.py), value=float("-inf"))
-    return ops.stream_maxpool(x, (l.ky, l.kx), (l.sy, l.sx))
+    return x
+
+
+def _maxpool(x: torch.Tensor, l: ConvLayerSpec) -> torch.Tensor:
+    return ops.stream_maxpool(_pad_inf(x, l), (l.ky, l.kx), (l.sy, l.sx))
+
+
+def _nchw(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 3, 1, 2)
+
+
+def _nhwc(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 2, 3, 1)
+
+
+def _conv_xla(x: torch.Tensor, w: torch.Tensor, l: ConvLayerSpec) -> torch.Tensor:
+    """JAX's ``_conv_xla``: NHWC x, HWIO w, strides (sy, sx), padding (py, px)."""
+    return _nhwc(F.conv2d(_nchw(x), w.permute(3, 2, 0, 1), stride=(l.sy, l.sx),
+                          padding=(l.py, l.px)))
+
+
+def _maxpool_xla(x: torch.Tensor, l: ConvLayerSpec) -> torch.Tensor:
+    """JAX's ``_maxpool``: ``reduce_window`` max over -inf padding."""
+    return _nhwc(F.max_pool2d(_nchw(_pad_inf(x, l)), (l.ky, l.kx), (l.sy, l.sx)))
 
 
 class ConvNetExecutor:
@@ -104,8 +134,7 @@ class ConvNetExecutor:
     ):
         if impl not in IMPLS:
             raise ValueError(f"impl must be one of {IMPLS}, got {impl!r} (the JAX "
-                             "executor's 'xla' convolutions have no counterpart in this "
-                             "executor; 'pallas' is 'kernel' here)")
+                             "executor's 'pallas' is 'kernel' here)")
         self.layers = list(layers)
         self.impl = impl
         self.tiles = tiles or {}
@@ -117,22 +146,28 @@ class ConvNetExecutor:
 
     def apply(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         """x: NHWC input volume in the parameters' dtype; returns (N, classes)."""
+        xla = self.impl == "xla"
         for l in self.layers:
             if l.kind == "pool":
                 if l.kx >= x.shape[1] and l.sx == 1:   # global avg pool
                     x = x.mean((1, 2), keepdim=True)
                 else:
-                    x = _maxpool(x, l)
+                    x = _maxpool_xla(x, l) if xla else _maxpool(x, l)
                 continue
             w, b = params[l.name]["w"], params[l.name]["b"]
             if l.kind == "fc" and x.ndim == 4 and l.kx == x.shape[1]:
                 n = x.shape[0]
-                x = ops.tiled_matmul(x.reshape(n, -1), w.reshape(-1, l.co))
-                x = x.reshape(n, 1, 1, l.co)
+                matmul = torch.matmul if xla else ops.tiled_matmul
+                x = matmul(x.reshape(n, -1), w.reshape(-1, l.co)).reshape(n, 1, 1, l.co)
+            elif xla:
+                x = _conv_xla(x, w, l)
             elif self.impl == "tiled" and l.name in self.tiles:
                 x = _conv_tiled(x, w, l, self.tiles[l.name])   # bias after the partials
             else:
                 x = _conv(x, w, l, b, l.act)          # bias and ReLU in the epilogue
+                continue
+            if xla:       # out of place: autograd would copy a view written in place
+                x = torch.relu(x + b) if l.act else x + b
                 continue
             x = x.add_(b)                     # x is this layer's own new output
             if l.act:

@@ -1,12 +1,21 @@
 """Mamba-2 SSD block, chunked form: the port of ``repro/models/ssm.py``.
 
-Prefill runs ``ssd_chunked``, whose sequence mix is ``kernels.ops.ssd_scan``:
-the hand-written CUDA kernel on the card, its plain PyTorch version on the
-CPU.  The chunk is ``cfg.ssm.chunk`` (the port has no tuning registry; the
-JAX ``@tunable`` lookup finds no tuned entry for the served shapes and
-falls back to the same value).  The depthwise causal conv and the O(1)
-decode step (``ssm_decode``: h ← exp(dt·a)·h + dt·B⊗x, y = C·h) stay plain
-torch, as the JAX package leaves them to XLA.
+``ssd_chunked`` has two implementations of its sequence mix.
+``impl="kernel"`` (serving's prefill; the default) runs
+``kernels.ops.ssd_scan``: the hand-written CUDA kernel on the card, its
+plain PyTorch version on the CPU; it has no backward and refuses inputs
+that require grad.  ``impl="xla"`` (training) runs the JAX package's
+factorized XLA form in plain torch on any device, which is that plain
+version itself (``kernels.ref.ssd_scan``: chunked cumulative decays
+clamped to ±60 around each chunk's midpoint, the masked intra-chunk
+product, the chunk states and a Python loop over chunks in place of
+``lax.scan``), with autograd through it; the ``d_skip`` term follows
+either.  The chunk is
+``cfg.ssm.chunk`` (the port has no tuning registry; the JAX ``@tunable``
+lookup finds no tuned entry for these shapes and falls back to the same
+value).  The depthwise causal conv and the O(1) decode step
+(``ssm_decode``: h ← exp(dt·a)·h + dt·B⊗x, y = C·h) stay plain torch, as
+the JAX package leaves them to XLA.
 
 Only the factorized intra-chunk decay (``SSMConfig.factorized``, the
 default) is ported.  The recurrent state is float32 (tiny, sensitive); the
@@ -18,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
 
 from .common import PSpec, TensorSpec, rms_norm
 
@@ -67,25 +77,32 @@ def _conv_split(cfg, conv_out):
     return conv_out[..., :di], conv_out[..., di: di + n], conv_out[..., di + n:]
 
 
-def ssd_chunked(cfg, xh, bb, cc, dt, a_log, d_skip, init_state=None):
+def ssd_chunked(cfg, xh, bb, cc, dt, a_log, d_skip, init_state=None, impl: str = "kernel"):
     """SSD forward.  xh (B, S, H, P); bb/cc (B, S, N); dt (B, S, H) before
     the softplus → (y (B, S, H, P) in xh's dtype, final state (B, H, P, N)
-    float32).  S must be a multiple of ``min(chunk, S)``: the JAX reference
-    asserts it and the port raises ``ValueError`` (it does not pad)."""
+    float32).  ``impl`` is ``"kernel"`` (``ssd_scan``, no backward) or
+    ``"xla"`` (differentiable plain torch).  S must be a multiple of
+    ``min(chunk, S)``: the JAX reference asserts it and the port raises
+    ``ValueError`` (it does not pad)."""
+    if impl not in ("kernel", "xla"):
+        raise ValueError(f"ssd_chunked: impl must be 'kernel' or 'xla', got {impl!r}")
     sl = xh.shape[1]
     q = min(cfg.ssm.chunk, sl)
     if sl % q:
         raise ValueError(f"ssd_chunked: a {sl}-token sequence is not a multiple of "
                          f"the {q}-token chunk")
     a = -torch.exp(a_log)
-    y, final = kops.ssd_scan(xh, bb, cc, F.softplus(dt.float()), a, q, init_state)
+    dt = F.softplus(dt.float())
+    scan = kref.ssd_scan if impl == "xla" else kops.ssd_scan
+    y, final = scan(xh, bb, cc, dt, a, q, init_state)
     y = y + d_skip[None, None, :, None] * xh.float()
     return y.to(xh.dtype), final
 
 
-def ssm_block(cfg, p, x, init_state=None, conv_state=None):
+def ssm_block(cfg, p, x, init_state=None, conv_state=None, impl: str = "kernel"):
     """Full Mamba-2 block: x (B, S, D) → (out (B, S, D), new state
-    (B, H, P, N) float32, new conv state (B, K-1, C))."""
+    (B, H, P, N) float32, new conv state (B, K-1, C)); ``impl`` picks
+    ``ssd_chunked``'s sequence mix."""
     s = cfg.ssm
     b, sl, d = x.shape
     di = s.d_inner(d)
@@ -93,7 +110,7 @@ def ssm_block(cfg, p, x, init_state=None, conv_state=None):
     conv_out, new_conv = _causal_conv(conv_in, p["conv_w"], p["conv_b"], conv_state)
     xi, bb, cc = _conv_split(cfg, conv_out)
     xh = xi.reshape(b, sl, s.n_heads(d), s.head_dim)
-    y, final = ssd_chunked(cfg, xh, bb, cc, dt, p["a_log"], p["d_skip"], init_state)
+    y, final = ssd_chunked(cfg, xh, bb, cc, dt, p["a_log"], p["d_skip"], init_state, impl)
     y = y.reshape(b, sl, di)
     y = rms_norm(y * F.silu(z.float()).to(y.dtype), p["norm"], cfg.norm_eps)
     return y @ p["out_proj"], final, new_conv

@@ -14,9 +14,10 @@ flash kernel) for prefill and chunked prefill, ``paged_decode`` (the
 paged-decode kernel) for the serving engine's paged decode step, the
 plain ``decode_attention`` for the dense ``decode_step`` of the gather
 path, and ``attend(impl="xla")`` (the differentiable chunked scan) for the
-training ``forward``/``loss``, which the dense family has.  An ssm layer is
-pre-norm Mamba-2 + residual (``models.ssm``; its prefill runs the
-``ssd_scan`` kernel, its decode step is plain torch).  Projections and the
+training ``forward``/``loss``.  An ssm layer is pre-norm Mamba-2 + residual
+(``models.ssm``; its prefill runs the ``ssd_scan`` kernel, its decode step
+is plain torch, and the training ``forward``/``loss`` run the
+differentiable ``ssd_chunked(impl="xla")``).  Projections and the
 MLP stay ``torch.matmul``, as the JAX package leaves them to XLA.
 
 The training forward is functional (autograd runs through it) and shares
@@ -217,6 +218,9 @@ class DecoderLM:
     # -- training API -------------------------------------------------------
 
     def _train_layer(self, p, x, tables, impl):
+        if self.kind == "ssm":
+            y, _, _ = _ssm.ssm_block(self.cfg, p["mix"], self._norm(p["ln1"], x), impl=impl)
+            return x + y
         q, k, v = _qkv(self.cfg, p["attn"], self._norm(p["ln1"], x))
         q, k = _rope_qk(q, k, tables)
         out = attend(q, k, v, causal=True, impl=impl, chunk=self.cfg.attn_chunk)
@@ -224,22 +228,21 @@ class DecoderLM:
 
     def forward(self, params, tokens, impl: str = "xla"):
         """tokens (B, S) → (logits (B, S, V) in the model's type, aux loss
-        (a float32 zero: the dense family has no MoE)).  Differentiable;
+        (a float32 zero: neither family has MoE)).  Differentiable;
         ``cfg.remat == "full"`` recomputes each layer in the backward
         (``torch.utils.checkpoint``, one per layer), ``"none"`` keeps every
-        activation.  ``impl="xla"`` attends with the chunked scan, as JAX's
-        train step does; ``"kernel"`` runs the flash kernel, which has no
-        backward and refuses grad-requiring inputs."""
+        activation.  ``impl="xla"`` attends with the chunked scan (dense)
+        or mixes with the plain-torch SSD (ssm), as JAX's train step does;
+        ``"kernel"`` runs the flash or ``ssd_scan`` kernel, which has no
+        backward and refuses grad-requiring inputs.  An ssm layer starts
+        from a zero state and a zero conv context."""
         cfg = self.cfg
-        if self.kind != "dense":
-            raise NotImplementedError(
-                f"training of the {self.kind!r} family is not ported (its ssd_chunked "
-                "has no differentiable form in the port yet)")
         if cfg.remat not in ("none", "full"):
             raise NotImplementedError(f"remat={cfg.remat!r} is not ported ('none' or 'full')")
         x = self._embed(params, tokens.long())
         s = x.shape[1]
-        tables = self._rope(torch.arange(s, device=x.device)[None])
+        tables = (self._rope(torch.arange(s, device=x.device)[None])
+                  if self.kind == "dense" else None)
         layers = _unstack(params["seg0"][self.seg], cfg.n_layers)
         for p in layers:
             if cfg.remat == "full":

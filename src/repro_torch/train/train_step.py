@@ -39,6 +39,22 @@ def _rebuild(tree, leaves):
     return tree_map_with_path(lambda path, _: by_path[path], tree)
 
 
+def value_and_grad(loss_fn, params, *args):
+    """(loss, gradients) of ``loss_fn(params, *args)``, as ``jax.value_and_grad``
+    gives them: the loss detached, the gradients in a tree of ``params``'
+    structure, each dense in its leaf's layout (a gradient that comes back
+    through a permuted view, as a ConvNet's HWIO weight does from
+    ``F.conv2d``, is copied so), and zeros for a leaf the loss does not read
+    (mamba2's ``dt_bias``).  Autograd reads detached leaves that share the
+    parameters' storage, so an optimizer may then write that storage in
+    place."""
+    leaves = [t.detach().requires_grad_() for _, t in tree_items(params)]
+    loss = loss_fn(_rebuild(params, leaves), *args)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return loss.detach(), _rebuild(params, [torch.zeros_like(t) if g is None else g.contiguous()
+                                            for t, g in zip(leaves, grads)])
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum over leaves of each leaf's float32 sum of squares."""
     return torch.sqrt(sum(torch.linalg.vector_norm(g, dtype=torch.float32).square()
@@ -50,16 +66,9 @@ def make_train_step(model, optimizer: Optimizer, n_microbatches: int = 1,
     """Returns step(params, opt_state, batch) -> (params, opt_state,
     {"loss", "grad_norm"}), both metrics float32 scalars on the device."""
 
-    def loss_and_grads(params, batch):
-        # detached leaves that share the parameters' storage: autograd reads
-        # them, the optimizer later writes the storage in place
-        leaves = [t.detach().requires_grad_() for _, t in tree_items(params)]
-        loss = model.loss(_rebuild(params, leaves), batch, impl)
-        return loss.detach(), torch.autograd.grad(loss, leaves)
-
     def forward_backward(params, batch):
         with torch.profiler.record_function("train_step.forward_backward"):
-            return loss_and_grads(params, batch)
+            return value_and_grad(model.loss, params, batch, impl)
 
     def step(params, opt_state, batch):
         if n_microbatches == 1:
@@ -69,6 +78,7 @@ def make_train_step(model, optimizer: Optimizer, n_microbatches: int = 1,
             for mb in _split_microbatches(batch, n_microbatches):
                 l, g = forward_backward(params, mb)
                 with torch.profiler.record_function("train_step.accumulate"):
+                    g = [t for _, t in tree_items(g)]
                     if acc is None:
                         acc = [torch.zeros(t.shape, dtype=accum_dtype, device=t.device)
                                for t in g]
@@ -78,10 +88,9 @@ def make_train_step(model, optimizer: Optimizer, n_microbatches: int = 1,
                     del g
                     loss = loss + l
             with torch.profiler.record_function("train_step.accumulate"):
-                grads = [a.div_(n_microbatches) for a in acc]
+                grads = _rebuild(params, [a.div_(n_microbatches) for a in acc])
                 loss = loss / n_microbatches
         with torch.profiler.record_function("train_step.accumulate"):
-            grads = _rebuild(params, grads)
             gnorm = global_norm(grads)
         with torch.profiler.record_function("train_step.update"):
             params, opt_state = optimizer.update(grads, opt_state, params)

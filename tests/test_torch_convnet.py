@@ -258,8 +258,11 @@ def test_executor_entry_points_need_a_card_or_the_cpu():
         exe.init(torch.Generator().manual_seed(0))
     params = exe.init(torch.Generator().manual_seed(0), "cpu")
     assert params["conv1"]["w"].device.type == "cpu"
-    with pytest.raises(ValueError, match="no counterpart"):
-        tconvnet.ConvNetExecutor(NETS["small"](), impl="xla")
+    # "xla" is the differentiable executor (tests/test_torch_convnet_train.py);
+    # JAX's "pallas" is "kernel" here
+    assert tconvnet.ConvNetExecutor(NETS["small"](), impl="xla").impl == "xla"
+    with pytest.raises(ValueError, match="impl must be one of"):
+        tconvnet.ConvNetExecutor(NETS["small"](), impl="pallas")
 
 
 # ---------------------------------------------------------------------------

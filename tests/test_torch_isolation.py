@@ -1,13 +1,15 @@
 """The port stands alone: no JAX, no ``repro`` package, no silent CPU path.
 
 * every ``repro_torch`` module imports in a fresh interpreter without
-  pulling in ``jax`` or ``repro``, and no source file of the port or
-  ``chip_smoke.py`` names them in an import;
+  pulling in ``jax`` or ``repro``, and no source file of the port, of its
+  examples (``examples/torch_*.py``) or ``chip_smoke.py`` names them in an
+  import;
 * without a card, an entry point that was not asked for the CPU raises;
 * ``chip_smoke.py`` exits non-zero with a message when there is no card,
   and when it stands alone in a directory.
 """
 import ast
+import importlib.util
 import os
 import shutil
 import subprocess
@@ -39,7 +41,9 @@ def _foreign(name: str) -> bool:
 
 
 def test_port_sources_import_no_jax_and_no_repro():
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    examples = sorted((REPO / "examples").glob("torch_*.py"))
+    assert len(examples) >= 2
+    files = sorted(PORT.rglob("*.py")) + examples + [REPO / "chip_smoke.py"]
     assert len(files) > 15
     bad = {str(f.relative_to(REPO)): sorted(n for n in _imports(f) if _foreign(n))
            for f in files}
@@ -102,6 +106,26 @@ def test_train_launcher_raises_without_a_card_unless_asked_for_the_cpu():
     _, state, restarts = main(args + ["--device", "cpu"])
     assert state.step == 2 and restarts == 0
     assert all(np.isfinite(state.losses))
+
+
+def _load_example(name):
+    spec = importlib.util.spec_from_file_location(name, REPO / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_examples_raise_without_a_card_unless_asked_for_the_cpu(tmp_path):
+    _no_card()
+    train = _load_example("torch_train_convnet")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--steps", "2", "--ckpt", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.train(steps=2, ckpt=None)
+    losses, _, _ = train.train(steps=2, ckpt=None, device="cpu")
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _load_example("torch_quickstart").main([])
 
 
 def test_chip_smoke_refuses_without_card_and_alone(tmp_path):
