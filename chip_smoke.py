@@ -7,8 +7,9 @@ Run from the root of a checkout (it imports ``src/repro_torch`` beside it;
 it never imports JAX or the ``repro`` package).  It drives the port's
 paths: paged-KV serving of qwen2.5-3b, ConvNet inference of VGG16, serving
 of mamba2-130m, the gather decode path, training of qwen2.5-3b, ConvNet
-training (VGG16) and training of mamba2-130m.  Every path runs at full
-width and full depth.  Phases, each fatal:
+training (VGG16), training of mamba2-130m and serving of recurrentgemma-9b
+(its training runs reduced: full width does not fit one card).  Every
+serving path runs at full width and full depth.  Phases, each fatal:
 
 1. build the eight CUDA kernels from ``src/repro_torch/kernels/csrc``
    (``nvcc``, printing the ``-Xptxas -v`` register report) and name the card;
@@ -22,7 +23,12 @@ width and full depth.  Phases, each fatal:
    full-width mamba2-130m, a 512-token prompt in 256-token chunks from zero
    and from a carried state, and a ragged 44-token slice; ``paged_gather``:
    a full-width qwen2.5-3b cache leaf, 36 layers, 8 lanes x 64 slots with
-   -1 holes, bit-equal;
+   -1 holes, bit-equal; recurrentgemma-9b's shapes besides (16 query heads
+   over 1 KV head, head_dim 256, window 2,048: ``flash_attention`` on a
+   3,072-token prompt and on a 1,024-token chunk at offset 2,048 against a
+   4,096-row cache holding 3,072, and ``paged_gather`` of one attention
+   layer's k pool, 8 lanes x 256 slots of 16 tokens with -1 holes,
+   bit-equal), logged with their times but not in the JSON line;
    ``stream_gd``: full-width qwen2.5-3b's largest leaf, seg0's mlp.w_up, in
    the sgd launch, the two mixed-type in-place momentum launches, J = 3
    and 4 in float32 and the fused two-stage momentum launch, and the
@@ -101,11 +107,29 @@ width and full depth.  Phases, each fatal:
     plain-torch SSD) for 6 steps: every loss finite, one ``stream_gd``
     launch per step; step ms, trained tokens/s, peak memory, the profiled
     split; and an eval loss of the trained weights through ``ssd_scan``
-    (``impl="kernel"``) within the bf16 tolerance of ``impl="xla"``'s.
+    (``impl="kernel"``) within the bf16 tolerance of ``impl="xla"``'s;
+15. serve the same requests with reduced recurrentgemma-9b (5 layers: a
+    ``("rec", "rec", "attn")`` segment and a ``("rec", "rec")`` remainder;
+    window 64) in float32 on the card and on the CPU, whole-prompt and
+    chunked prefill, prompts past the window and decode across it: the
+    card's paged and gather tokens equal the CPU's;
+16. serve 16 requests of 1,024-3,072 prompt tokens (half past the
+    2,048-token window) at the full width and depth of recurrentgemma-9b
+    (38 layers, bf16, seeded random weights) with 8 lanes, max_len 4,096,
+    16-token pages, 1,024-token prefill chunks and 64 new tokens each:
+    every request finishes, ``flash_attention`` launches 12 times per
+    prefill slice and ``paged_gather`` 24 times per decode step (the local
+    attention layers' windowed paged decode), ``paged_decode_attention``
+    never; tok/s, peak memory, the prefill ms per 1,024-token slice with its
+    profiled split (flash, the RG-LRU scan, matmuls, the rest) and the
+    decode-step ms with its busy share and launches per step;
+17. train reduced recurrentgemma-9b (5 layers, 96 tokens) as phase 10 does
+    qwen2.5-3b, card against CPU.
 
 A kernel's ``launches`` in the JSON line sums its counts over the paths
 that drive it (serving, VGG16 inference, the gather path, the three
-training paths), each counted from 0 around its own run.  Then it prints
+training paths, recurrentgemma-9b serving and reduced training), each
+counted from 0 around its own run.  Then it prints
 one JSON line with each kernel's numbers, the card's name
 and power limit, and, last, ``{"ok": true, "device": {...}}``.  Without a
 card, or without the package beside it, it exits non-zero and prints no
@@ -138,6 +162,7 @@ CNN_BATCH = 16                                 # images per VGG16 forward
 SERVE_KERNELS = ("paged_decode_attention", "flash_attention")
 CNN_KERNELS = ("stream_mac_conv", "stream_maxpool", "tiled_matmul")
 SSM = dict(h=24, p=64, n=128, chunk=256)       # mamba2-130m's SSD widths
+RG = dict(h=16, hkv=1, d=256, window=2048, chunk=1024)   # recurrentgemma-9b's attention
 # kernel: (its source, the TPU kernel it replaces, the library yardstick)
 KERNELS = {
     "paged_decode_attention": ("src/repro_torch/kernels/csrc/paged_attn.cu",
@@ -319,15 +344,15 @@ def paged_case(dtype, timed: bool):
                      dtype, f"8 lanes, {tokens} tokens, H={H} Hkv={HKV} D={D} PS={PS} {dtype}")
 
 
-def flash_case(dtype, label, sq, sk, q_offset, kv_len, window, timed):
+def flash_case(dtype, label, sq, sk, q_offset, kv_len, window, timed, h=H, hkv=HKV, d=D):
     from repro_torch.kernels import ops, ref
 
     F = torch.nn.functional
     gen = torch.Generator(device="cuda").manual_seed(2)
     # the model's (B, S, H, D) projections, viewed as (B, H, S, D)
-    q = torch.randn(1, sq, H, D, generator=gen, device="cuda").to(dtype).transpose(1, 2)
-    k = torch.randn(1, sk, HKV, D, generator=gen, device="cuda").to(dtype).transpose(1, 2)
-    v = torch.randn(1, sk, HKV, D, generator=gen, device="cuda").to(dtype).transpose(1, 2)
+    q = torch.randn(1, sq, h, d, generator=gen, device="cuda").to(dtype).transpose(1, 2)
+    k = torch.randn(1, sk, hkv, d, generator=gen, device="cuda").to(dtype).transpose(1, 2)
+    v = torch.randn(1, sk, hkv, d, generator=gen, device="cuda").to(dtype).transpose(1, 2)
     kw = dict(causal=True, window=window, q_offset=q_offset, kv_len=kv_len)
 
     def kernel():
@@ -346,17 +371,19 @@ def flash_case(dtype, label, sq, sk, q_offset, kv_len, window, timed):
     mask = (kpos < kv_len) & (qpos >= kpos)
     if window is not None:
         mask &= (qpos - kpos) < window
+    # the keys some query sees: the window's span, not the whole cache
+    keys = int(mask.any(0).sum())
     pairs = int(mask.sum())
     item = q.element_size()
-    nbytes = 2 * sq * H * D * item + kv_len * HKV * D * 2 * item
-    flops = 4.0 * pairs * H * D
+    nbytes = 2 * sq * h * d * item + keys * hkv * d * 2 * item
+    flops = 4.0 * pairs * h * d
 
     def library():
         return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
 
     return timed_row("flash_attention", err, kernel, plain, library, nbytes, flops, dtype,
                      f"{label}: Sq={sq} Sk={sk} q_offset={q_offset} kv_len={kv_len} "
-                     f"window={window} H={H} Hkv={HKV} D={D} {dtype}")
+                     f"window={window} H={h} Hkv={hkv} D={d} {dtype}")
 
 
 def conv_case(dtype, l, label, timed):
@@ -507,18 +534,22 @@ def ssd_case(dtype, label, seq, carried, timed):
                      f"{label}: S={seq} H={h} P={p} N={n} chunk={chunk} {dtype}")
 
 
-def gather_case(dtype, timed):
-    """``paged_gather`` of one full-width qwen2.5-3b cache leaf (36 layers,
-    16-token pages of 2 x 128), 8 lanes x 64 slots with -1 holes."""
+def gather_case(dtype, timed, layers=36, slots=1024 // PS, hkv=HKV, d=D,
+                lens=(0, 1, 17, 100, 1024, 513, 64, 999)):
+    """``paged_gather`` of one cache leaf with 16-token pages of hkv x d,
+    8 lanes x ``slots`` slots with -1 holes: by default full-width
+    qwen2.5-3b's (36 layers in one call); ``layers=None`` gathers one
+    layer's pool, as the windowed paged decode does."""
     from repro_torch.kernels import ops, ref
 
-    layers, lanes, slots = 36, 8, 1024 // PS
+    lanes = len(lens)
     n_pages = lanes * slots + 8
+    lead = () if layers is None else (layers,)
     gen = torch.Generator(device="cuda").manual_seed(11)
-    pool = torch.randn(layers, n_pages, PS * HKV * D, generator=gen, device="cuda").to(dtype)
+    pool = torch.randn(*lead, n_pages, PS * hkv * d, generator=gen, device="cuda").to(dtype)
     bt = torch.randperm(n_pages, generator=gen, device="cuda")[: lanes * slots].reshape(
         lanes, slots).to(torch.int32)
-    for i, n in enumerate([0, 1, 17, 100, 1024, 513, 64, 999]):
+    for i, n in enumerate(lens):
         bt[i, -(-n // PS):] = -1
     bt[3, 2] = -1                                   # a hole inside lane 3
     idx = bt.long().clamp(0, n_pages - 1).reshape(-1)
@@ -532,21 +563,22 @@ def gather_case(dtype, timed):
     out, want = kernel(), plain()
     torch.cuda.synchronize()
     same = torch.equal(out, want)
-    log(f"  paged_gather {dtype}: bit-equal to the plain version: {same}")
+    log(f"  paged_gather {dtype} ({'one layer' if layers is None else f'{layers} layers'}, "
+        f"{lanes} x {slots} slots): bit-equal to the plain version: {same}")
     if not same:
         raise SystemExit(f"chip_smoke: paged_gather {dtype} differs from its plain version")
     if not timed:
         return None
-    row = PS * HKV * D * pool.element_size()
+    row = PS * hkv * d * pool.element_size()
     filled = int((bt >= 0).sum())
-    nbytes = layers * (lanes * slots + filled) * row + bt.numel() * 4
+    nbytes = (layers or 1) * (lanes * slots + filled) * row + bt.numel() * 4
 
     def library():          # the same copy, holes read as page 0 (not zeroed)
-        return torch.index_select(pool, 1, idx)
+        return torch.index_select(pool, pool.dim() - 2, idx)
 
     return timed_row("paged_gather", 0.0, kernel, plain, library, nbytes, 0.0, dtype,
-                     f"{layers} layers x {lanes} lanes x {slots} slots ({filled} filled), "
-                     f"page {PS}x{HKV}x{D} {dtype}")
+                     f"{layers or 1} layer(s) x {lanes} lanes x {slots} slots ({filled} "
+                     f"filled), page {PS}x{hkv}x{d} {dtype}")
 
 
 # ---------------------------------------------------------------------------
@@ -859,10 +891,12 @@ def serve(model, params, ecfg, prompts, max_new, device):
     return reqs, done, eng
 
 
-def device_groups(fn, steps: int) -> tuple[dict, dict, list]:
+def device_groups(fn, steps: int, ranges=()) -> tuple[dict, dict, list]:
     """Device time (ms per call of ``fn``) and launches per call by kernel
     class, and the top kernels, from a torch.profiler window of ``steps``
-    calls."""
+    calls.  Each name in ``ranges`` is a ``record_function`` range of plain
+    torch ops: the device time of its kernels becomes a group of its own,
+    taken out of the elementwise group they fall in."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(steps):
@@ -871,8 +905,18 @@ def device_groups(fn, steps: int) -> tuple[dict, dict, list]:
     groups: dict[str, float] = {}
     launches: dict[str, float] = {}
     top = []
+    carved = {}
     for e in prof.key_averages():
-        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+        on_device = str(getattr(e, "device_type", "")).endswith("CUDA")
+        # a range shows twice: on the host, with the device time of the
+        # kernels launched inside it, and as a device-side annotation whose
+        # span includes the gaps between them (not a kernel: not counted)
+        if e.key in ranges:
+            if not on_device:
+                us = getattr(e, "device_time_total", None)
+                carved[e.key] = (us if us is not None else e.cuda_time_total) / 1e3 / steps
+            continue
+        if not on_device:
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -893,6 +937,15 @@ def device_groups(fn, steps: int) -> tuple[dict, dict, list]:
         groups[g] = groups.get(g, 0.0) + us / 1e3 / steps
         launches[g] = launches.get(g, 0) + e.count / steps
         top.append((us / 1e3 / steps, e.count / steps, e.key[:90]))
+    other = "other (elementwise, norms, copies)"
+    for name in ranges:
+        ms = carved.get(name, 0.0)
+        if ms <= 0:
+            log(f"  profiler: no device time attributed to the {name!r} range (not measured)")
+            continue
+        groups[f"{name} (plain torch, within other)"] = ms
+        groups[other] = groups.get(other, 0.0) - ms
+        launches[f"{name} (plain torch, within other)"] = float("nan")
     return groups, launches, sorted(top, reverse=True)[:8]
 
 
@@ -903,29 +956,34 @@ def log_groups(what: str, wall_ms: float, groups, launches, top) -> None:
         return
     log(f"  profiler: device busy {busy:.3f} ms per {what} = {100 * busy / wall_ms:.1f} % of "
         f"the unprofiled {what}, idle {100 * (1 - busy / wall_ms):.1f} %")
+    total = sum(n for n in launches.values() if not math.isnan(n))
+    log(f"    {total:g} kernel launches per {what}")
     for g in sorted(groups, key=groups.get, reverse=True):
-        log(f"    {g}: {groups[g]:.3f} ms per {what} over {launches[g]:g} launches")
+        n = launches[g]
+        log(f"    {g}: {groups[g]:.3f} ms per {what}"
+            + ("" if math.isnan(n) else f" over {n:g} launches"))
     for ms, n, name in top:
         log(f"      {ms:.3f} ms, {n:g} launches: {name}")
 
 
 def decode_breakdown(model, params, vocab, steps: int = 10, prefill_chunk: int = 0,
-                     decode_path: str = "paged", profile: bool = True) -> float:
-    """Decode-step time of 8 running lanes at ~520-token contexts (sync
-    admission, so nothing else runs), and device time per kernel class from
-    a torch.profiler window over as many more steps.  Returns the step's
-    wall ms."""
+                     decode_path: str = "paged", profile: bool = True, prompt: int = 512,
+                     max_len: int = 1024) -> float:
+    """Decode-step time of 8 running lanes at ~``prompt + 8``-token contexts
+    (sync admission, so nothing else runs), and device time per kernel
+    class from a torch.profiler window over as many more steps.  Returns
+    the step's wall ms."""
     from repro_torch.serve import (
         AdmissionConfig, CacheConfig, EngineConfig, Request, ServeEngine)
 
     eng = ServeEngine(model, params, EngineConfig(
-        batch_slots=8, max_len=1024, cache=CacheConfig(page_size=PS, decode_path=decode_path),
+        batch_slots=8, max_len=max_len, cache=CacheConfig(page_size=PS, decode_path=decode_path),
         admission=AdmissionConfig(async_prefill=False, prefill_chunk=prefill_chunk)),
         device="cuda")
     rng = np.random.default_rng(5)
     for i in range(8):
         eng.submit(Request(uid=i, max_new_tokens=64, prompt=rng.integers(
-            0, vocab, size=(512,)).astype(np.int32)))
+            0, vocab, size=(prompt,)).astype(np.int32)))
     s = eng.sched
     while len(s.running) < 8 or s.waiting or s.admitting or s.ready:
         eng.step()
@@ -944,17 +1002,21 @@ def decode_breakdown(model, params, vocab, steps: int = 10, prefill_chunk: int =
     return step_ms
 
 
-def serve_full_width(model, params, prompts, ecfg, kernels, smi):
-    """The measured full-width run: every request finishes with 32 tokens
-    inside the vocabulary, and each kernel in ``kernels`` launched.  Returns
+def serve_full_width(model, params, prompts, ecfg, kernels, smi, max_new: int = 32,
+                     on_reset=None):
+    """The measured full-width run: every request finishes with ``max_new``
+    tokens inside the vocabulary, and each kernel in ``kernels`` launched.
+    ``on_reset`` runs where the launch counts are set to 0.  Returns
     (requests, launch counts of this run)."""
     from repro_torch.kernels import ops
 
     serve(model, params, ecfg, prompts[:1], 2, "cuda")        # warm-up: first launches
     ops.reset_launches()
+    if on_reset is not None:
+        on_reset()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    reqs, done, eng = serve(model, params, ecfg, prompts, 32, "cuda")
+    reqs, done, eng = serve(model, params, ecfg, prompts, max_new, "cuda")
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
     stats = eng.stats
@@ -966,7 +1028,8 @@ def serve_full_width(model, params, prompts, ecfg, kernels, smi):
         f"{gen_tokens / wall:.1f} tok/s end to end ({smi})")
     log(f"  peak device memory {peak:.2f} GiB; kernel launches "
         f"{ {k: v for k, v in launches.items() if v} }")
-    if len(done) != len(reqs) or not all(r.done and len(r.out_tokens) == 32 for r in reqs):
+    if len(done) != len(reqs) or not all(r.done and len(r.out_tokens) == max_new
+                                         for r in reqs):
         raise SystemExit("chip_smoke: not every full-width request finished")
     if min(launches[k] for k in kernels) <= 0:
         raise SystemExit("chip_smoke: a kernel of the main path never launched")
@@ -976,15 +1039,16 @@ def serve_full_width(model, params, prompts, ecfg, kernels, smi):
     return reqs, launches
 
 
-def card_vs_cpu_tokens(arch, cases, smi) -> None:
+def card_vs_cpu_tokens(arch, cases, smi, **over) -> None:
     """The same requests through the reduced ``arch`` engine in float32 on
     the card and on the CPU; each case is (label, prompt lengths, engine
-    config, and the decode path whose card tokens must equal too)."""
+    config, and the decode path whose card tokens must equal too).
+    ``over`` replaces fields of the reduced config."""
     from repro_torch.configs import get_arch
     from repro_torch.models import build_model
     from repro_torch.models.common import tree_map
 
-    cfg = dataclasses.replace(get_arch(arch).reduced(), dtype="float32")
+    cfg = dataclasses.replace(get_arch(arch).reduced(), dtype="float32", **over)
     model = build_model(cfg)
     params_cpu = model.init(torch.Generator().manual_seed(0), "cpu")
     params_gpu = tree_map(lambda t: t.to("cuda"), params_cpu)
@@ -1012,14 +1076,14 @@ def card_vs_cpu_tokens(arch, cases, smi) -> None:
             raise SystemExit("chip_smoke: greedy tokens differ between card and CPU")
 
 
-def ssm_prefill_ms(model, params, vocab, seq: int = 512) -> None:
-    """One ``seq``-token prompt prefilled in 256-token slices (as the
-    engine's chunked prefill runs it): wall ms and the device split."""
+def prefill_ms(model, params, vocab, seq: int, chunk: int, ranges=()) -> float:
+    """One ``seq``-token prompt prefilled in ``chunk``-token slices (as the
+    engine's chunked prefill runs it): wall ms and the device split.
+    Returns the wall ms."""
     from repro_torch.models.common import tree_map
 
     toks = torch.as_tensor(np.random.default_rng(6).integers(0, vocab, size=(1, seq)),
                            device="cuda").long()
-    chunk = SSM["chunk"]
 
     def run():
         cache = tree_map(lambda sp: torch.zeros(sp.shape, dtype=sp.dtype, device="cuda"),
@@ -1039,7 +1103,112 @@ def ssm_prefill_ms(model, params, vocab, seq: int = 512) -> None:
     ms = statistics.median(times) * 1e3
     log(f"  prefill of one {seq}-token prompt in {chunk}-token slices: {ms:.3f} ms wall "
         f"(median of 5) = {seq / ms * 1e3:.0f} prompt tokens/s")
-    log_groups("prefill", ms, *device_groups(run, 3))
+    log_groups("prefill", ms, *device_groups(run, 3, ranges))
+    return ms
+
+
+# ---------------------------------------------------------------------------
+# phase 16: full-width recurrentgemma-9b serving
+# ---------------------------------------------------------------------------
+
+
+def scan_range():
+    """Wrap the RG-LRU doubling scan in a ``record_function`` range named
+    ``rglru_scan`` (for the profiler's split); returns the undo."""
+    from repro_torch.models import rglru
+
+    plain = rglru.linear_scan
+
+    def ranged(a, b):
+        with torch.profiler.record_function("rglru_scan"):
+            return plain(a, b)
+
+    rglru.linear_scan = ranged
+    return lambda: setattr(rglru, "linear_scan", plain)
+
+
+def serve_recurrentgemma(smi) -> dict:
+    """16 requests of 1,024-3,072 prompt tokens (half past the 2,048-token
+    window) at the full width and depth of recurrentgemma-9b, bf16, seeded
+    random weights, 8 lanes, max_len 4,096, 1,024-token prefill chunks, 64
+    new tokens each.  Holds: every request finishes; 12 ``flash_attention``
+    launches per prefill slice, 24 ``paged_gather`` launches per decode step
+    and no ``paged_decode_attention``; the engine's first token equals a
+    direct chunked prefill's.  Returns this run's launch counts."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_items, tree_map
+    from repro_torch.serve import AdmissionConfig, CacheConfig, EngineConfig
+
+    cfg = get_arch("recurrentgemma-9b")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for _, t in tree_items(params))
+    n_attn = sum(reps * pattern.count("attn") for pattern, reps in model.segments)
+    log(f"  {cfg.n_layers} layers as {model.segments}, d_model {cfg.d_model}, lru_width "
+        f"{cfg.rglru.lru_width}, attention H={RG['h']} Hkv={RG['hkv']} D={RG['d']} window "
+        f"{RG['window']}; {n_params / 1e9:.3f} B parameters in {time.perf_counter() - t0:.1f} s")
+    calls = {"extend_step": 0, "decode_step_paged": 0}
+
+    def counted(name):
+        fn = getattr(model, name)
+
+        def wrapped(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+
+        setattr(model, name, wrapped)
+
+    for name in calls:
+        counted(name)
+    ecfg = EngineConfig(batch_slots=8, max_len=4096, cache=CacheConfig(page_size=PS),
+                        admission=AdmissionConfig(prefill_chunk=RG["chunk"]))
+    rng = np.random.default_rng(16)
+    lengths = np.concatenate([rng.integers(RG["window"] + 1, 3073, size=8),
+                              rng.integers(1024, RG["window"] + 1, size=8)])
+    rng.shuffle(lengths)
+    prompts = [rng.integers(0, cfg.vocab_size, size=(int(n),)).astype(np.int32)
+               for n in lengths]
+    log(f"  prompt lengths {sorted(int(n) for n in lengths)}")
+    reqs, run = serve_full_width(model, params, prompts, ecfg, ("flash_attention",
+                                                                "paged_gather"), smi,
+                                 max_new=64, on_reset=lambda: calls.update(
+                                     extend_step=0, decode_step_paged=0))
+    log(f"  {calls['extend_step']} prefill slices, {calls['decode_step_paged']} decode steps; "
+        f"flash_attention {run['flash_attention']} launches, paged_gather "
+        f"{run['paged_gather']}, paged_decode_attention {run['paged_decode_attention']}")
+    if run["flash_attention"] != n_attn * calls["extend_step"]:
+        raise SystemExit(f"chip_smoke: {run['flash_attention']} flash launches, expected "
+                         f"{n_attn} per prefill slice")
+    if run["paged_gather"] != 2 * n_attn * calls["decode_step_paged"]:
+        raise SystemExit(f"chip_smoke: {run['paged_gather']} paged_gather launches, "
+                         f"expected {2 * n_attn} per decode step")
+    if run["paged_decode_attention"]:
+        raise SystemExit("chip_smoke: the windowed layers launched paged_decode_attention")
+    # the engine's first token agrees with a direct chunked prefill
+    cache = tree_map(lambda sp: torch.zeros(sp.shape, dtype=sp.dtype, device="cuda"),
+                     model.cache_specs(1, len(prompts[0])))
+    toks = torch.as_tensor(prompts[0], device="cuda")[None].long()
+    for i in range(0, toks.shape[1], RG["chunk"]):
+        logits, cache = model.extend_step(params, cache, toks[:, i:i + RG["chunk"]], i)
+    if logits.shape[-1] != cfg.padded_vocab or not torch.isfinite(logits).all():
+        raise SystemExit(f"chip_smoke: bad recurrentgemma prefill logits {tuple(logits.shape)}")
+    if int(logits[0, -1].argmax()) != reqs[0].out_tokens[0]:
+        raise SystemExit("chip_smoke: recurrentgemma engine's first token differs from a "
+                         "direct chunked prefill")
+    log("  chunked-prefill logits finite; first token matches the engine")
+    undo = scan_range()
+    try:
+        ms = prefill_ms(model, params, cfg.vocab_size, 3 * RG["chunk"], RG["chunk"],
+                        ranges=("rglru_scan",))
+    finally:
+        undo()
+    log(f"  = {ms / 3:.3f} ms per {RG['chunk']}-token prefill slice ({smi})")
+    decode_breakdown(model, params, cfg.vocab_size, prefill_chunk=RG["chunk"], prompt=2560,
+                     max_len=4096)
+    return run
 
 
 # ---------------------------------------------------------------------------
@@ -1054,11 +1223,12 @@ def ssm_prefill_ms(model, params, vocab, seq: int = 512) -> None:
 LR = {"sgd": {"lr": 1e-2}, "momentum": {"lr": 1e-2}, "adamw": {}}
 
 
-def train_card_vs_cpu(arch: str, seq: int) -> None:
-    """Reduced ``arch`` in float32: 4 steps of each optimizer with 1 and 2
-    microbatches from the same weights and batches on the card and on the
-    CPU; losses and grad norms within 1e-4 relative at every step,
-    parameters within 1e-4 (atol = rtol)."""
+def train_card_vs_cpu(arch: str, seq: int, **over) -> int:
+    """Reduced ``arch`` in float32 (``over`` replaces config fields): 4
+    steps of each optimizer with 1 and 2 microbatches from the same weights
+    and batches on the card and on the CPU; losses and grad norms within
+    1e-4 relative at every step, parameters within 1e-4 (atol = rtol).
+    Returns the card's ``stream_gd`` launches."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
     from repro_torch.models import build_model
@@ -1068,10 +1238,11 @@ def train_card_vs_cpu(arch: str, seq: int) -> None:
 
     if torch.backends.cuda.matmul.allow_tf32:
         raise SystemExit("chip_smoke: TF32 matmuls are on; float32 would not be float32")
-    cfg = dataclasses.replace(get_arch(arch).reduced(), dtype="float32")
+    cfg = dataclasses.replace(get_arch(arch).reduced(), dtype="float32", **over)
     model = build_model(cfg)
     params = model.init(torch.Generator().manual_seed(0), "cpu")
     rng = np.random.default_rng(10)
+    total = 0
     batches = [rng.integers(0, cfg.vocab_size, size=(4, seq + 1)).astype(np.int32)
                for _ in range(4)]
     for opt in ("sgd", "momentum", "adamw"):
@@ -1101,6 +1272,8 @@ def train_card_vs_cpu(arch: str, seq: int) -> None:
             want = {"sgd": 1, "momentum": 1, "adamw": 0}[opt] * len(batches)
             if launches != want:
                 raise SystemExit(f"chip_smoke: {launches} stream_gd launches, expected {want}")
+            total += launches
+    return total
 
 
 def train_fault_on_card() -> None:
@@ -1543,6 +1716,7 @@ def main() -> int:
     log("== phase 2: kernels against their plain versions "
         f"(H={H}, Hkv={HKV}, D={D}, PS={PS})")
     rows = {}
+    rg_rows = []                  # recurrentgemma's shapes: logged, not in the JSON line
     flash_cases = [("prefill", 512, 512, 0, 512, None),
                    ("chunk", 128, 1024, 384, 512, None),
                    ("window", 512, 512, 0, 512, 128)]
@@ -1557,6 +1731,16 @@ def main() -> int:
                 log_row(row)
                 rows.setdefault("flash_attention", row)
     log_row(rows["paged_decode_attention"])
+    log(f"  recurrentgemma-9b attention (H={RG['h']}, Hkv={RG['hkv']}, D={RG['d']}, "
+        f"window {RG['window']}; D = 256 runs the CUDA-core variant):")
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, sq, sk, off, kvl in (("rg prompt", 3072, 3072, 0, 3072),
+                                        ("rg chunk", 1024, 4096, 2048, 3072)):
+            row = flash_case(dtype, label, sq, sk, off, kvl, RG["window"],
+                             dtype == torch.bfloat16, RG["h"], RG["hkv"], RG["d"])
+            if row:
+                log_row(row)
+                rg_rows.append(row)
     vgg = {l.name: l for l in zoo.vgg16()}
     # (label: the VGG paper's name and the zoo's, layer); the JSON line keeps conv3_2
     conv_cases = [("conv1_1 (conv0)", vgg["conv0"]), ("conv1_2 (conv1)", vgg["conv1"]),
@@ -1594,6 +1778,13 @@ def main() -> int:
         if row:
             log_row(row)
             rows["paged_gather"] = row
+        # one recurrentgemma attention layer's k pool, as its windowed paged
+        # decode reads it: 8 lanes x 256 slots (4,096 tokens)
+        row = gather_case(dtype, timed, layers=None, slots=4096 // PS, hkv=RG["hkv"],
+                          d=RG["d"], lens=(0, 1, 17, 2100, 4096, 513, 3000, 999))
+        if row:
+            log_row(row)
+            rg_rows.append(row)
     log("  stream_gd on full-width qwen2.5-3b's largest leaf (seg0 mlp.w_up):")
     rows["stream_gd"] = stream_gd_cases()
     log_row(rows["stream_gd"])
@@ -1682,7 +1873,7 @@ def main() -> int:
         raise SystemExit("chip_smoke: mamba2 engine's first token differs from a direct "
                          "chunked prefill")
     log("  chunked-prefill logits finite; first token matches the engine")
-    ssm_prefill_ms(model, params, cfg.vocab_size)
+    prefill_ms(model, params, cfg.vocab_size, 512, SSM["chunk"])
     decode_breakdown(model, params, cfg.vocab_size, prefill_chunk=SSM["chunk"])
     log("  (the decode step runs no port kernel: ssm_decode is plain torch, as the "
         "JAX package leaves it to XLA)")
@@ -1749,6 +1940,28 @@ def main() -> int:
     launches["ssd_scan"] += mamba2_eval_kernel_vs_xla(tr, state)
     del tr, state
     torch.cuda.empty_cache()
+
+    # -- phase 15 ---------------------------------------------------------------
+    log("== phase 15: reduced recurrentgemma-9b (5 layers, window 64) in float32, "
+        "card against CPU")
+    card_vs_cpu_tokens("recurrentgemma-9b", [
+        (f"prefill_chunk={chunk}, paged and gather", (70, 5, 100, 33, 61, 90),
+         EngineConfig(batch_slots=3, max_len=128, cache=CacheConfig(page_size=PS),
+                      admission=AdmissionConfig(prefill_chunk=chunk)), "gather")
+        for chunk in (0, 16)], smi, n_layers=5)
+
+    # -- phase 16 ---------------------------------------------------------------
+    log("== phase 16: full-width recurrentgemma-9b (bf16, random weights) on the card")
+    run = serve_recurrentgemma(smi)
+    for name in ("flash_attention", "paged_gather"):
+        launches[name] += run[name]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- phase 17 ---------------------------------------------------------------
+    log("== phase 17: reduced recurrentgemma-9b training (5 layers) in float32, card "
+        "against CPU (96 tokens: past the window, two attention chunks)")
+    launches["stream_gd"] += train_card_vs_cpu("recurrentgemma-9b", 96, n_layers=5)
 
     for name in KERNELS:
         rows[name]["launches"] = launches[name]

@@ -6,16 +6,36 @@ weights on synthetic data, on the card unless ``--device cpu`` is given.
 The flags are those of ``python -m repro.launch.train`` that one card
 needs (no mesh, no overlap flags) plus ``--device``; ``--ckpt`` names a
 checkpoint directory to save into and resume from (none by default).
-The dense family trains; the others raise.
+The dense, ssm and hybrid families train; the others raise.  ``--full``
+refuses a configuration whose weights, float32 gradient sums, one
+microbatch's gradients and float32 optimizer moments alone exceed one
+80 GB card (full-width recurrentgemma-9b: about 9.5 B parameters).
 """
 import argparse
+import math
 
 from repro_torch.configs import get_arch
 from repro_torch.data.pipeline import SyntheticLMData
 from repro_torch.device import resolve
 from repro_torch.kernels import build
 from repro_torch.models import build_model
+from repro_torch.models.common import tree_items
 from repro_torch.train.trainer import Trainer, TrainerConfig
+
+CARD_BYTES = 80e9                            # one H100's device memory
+MOMENTS = {"sgd": 0, "momentum": 1, "adamw": 2}
+
+
+def training_bytes(model, optimizer: str, n_microbatches: int) -> float:
+    """Bytes a train step holds besides activations: the weights, the
+    gradients (float32 sums with microbatches, plus one microbatch's in the
+    weights' type) and the float32 optimizer moments."""
+    total = 0.0
+    for _, s in tree_items(model.param_specs()):
+        n, item = math.prod(s.shape), s.dtype.itemsize
+        grads = 4 + item if n_microbatches > 1 else item
+        total += n * (item + grads + 4 * MOMENTS[optimizer])
+    return total
 
 
 def main(argv=None):
@@ -41,11 +61,16 @@ def main(argv=None):
     if not args.full:
         cfg = cfg.reduced()
     model = build_model(cfg)
+    n_micro = cfg.train_microbatches if args.full else 1
+    if args.full and (need := training_bytes(model, args.optimizer, n_micro)) > CARD_BYTES:
+        raise SystemExit(
+            f"{cfg.name} at full width does not fit one 80 GB card: its weights, gradients "
+            f"and {args.optimizer} state alone take {need / 1e9:.1f} GB")
     data = SyntheticLMData(cfg, batch=args.batch, seq=args.seq, device=device)
     tcfg = TrainerConfig(
         total_steps=args.steps, ckpt_dir=args.ckpt, ckpt_every=25,
         optimizer=args.optimizer, lr=args.lr,
-        n_microbatches=cfg.train_microbatches if args.full else 1,
+        n_microbatches=n_micro,
     )
     if device.type == "cuda":
         build.build()             # compile the kernels before the first step

@@ -5,6 +5,6 @@ from .transformer import DecoderLM
 
 
 def build_model(cfg) -> DecoderLM:
-    """The model for ``cfg``; ``family="dense"`` and ``family="ssm"`` are
-    ported so far (the other families raise ``NotImplementedError``)."""
+    """The model for ``cfg``; ``family="dense"``, ``"ssm"`` and ``"hybrid"``
+    are ported so far (the other families raise ``NotImplementedError``)."""
     return DecoderLM(cfg)

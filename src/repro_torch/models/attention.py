@@ -1,8 +1,9 @@
 """Attention entry points of the model: whole-sequence / chunk attention
 (through the flash kernel of ``kernels.ops`` for serving, or the
 differentiable chunked scan ``flash_attention_xla`` for training), the
-paged decode read through the paged kernel, and the dense-cache decode
-read of the gather path in plain torch.
+paged decode read through the paged kernel, the windowed paged decode
+read through the ``paged_gather`` kernel, and the dense-cache decode read
+of the gather path in plain torch.
 
 Layouts follow ``repro/models/attention.py``: q (B, Sq, H, D) and k/v
 (B, Sk, Hkv, D) for ``attend``; one query per lane (B, H, D) against the
@@ -124,19 +125,51 @@ def paged_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     positions: torch.Tensor, scale: float | None = None) -> torch.Tensor:
+                     positions: torch.Tensor, window: int | None = None,
+                     scale: float | None = None) -> torch.Tensor:
     """Single-token attention of q (B, 1, H, D) over per-lane caches k/v
-    (B, Smax, Hkv, D), lane b reading rows [0, positions[b]] → (B, 1, H, D).
-    Plain torch, as ``repro/models/attention.py:decode_attention`` is XLA in
-    the JAX package, with its roundings: the scaled query in the cache's
-    type, scores and softmax in float32, probabilities in v's type."""
+    (B, Smax, Hkv, D), lane b reading rows [0, positions[b]] (with a
+    ``window``, only the ``window`` rows up to it) → (B, 1, H, D).  Plain
+    torch, as ``repro/models/attention.py:decode_attention`` is XLA in the
+    JAX package, with its roundings: the scaled query in the cache's type,
+    scores and softmax in float32, probabilities in v's type."""
     b, _, h, d = q.shape
     smax, hkv = k.shape[1], k.shape[2]
     scale = scale if scale is not None else float(d) ** -0.5
     qf = (q.reshape(b, hkv, h // hkv, d) * scale).to(k.dtype)
     s = torch.einsum("bgrd,bkgd->bgrk", qf.float(), k.float())
-    mask = torch.arange(smax, device=q.device)[None, :] <= positions.long()[:, None]
+    kpos = torch.arange(smax, device=q.device)[None, :]
+    positions = positions.long()[:, None]
+    mask = kpos <= positions
+    if window is not None:
+        mask = mask & (positions - kpos < window)
     s = torch.where(mask[:, None, None, :], s, -1e30)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bgrk,bkgd->bgrd", p.to(v.dtype).float(), v.float())
     return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+def paged_lane_view(pool: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
+    """Per-lane contiguous view of one layer's page pool (n_pages, PS, *t)
+    through table (B, P) int32 → (B, P*PS, *t), ``-1`` slots read as zeros:
+    one ``paged_gather`` launch over the pool seen as (n_pages, PS·prod(t))
+    rows, bit-identical to the JAX package's ``paged_lane_view``."""
+    n_pages, ps = pool.shape[:2]
+    b, p = block_table.shape
+    view = kops.paged_gather(pool.reshape(n_pages, -1), block_table)
+    return view.reshape((b, p * ps) + tuple(pool.shape[2:]))
+
+
+def paged_decode_windowed(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                          block_table: torch.Tensor, positions: torch.Tensor,
+                          window: int | None, scale: float | None = None) -> torch.Tensor:
+    """Paged decode for windowed (local) attention layers, which the paged
+    kernel does not mask: the port of ``paged_decode_attention_xla``.  Each
+    lane's pages are gathered into a transient view (``paged_lane_view``,
+    one launch for k and one for v) and attended by ``decode_attention``
+    with the window: q (B, 1, H, D) → (B, 1, H, D), bit-equal to the
+    gather path's read.  As in the reference, a ``-1`` slot inside a lane's
+    length reads as a zero row (the engine leaves no such holes)."""
+    kc = paged_lane_view(k_pool, block_table)
+    vc = paged_lane_view(v_pool, block_table)
+    return decode_attention(q, kc, vc, positions, window=window, scale=scale)

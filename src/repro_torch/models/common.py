@@ -117,6 +117,17 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return torch.addcmul(xf * cos, swapped, sin).to(x.dtype)
 
 
+def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, state=None):
+    """Depthwise causal conv1d of width K over x (B, S, C) with w (K, C) and
+    bias b; ``state`` (B, K-1, C) is the trailing context (zeros when None).
+    Returns (conv + b, new state): the last K-1 rows of [state, x]."""
+    k = w.shape[0]
+    pad = (torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype, device=x.device)
+           if state is None else state)
+    xp = torch.cat([pad, x], dim=1)
+    y = sum(xp[:, i: i + x.shape[1]] * w[i] for i in range(k))
+    return y + b, (xp[:, -(k - 1):] if k > 1 else pad)
+
 
 def activation(name: str):
     return {

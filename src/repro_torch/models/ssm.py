@@ -29,7 +29,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 
-from .common import PSpec, TensorSpec, rms_norm
+from .common import PSpec, TensorSpec, causal_conv, rms_norm
 
 
 def ssm_specs(cfg) -> dict:
@@ -59,16 +59,10 @@ def _split_proj(cfg, zxbcdt):
 
 
 def _causal_conv(x, w, b, state=None):
-    """Depthwise causal conv1d of width K over x (B, S, C) with w (K, C);
-    ``state`` (B, K-1, C) is the trailing context (zeros when None).
-    Returns (silu(conv + b), new state)."""
-    k = w.shape[0]
-    pad = (torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype, device=x.device)
-           if state is None else state)
-    xp = torch.cat([pad, x], dim=1)
-    y = sum(xp[:, i: i + x.shape[1]] * w[i] for i in range(k))
-    new_state = xp[:, -(k - 1):] if k > 1 else pad
-    return F.silu(y + b), new_state
+    """silu of the depthwise causal conv (``common.causal_conv``) and the new
+    conv state."""
+    y, new_state = causal_conv(x, w, b, state)
+    return F.silu(y), new_state
 
 
 def _conv_split(cfg, conv_out):

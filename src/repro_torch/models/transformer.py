@@ -1,24 +1,36 @@
-"""Decoder-only LM, dense and ssm families: the port of
+"""Decoder-only LM, dense, ssm and hybrid families: the port of
 ``repro/models/transformer.py``.
 
+A model is a list of *segments*, each a repeating *pattern* of layer kinds
+(``segments_for``, as in the JAX package):
+
+    dense  : [("dense",) × L]
+    ssm    : [("ssm",) × L]                      mamba2
+    hybrid : [("rec", "rec", "attn") × (L // 3)] + the remainder pattern
+                                                 recurrentgemma
+
 Parameters keep the JAX package's tree: ``embed``, ``final_norm``
-[, ``lm_head``] and one stacked segment ``seg0 = {"s0_<kind>": {...}}``
-whose leaves carry a leading layers dim: ``("dense",) × L`` for the dense
-family, ``("ssm",) × L`` (mamba2) for the ssm family.  The port loops over
-layers in Python (PyTorch runs eagerly; there is no scan to keep the graph
-small).
+[, ``lm_head``] and one dict per segment ``seg{si} = {"s{i}_{kind}": {...}}``
+whose leaves carry a leading repeats dim.  The port loops over segments,
+repeats and the pattern in Python (PyTorch runs eagerly; there is no scan
+to keep the graph small).
 
 A dense layer is pre-norm attention + residual, pre-norm gated MLP +
-residual.  Attention goes through ``models.attention``: ``attend`` (the
-flash kernel) for prefill and chunked prefill, ``paged_decode`` (the
-paged-decode kernel) for the serving engine's paged decode step, the
-plain ``decode_attention`` for the dense ``decode_step`` of the gather
-path, and ``attend(impl="xla")`` (the differentiable chunked scan) for the
-training ``forward``/``loss``.  An ssm layer is pre-norm Mamba-2 + residual
+residual; an ``attn`` layer (the hybrid's local attention) is the same
+with ``cfg.rglru.attn_window``.  Attention goes through ``models.attention``:
+``attend`` (the flash kernel, windowed for ``attn``) for prefill and chunked
+prefill; for the serving engine's paged decode step, ``paged_decode`` (the
+paged-decode kernel) in dense layers and ``paged_decode_windowed`` (the
+``paged_gather`` kernel and the windowed plain read) in ``attn`` layers;
+the plain ``decode_attention`` for ``decode_step`` of the gather path; and
+``attend(impl="xla")`` (the differentiable chunked scan) for the training
+``forward``/``loss``.  An ssm layer is pre-norm Mamba-2 + residual
 (``models.ssm``; its prefill runs the ``ssd_scan`` kernel, its decode step
 is plain torch, and the training ``forward``/``loss`` run the
-differentiable ``ssd_chunked(impl="xla")``).  Projections and the
-MLP stay ``torch.matmul``, as the JAX package leaves them to XLA.
+differentiable ``ssd_chunked(impl="xla")``).  A ``rec`` layer is pre-norm
+RG-LRU + residual, then the MLP block (``models.rglru``, plain torch on
+every path, its scan the doubling scan).  Projections and the MLP stay
+``torch.matmul``, as the JAX package leaves them to XLA.
 
 The training forward is functional (autograd runs through it) and shares
 ``_qkv``, ``_rope_qk`` and ``mlp_apply`` with serving; the serving methods
@@ -36,9 +48,11 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve
 
+from . import rglru as _rglru
 from . import ssm as _ssm
-from .attention import attend, decode_attention, paged_decode
+from .attention import attend, decode_attention, paged_decode, paged_decode_windowed
 from .common import (
+    SEQ_CACHE_KEYS,
     PSpec,
     TensorSpec,
     activation,
@@ -46,10 +60,30 @@ from .common import (
     init_params,
     rms_norm,
     rope_tables,
+    tree_map_with_path,
 )
 
-# the ported families; each is one segment of one layer kind, (family,) x L
-FAMILIES = ("dense", "ssm")
+# the ported families, and the layer kinds that attend or carry a state
+FAMILIES = ("dense", "ssm", "hybrid")
+ATTN_KINDS = ("dense", "attn")
+STATE_KINDS = ("ssm", "rec")
+
+
+def segments_for(cfg) -> list[tuple[tuple[str, ...], int]]:
+    """(pattern of layer kinds, repeats) per segment."""
+    if cfg.family == "dense":
+        return [(("dense",), cfg.n_layers)]
+    if cfg.family == "ssm":
+        return [(("ssm",), cfg.n_layers)]
+    if cfg.family == "hybrid":
+        pat = tuple(cfg.rglru.block_pattern)
+        n_full = cfg.n_layers // len(pat)
+        rem = cfg.n_layers - n_full * len(pat)
+        segs = [(pat, n_full)]
+        if rem:
+            segs.append((pat[:rem], 1))
+        return segs
+    raise NotImplementedError(f"family {cfg.family!r} has no segments in the port")
 
 
 def attn_specs(cfg) -> dict:
@@ -86,7 +120,12 @@ def layer_specs(cfg, kind: str) -> dict:
     if kind == "ssm":
         s["mix"] = _ssm.ssm_specs(cfg)
         return s
-    s["attn"] = attn_specs(cfg)
+    if kind == "rec":
+        s["mix"] = _rglru.rglru_specs(cfg)
+    elif kind in ATTN_KINDS:
+        s["attn"] = attn_specs(cfg)
+    else:
+        raise ValueError(f"unknown layer kind {kind!r}")
     s["ln2"] = PSpec((cfg.d_model,), torch.float32, ln_init)
     s["mlp"] = mlp_specs(cfg)
     return s
@@ -110,6 +149,11 @@ def _unstack(tree: dict, n: int) -> list[dict]:
     views = {k: _unstack(v, n) if isinstance(v, dict) else v.unbind(0)
              for k, v in tree.items()}
     return [{k: v[r] for k, v in views.items()} for r in range(n)]
+
+
+def _at(leaves: dict, r: int) -> dict:
+    """Repeat r's view of one layer's stacked cache leaves."""
+    return {n: t[r] for n, t in leaves.items()}
 
 
 def _proj(x, w, bias=None):
@@ -144,23 +188,24 @@ def mlp_apply(cfg, p, x):
 
 
 class DecoderLM:
-    """Decoder-only LM over the JAX package's parameter layout: the dense
-    family and the ssm family (mamba2)."""
+    """Decoder-only LM over the JAX package's parameter layout: the dense,
+    ssm (mamba2) and hybrid (recurrentgemma) families."""
 
     supports_chunked_prefill = True
 
     def __init__(self, cfg):
         if cfg.family not in FAMILIES:
             raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet (dense and ssm only)")
+                f"family {cfg.family!r} is not ported yet (dense, ssm and hybrid are; "
+                "MLA and MoE come next)")
         if cfg.sliding_window is not None or cfg.learned_positions:
             raise NotImplementedError(
                 "sliding-window and learned-position attention are not ported")
         if cfg.family == "ssm" and not cfg.ssm.factorized:
             raise NotImplementedError("only the factorized SSD decay is ported")
         self.cfg = cfg
-        self.kind = cfg.family
-        self.seg = f"s0_{self.kind}"
+        self.segments = segments_for(cfg)
+        self._has_attn = any(k in ATTN_KINDS for pattern, _ in self.segments for k in pattern)
 
     # -- parameters ---------------------------------------------------------
 
@@ -171,10 +216,12 @@ class DecoderLM:
             "embed": PSpec((cfg.padded_vocab, cfg.d_model), dt, scale=1.0),
             "final_norm": PSpec((cfg.d_model,), torch.float32,
                                 "zeros" if cfg.rms_plus_one else "ones"),
-            "seg0": {self.seg: _stack(layer_specs(cfg, self.kind), cfg.n_layers)},
         }
         if not cfg.tie_embeddings:
             specs["lm_head"] = PSpec((cfg.d_model, cfg.padded_vocab), dt)
+        for si, (pattern, reps) in enumerate(self.segments):
+            specs[f"seg{si}"] = _stack(
+                {f"s{i}_{k}": layer_specs(cfg, k) for i, k in enumerate(pattern)}, reps)
         return specs
 
     def init(self, generator: torch.Generator, device=None) -> dict:
@@ -199,8 +246,16 @@ class DecoderLM:
         return x @ w.to(x.dtype)
 
     def _rope(self, positions):
-        """Rotary tables for (B or 1, S) positions, shared by every layer."""
+        """Rotary tables for (B or 1, S) positions, shared by every attention
+        layer (None when the model has none)."""
+        if not self._has_attn:
+            return None
         return rope_tables(positions, self.cfg.hd, self.cfg.rope_theta)
+
+    def _window(self, kind):
+        """The attention window of a layer kind: the hybrid's local
+        attention layers have one, dense layers none."""
+        return self.cfg.rglru.attn_window if kind == "attn" else None
 
     def _mlp_block(self, p, x):
         return x + mlp_apply(self.cfg, p["mlp"], self._norm(p["ln2"], x))
@@ -211,44 +266,66 @@ class DecoderLM:
         x = x + out.reshape(b, s, self.cfg.n_heads * self.cfg.hd) @ p["attn"]["wo"]
         return self._mlp_block(p, x)
 
+    def _qkv_rope(self, p, x, tables):
+        q, k, v = _qkv(self.cfg, p["attn"], self._norm(p["ln1"], x))
+        q, k = _rope_qk(q, k, tables)
+        return q, k, v
+
     def _layers(self, params):
-        seg = params["seg0"][self.seg]
-        return (_layer(seg, r) for r in range(self.cfg.n_layers))
+        """(segment, repeat, key, kind, parameter views) of every layer, in
+        order (no copies)."""
+        for si, (pattern, reps) in enumerate(self.segments):
+            seg = params[f"seg{si}"]
+            for r in range(reps):
+                for i, kind in enumerate(pattern):
+                    key = f"s{i}_{kind}"
+                    yield si, r, key, kind, _layer(seg[key], r)
 
     # -- training API -------------------------------------------------------
 
-    def _train_layer(self, p, x, tables, impl):
-        if self.kind == "ssm":
-            y, _, _ = _ssm.ssm_block(self.cfg, p["mix"], self._norm(p["ln1"], x), impl=impl)
+    def _train_layer(self, kind, p, x, tables, impl):
+        cfg = self.cfg
+        if kind == "ssm":
+            y, _, _ = _ssm.ssm_block(cfg, p["mix"], self._norm(p["ln1"], x), impl=impl)
             return x + y
-        q, k, v = _qkv(self.cfg, p["attn"], self._norm(p["ln1"], x))
-        q, k = _rope_qk(q, k, tables)
-        out = attend(q, k, v, causal=True, impl=impl, chunk=self.cfg.attn_chunk)
+        if kind == "rec":
+            y, _ = _rglru.rglru_block(cfg, p["mix"], self._norm(p["ln1"], x))
+            return self._mlp_block(p, x + y)
+        q, k, v = self._qkv_rope(p, x, tables)
+        out = attend(q, k, v, causal=True, window=self._window(kind), impl=impl,
+                     chunk=cfg.attn_chunk)
         return self._attn_out(p, out, x)
+
+    def _train_repeat(self, pattern, p, x, tables, impl):
+        """One repeat of a segment's pattern: the unit ``remat="full"``
+        recomputes, as the JAX package checkpoints its scanned body."""
+        for i, kind in enumerate(pattern):
+            x = self._train_layer(kind, p[f"s{i}_{kind}"], x, tables, impl)
+        return x
 
     def forward(self, params, tokens, impl: str = "xla"):
         """tokens (B, S) → (logits (B, S, V) in the model's type, aux loss
-        (a float32 zero: neither family has MoE)).  Differentiable;
-        ``cfg.remat == "full"`` recomputes each layer in the backward
-        (``torch.utils.checkpoint``, one per layer), ``"none"`` keeps every
-        activation.  ``impl="xla"`` attends with the chunked scan (dense)
-        or mixes with the plain-torch SSD (ssm), as JAX's train step does;
-        ``"kernel"`` runs the flash or ``ssd_scan`` kernel, which has no
-        backward and refuses grad-requiring inputs.  An ssm layer starts
-        from a zero state and a zero conv context."""
+        (a float32 zero: no ported family has MoE)).  Differentiable;
+        ``cfg.remat == "full"`` recomputes each repeat of a segment's pattern
+        in the backward (``torch.utils.checkpoint``), ``"none"`` keeps every
+        activation.  ``impl="xla"`` attends with the chunked scan (dense and
+        local attention) or mixes with the plain-torch SSD (ssm), as JAX's
+        train step does; ``"kernel"`` runs the flash or ``ssd_scan`` kernel,
+        which has no backward and refuses grad-requiring inputs.  The RG-LRU
+        always runs its plain doubling scan.  Recurrent layers start from a
+        zero state and a zero conv context."""
         cfg = self.cfg
         if cfg.remat not in ("none", "full"):
             raise NotImplementedError(f"remat={cfg.remat!r} is not ported ('none' or 'full')")
         x = self._embed(params, tokens.long())
-        s = x.shape[1]
-        tables = (self._rope(torch.arange(s, device=x.device)[None])
-                  if self.kind == "dense" else None)
-        layers = _unstack(params["seg0"][self.seg], cfg.n_layers)
-        for p in layers:
-            if cfg.remat == "full":
-                x = checkpoint(self._train_layer, p, x, tables, impl, use_reentrant=False)
-            else:
-                x = self._train_layer(p, x, tables, impl)
+        tables = self._rope(torch.arange(x.shape[1], device=x.device)[None])
+        for si, (pattern, reps) in enumerate(self.segments):
+            for p in _unstack(params[f"seg{si}"], reps):
+                if cfg.remat == "full":
+                    x = checkpoint(self._train_repeat, pattern, p, x, tables, impl,
+                                   use_reentrant=False)
+                else:
+                    x = self._train_repeat(pattern, p, x, tables, impl)
         return self._head(params, x), torch.zeros((), dtype=torch.float32, device=x.device)
 
     def loss(self, params, batch, impl: str = "xla"):
@@ -274,113 +351,115 @@ class DecoderLM:
 
     # -- serving API ----------------------------------------------------------
 
+    def _prefill_layer(self, kind, p, x, tables):
+        """One layer over a whole prompt → (x, the layer's cache leaves)."""
+        cfg = self.cfg
+        if kind == "ssm":
+            y, st, cv = _ssm.ssm_block(cfg, p["mix"], self._norm(p["ln1"], x))
+            return x + y, {"state": st, "conv": cv}
+        if kind == "rec":
+            y, c = _rglru.rglru_block(cfg, p["mix"], self._norm(p["ln1"], x))
+            return self._mlp_block(p, x + y), c
+        q, k, v = self._qkv_rope(p, x, tables)
+        out = attend(q, k, v, causal=True, window=self._window(kind))
+        return self._attn_out(p, out, x), {"k": k, "v": v}
+
     @torch.no_grad()
     def prefill(self, params, tokens):
         """tokens (B, S) → (logits (B, 1, V) at the last position, cache).
-        The cache has the ``cache_specs(B, S)`` layout: one segment dict with
-        k/v leaves (layers, B, S, Hkv, hd), or (ssm) the state leaves
-        (layers, B, H, P, N) and (layers, B, K-1, conv_dim).  An ssm prompt
-        longer than the chunk must be a multiple of it (``ssd_chunked``)."""
-        cfg = self.cfg
+        The cache has the ``cache_specs(B, S)`` layout: per segment, per
+        layer of its pattern, k/v leaves (repeats, B, S, Hkv, hd) or the
+        recurrent state leaves (ssm: (repeats, B, H, P, N) and
+        (repeats, B, K-1, conv_dim); rec: (repeats, B, W) and
+        (repeats, B, K-1, W)).  An ssm prompt longer than the chunk must be
+        a multiple of it (``ssd_chunked``)."""
         x = self._embed(params, tokens)
-        b, s, _ = x.shape
-        if self.kind == "ssm":
-            states, convs = [], []
-            for p in self._layers(params):
-                y, st, cv = _ssm.ssm_block(cfg, p["mix"], self._norm(p["ln1"], x))
-                x = x + y
-                states.append(st)
-                convs.append(cv)
-            cache = [{self.seg: {"state": torch.stack(states), "conv": torch.stack(convs)}}]
-            return self._head(params, x[:, -1:]), cache
-        tables = self._rope(torch.arange(s, device=x.device)[None])
-        ks, vs = [], []
-        for p in self._layers(params):
-            q, k, v = _qkv(cfg, p["attn"], self._norm(p["ln1"], x))
-            q, k = _rope_qk(q, k, tables)
-            x = self._attn_out(p, attend(q, k, v, causal=True), x)
-            ks.append(k)
-            vs.append(v)
-        cache = [{self.seg: {"k": torch.stack(ks), "v": torch.stack(vs)}}]
+        tables = self._rope(torch.arange(x.shape[1], device=x.device)[None])
+        per = [{f"s{i}_{k}": [] for i, k in enumerate(pattern)} for pattern, _ in self.segments]
+        for si, _, key, kind, p in self._layers(params):
+            x, c = self._prefill_layer(kind, p, x, tables)
+            per[si][key].append(c)
+        cache = [{key: {n: torch.stack([c[n] for c in cs]) for n in cs[0]}
+                  for key, cs in seg.items()} for seg in per]
         return self._head(params, x[:, -1:]), cache
 
     @torch.no_grad()
     def extend_step(self, params, cache, tokens, position: int):
         """Chunked prefill: tokens (B, C) at absolute positions
-        [position, position + C) → (logits (B, C, V), cache).  Dense: writes
-        the chunk's k/v into ``cache`` (the ``cache_specs(B, capacity)``
-        layout) in place and attends against rows [0, position + C) of it.
-        ssm: steps the state leaves in place through the chunk (in slices
-        of at most ``chunk`` tokens, so any length runs)."""
+        [position, position + C) → (logits (B, C, V), cache), every leaf
+        updated in place.  Attention layers write the chunk's k/v into
+        ``cache`` (the ``cache_specs(B, capacity)`` layout) and attend
+        against rows [0, position + C) of it (within the window for local
+        attention); recurrent layers step their state through the chunk
+        (ssm in slices of at most ``chunk`` tokens, so any length runs)."""
         cfg = self.cfg
         x = self._embed(params, tokens)
-        b, c, _ = x.shape
-        seg = cache[0][self.seg]
-        if self.kind == "ssm":
-            for r, p in enumerate(self._layers(params)):
-                y, st, cv = _ssm.ssm_extend(cfg, p["mix"], self._norm(p["ln1"], x),
-                                            seg["state"][r], seg["conv"][r])
-                seg["state"][r].copy_(st)
-                seg["conv"][r].copy_(cv)
-                x = x + y
-            return self._head(params, x), cache
+        c = x.shape[1]
         tables = self._rope(position + torch.arange(c, device=x.device)[None])
-        for r, p in enumerate(self._layers(params)):
-            q, k, v = _qkv(cfg, p["attn"], self._norm(p["ln1"], x))
-            q, k = _rope_qk(q, k, tables)
-            kc, vc = seg["k"][r], seg["v"][r]
-            kc[:, position:position + c] = k
-            vc[:, position:position + c] = v
-            out = attend(q, kc, vc, causal=True, q_offset=position, kv_len=position + c)
-            x = self._attn_out(p, out, x)
+        for si, r, key, kind, p in self._layers(params):
+            leaves = cache[si][key]
+            if kind == "ssm":
+                y, st, cv = _ssm.ssm_extend(cfg, p["mix"], self._norm(p["ln1"], x),
+                                            leaves["state"][r], leaves["conv"][r])
+                leaves["state"][r].copy_(st)
+                leaves["conv"][r].copy_(cv)
+                x = x + y
+            elif kind == "rec":
+                y, new = _rglru.rglru_extend(cfg, p["mix"], self._norm(p["ln1"], x),
+                                             _at(leaves, r))
+                for n, t in new.items():
+                    leaves[n][r].copy_(t)
+                x = self._mlp_block(p, x + y)
+            else:
+                q, k, v = self._qkv_rope(p, x, tables)
+                kc, vc = leaves["k"][r], leaves["v"][r]
+                kc[:, position:position + c] = k
+                vc[:, position:position + c] = v
+                out = attend(q, kc, vc, causal=True, window=self._window(kind),
+                             q_offset=position, kv_len=position + c)
+                x = self._attn_out(p, out, x)
         return self._head(params, x), cache
 
-    def _ssm_decode_layers(self, params, x, seg, keep=None):
-        """Step every ssm layer once for each lane; returns (x, states,
-        convs), the new per-layer state of every lane.  With ``keep`` (B,)
-        bool, lanes where it is False keep their state: the new state is
-        written into ``seg``'s leaves in place for the others."""
-        states, convs = [], []
-        for r, p in enumerate(self._layers(params)):
-            st_r, cv_r = seg["state"][r], seg["conv"][r]
-            y, st, cv = _ssm.ssm_decode(self.cfg, p["mix"], self._norm(p["ln1"], x),
-                                        st_r, cv_r)
-            x = x + y
-            if keep is not None:
-                st_r.copy_(torch.where(keep[:, None, None, None], st, st_r))
-                cv_r.copy_(torch.where(keep[:, None, None], cv, cv_r))
-            states.append(st)
-            convs.append(cv)
-        return x, states, convs
+    def _decode_state(self, kind, p, x, state):
+        """One recurrent layer's decode step → (x, its new state leaves)."""
+        h = self._norm(p["ln1"], x)
+        if kind == "ssm":
+            y, st, cv = _ssm.ssm_decode(self.cfg, p["mix"], h, state["state"], state["conv"])
+            return x + y, {"state": st, "conv": cv}
+        y, new = _rglru.rglru_decode(self.cfg, p["mix"], h, state)
+        return self._mlp_block(p, x + y), new
 
     @torch.no_grad()
     def decode_step(self, params, cache, tokens, positions):
         """Dense-cache decode (the gather path): one token per lane,
         tokens (B, 1) at per-lane ``positions`` (B,) against per-lane views
         (the ``cache_specs(B, S)`` layout) → (logits (B, 1, V), cache).
-        Dense: writes each lane's k/v at its position into the views in
-        place and attends over rows [0, position] with the plain
-        ``decode_attention``.  ssm: the returned tree carries every lane's
-        new state as new tensors; the given state leaves are not written."""
-        cfg = self.cfg
+        Attention layers write each lane's k/v at its position into the
+        views in place and attend over rows [0, position] (within the
+        window for local attention) with the plain ``decode_attention``.
+        Recurrent layers' new states come back as new tensors in the
+        returned tree; the given state leaves are not written."""
         x = self._embed(params, tokens)
-        b = x.shape[0]
-        seg = cache[0][self.seg]
-        if self.kind == "ssm":
-            x, states, convs = self._ssm_decode_layers(params, x, seg)
-            new = [{self.seg: {"state": torch.stack(states), "conv": torch.stack(convs)}}]
-            return self._head(params, x), new
         positions = positions.long()
-        rows = torch.arange(b, device=x.device)
+        rows = torch.arange(x.shape[0], device=x.device)
         tables = self._rope(positions[:, None])
-        for r, p in enumerate(self._layers(params)):
-            q, k, v = _qkv(cfg, p["attn"], self._norm(p["ln1"], x))
-            q, k = _rope_qk(q, k, tables)
-            kc, vc = seg["k"][r], seg["v"][r]
+        states: dict = {}
+        for si, r, key, kind, p in self._layers(params):
+            leaves = cache[si][key]
+            if kind in STATE_KINDS:
+                x, new = self._decode_state(kind, p, x, _at(leaves, r))
+                states.setdefault((si, key), []).append(new)
+                continue
+            q, k, v = self._qkv_rope(p, x, tables)
+            kc, vc = leaves["k"][r], leaves["v"][r]
             kc[rows, positions] = k[:, 0].to(kc.dtype)
             vc[rows, positions] = v[:, 0].to(vc.dtype)
-            x = self._attn_out(p, decode_attention(q, kc, vc, positions), x)
-        return self._head(params, x), cache
+            out = decode_attention(q, kc, vc, positions, window=self._window(kind))
+            x = self._attn_out(p, out, x)
+        new_cache = [dict(seg) for seg in cache]
+        for (si, key), sts in states.items():
+            new_cache[si][key] = {n: torch.stack([st[n] for st in sts]) for n in sts[0]}
+        return self._head(params, x), new_cache
 
     @torch.no_grad()
     def decode_step_paged(self, params, pools, block_tables, tokens, positions,
@@ -389,60 +468,82 @@ class DecoderLM:
         tokens (B, 1), block_tables (B, P) int32, positions (B,), active (B,)
         bool → (logits (B, 1, V), pools).
 
-        Dense: each layer writes the new k/v into the lane's current page
-        (idle lanes and lanes whose page is unallocated write nothing) and
-        then runs the paged-decode kernel over the pages the block table
-        names, reading ``positions + 1`` tokens per active lane and none for
-        an idle one.  ssm: each layer steps the per-lane state leaves; idle
-        lanes keep theirs.  The pools are updated in place."""
+        Attention layers write the new k/v into the lane's current page
+        (idle lanes and lanes whose page is unallocated write nothing).  A
+        dense layer then runs the paged-decode kernel over the pages the
+        block table names, reading ``positions + 1`` tokens per active lane
+        and none for an idle one; a local-attention layer (which that kernel
+        does not mask) gathers its lanes' pages through ``paged_gather`` and
+        attends within the window (``paged_decode_windowed``), as the JAX
+        package sends windowed layers to its XLA form.  Recurrent layers
+        step the per-lane state leaves; idle lanes keep theirs.  The pools
+        are updated in place."""
         cfg = self.cfg
         x = self._embed(params, tokens)
         b = x.shape[0]
-        seg = pools[0][self.seg]
-        if self.kind == "ssm":
-            x, _, _ = self._ssm_decode_layers(params, x, seg, keep=active)
-            return self._head(params, x), pools
-        ps = seg["k"].shape[2]
         positions = positions.long()
-        page = block_tables.gather(1, (positions // ps)[:, None])[:, 0]
-        # torch has no mode="drop" scatter: pick the writing lanes up front
-        # (one host sync per step, shared by every layer)
-        lanes = torch.nonzero(active & (page >= 0)).squeeze(1)
-        w_page, w_off = page[lanes].long(), (positions % ps)[lanes]
-        lengths = torch.where(active, positions + 1, 0).to(torch.int32)
-        block_tables = block_tables.to(torch.int32).contiguous()
         tables = self._rope(positions[:, None])
-        for r, p in enumerate(self._layers(params)):
-            q, k, v = _qkv(cfg, p["attn"], self._norm(p["ln1"], x))
-            q, k = _rope_qk(q, k, tables)
-            kp, vp = seg["k"][r], seg["v"][r]
+        if self._has_attn:
+            ps = next(leaves["k"].shape[2] for seg in pools for leaves in seg.values()
+                      if "k" in leaves)
+            page = block_tables.gather(1, (positions // ps)[:, None])[:, 0]
+            # torch has no mode="drop" scatter: pick the writing lanes up front
+            # (one host sync per step, shared by every layer)
+            lanes = torch.nonzero(active & (page >= 0)).squeeze(1)
+            w_page, w_off = page[lanes].long(), (positions % ps)[lanes]
+            lengths = torch.where(active, positions + 1, 0).to(torch.int32)
+            block_tables = block_tables.to(torch.int32).contiguous()
+        for si, r, key, kind, p in self._layers(params):
+            leaves = pools[si][key]
+            if kind in STATE_KINDS:
+                x, new = self._decode_state(kind, p, x, _at(leaves, r))
+                for n, t in new.items():
+                    old = leaves[n][r]
+                    keep = active.view((b,) + (1,) * (old.ndim - 1))
+                    old.copy_(torch.where(keep, t.to(old.dtype), old))
+                continue
+            q, k, v = self._qkv_rope(p, x, tables)
+            kp, vp = leaves["k"][r], leaves["v"][r]
             kp[w_page, w_off] = k[lanes, 0].to(kp.dtype)
             vp[w_page, w_off] = v[lanes, 0].to(vp.dtype)
-            out = paged_decode(q.reshape(b, cfg.n_heads, cfg.hd), kp, vp,
-                               block_tables, lengths)
-            x = self._attn_out(p, out.reshape(b, 1, cfg.n_heads, cfg.hd), x)
+            if kind == "attn":
+                out = paged_decode_windowed(q, kp, vp, block_tables, positions,
+                                            self._window(kind))
+            else:
+                out = paged_decode(q.reshape(b, cfg.n_heads, cfg.hd), kp, vp,
+                                   block_tables, lengths).reshape(b, 1, cfg.n_heads, cfg.hd)
+            x = self._attn_out(p, out, x)
         return self._head(params, x), pools
 
     # -- cache layouts ----------------------------------------------------------
 
-    def cache_specs(self, batch: int, max_len: int) -> list:
+    def _layer_cache_spec(self, kind, batch: int, max_len: int) -> dict:
         cfg = self.cfg
-        if self.kind == "ssm":
-            tree = {k: TensorSpec((cfg.n_layers,) + t.shape, t.dtype)
-                    for k, t in _ssm.ssm_cache_spec(cfg, batch).items()}
-            return [{self.seg: tree}]
-        shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
-        leaf = TensorSpec(shape, cfg.torch_dtype)
-        return [{self.seg: {"k": leaf, "v": leaf}}]
+        if kind == "ssm":
+            return _ssm.ssm_cache_spec(cfg, batch)
+        if kind == "rec":
+            return _rglru.rglru_cache_spec(cfg, batch)
+        # local attention keeps a full-length cache masked by the window, as
+        # the JAX package does
+        leaf = TensorSpec((batch, max_len, cfg.n_kv_heads, cfg.hd), cfg.torch_dtype)
+        return {"k": leaf, "v": leaf}
+
+    def cache_specs(self, batch: int, max_len: int) -> list:
+        """One dict per segment, ``{"s{i}_{kind}": {leaf: spec}}``, each leaf
+        stacked over the segment's repeats."""
+        return [{f"s{i}_{k}": {n: TensorSpec((reps,) + t.shape, t.dtype)
+                               for n, t in self._layer_cache_spec(k, batch, max_len).items()}
+                 for i, k in enumerate(pattern)}
+                for pattern, reps in self.segments]
 
     def cache_page_specs(self, lanes: int, n_pages: int, page_size: int) -> list:
         """The ``cache_specs(lanes, page_size)`` tree with each seq leaf's
-        lane dim swapped for a page-pool dim: (layers, n_pages, PS, Hkv, hd).
-        Recurrent-state leaves (ssm) keep the per-lane layout: they are the
-        one "page" per request the scheduler never splits."""
-        if self.kind == "ssm":
-            return self.cache_specs(lanes, page_size)
-        cfg = self.cfg
-        shape = (cfg.n_layers, n_pages, page_size, cfg.n_kv_heads, cfg.hd)
-        leaf = TensorSpec(shape, cfg.torch_dtype)
-        return [{self.seg: {"k": leaf, "v": leaf}}]
+        lane dim swapped for a page-pool dim: (repeats, n_pages, PS, Hkv, hd).
+        Recurrent-state leaves keep the per-lane layout: they are the one
+        "page" per request the scheduler never splits."""
+        def leaf(path, s):
+            if path[-1] not in SEQ_CACHE_KEYS:
+                return s
+            return TensorSpec((s.shape[0], n_pages) + s.shape[2:], s.dtype)
+
+        return tree_map_with_path(leaf, self.cache_specs(lanes, page_size))

@@ -5,14 +5,17 @@
   pools and block tables exclusively: lane assignment, page growth,
   recompute preemption and the batched decode step.  The decode path is
   ``CacheConfig.decode_path``: ``"paged"`` (default) runs
-  ``DecoderLM.decode_step_paged`` (the paged-decode kernel for attention
-  layers; per-lane state steps for ssm layers), ``"gather"`` gathers the
+  ``DecoderLM.decode_step_paged`` (the paged-decode kernel for dense
+  attention layers, ``paged_gather`` and the windowed plain read for the
+  hybrid's local attention layers, per-lane state steps for the ssm and
+  RG-LRU layers), ``"gather"`` gathers the
   pools into dense per-lane views (the ``paged_gather`` kernel), runs the
   dense ``DecoderLM.decode_step`` and folds its updates back
   (``absorb_decode``): the oracle the paged path is held against.
 * The **admission pipeline** (``serve.admission.AdmissionPipeline``) runs
   prefill (whole prompt, or chunks through ``extend_step``; both run the
-  flash kernel, or the ``ssd_scan`` kernel for ssm layers) on a worker
+  flash kernel, the ``ssd_scan`` kernel for ssm layers and the plain
+  RG-LRU scan for rec layers) on a worker
   thread (``AdmissionConfig.async_prefill``, default on) or inline,
   computing into *private* per-request caches and handing finished requests
   to the decode loop through the ready queue.
@@ -24,7 +27,9 @@ tokens.
 The engine runs on the card unless ``device="cpu"`` is passed (then every
 kernel runs its plain PyTorch version); the parameters must already live on
 that device.  Not ported yet: the host tier and swap preemption, prefix
-sharing, tracing and inter-cube migration.  A state-only model (ssm)
+sharing, tracing and inter-cube migration.  The engine is generic over
+the model's cache tree: any mix of seq leaves (pages) and per-lane state
+leaves, over any number of segments.  A state-only model (ssm)
 still acquires pages per token, as in the JAX package, so page accounting,
 preemption and step counts match it.
 """

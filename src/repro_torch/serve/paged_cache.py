@@ -4,8 +4,10 @@ The cache is a pool of fixed-size pages plus a per-lane block table.  Seq
 leaves of the model's cache (attention k/v) become pools
 ``(layers, n_pages, page_size, Hkv, hd)`` shared by all lanes; the block
 tables are host int32 arrays ``(lanes, pages_per_lane)`` with -1 for an
-unallocated slot.  Recurrent-state leaves (ssm) keep a per-lane row
-``(layers, lanes, ...)``: the one "page" of each request.  The decode loop
+unallocated slot.  Recurrent-state leaves (ssm, and the hybrid's RG-LRU
+``h`` and ``conv``) keep a per-lane row ``(layers, lanes, ...)``: the one
+"page" of each request.  Every function here walks the whole cache tree,
+so one tree may mix both kinds of leaf over several segments.  The decode loop
 is the only writer of all of them.
 
 ``gather_views`` and ``absorb_decode`` are the gather decode path's tree

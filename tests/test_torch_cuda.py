@@ -1,5 +1,6 @@
 """Card-only tests of the port: each CUDA kernel against its plain version,
-the served tokens (dense and mamba2, paged and gather decode paths), the
+the served tokens (dense, mamba2 and the recurrentgemma hybrid, paged and
+gather decode paths), the
 ConvNet logits and the reduced qwen2.5-3b train step on the card against
 the CPU.
 
@@ -40,6 +41,9 @@ def card():
     (128, 16, 2, 77, 77, 0, None, None),
     (32, 4, 2, 16, 64, 20, 36, None),
     (64, 8, 8, 100, 100, 0, None, 16),
+    # recurrentgemma: 16 query heads over 1 KV head, head_dim 256, a window
+    (256, 16, 1, 200, 200, 0, None, 64),
+    (256, 16, 1, 64, 256, 128, 192, 64),
 ])
 def test_flash_kernel_matches_plain(card, dtype, d, h, hkv, sq, sk, q_offset, kv_len, window):
     dt = getattr(torch, dtype)
@@ -84,13 +88,17 @@ def test_paged_kernel_matches_plain(card, dtype, p, lengths, kernels):
 
 
 # (arch, prompt lengths, prefill chunk, decode path): mamba2's whole prompts
-# are at most one 32-token chunk or a multiple of it
+# are at most one 32-token chunk or a multiple of it; recurrentgemma (5
+# layers, window 64) prefills past its window and decodes across it
 SERVE_CASES = [
     ("qwen2.5-3b", (5, 19, 11), 8, "paged"),
     ("qwen2.5-3b", (5, 19, 11), 8, "gather"),
     ("mamba2-130m", (5, 32, 11), 0, "paged"),
     ("mamba2-130m", (5, 40, 11), 16, "paged"),
     ("mamba2-130m", (5, 40, 11), 16, "gather"),
+    ("recurrentgemma-9b", (70, 5, 60), 0, "paged"),
+    ("recurrentgemma-9b", (70, 5, 60), 16, "paged"),
+    ("recurrentgemma-9b", (70, 5, 60), 16, "gather"),
 ]
 
 
@@ -102,11 +110,14 @@ def test_served_tokens_on_card_match_cpu(card, arch, lengths, chunk, path):
     from repro_torch.serve import (
         AdmissionConfig, CacheConfig, EngineConfig, Request, ServeEngine)
 
-    model = build_model(dataclasses.replace(get_arch(arch).reduced(), dtype="float32"))
+    hybrid = arch == "recurrentgemma-9b"
+    over = dict(n_layers=5) if hybrid else {}
+    model = build_model(dataclasses.replace(get_arch(arch).reduced(), dtype="float32", **over))
     params = model.init(torch.Generator().manual_seed(0), "cpu")
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, 512, size=(n,)).astype(np.int32) for n in lengths]
-    ecfg = EngineConfig(batch_slots=2, max_len=64, cache=CacheConfig(decode_path=path),
+    ecfg = EngineConfig(batch_slots=2, max_len=128 if hybrid else 64,
+                        cache=CacheConfig(decode_path=path),
                         admission=AdmissionConfig(prefill_chunk=chunk))
     out = {}
     for dev, p in (("cpu", params), (card, tree_map(lambda t: t.to(card), params))):
@@ -120,7 +131,12 @@ def test_served_tokens_on_card_match_cpu(card, arch, lengths, chunk, path):
     assert out["cpu"] == out["cuda"]
     kernel = "ssd_scan" if arch.startswith("mamba2") else "flash_attention"
     assert ops.LAUNCHES[kernel] > 0
-    assert (ops.LAUNCHES["paged_gather"] > 0) == (path == "gather" and kernel != "ssd_scan")
+    # the hybrid's windowed layers read their pages through paged_gather on
+    # both paths, and never through the paged kernel
+    assert (ops.LAUNCHES["paged_gather"] > 0) == (
+        hybrid or (path == "gather" and kernel != "ssd_scan"))
+    if hybrid:
+        assert ops.LAUNCHES["paged_decode_attention"] == 0
 
 
 # F32 holds for bf16 inputs too: kernel and plain version widen them to

@@ -286,7 +286,10 @@ SETTINGS = {
     "chunked_async": (dict(batch_slots=3, max_len=64, prefill_chunk=4, max_step_tokens=12),
                       (11, 40, 7, 19), 5),
     # 3 lanes on a 7-page pool of 4-token pages: the pool runs dry mid-decode
-    "recompute": (dict(batch_slots=3, max_len=32, page_size=4, n_pages=7), (7, 7, 7), 10),
+    # (inline admission: the preemption count would depend on the admission
+    # thread's timing)
+    "recompute": (dict(batch_slots=3, max_len=32, page_size=4, n_pages=7,
+                       async_prefill=False), (7, 7, 7), 10),
 }
 
 

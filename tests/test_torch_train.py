@@ -303,13 +303,14 @@ def test_training_forward_refuses_what_is_not_ported():
     params = model.init(torch.Generator().manual_seed(0), "cpu")
     with pytest.raises(NotImplementedError, match="remat='dots'"):
         model.forward(params, toks)
-    # the ssm family trains (tests/test_torch_ssm_train.py); what stays
-    # refused is its non-factorized decay and the families not ported yet
+    # the ssm and hybrid families train (tests/test_torch_ssm_train.py,
+    # tests/test_torch_hybrid.py); what stays refused is the non-factorized
+    # SSD decay and the families not ported yet
     ssm_cfg = get_arch("mamba2-130m").reduced()
     with pytest.raises(NotImplementedError, match="factorized"):
         build_model(dataclasses.replace(
             ssm_cfg, ssm=dataclasses.replace(ssm_cfg.ssm, factorized=False)))
-    for arch, family in (("recurrentgemma-9b", "hybrid"), ("deepseek-v3-671b", "moe")):
+    for arch, family in (("llava-next-mistral-7b", "vlm"), ("deepseek-v3-671b", "moe")):
         with pytest.raises(NotImplementedError, match=f"family '{family}' is not ported"):
             build_model(get_arch(arch).reduced())
 
