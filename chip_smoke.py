@@ -7,9 +7,12 @@ Run from the root of a checkout (it imports ``src/repro_torch`` beside it;
 it never imports JAX or the ``repro`` package).  It drives the port's
 paths: paged-KV serving of qwen2.5-3b, ConvNet inference of VGG16, serving
 of mamba2-130m, the gather decode path, training of qwen2.5-3b, ConvNet
-training (VGG16), training of mamba2-130m and serving of recurrentgemma-9b
-(its training runs reduced: full width does not fit one card).  Every
-serving path runs at full width and full depth.  Phases, each fatal:
+training (VGG16), training of mamba2-130m, serving of recurrentgemma-9b
+(its training runs reduced: full width does not fit one card) and serving
+of the moe family (deepseek-v3-671b and qwen3-moe-235b-a22b).  Every
+serving path runs at full width; all but the moe family's at full depth
+(``MOE_DEPTH``: 671 B and 235 B parameters do not fit one card).  Phases,
+each fatal:
 
 1. build the eight CUDA kernels from ``src/repro_torch/kernels/csrc``
    (``nvcc``, printing the ``-Xptxas -v`` register report) and name the card;
@@ -28,7 +31,13 @@ serving path runs at full width and full depth.  Phases, each fatal:
    3,072-token prompt and on a 1,024-token chunk at offset 2,048 against a
    4,096-row cache holding 3,072, and ``paged_gather`` of one attention
    layer's k pool, 8 lanes x 256 slots of 16 tokens with -1 holes,
-   bit-equal), logged with their times but not in the JSON line;
+   bit-equal), and the moe family's (``flash_attention`` at deepseek-v3's
+   MLA prefill, 128 heads = KV heads of head_dim 192, on a 1,024-token
+   prompt and a chunk, and the reduced model's head_dim 48;
+   ``paged_decode_attention`` at qwen3-moe's 64 query heads over 4 KV
+   heads; ``paged_gather`` of one MLA layer's latent pool, 8 lanes x 128
+   slots of 16 x 512, bit-equal), logged with their times but not in the
+   JSON line;
    ``stream_gd``: full-width qwen2.5-3b's largest leaf, seg0's mlp.w_up, in
    the sgd launch, the two mixed-type in-place momentum launches, J = 3
    and 4 in float32 and the fused two-stage momentum launch, and the
@@ -124,12 +133,29 @@ serving path runs at full width and full depth.  Phases, each fatal:
     profiled split (flash, the RG-LRU scan, matmuls, the rest) and the
     decode-step ms with its busy share and launches per step;
 17. train reduced recurrentgemma-9b (5 layers, 96 tokens) as phase 10 does
-    qwen2.5-3b, card against CPU.
+    qwen2.5-3b, card against CPU;
+18. serve the same requests with reduced deepseek-v3-671b (MLA, head_dim
+    48 in prefill) and reduced qwen3-moe-235b-a22b in float32 on the card
+    and on the CPU, whole-prompt and chunked prefill: the card's paged and
+    gather tokens equal the CPU's;
+19. serve 16 requests of 256-1,536 prompt tokens (whole-prompt prefill:
+    the flash kernel and the capacity-drop dispatch) at the published
+    widths of deepseek-v3-671b cut to 5 layers (its 3 dense layers and 2
+    MoE layers; bf16, seeded random weights), 8 lanes, max_len 2,048,
+    16-token pages, 32 new tokens each: every request finishes, one
+    ``flash_attention`` launch per layer per prefill, two ``paged_gather``
+    per layer per decode step, no ``paged_decode_attention``; tok/s, peak
+    memory, a 1,024-token whole prompt and a 2,048-token prompt in
+    1,024-token chunks with their profiled splits (cuBLAS, flash, the MoE
+    dispatch range, the rest) and the decode step with its busy share and
+    launches;
+20. the same for qwen3-moe-235b-a22b cut to 10 layers, whose GQA layers
+    decode through ``paged_decode_attention`` (64 over 4 heads).
 
 A kernel's ``launches`` in the JSON line sums its counts over the paths
 that drive it (serving, VGG16 inference, the gather path, the three
-training paths, recurrentgemma-9b serving and reduced training), each
-counted from 0 around its own run.  Then it prints
+training paths, recurrentgemma-9b serving and reduced training, the moe
+family's serving), each counted from 0 around its own run.  Then it prints
 one JSON line with each kernel's numbers, the card's name
 and power limit, and, last, ``{"ok": true, "device": {...}}``.  Without a
 card, or without the package beside it, it exits non-zero and prints no
@@ -163,6 +189,14 @@ SERVE_KERNELS = ("paged_decode_attention", "flash_attention")
 CNN_KERNELS = ("stream_mac_conv", "stream_maxpool", "tiled_matmul")
 SSM = dict(h=24, p=64, n=128, chunk=256)       # mamba2-130m's SSD widths
 RG = dict(h=16, hkv=1, d=256, window=2048, chunk=1024)   # recurrentgemma-9b's attention
+MLA = dict(h=128, d=192, rank=512)             # deepseek-v3's MLA: heads, qk_nope + qk_rope, latent
+QM = dict(h=64, hkv=4)                         # qwen3-moe's attention heads (head_dim 128)
+# the full-width moe models served on one card, cut in depth only (their
+# published depths, 61 and 94 layers, take 1.3 TB and 470 GB in bf16):
+# deepseek-v3-671b keeps its 3 dense layers and 2 of its 58 MoE layers
+# (26.62 B parameters, 53.24 GB; 6 layers would take 76.3 GB), qwen3-moe
+# 10 of its 94 MoE layers (26.12 B, 52.26 GB)
+MOE_DEPTH = {"deepseek-v3-671b": 5, "qwen3-moe-235b-a22b": 10}
 # kernel: (its source, the TPU kernel it replaces, the library yardstick)
 KERNELS = {
     "paged_decode_attention": ("src/repro_torch/kernels/csrc/paged_attn.cu",
@@ -291,7 +325,9 @@ def log_row(row) -> None:
 # ---------------------------------------------------------------------------
 
 
-def paged_case(dtype, timed: bool):
+def paged_case(dtype, timed: bool, h=H, hkv=HKV, label="qwen2.5-3b"):
+    """Paged decode of 8 lanes at up to 1,024 tokens, holes in two tables;
+    ``h`` query heads over ``hkv`` KV heads of head_dim D."""
     from repro_torch.kernels import ops, ref
 
     F = torch.nn.functional
@@ -305,22 +341,22 @@ def paged_case(dtype, timed: bool):
         bt[i, -(-n // PS):] = -1
     bt[3, 2] = -1                                 # a hole inside lane 3's length
     bt[6, 0] = -1                                 # and one at lane 6's start
-    q = torch.randn(b, H, D, generator=gen, device="cuda").to(dtype)
-    kp = torch.randn(n_pages, PS, HKV, D, generator=gen, device="cuda").to(dtype)
-    vp = torch.randn(n_pages, PS, HKV, D, generator=gen, device="cuda").to(dtype)
+    q = torch.randn(b, h, D, generator=gen, device="cuda").to(dtype)
+    kp = torch.randn(n_pages, PS, hkv, D, generator=gen, device="cuda").to(dtype)
+    vp = torch.randn(n_pages, PS, hkv, D, generator=gen, device="cuda").to(dtype)
     ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
 
     def plain():
         return ref.paged_decode_attention(
-            q.view(b, HKV, H // HKV, D), kp.permute(2, 0, 1, 3), vp.permute(2, 0, 1, 3),
-            bt, ln).view(b, H, D)
+            q.view(b, hkv, h // hkv, D), kp.permute(2, 0, 1, 3), vp.permute(2, 0, 1, 3),
+            bt, ln).view(b, h, D)
 
     def kernel():
         return ops.paged_attention(q, kp, vp, bt, ln)
 
     out, want = kernel(), plain()
     torch.cuda.synchronize()
-    err = check_close("paged_decode_attention", out, want, dtype)
+    err = check_close(f"paged_decode_attention[{label}]", out, want, dtype)
     if not timed:
         return None
     # tokens this run's tables really hold: positions < length on pages != -1
@@ -328,12 +364,12 @@ def paged_case(dtype, timed: bool):
         bt >= 0).repeat_interleave(PS, dim=1)
     tokens = int(valid.sum())
     item = q.element_size()
-    nbytes = 2 * b * H * D * item + tokens * HKV * D * 2 * item + bt.numel() * 4 + b * 4
-    flops = 4.0 * tokens * H * D
+    nbytes = 2 * b * h * D * item + tokens * hkv * D * 2 * item + bt.numel() * 4 + b * 4
+    flops = 4.0 * tokens * h * D
     # library yardstick: SDPA over a pre-gathered contiguous view (gather untimed)
     idx = bt.long().clamp(0, n_pages - 1)
-    kg = kp[idx].reshape(b, p * PS, HKV, D).transpose(1, 2).contiguous()
-    vg = vp[idx].reshape(b, p * PS, HKV, D).transpose(1, 2).contiguous()
+    kg = kp[idx].reshape(b, p * PS, hkv, D).transpose(1, 2).contiguous()
+    vg = vp[idx].reshape(b, p * PS, hkv, D).transpose(1, 2).contiguous()
     mask = valid[:, None, None, :]
     q4 = q[:, :, None, :]
 
@@ -341,7 +377,8 @@ def paged_case(dtype, timed: bool):
         return F.scaled_dot_product_attention(q4, kg, vg, attn_mask=mask, enable_gqa=True)
 
     return timed_row("paged_decode_attention", err, kernel, plain, library, nbytes, flops,
-                     dtype, f"8 lanes, {tokens} tokens, H={H} Hkv={HKV} D={D} PS={PS} {dtype}")
+                     dtype, f"{label}: 8 lanes, {tokens} tokens, H={h} Hkv={hkv} D={D} "
+                     f"PS={PS} {dtype}")
 
 
 def flash_case(dtype, label, sq, sk, q_offset, kv_len, window, timed, h=H, hkv=HKV, d=D):
@@ -891,12 +928,45 @@ def serve(model, params, ecfg, prompts, max_new, device):
     return reqs, done, eng
 
 
+def kernel_group(name: str) -> str:
+    """The device group of a kernel, by its name."""
+    name = name.lower()
+    if "paged_decode_attn" in name or "paged_combine" in name:
+        return "paged_decode_attention (kernel + split merge)"
+    if "flash_attn" in name:
+        return "flash_attention"
+    if "ssd_chunk_scan" in name:
+        return "ssd_scan"
+    if "gather_rows" in name:
+        return "paged_gather"
+    if any(t in name for t in ("gemm", "gemv", "cutlass", "nvjet", "cublas", "matmul")):
+        return "matmul (cuBLAS)"
+    return "other (elementwise, norms, copies)"
+
+
+def range_kernels(prof, name: str) -> list[tuple[str, float]]:
+    """(name, µs) of every device kernel launched inside the host ranges
+    called ``name``: the profiler links each kernel to the op that launched
+    it, and the ops nest under the range."""
+    out = []
+
+    def walk(e):
+        out.extend((k.name, k.duration) for k in getattr(e, "kernels", ()))
+        for c in e.cpu_children:
+            walk(c)
+
+    for e in prof.events():
+        if e.name == name and not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            walk(e)
+    return out
+
+
 def device_groups(fn, steps: int, ranges=()) -> tuple[dict, dict, list]:
     """Device time (ms per call of ``fn``) and launches per call by kernel
     class, and the top kernels, from a torch.profiler window of ``steps``
-    calls.  Each name in ``ranges`` is a ``record_function`` range of plain
-    torch ops: the device time of its kernels becomes a group of its own,
-    taken out of the elementwise group they fall in."""
+    calls.  Each name in ``ranges`` is a ``record_function`` range: the
+    kernels launched inside it become a group of their own, taken out of
+    the groups they fall in by name."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(steps):
@@ -905,47 +975,30 @@ def device_groups(fn, steps: int, ranges=()) -> tuple[dict, dict, list]:
     groups: dict[str, float] = {}
     launches: dict[str, float] = {}
     top = []
-    carved = {}
     for e in prof.key_averages():
-        on_device = str(getattr(e, "device_type", "")).endswith("CUDA")
-        # a range shows twice: on the host, with the device time of the
-        # kernels launched inside it, and as a device-side annotation whose
-        # span includes the gaps between them (not a kernel: not counted)
-        if e.key in ranges:
-            if not on_device:
-                us = getattr(e, "device_time_total", None)
-                carved[e.key] = (us if us is not None else e.cuda_time_total) / 1e3 / steps
-            continue
-        if not on_device:
+        # a range also shows as a device-side annotation whose span includes
+        # the gaps between its kernels: not a kernel, not counted
+        if e.key in ranges or not str(getattr(e, "device_type", "")).endswith("CUDA"):
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = e.self_cuda_time_total
-        name = e.key.lower()
-        if "paged_decode_attn" in name or "paged_combine" in name:
-            g = "paged_decode_attention (kernel + split merge)"
-        elif "flash_attn" in name:
-            g = "flash_attention"
-        elif "ssd_chunk_scan" in name:
-            g = "ssd_scan"
-        elif "gather_rows" in name:
-            g = "paged_gather"
-        elif any(t in name for t in ("gemm", "gemv", "cutlass", "nvjet", "cublas", "matmul")):
-            g = "matmul (cuBLAS)"
-        else:
-            g = "other (elementwise, norms, copies)"
+        g = kernel_group(e.key)
         groups[g] = groups.get(g, 0.0) + us / 1e3 / steps
         launches[g] = launches.get(g, 0) + e.count / steps
         top.append((us / 1e3 / steps, e.count / steps, e.key[:90]))
-    other = "other (elementwise, norms, copies)"
     for name in ranges:
-        ms = carved.get(name, 0.0)
-        if ms <= 0:
-            log(f"  profiler: no device time attributed to the {name!r} range (not measured)")
+        kernels = range_kernels(prof, name)
+        if not kernels:
+            log(f"  profiler: no kernel linked to the {name!r} range (not measured)")
             continue
-        groups[f"{name} (plain torch, within other)"] = ms
-        groups[other] = groups.get(other, 0.0) - ms
-        launches[f"{name} (plain torch, within other)"] = float("nan")
+        label = f"{name} (taken out of the groups above)"
+        for kname, us in kernels:
+            g = kernel_group(kname)
+            groups[g] = groups.get(g, 0.0) - us / 1e3 / steps
+            launches[g] = launches.get(g, 0) - 1 / steps
+            groups[label] = groups.get(label, 0.0) + us / 1e3 / steps
+            launches[label] = launches.get(label, 0) + 1 / steps
     return groups, launches, sorted(top, reverse=True)[:8]
 
 
@@ -956,19 +1009,16 @@ def log_groups(what: str, wall_ms: float, groups, launches, top) -> None:
         return
     log(f"  profiler: device busy {busy:.3f} ms per {what} = {100 * busy / wall_ms:.1f} % of "
         f"the unprofiled {what}, idle {100 * (1 - busy / wall_ms):.1f} %")
-    total = sum(n for n in launches.values() if not math.isnan(n))
-    log(f"    {total:g} kernel launches per {what}")
+    log(f"    {sum(launches.values()):g} kernel launches per {what}")
     for g in sorted(groups, key=groups.get, reverse=True):
-        n = launches[g]
-        log(f"    {g}: {groups[g]:.3f} ms per {what}"
-            + ("" if math.isnan(n) else f" over {n:g} launches"))
+        log(f"    {g}: {groups[g]:.3f} ms per {what} over {launches[g]:g} launches")
     for ms, n, name in top:
         log(f"      {ms:.3f} ms, {n:g} launches: {name}")
 
 
 def decode_breakdown(model, params, vocab, steps: int = 10, prefill_chunk: int = 0,
                      decode_path: str = "paged", profile: bool = True, prompt: int = 512,
-                     max_len: int = 1024) -> float:
+                     max_len: int = 1024, ranges=()) -> float:
     """Decode-step time of 8 running lanes at ~``prompt + 8``-token contexts
     (sync admission, so nothing else runs), and device time per kernel
     class from a torch.profiler window over as many more steps.  Returns
@@ -997,7 +1047,7 @@ def decode_breakdown(model, params, vocab, steps: int = 10, prefill_chunk: int =
     log(f"  decode step ({decode_path} path), 8 lanes at ~{ctx}-token contexts: {step_ms:.3f} "
         f"ms wall (mean of {steps} synced steps, {8 / step_ms * 1e3:.1f} tok/s)")
     if profile:
-        log_groups("step", step_ms, *device_groups(eng.step, steps))
+        log_groups("step", step_ms, *device_groups(eng.step, steps, ranges))
     eng.run()
     return step_ms
 
@@ -1076,16 +1126,20 @@ def card_vs_cpu_tokens(arch, cases, smi, **over) -> None:
             raise SystemExit("chip_smoke: greedy tokens differ between card and CPU")
 
 
-def prefill_ms(model, params, vocab, seq: int, chunk: int, ranges=()) -> float:
+def prefill_ms(model, params, vocab, seq: int, chunk: int, ranges=(),
+               whole: bool = False) -> float:
     """One ``seq``-token prompt prefilled in ``chunk``-token slices (as the
-    engine's chunked prefill runs it): wall ms and the device split.
-    Returns the wall ms."""
+    engine's chunked prefill runs it), or with ``whole`` in one
+    ``DecoderLM.prefill``: wall ms and the device split.  Returns the wall
+    ms."""
     from repro_torch.models.common import tree_map
 
     toks = torch.as_tensor(np.random.default_rng(6).integers(0, vocab, size=(1, seq)),
                            device="cuda").long()
 
     def run():
+        if whole:
+            return model.prefill(params, toks)[0]
         cache = tree_map(lambda sp: torch.zeros(sp.shape, dtype=sp.dtype, device="cuda"),
                          model.cache_specs(1, seq))
         for i in range(0, seq, chunk):
@@ -1101,7 +1155,8 @@ def prefill_ms(model, params, vocab, seq: int, chunk: int, ranges=()) -> float:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     ms = statistics.median(times) * 1e3
-    log(f"  prefill of one {seq}-token prompt in {chunk}-token slices: {ms:.3f} ms wall "
+    how = "whole" if whole else f"in {chunk}-token slices"
+    log(f"  prefill of one {seq}-token prompt {how}: {ms:.3f} ms wall "
         f"(median of 5) = {seq / ms * 1e3:.0f} prompt tokens/s")
     log_groups("prefill", ms, *device_groups(run, 3, ranges))
     return ms
@@ -1127,6 +1182,44 @@ def scan_range():
     return lambda: setattr(rglru, "linear_scan", plain)
 
 
+def dispatch_range():
+    """Wrap the MoE routing and dispatch (``moe._dispatch``) and the combine
+    (``moe._combine``) in a ``record_function`` range named ``moe_dispatch``
+    (for the profiler's split); returns the undo."""
+    from repro_torch.models import moe
+
+    plain = {name: getattr(moe, name) for name in ("_dispatch", "_combine")}
+
+    def ranged(fn):
+        def call(*args):
+            with torch.profiler.record_function("moe_dispatch"):
+                return fn(*args)
+        return call
+
+    for name, fn in plain.items():
+        setattr(moe, name, ranged(fn))
+    return lambda: [setattr(moe, name, fn) for name, fn in plain.items()]
+
+
+def count_calls(model, names) -> dict[str, int]:
+    """Wrap each named method of ``model`` to count its calls; returns the
+    live counts (reset them with ``update``)."""
+    calls = dict.fromkeys(names, 0)
+
+    def counted(name):
+        fn = getattr(model, name)
+
+        def wrapped(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+
+        setattr(model, name, wrapped)
+
+    for name in names:
+        counted(name)
+    return calls
+
+
 def serve_recurrentgemma(smi) -> dict:
     """16 requests of 1,024-3,072 prompt tokens (half past the 2,048-token
     window) at the full width and depth of recurrentgemma-9b, bf16, seeded
@@ -1150,19 +1243,7 @@ def serve_recurrentgemma(smi) -> dict:
     log(f"  {cfg.n_layers} layers as {model.segments}, d_model {cfg.d_model}, lru_width "
         f"{cfg.rglru.lru_width}, attention H={RG['h']} Hkv={RG['hkv']} D={RG['d']} window "
         f"{RG['window']}; {n_params / 1e9:.3f} B parameters in {time.perf_counter() - t0:.1f} s")
-    calls = {"extend_step": 0, "decode_step_paged": 0}
-
-    def counted(name):
-        fn = getattr(model, name)
-
-        def wrapped(*a, **k):
-            calls[name] += 1
-            return fn(*a, **k)
-
-        setattr(model, name, wrapped)
-
-    for name in calls:
-        counted(name)
+    calls = count_calls(model, ("extend_step", "decode_step_paged"))
     ecfg = EngineConfig(batch_slots=8, max_len=4096, cache=CacheConfig(page_size=PS),
                         admission=AdmissionConfig(prefill_chunk=RG["chunk"]))
     rng = np.random.default_rng(16)
@@ -1208,6 +1289,90 @@ def serve_recurrentgemma(smi) -> dict:
     log(f"  = {ms / 3:.3f} ms per {RG['chunk']}-token prefill slice ({smi})")
     decode_breakdown(model, params, cfg.vocab_size, prefill_chunk=RG["chunk"], prompt=2560,
                      max_len=4096)
+    return run
+
+
+# ---------------------------------------------------------------------------
+# phases 19 and 20: the moe family at full width, cut in depth
+# ---------------------------------------------------------------------------
+
+
+def serve_moe(arch: str, smi) -> dict:
+    """16 requests of 256-1,536 prompt tokens, whole-prompt prefill, 32 new
+    tokens each, 8 lanes, max_len 2,048, 16-token pages, at the published
+    widths of ``arch`` cut to ``MOE_DEPTH[arch]`` layers, bf16, seeded random
+    weights.  Holds: every request finishes; one ``flash_attention`` launch
+    per attention layer per prefill; deepseek's MLA reads its pages with two
+    ``paged_gather`` launches per layer per decode step and never launches
+    ``paged_decode_attention``, qwen3-moe's GQA layers launch it every step;
+    the engine's first token equals a direct prefill's.  Then a 1,024-token
+    whole prompt and a 2,048-token prompt in 1,024-token chunks are timed
+    with their device split, and the decode step with its.  Returns this
+    run's launch counts."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_items
+    from repro_torch.serve import AdmissionConfig, CacheConfig, EngineConfig
+
+    cfg = dataclasses.replace(get_arch(arch), n_layers=MOE_DEPTH[arch])
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for _, t in tree_items(params))
+    attn = (f"MLA {cfg.n_heads} heads, q_lora {cfg.mla.q_lora_rank}, kv_lora "
+            f"{cfg.mla.kv_lora_rank}" if cfg.mla else
+            f"GQA {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}")
+    log(f"  {cfg.n_layers} of {get_arch(arch).n_layers} layers as {model.segments}, d_model "
+        f"{cfg.d_model}, {attn}, {cfg.n_experts} experts top-{cfg.experts_per_token} "
+        f"(+{cfg.n_shared_experts} shared) of {cfg.moe_d_ff}; {n_params / 1e9:.3f} B "
+        f"parameters ({torch.cuda.memory_allocated() / 1e9:.2f} GB) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    calls = count_calls(model, ("prefill", "decode_step_paged"))
+    ecfg = EngineConfig(batch_slots=8, max_len=2048, cache=CacheConfig(page_size=PS),
+                        admission=AdmissionConfig(prefill_chunk=0))
+    rng = np.random.default_rng(19)
+    lengths = rng.integers(256, 1537, size=16)
+    prompts = [rng.integers(0, cfg.vocab_size, size=(int(n),)).astype(np.int32)
+               for n in lengths]
+    log(f"  prompt lengths {sorted(int(n) for n in lengths)}")
+    mla = cfg.mla is not None
+    kernels = ("flash_attention", "paged_gather" if mla else "paged_decode_attention")
+    reqs, run = serve_full_width(model, params, prompts, ecfg, kernels, smi,
+                                 on_reset=lambda: calls.update(prefill=0, decode_step_paged=0))
+    log(f"  {calls['prefill']} prefills, {calls['decode_step_paged']} decode steps; "
+        f"flash_attention {run['flash_attention']} launches, paged_gather "
+        f"{run['paged_gather']}, paged_decode_attention {run['paged_decode_attention']}")
+    if run["flash_attention"] != cfg.n_layers * calls["prefill"]:
+        raise SystemExit(f"chip_smoke: {run['flash_attention']} flash launches, expected "
+                         f"{cfg.n_layers} per prefill")
+    if mla and (run["paged_gather"] != 2 * cfg.n_layers * calls["decode_step_paged"]
+                or run["paged_decode_attention"]):
+        raise SystemExit("chip_smoke: MLA's paged decode should launch 2 paged_gather per "
+                         "layer and step and no paged_decode_attention")
+    if not mla and run["paged_decode_attention"] < cfg.n_layers * calls["decode_step_paged"]:
+        raise SystemExit("chip_smoke: a GQA layer's decode step skipped the paged kernel")
+    logits, _ = model.prefill(params, torch.as_tensor(prompts[0], device="cuda")[None].long())
+    if logits.shape != (1, 1, cfg.padded_vocab) or not torch.isfinite(logits).all():
+        raise SystemExit(f"chip_smoke: bad {arch} prefill logits {tuple(logits.shape)}")
+    if int(logits[0, -1].argmax()) != reqs[0].out_tokens[0]:
+        raise SystemExit(f"chip_smoke: {arch} engine's first token differs from a direct "
+                         "prefill")
+    log("  prefill logits finite, shape (1, 1, V); first token matches the engine")
+    undo = dispatch_range()
+    try:
+        whole = prefill_ms(model, params, cfg.vocab_size, 1024, 1024,
+                           ranges=("moe_dispatch",), whole=True)
+        chunked = prefill_ms(model, params, cfg.vocab_size, 2048, 1024,
+                             ranges=("moe_dispatch",))
+        log(f"  = {whole:.3f} ms per 1,024-token whole prompt (the served path), "
+            f"{chunked / 2:.3f} ms per 1,024-token chunked-prefill slice ({smi})")
+        decode_breakdown(model, params, cfg.vocab_size, prompt=1024, max_len=2048,
+                         ranges=("moe_dispatch",))
+    finally:
+        undo()
+    log(f"  peak device memory over the phase {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        "GiB")
     return run
 
 
@@ -1785,6 +1950,25 @@ def main() -> int:
         if row:
             log_row(row)
             rg_rows.append(row)
+    log(f"  the moe family: deepseek-v3's MLA prefill (H = Hkv = {MLA['h']}, D = {MLA['d']}: "
+        f"qk_nope + qk_rope, V padded; mma.sync, Q re-read per k tile), the reduced "
+        f"model's D = 48, qwen3-moe's paged decode (H {QM['h']} over Hkv {QM['hkv']}: rep 16 "
+        "= MAX_REP) and one deepseek layer's latent pool:")
+    for dtype in (torch.float32, torch.bfloat16):
+        timed = dtype == torch.bfloat16
+        row = flash_case(dtype, "mla prompt", 1024, 1024, 0, 1024, None, timed, MLA["h"],
+                         MLA["h"], MLA["d"])
+        flash_case(dtype, "mla chunk", 256, 1024, 512, 768, None, False, MLA["h"], MLA["h"],
+                   MLA["d"])
+        flash_case(dtype, "reduced mla", 100, 100, 0, 100, None, False, 4, 4, 48)
+        row_p = paged_case(dtype, timed, QM["h"], QM["hkv"], "qwen3-moe")
+        # one MLA layer's latent pool as its paged decode reads it: 8 lanes x
+        # 128 slots (2,048 tokens) of 16 x 512
+        row_g = gather_case(dtype, timed, layers=None, slots=2048 // PS, hkv=1,
+                            d=MLA["rank"], lens=(0, 1, 17, 1100, 2048, 513, 1500, 999))
+        for r in (row, row_p, row_g):       # logged, not in the JSON line
+            if r:
+                log_row(r)
     log("  stream_gd on full-width qwen2.5-3b's largest leaf (seg0 mlp.w_up):")
     rows["stream_gd"] = stream_gd_cases()
     log_row(rows["stream_gd"])
@@ -1962,6 +2146,27 @@ def main() -> int:
     log("== phase 17: reduced recurrentgemma-9b training (5 layers) in float32, card "
         "against CPU (96 tokens: past the window, two attention chunks)")
     launches["stream_gd"] += train_card_vs_cpu("recurrentgemma-9b", 96, n_layers=5)
+
+    # -- phase 18 ---------------------------------------------------------------
+    log("== phase 18: reduced deepseek-v3-671b and qwen3-moe-235b-a22b in float32, card "
+        "against CPU")
+    for arch in MOE_DEPTH:
+        card_vs_cpu_tokens(arch, [
+            (f"{arch}, prefill_chunk={chunk}, paged and gather", (21, 5, 40, 13, 33, 9),
+             EngineConfig(batch_slots=3, max_len=64, cache=CacheConfig(page_size=PS),
+                          admission=AdmissionConfig(prefill_chunk=chunk)), "gather")
+            for chunk in (0, 16)], smi)
+
+    # -- phases 19 and 20 ---------------------------------------------------------
+    for phase, arch in zip((19, 20), MOE_DEPTH):
+        log(f"== phase {phase}: {arch} at published widths, {MOE_DEPTH[arch]} layers (bf16, "
+            "random weights) on the card")
+        torch.cuda.reset_peak_memory_stats()
+        run = serve_moe(arch, smi)
+        for name in ("flash_attention", "paged_gather", "paged_decode_attention"):
+            launches[name] += run[name]
+        gc.collect()
+        torch.cuda.empty_cache()
 
     for name in KERNELS:
         rows[name]["launches"] = launches[name]

@@ -2,9 +2,9 @@
 
 The same fields, registry and ``reduced()`` numbers as
 ``repro/configs/base.py``, with a ``torch_dtype`` property in place of the
-JAX dtype.  Only ``family="dense"`` and ``family="ssm"`` are served by this
-port so far; the other families' fields are kept so every registered
-architecture loads.
+JAX dtype.  The port serves ``family="dense"``, ``"moe"`` (with MLA),
+``"ssm"`` and ``"hybrid"``; the vlm and audio families' fields are kept so
+every registered architecture loads.
 """
 from __future__ import annotations
 

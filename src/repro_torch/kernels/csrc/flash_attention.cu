@@ -29,7 +29,9 @@
 // tensor cores with mma.sync m16n8k16 (f32 accumulation): each warp owns 16
 // q rows, keeps its Q fragments and its output in registers, and feeds the
 // score fragments back as the A operand of P @ V (P rounded to bf16, as
-// FlashAttention-2 does).  float32 and head_dim 256 run a CUDA-core variant
+// FlashAttention-2 does); MLA's head_dim 192 (and the reduced model's 48)
+// takes the same variant, its Q fragments re-read from shared memory per
+// k tile.  float32 and head_dim 256 run a CUDA-core variant
 // of the same loop (float math from shared memory) — float32 is the
 // end-to-end check against the CPU, not a serving type.  Both skip k tiles
 // that the causal or window mask hides entirely, mask the ragged Sq and Sk
@@ -63,6 +65,16 @@ struct FlashArgs {
 template <int D>
 __host__ __device__ constexpr int q_tile() { return D <= 128 ? 64 : 32; }
 
+// Threads per output row in the P @ V step: the largest power of two that
+// divides D, at most a block (D = 48 gives 16 threads of 3 columns each,
+// D = 192 gives 64).
+template <int D>
+__host__ __device__ constexpr int pv_cols() {
+  int t = rt::kThreads;
+  while (D % t) t /= 2;
+  return t;
+}
+
 template <int D>
 constexpr size_t flash_smem_bytes() {
   constexpr int DP = D + 4, BQ = q_tile<D>();
@@ -75,7 +87,7 @@ __global__ void __launch_bounds__(rt::kThreads) flash_attn_fwd(const FlashArgs a
   constexpr int BQ = q_tile<D>();
   constexpr int DP = D + 4;
   constexpr int RPW = BQ / kWarps;             // score rows per warp
-  constexpr int TD = D < kThreads ? D : kThreads;
+  constexpr int TD = pv_cols<D>();             // output columns per row group
   constexpr int RG = kThreads / TD;            // row groups in the P @ V step
   constexpr int COLS = D / TD;
   constexpr int PV_ROWS = BQ / RG;
@@ -196,7 +208,7 @@ __global__ void __launch_bounds__(rt::kThreads) flash_attn_fwd(const FlashArgs a
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores (head_dim <= 128): mma.sync m16n8k16, f32 accumulate
+// bf16 on the tensor cores (head_dim <= 192): mma.sync m16n8k16, f32 accumulate
 // ---------------------------------------------------------------------------
 
 constexpr int kMmaRows = 64;   // q rows per block: 16 per warp
@@ -279,14 +291,22 @@ __global__ void __launch_bounds__(rt::kThreads) flash_attn_mma(const FlashArgs a
       q_s, [&](int r) -> const bf16* { return r < q_rows ? qb + (q0 + r) * a.q_ss : nullptr; });
   __syncthreads();
   const int r0 = warp * 16 + g;                // this lane's rows: r0 and r0 + 8
-  uint32_t qa[KD][4];
-#pragma unroll
-  for (int kk = 0; kk < KD; ++kk) {
+  auto q_frag = [&](int kk, uint32_t (&f)[4]) {
     const bf16* p = q_s + r0 * PITCH + kk * 16 + 2 * t;
-    qa[kk][0] = ld32(p);
-    qa[kk][1] = ld32(p + 8 * PITCH);
-    qa[kk][2] = ld32(p + 8);
-    qa[kk][3] = ld32(p + 8 * PITCH + 8);
+    f[0] = ld32(p);
+    f[1] = ld32(p + 8 * PITCH);
+    f[2] = ld32(p + 8);
+    f[3] = ld32(p + 8 * PITCH + 8);
+  };
+  // Up to D = 128 the Q fragments stay in registers for the whole k loop.
+  // Wider heads (MLA's 192) would hold 4 * D / 16 more registers beside
+  // the 16 x D output, so they read Q's fragments from shared memory
+  // again for every k tile instead of spilling.
+  constexpr bool kQInRegs = D <= 128;
+  uint32_t qa[kQInRegs ? KD : 1][4];
+  if constexpr (kQInRegs) {
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) q_frag(kk, qa[kk]);
   }
 
   int k_hi = kv_end;
@@ -314,10 +334,19 @@ __global__ void __launch_bounds__(rt::kThreads) flash_attn_mma(const FlashArgs a
     for (int j = 0; j < NJ; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KD; ++kk) {
+      uint32_t qf[4];
+      if constexpr (kQInRegs) {
+        qf[0] = qa[kk][0];
+        qf[1] = qa[kk][1];
+        qf[2] = qa[kk][2];
+        qf[3] = qa[kk][3];
+      } else {
+        q_frag(kk, qf);
+      }
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
         const bf16* p = k_s + (j * 8 + g) * PITCH + kk * 16 + 2 * t;
-        mma_16816(s[j], qa[kk], ld32(p), ld32(p + 8));
+        mma_16816(s[j], qf, ld32(p), ld32(p + 8));
       }
     }
 
@@ -415,24 +444,31 @@ cudaError_t launch_mma(const FlashArgs& a, int batch, int heads, cudaStream_t st
   return cudaGetLastError();
 }
 
-// float32 and head_dim 256 run on the CUDA cores; bf16 up to 128 on the
-// tensor cores
+// float32 and head_dim 256 run on the CUDA cores; bf16 up to 192 on the
+// tensor cores (48 and 192 are MLA's heads: qk_nope + qk_rope of the
+// reduced and the published deepseek-v3)
 template <typename T>
 cudaError_t dispatch(int head_dim, const FlashArgs& a, int batch, int heads, cudaStream_t s) {
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
     switch (head_dim) {
       case 32: return launch_mma<32>(a, batch, heads, s);
+      case 48: return launch_mma<48>(a, batch, heads, s);
       case 64: return launch_mma<64>(a, batch, heads, s);
       case 128: return launch_mma<128>(a, batch, heads, s);
-      default: break;
+      case 192: return launch_mma<192>(a, batch, heads, s);
+      case 256: return launch<T, 256>(a, batch, heads, s);
+      default: return cudaErrorInvalidValue;
     }
-  }
-  switch (head_dim) {
-    case 32: return launch<T, 32>(a, batch, heads, s);
-    case 64: return launch<T, 64>(a, batch, heads, s);
-    case 128: return launch<T, 128>(a, batch, heads, s);
-    case 256: return launch<T, 256>(a, batch, heads, s);
-    default: return cudaErrorInvalidValue;
+  } else {
+    switch (head_dim) {
+      case 32: return launch<T, 32>(a, batch, heads, s);
+      case 48: return launch<T, 48>(a, batch, heads, s);
+      case 64: return launch<T, 64>(a, batch, heads, s);
+      case 128: return launch<T, 128>(a, batch, heads, s);
+      case 192: return launch<T, 192>(a, batch, heads, s);
+      case 256: return launch<T, 256>(a, batch, heads, s);
+      default: return cudaErrorInvalidValue;
+    }
   }
 }
 

@@ -75,7 +75,9 @@ _SIGNATURES = {
     "stream_gd_capacity": ("stream_gd", [_I, _I]),
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128, 256)     # the head sizes the kernels are built for
+HEAD_DIMS = (32, 64, 128, 256)     # the head sizes the paged-decode kernel is built for
+# flash attention's, with MLA's query-key heads (reduced 48, published 192)
+FLASH_HEAD_DIMS = (32, 48, 64, 128, 192, 256)
 MAX_REP = 16                       # query heads per KV head in paged decode
 
 
@@ -202,7 +204,7 @@ def flash_attention(
         return ref.flash_attention(q, k, v, causal=causal, window=window,
                                    scale=scale, q_offset=q_offset, kv_len=kv_len)
     code = _check_cuda("flash_attention", q, k, v)
-    if d not in HEAD_DIMS or v.shape != k.shape or k.shape[0] != b \
+    if d not in FLASH_HEAD_DIMS or v.shape != k.shape or k.shape[0] != b \
             or k.shape[3] != d:
         raise ValueError(f"flash_attention: unsupported shapes q {tuple(q.shape)}"
                          f" k {tuple(k.shape)} v {tuple(v.shape)}")

@@ -1,3 +1,3 @@
-"""Model layer of the port (dense and ssm decoder families)."""
+"""Model layer of the port (dense, moe, ssm and hybrid decoder families)."""
 from .api import build_model  # noqa: F401
 from .transformer import DecoderLM  # noqa: F401

@@ -5,6 +5,7 @@ from .transformer import DecoderLM
 
 
 def build_model(cfg) -> DecoderLM:
-    """The model for ``cfg``; ``family="dense"``, ``"ssm"`` and ``"hybrid"``
-    are ported so far (the other families raise ``NotImplementedError``)."""
+    """The model for ``cfg``; ``family="dense"``, ``"moe"``, ``"ssm"`` and
+    ``"hybrid"`` are ported so far (vlm and audio raise
+    ``NotImplementedError``)."""
     return DecoderLM(cfg)

@@ -160,6 +160,18 @@ def paged_lane_view(pool: torch.Tensor, block_table: torch.Tensor) -> torch.Tens
     return view.reshape((b, p * ps) + tuple(pool.shape[2:]))
 
 
+def paged_write_slots(block_table: torch.Tensor, positions: torch.Tensor,
+                      active: torch.Tensor, page_size: int):
+    """Where one decode step writes its new cache rows: (lanes, pages,
+    offsets) of the active lanes whose position's page is allocated.  torch
+    has no ``mode="drop"`` scatter, so the writing lanes are picked up front
+    (one host sync per step, shared by every layer)."""
+    positions = positions.long()
+    page = block_table.gather(1, (positions // page_size)[:, None])[:, 0]
+    lanes = torch.nonzero(active & (page >= 0)).squeeze(1)
+    return lanes, page[lanes].long(), (positions % page_size)[lanes]
+
+
 def paged_decode_windowed(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                           block_table: torch.Tensor, positions: torch.Tensor,
                           window: int | None, scale: float | None = None) -> torch.Tensor:

@@ -14,8 +14,13 @@ import torch
 import torch.nn.functional as F
 
 # decode-cache leaves whose dim after the batch dim is the sequence — the
-# leaves the paged serving cache splits into pages
-SEQ_CACHE_KEYS = ("k", "v")
+# leaves the paged serving cache splits into pages (attention k/v, MLA's
+# latent and rotary key)
+SEQ_CACHE_KEYS = ("k", "v", "latent", "k_rope")
+# a "normal" leaf is drawn in row blocks of at most this many elements, so
+# the float32 draw beside a bf16 model stays small (a stacked expert weight
+# of deepseek-v3 is 7.5 G elements: 30 GB in float32)
+_DRAW_BLOCK = 1 << 30
 
 
 @dataclass(frozen=True)
@@ -82,12 +87,26 @@ def init_params(specs, generator: torch.Generator, device) -> dict:
         else:
             fan_in = s.shape[-2] if len(s.shape) >= 2 else s.shape[-1]
             std = s.scale if s.scale is not None else float(fan_in) ** -0.5
-            t = torch.randn(s.shape, generator=generator, dtype=torch.float32,
-                            device=device).mul_(std).to(s.dtype)
+            t = _normal(s.shape, s.dtype, std, generator, device)
         node = out
         for k in path[:-1]:
             node = node.setdefault(k, {})
         node[path[-1]] = t
+    return out
+
+
+def _normal(shape, dtype, std: float, generator, device) -> torch.Tensor:
+    """N(0, std) drawn in float32 and cast to ``dtype``, in blocks of at most
+    ``_DRAW_BLOCK`` elements (whole rows of the last dim).  The generators
+    fill by linear index, so a leaf of one block draws the numbers of one
+    ``randn`` of its shape."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    rows = out.view(-1, shape[-1])
+    step = max(1, _DRAW_BLOCK // shape[-1])
+    for i in range(0, rows.shape[0], step):
+        block = rows[i:i + step]
+        block.copy_(torch.randn(block.shape, generator=generator, dtype=torch.float32,
+                                device=device).mul_(std))
     return out
 
 

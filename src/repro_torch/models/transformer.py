@@ -1,10 +1,12 @@
-"""Decoder-only LM, dense, ssm and hybrid families: the port of
+"""Decoder-only LM, dense, moe, ssm and hybrid families: the port of
 ``repro/models/transformer.py``.
 
 A model is a list of *segments*, each a repeating *pattern* of layer kinds
 (``segments_for``, as in the JAX package):
 
     dense  : [("dense",) × L]
+    moe    : [("dense",) × first_dense] + [("moe",) × (L - first_dense)]
+                                                 deepseek-v3, qwen3-moe
     ssm    : [("ssm",) × L]                      mamba2
     hybrid : [("rec", "rec", "attn") × (L // 3)] + the remainder pattern
                                                  recurrentgemma
@@ -24,7 +26,15 @@ paged-decode kernel) in dense layers and ``paged_decode_windowed`` (the
 ``paged_gather`` kernel and the windowed plain read) in ``attn`` layers;
 the plain ``decode_attention`` for ``decode_step`` of the gather path; and
 ``attend(impl="xla")`` (the differentiable chunked scan) for the training
-``forward``/``loss``.  An ssm layer is pre-norm Mamba-2 + residual
+``forward``/``loss``.  With ``cfg.mla`` (deepseek-v3) the dense and moe
+layers attend through ``models.mla`` instead: the flash kernel in prefill,
+the absorbed latent contraction in chunked prefill and both decodes (the
+paged one after two ``paged_gather`` launches per layer).  A ``moe`` layer
+has the routed-expert FFN of ``models.moe`` in place of the MLP: it drops
+tokens past each expert's capacity in the whole-prompt prefill and drops
+none (one group, ``drop=False``) in chunked prefill and decode, as the
+reference does; the training ``forward``/``loss`` of the family are not
+ported yet and raise.  An ssm layer is pre-norm Mamba-2 + residual
 (``models.ssm``; its prefill runs the ``ssd_scan`` kernel, its decode step
 is plain torch, and the training ``forward``/``loss`` run the
 differentiable ``ssd_chunked(impl="xla")``).  A ``rec`` layer is pre-norm
@@ -48,9 +58,17 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve
 
+from . import mla as _mla
+from . import moe as _moe
 from . import rglru as _rglru
 from . import ssm as _ssm
-from .attention import attend, decode_attention, paged_decode, paged_decode_windowed
+from .attention import (
+    attend,
+    decode_attention,
+    paged_decode,
+    paged_decode_windowed,
+    paged_write_slots,
+)
 from .common import (
     SEQ_CACHE_KEYS,
     PSpec,
@@ -64,15 +82,27 @@ from .common import (
 )
 
 # the ported families, and the layer kinds that attend or carry a state
-FAMILIES = ("dense", "ssm", "hybrid")
-ATTN_KINDS = ("dense", "attn")
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
+ATTN_KINDS = ("dense", "attn", "moe")
 STATE_KINDS = ("ssm", "rec")
+# moe_ffn's dispatch on each path, as the reference calls it: capacity
+# drops with the default groups in the whole-prompt prefill; one group and
+# no drops in chunked prefill (whose long chunks materialise only the
+# filled slots) and in decode
+MOE_DISPATCH = {"prefill": {}, "extend": dict(n_groups=1, drop=False, trim=True),
+                "decode": dict(n_groups=1, drop=False)}
 
 
 def segments_for(cfg) -> list[tuple[tuple[str, ...], int]]:
     """(pattern of layer kinds, repeats) per segment."""
     if cfg.family == "dense":
         return [(("dense",), cfg.n_layers)]
+    if cfg.family == "moe":
+        segs = []
+        if cfg.first_dense_layers:
+            segs.append((("dense",), cfg.first_dense_layers))
+        segs.append((("moe",), cfg.n_layers - cfg.first_dense_layers))
+        return segs
     if cfg.family == "ssm":
         return [(("ssm",), cfg.n_layers)]
     if cfg.family == "hybrid":
@@ -123,11 +153,14 @@ def layer_specs(cfg, kind: str) -> dict:
     if kind == "rec":
         s["mix"] = _rglru.rglru_specs(cfg)
     elif kind in ATTN_KINDS:
-        s["attn"] = attn_specs(cfg)
+        s["attn"] = _mla.mla_specs(cfg) if cfg.mla else attn_specs(cfg)
     else:
         raise ValueError(f"unknown layer kind {kind!r}")
     s["ln2"] = PSpec((cfg.d_model,), torch.float32, ln_init)
-    s["mlp"] = mlp_specs(cfg)
+    if kind == "moe":
+        s["moe"] = _moe.moe_specs(cfg)
+    else:
+        s["mlp"] = mlp_specs(cfg)
     return s
 
 
@@ -189,15 +222,16 @@ def mlp_apply(cfg, p, x):
 
 class DecoderLM:
     """Decoder-only LM over the JAX package's parameter layout: the dense,
-    ssm (mamba2) and hybrid (recurrentgemma) families."""
+    moe (deepseek-v3 with MLA, qwen3-moe), ssm (mamba2) and hybrid
+    (recurrentgemma) families."""
 
     supports_chunked_prefill = True
 
     def __init__(self, cfg):
         if cfg.family not in FAMILIES:
             raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet (dense, ssm and hybrid are; "
-                "MLA and MoE come next)")
+                f"family {cfg.family!r} is not ported yet (dense, moe, ssm and hybrid "
+                "are; vlm and audio come next)")
         if cfg.sliding_window is not None or cfg.learned_positions:
             raise NotImplementedError(
                 "sliding-window and learned-position attention are not ported")
@@ -247,9 +281,12 @@ class DecoderLM:
 
     def _rope(self, positions):
         """Rotary tables for (B or 1, S) positions, shared by every attention
-        layer (None when the model has none)."""
+        layer (None when the model has none); MLA rotates only its
+        ``qk_rope_head_dim`` dims."""
         if not self._has_attn:
             return None
+        if self.cfg.mla:
+            return _mla.mla_rope_tables(self.cfg, positions)
         return rope_tables(positions, self.cfg.hd, self.cfg.rope_theta)
 
     def _window(self, kind):
@@ -257,14 +294,20 @@ class DecoderLM:
         attention layers have one, dense layers none."""
         return self.cfg.rglru.attn_window if kind == "attn" else None
 
-    def _mlp_block(self, p, x):
-        return x + mlp_apply(self.cfg, p["mlp"], self._norm(p["ln2"], x))
+    def _ffn_block(self, kind, p, x, path="prefill"):
+        """x + the layer's FFN of the normed x: the MLP, or for a moe layer
+        the routed experts with ``path``'s dispatch (``MOE_DISPATCH``)."""
+        h = self._norm(p["ln2"], x)
+        if kind == "moe":
+            y, _ = _moe.moe_ffn(self.cfg, p["moe"], h, **MOE_DISPATCH[path])
+            return x + y
+        return x + mlp_apply(self.cfg, p["mlp"], h)
 
-    def _attn_out(self, p, out, x):
-        """x + the attention output (B, S, H, hd) projected, then the MLP block."""
+    def _attn_out(self, kind, p, out, x, path="prefill"):
+        """x + the attention output (B, S, H, hd) projected, then the FFN block."""
         b, s = out.shape[:2]
         x = x + out.reshape(b, s, self.cfg.n_heads * self.cfg.hd) @ p["attn"]["wo"]
-        return self._mlp_block(p, x)
+        return self._ffn_block(kind, p, x, path)
 
     def _qkv_rope(self, p, x, tables):
         q, k, v = _qkv(self.cfg, p["attn"], self._norm(p["ln1"], x))
@@ -290,11 +333,11 @@ class DecoderLM:
             return x + y
         if kind == "rec":
             y, _ = _rglru.rglru_block(cfg, p["mix"], self._norm(p["ln1"], x))
-            return self._mlp_block(p, x + y)
+            return self._ffn_block(kind, p, x + y)
         q, k, v = self._qkv_rope(p, x, tables)
         out = attend(q, k, v, causal=True, window=self._window(kind), impl=impl,
                      chunk=cfg.attn_chunk)
-        return self._attn_out(p, out, x)
+        return self._attn_out(kind, p, out, x)
 
     def _train_repeat(self, pattern, p, x, tables, impl):
         """One repeat of a segment's pattern: the unit ``remat="full"``
@@ -305,7 +348,8 @@ class DecoderLM:
 
     def forward(self, params, tokens, impl: str = "xla"):
         """tokens (B, S) → (logits (B, S, V) in the model's type, aux loss
-        (a float32 zero: no ported family has MoE)).  Differentiable;
+        (a float32 zero: the moe family, the one with an aux loss, refuses
+        training for now)).  Differentiable;
         ``cfg.remat == "full"`` recomputes each repeat of a segment's pattern
         in the backward (``torch.utils.checkpoint``), ``"none"`` keeps every
         activation.  ``impl="xla"`` attends with the chunked scan (dense and
@@ -315,6 +359,10 @@ class DecoderLM:
         always runs its plain doubling scan.  Recurrent layers start from a
         zero state and a zero conv context."""
         cfg = self.cfg
+        if cfg.family == "moe":
+            raise NotImplementedError(
+                "MoE training is not ported yet (the family serves; forward and loss "
+                "with the router's aux loss come next)")
         if cfg.remat not in ("none", "full"):
             raise NotImplementedError(f"remat={cfg.remat!r} is not ported ('none' or 'full')")
         x = self._embed(params, tokens.long())
@@ -359,16 +407,20 @@ class DecoderLM:
             return x + y, {"state": st, "conv": cv}
         if kind == "rec":
             y, c = _rglru.rglru_block(cfg, p["mix"], self._norm(p["ln1"], x))
-            return self._mlp_block(p, x + y), c
+            return self._ffn_block(kind, p, x + y), c
+        if cfg.mla:
+            y, c = _mla.mla_attention(cfg, p["attn"], self._norm(p["ln1"], x), tables)
+            return self._ffn_block(kind, p, x + y), c
         q, k, v = self._qkv_rope(p, x, tables)
         out = attend(q, k, v, causal=True, window=self._window(kind))
-        return self._attn_out(p, out, x), {"k": k, "v": v}
+        return self._attn_out(kind, p, out, x), {"k": k, "v": v}
 
     @torch.no_grad()
     def prefill(self, params, tokens):
         """tokens (B, S) → (logits (B, 1, V) at the last position, cache).
         The cache has the ``cache_specs(B, S)`` layout: per segment, per
-        layer of its pattern, k/v leaves (repeats, B, S, Hkv, hd) or the
+        layer of its pattern, k/v leaves (repeats, B, S, Hkv, hd), MLA's
+        latent/k_rope leaves (repeats, B, S, rank or qr), or the
         recurrent state leaves (ssm: (repeats, B, H, P, N) and
         (repeats, B, K-1, conv_dim); rec: (repeats, B, W) and
         (repeats, B, K-1, W)).  An ssm prompt longer than the chunk must be
@@ -409,7 +461,11 @@ class DecoderLM:
                                              _at(leaves, r))
                 for n, t in new.items():
                     leaves[n][r].copy_(t)
-                x = self._mlp_block(p, x + y)
+                x = self._ffn_block(kind, p, x + y)
+            elif cfg.mla:
+                y, _ = _mla.mla_extend(cfg, p["attn"], self._norm(p["ln1"], x),
+                                       _at(leaves, r), position, tables)
+                x = self._ffn_block(kind, p, x + y, "extend")
             else:
                 q, k, v = self._qkv_rope(p, x, tables)
                 kc, vc = leaves["k"][r], leaves["v"][r]
@@ -417,7 +473,7 @@ class DecoderLM:
                 vc[:, position:position + c] = v
                 out = attend(q, kc, vc, causal=True, window=self._window(kind),
                              q_offset=position, kv_len=position + c)
-                x = self._attn_out(p, out, x)
+                x = self._attn_out(kind, p, out, x, "extend")
         return self._head(params, x), cache
 
     def _decode_state(self, kind, p, x, state):
@@ -427,16 +483,17 @@ class DecoderLM:
             y, st, cv = _ssm.ssm_decode(self.cfg, p["mix"], h, state["state"], state["conv"])
             return x + y, {"state": st, "conv": cv}
         y, new = _rglru.rglru_decode(self.cfg, p["mix"], h, state)
-        return self._mlp_block(p, x + y), new
+        return self._ffn_block(kind, p, x + y), new
 
     @torch.no_grad()
     def decode_step(self, params, cache, tokens, positions):
         """Dense-cache decode (the gather path): one token per lane,
         tokens (B, 1) at per-lane ``positions`` (B,) against per-lane views
         (the ``cache_specs(B, S)`` layout) → (logits (B, 1, V), cache).
-        Attention layers write each lane's k/v at its position into the
-        views in place and attend over rows [0, position] (within the
-        window for local attention) with the plain ``decode_attention``.
+        Attention layers write each lane's k/v (MLA: latent and rotary key)
+        at its position into the views in place and attend over rows
+        [0, position] (within the window for local attention) with the
+        plain ``decode_attention`` (MLA: the absorbed ``mla_decode``).
         Recurrent layers' new states come back as new tensors in the
         returned tree; the given state leaves are not written."""
         x = self._embed(params, tokens)
@@ -450,12 +507,17 @@ class DecoderLM:
                 x, new = self._decode_state(kind, p, x, _at(leaves, r))
                 states.setdefault((si, key), []).append(new)
                 continue
+            if self.cfg.mla:
+                y, _ = _mla.mla_decode(self.cfg, p["attn"], self._norm(p["ln1"], x),
+                                       _at(leaves, r), positions, tables)
+                x = self._ffn_block(kind, p, x + y, "decode")
+                continue
             q, k, v = self._qkv_rope(p, x, tables)
             kc, vc = leaves["k"][r], leaves["v"][r]
             kc[rows, positions] = k[:, 0].to(kc.dtype)
             vc[rows, positions] = v[:, 0].to(vc.dtype)
             out = decode_attention(q, kc, vc, positions, window=self._window(kind))
-            x = self._attn_out(p, out, x)
+            x = self._attn_out(kind, p, out, x, "decode")
         new_cache = [dict(seg) for seg in cache]
         for (si, key), sts in states.items():
             new_cache[si][key] = {n: torch.stack([st[n] for st in sts]) for n in sts[0]}
@@ -475,22 +537,21 @@ class DecoderLM:
         and none for an idle one; a local-attention layer (which that kernel
         does not mask) gathers its lanes' pages through ``paged_gather`` and
         attends within the window (``paged_decode_windowed``), as the JAX
-        package sends windowed layers to its XLA form.  Recurrent layers
-        step the per-lane state leaves; idle lanes keep theirs.  The pools
-        are updated in place."""
+        package sends windowed layers to its XLA form; an MLA layer writes
+        its latent and rotary key the same way and attends its gathered
+        pages in the absorbed form (``mla.mla_decode_paged``).  Recurrent
+        layers step the per-lane state leaves; idle lanes keep theirs.  The
+        pools are updated in place."""
         cfg = self.cfg
         x = self._embed(params, tokens)
         b = x.shape[0]
         positions = positions.long()
         tables = self._rope(positions[:, None])
         if self._has_attn:
-            ps = next(leaves["k"].shape[2] for seg in pools for leaves in seg.values()
-                      if "k" in leaves)
-            page = block_tables.gather(1, (positions // ps)[:, None])[:, 0]
-            # torch has no mode="drop" scatter: pick the writing lanes up front
-            # (one host sync per step, shared by every layer)
-            lanes = torch.nonzero(active & (page >= 0)).squeeze(1)
-            w_page, w_off = page[lanes].long(), (positions % ps)[lanes]
+            ps = next(t.shape[2] for seg in pools for leaves in seg.values()
+                      for n, t in leaves.items() if n in SEQ_CACHE_KEYS)
+            write = paged_write_slots(block_tables, positions, active, ps)
+            lanes, w_page, w_off = write
             lengths = torch.where(active, positions + 1, 0).to(torch.int32)
             block_tables = block_tables.to(torch.int32).contiguous()
         for si, r, key, kind, p in self._layers(params):
@@ -502,6 +563,12 @@ class DecoderLM:
                     keep = active.view((b,) + (1,) * (old.ndim - 1))
                     old.copy_(torch.where(keep, t.to(old.dtype), old))
                 continue
+            if cfg.mla:
+                y, _ = _mla.mla_decode_paged(cfg, p["attn"], self._norm(p["ln1"], x),
+                                             _at(leaves, r), block_tables, positions, write,
+                                             tables)
+                x = self._ffn_block(kind, p, x + y, "decode")
+                continue
             q, k, v = self._qkv_rope(p, x, tables)
             kp, vp = leaves["k"][r], leaves["v"][r]
             kp[w_page, w_off] = k[lanes, 0].to(kp.dtype)
@@ -512,7 +579,7 @@ class DecoderLM:
             else:
                 out = paged_decode(q.reshape(b, cfg.n_heads, cfg.hd), kp, vp,
                                    block_tables, lengths).reshape(b, 1, cfg.n_heads, cfg.hd)
-            x = self._attn_out(p, out, x)
+            x = self._attn_out(kind, p, out, x, "decode")
         return self._head(params, x), pools
 
     # -- cache layouts ----------------------------------------------------------
@@ -523,6 +590,8 @@ class DecoderLM:
             return _ssm.ssm_cache_spec(cfg, batch)
         if kind == "rec":
             return _rglru.rglru_cache_spec(cfg, batch)
+        if cfg.mla:
+            return _mla.mla_cache_spec(cfg, batch, max_len)
         # local attention keeps a full-length cache masked by the window, as
         # the JAX package does
         leaf = TensorSpec((batch, max_len, cfg.n_kv_heads, cfg.hd), cfg.torch_dtype)
@@ -538,7 +607,8 @@ class DecoderLM:
 
     def cache_page_specs(self, lanes: int, n_pages: int, page_size: int) -> list:
         """The ``cache_specs(lanes, page_size)`` tree with each seq leaf's
-        lane dim swapped for a page-pool dim: (repeats, n_pages, PS, Hkv, hd).
+        lane dim swapped for a page-pool dim: (repeats, n_pages, PS, Hkv, hd),
+        or (repeats, n_pages, PS, rank or qr) for MLA's latent leaves.
         Recurrent-state leaves keep the per-lane layout: they are the one
         "page" per request the scheduler never splits."""
         def leaf(path, s):

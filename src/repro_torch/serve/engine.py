@@ -5,10 +5,10 @@
   pools and block tables exclusively: lane assignment, page growth,
   recompute preemption and the batched decode step.  The decode path is
   ``CacheConfig.decode_path``: ``"paged"`` (default) runs
-  ``DecoderLM.decode_step_paged`` (the paged-decode kernel for dense
-  attention layers, ``paged_gather`` and the windowed plain read for the
-  hybrid's local attention layers, per-lane state steps for the ssm and
-  RG-LRU layers), ``"gather"`` gathers the
+  ``DecoderLM.decode_step_paged`` (the paged-decode kernel for GQA
+  attention layers, ``paged_gather`` and a plain read for the hybrid's
+  local attention layers and for MLA's latent pages, per-lane state steps
+  for the ssm and RG-LRU layers), ``"gather"`` gathers the
   pools into dense per-lane views (the ``paged_gather`` kernel), runs the
   dense ``DecoderLM.decode_step`` and folds its updates back
   (``absorb_decode``): the oracle the paged path is held against.

@@ -1,8 +1,8 @@
 """Block-table paged KV cache: the port of ``repro/serve/paged_cache.py``.
 
 The cache is a pool of fixed-size pages plus a per-lane block table.  Seq
-leaves of the model's cache (attention k/v) become pools
-``(layers, n_pages, page_size, Hkv, hd)`` shared by all lanes; the block
+leaves of the model's cache (attention k/v, MLA's latent and k_rope) become
+pools ``(layers, n_pages, page_size, *row)`` shared by all lanes; the block
 tables are host int32 arrays ``(lanes, pages_per_lane)`` with -1 for an
 unallocated slot.  Recurrent-state leaves (ssm, and the hybrid's RG-LRU
 ``h`` and ``conv``) keep a per-lane row ``(layers, lanes, ...)``: the one
@@ -199,7 +199,7 @@ class PagedKVCache:
 
     @pool_mutator("pools")
     def write_prefill(self, pages: list[int], cache, lane: int | None = None) -> None:
-        """Scatter a prefill cache (seq leaves (layers, 1, s, Hkv, hd)) into
+        """Scatter a prefill cache (seq leaves (layers, 1, s, *row)) into
         ``pages``, in place; state leaves go to ``lane``'s row when given.
         Seq leaves shorter than the page span are zero-padded; longer ones (a
         chunked prefill's capacity-length private tree) are cut — rows past
@@ -219,8 +219,8 @@ class PagedKVCache:
                 continue
             pc = pc[:, 0, :cap]
             s = pc.shape[1]
-            if s < cap:
-                pc = torch.nn.functional.pad(pc, (0, 0, 0, 0, 0, cap - s))
+            if s < cap:       # pad the seq dim, whatever the row's rank
+                pc = torch.nn.functional.pad(pc, (0, 0) * (pc.ndim - 2) + (0, cap - s))
             idx = torch.as_tensor(pages, dtype=torch.long, device=pool.device)
             pool[:, idx] = pc.reshape(
                 (pc.shape[0], len(pages), ps) + pc.shape[2:]).to(pool.dtype)

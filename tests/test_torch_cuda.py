@@ -1,6 +1,6 @@
 """Card-only tests of the port: each CUDA kernel against its plain version,
-the served tokens (dense, mamba2 and the recurrentgemma hybrid, paged and
-gather decode paths), the
+the served tokens (dense, mamba2, the recurrentgemma hybrid and the moe
+family, paged and gather decode paths), the
 ConvNet logits and the reduced qwen2.5-3b train step on the card against
 the CPU.
 
@@ -44,6 +44,10 @@ def card():
     # recurrentgemma: 16 query heads over 1 KV head, head_dim 256, a window
     (256, 16, 1, 200, 200, 0, None, 64),
     (256, 16, 1, 64, 256, 128, 192, 64),
+    # MLA's prefill: H = Hkv, head_dim 48 (reduced deepseek) and 192 (published)
+    (48, 4, 4, 40, 40, 0, None, None),
+    (192, 8, 8, 100, 100, 0, None, None),
+    (192, 8, 8, 64, 256, 128, 192, None),
 ])
 def test_flash_kernel_matches_plain(card, dtype, d, h, hkv, sq, sk, q_offset, kv_len, window):
     dt = getattr(torch, dtype)
@@ -87,6 +91,29 @@ def test_paged_kernel_matches_plain(card, dtype, p, lengths, kernels):
     assert torch.all(got[0] == 0)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_kernel_at_rep_16_matches_plain(card, dtype):
+    """qwen3-moe's decode shape: 64 query heads over 4 KV heads (rep 16,
+    the kernel's MAX_REP), head_dim 128."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=card).manual_seed(7)
+    b, h, hkv, d, ps, p = 4, 64, 4, 128, 16, 8
+    assert h // hkv == ops.MAX_REP
+    lens = torch.tensor([0, 128, 33, 100], dtype=torch.int32, device=card)
+    bt = torch.randperm(b * p, generator=g, device=card).reshape(b, p).int()
+    bt[0] = -1
+    q = torch.randn(b, h, d, generator=g, device=card).to(dt)
+    kp = torch.randn(b * p, ps, hkv, d, generator=g, device=card).to(dt)
+    vp = torch.randn(b * p, ps, hkv, d, generator=g, device=card).to(dt)
+    before = ops.LAUNCHES["paged_decode_attention"]
+    got = ops.paged_attention(q, kp, vp, bt, lens)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["paged_decode_attention"] > before
+    want = ref.paged_decode_attention(q.view(b, hkv, h // hkv, d), kp.permute(2, 0, 1, 3),
+                                      vp.permute(2, 0, 1, 3), bt, lens).view(b, h, d)
+    torch.testing.assert_close(got.float(), want.float(), **(F32 if dtype == "float32" else BF16))
+
+
 # (arch, prompt lengths, prefill chunk, decode path): mamba2's whole prompts
 # are at most one 32-token chunk or a multiple of it; recurrentgemma (5
 # layers, window 64) prefills past its window and decodes across it
@@ -99,6 +126,13 @@ SERVE_CASES = [
     ("recurrentgemma-9b", (70, 5, 60), 0, "paged"),
     ("recurrentgemma-9b", (70, 5, 60), 16, "paged"),
     ("recurrentgemma-9b", (70, 5, 60), 16, "gather"),
+    # the moe family: deepseek (MLA: flash at head_dim 48 in prefill, two
+    # paged_gather launches per layer in the paged decode) and qwen3-moe
+    ("deepseek-v3-671b", (21, 5, 40), 0, "paged"),
+    ("deepseek-v3-671b", (21, 5, 40), 16, "paged"),
+    ("deepseek-v3-671b", (21, 5, 40), 16, "gather"),
+    ("qwen3-moe-235b-a22b", (21, 5, 40), 0, "paged"),
+    ("qwen3-moe-235b-a22b", (21, 5, 40), 16, "gather"),
 ]
 
 
@@ -130,12 +164,15 @@ def test_served_tokens_on_card_match_cpu(card, arch, lengths, chunk, path):
         out[str(dev)] = [r.out_tokens for r in reqs]
     assert out["cpu"] == out["cuda"]
     kernel = "ssd_scan" if arch.startswith("mamba2") else "flash_attention"
-    assert ops.LAUNCHES[kernel] > 0
-    # the hybrid's windowed layers read their pages through paged_gather on
-    # both paths, and never through the paged kernel
+    # MLA's chunked prefill is the absorbed contraction (plain torch), its
+    # whole-prompt prefill the flash kernel
+    assert (ops.LAUNCHES[kernel] > 0) == (arch != "deepseek-v3-671b" or chunk == 0)
+    # the hybrid's windowed layers and MLA read their pages through
+    # paged_gather on both paths, and never through the paged kernel
+    gathers = hybrid or arch == "deepseek-v3-671b"
     assert (ops.LAUNCHES["paged_gather"] > 0) == (
-        hybrid or (path == "gather" and kernel != "ssd_scan"))
-    if hybrid:
+        gathers or (path == "gather" and kernel != "ssd_scan"))
+    if gathers:
         assert ops.LAUNCHES["paged_decode_attention"] == 0
 
 
@@ -173,6 +210,8 @@ def test_ssd_scan_kernel_matches_plain(card, dtype, b, s, h, p, n, chunk, init, 
     ("float32", 4 * 2 * 32),
     ("uint8", 13),                         # rows that are not 16-byte multiples
     ("int16", 7),
+    ("bfloat16", 16 * 512),                # an MLA latent page: 16 tokens x 512
+    ("bfloat16", 16 * 64),                 # and its rotary-key page: 16 x 64
 ])
 def test_paged_gather_kernel_bit_equal_to_plain(card, dtype, row):
     g = torch.Generator(device=card).manual_seed(6)

@@ -310,9 +310,13 @@ def test_training_forward_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="factorized"):
         build_model(dataclasses.replace(
             ssm_cfg, ssm=dataclasses.replace(ssm_cfg.ssm, factorized=False)))
-    for arch, family in (("llava-next-mistral-7b", "vlm"), ("deepseek-v3-671b", "moe")):
-        with pytest.raises(NotImplementedError, match=f"family '{family}' is not ported"):
-            build_model(get_arch(arch).reduced())
+    with pytest.raises(NotImplementedError, match="family 'vlm' is not ported"):
+        build_model(get_arch("llava-next-mistral-7b").reduced())
+    # the moe family serves (tests/test_torch_moe_serve.py) but does not train yet
+    moe = build_model(dataclasses.replace(get_arch("deepseek-v3-671b").reduced(),
+                                          dtype="float32"))
+    with pytest.raises(NotImplementedError, match="MoE training is not ported yet"):
+        moe.forward(moe.init(torch.Generator().manual_seed(0), "cpu"), toks)
 
 
 # ---------------------------------------------------------------------------
