@@ -24,20 +24,22 @@ each fatal:
    followed by ``add_`` and ``relu_``; pool: VGG16's pool1; matmul: fc6,
    fc7 and fc8, two calls bit-equal; all at batch 16; ``ssd_scan``:
    full-width mamba2-130m, a 512-token prompt in 256-token chunks from zero
-   and from a carried state, and a ragged 44-token slice; ``paged_gather``:
-   a full-width qwen2.5-3b cache leaf, 36 layers, 8 lanes x 64 slots with
-   -1 holes, bit-equal; recurrentgemma-9b's shapes besides (16 query heads
-   over 1 KV head, head_dim 256, window 2,048: ``flash_attention`` on a
-   3,072-token prompt and on a 1,024-token chunk at offset 2,048 against a
-   4,096-row cache holding 3,072, and ``paged_gather`` of one attention
-   layer's k pool, 8 lanes x 256 slots of 16 tokens with -1 holes,
-   bit-equal), and the moe family's (``flash_attention`` at deepseek-v3's
-   MLA prefill, 128 heads = KV heads of head_dim 192, on a 1,024-token
-   prompt and a chunk, and the reduced model's head_dim 48;
-   ``paged_decode_attention`` at qwen3-moe's 64 query heads over 4 KV
-   heads; ``paged_gather`` of one MLA layer's latent pool, 8 lanes x 128
-   slots of 16 x 512, bit-equal), logged with their times but not in the
-   JSON line;
+   and from a carried state, and a ragged 44-token slice; recurrentgemma-9b's
+   shapes besides (16 query heads over 1 KV head, head_dim 256, window
+   2,048: ``flash_attention`` on a 3,072-token prompt and on a 1,024-token
+   chunk at offset 2,048 against a 4,096-row cache holding 3,072), and the
+   moe family's (``flash_attention`` at deepseek-v3's MLA prefill, 128
+   heads = KV heads of head_dim 192, on a 1,024-token prompt and a chunk,
+   and the reduced model's head_dim 48; ``paged_decode_attention`` at
+   qwen3-moe's 64 query heads over 4 KV heads), logged with their times
+   but not in the JSON line; ``paged_gather``, one launch per call,
+   bit-equal, 8 lanes with -1 holes: a full-width qwen2.5-3b cache leaf
+   (36 layers, 64 slots; the JSON line's case), one recurrentgemma
+   attention layer's k pool (256 slots of 16 x 256) and its k + v, one
+   deepseek MLA layer's latent pool (128 slots of 16 x 512) and its latent
+   + k_rope (16 x 64), each timed by CUDA events, by the profiler's device
+   time and by the host's issue time per call, against ``index_select``
+   (one per pool) in turns, beside the bound;
    ``stream_gd``: full-width qwen2.5-3b's largest leaf, seg0's mlp.w_up, in
    the sgd launch, the two mixed-type in-place momentum launches, J = 3
    and 4 in float32 and the fused two-stage momentum launch, and the
@@ -75,7 +77,8 @@ each fatal:
 9. the gather decode path: reduced qwen2.5-3b in float32 with
    ``decode_path="gather"`` gives the CPU's tokens and the card's paged
    tokens; full-width qwen2.5-3b with it serves 16 requests through
-   ``paged_gather``, and its decode step is timed beside the paged path's;
+   ``paged_gather``, one launch per decode step (both seq leaves), and its
+   decode step is timed beside the paged path's;
 10. train reduced qwen2.5-3b in float32 on the card and on the CPU from the
     same weights and batches, 4 steps of sgd, momentum and adamw with 1 and
     2 microbatches: losses and grad norms within 1e-4 relative at every
@@ -127,8 +130,9 @@ each fatal:
     (38 layers, bf16, seeded random weights) with 8 lanes, max_len 4,096,
     16-token pages, 1,024-token prefill chunks and 64 new tokens each:
     every request finishes, ``flash_attention`` launches 12 times per
-    prefill slice and ``paged_gather`` 24 times per decode step (the local
-    attention layers' windowed paged decode), ``paged_decode_attention``
+    prefill slice and ``paged_gather`` 12 times per decode step (the local
+    attention layers' windowed paged decode, k and v in one launch),
+    ``paged_decode_attention``
     never; tok/s, peak memory, the prefill ms per 1,024-token slice with its
     profiled split (flash, the RG-LRU scan, matmuls, the rest) and the
     decode-step ms with its busy share and launches per step;
@@ -143,7 +147,7 @@ each fatal:
     widths of deepseek-v3-671b cut to 5 layers (its 3 dense layers and 2
     MoE layers; bf16, seeded random weights), 8 lanes, max_len 2,048,
     16-token pages, 32 new tokens each: every request finishes, one
-    ``flash_attention`` launch per layer per prefill, two ``paged_gather``
+    ``flash_attention`` launch per layer per prefill, one ``paged_gather``
     per layer per decode step, no ``paged_decode_attention``; tok/s, peak
     memory, a 1,024-token whole prompt and a 2,048-token prompt in
     1,024-token chunks with their profiled splits (cuBLAS, flash, the MoE
@@ -189,7 +193,8 @@ SERVE_KERNELS = ("paged_decode_attention", "flash_attention")
 CNN_KERNELS = ("stream_mac_conv", "stream_maxpool", "tiled_matmul")
 SSM = dict(h=24, p=64, n=128, chunk=256)       # mamba2-130m's SSD widths
 RG = dict(h=16, hkv=1, d=256, window=2048, chunk=1024)   # recurrentgemma-9b's attention
-MLA = dict(h=128, d=192, rank=512)             # deepseek-v3's MLA: heads, qk_nope + qk_rope, latent
+# deepseek-v3's MLA: heads, qk_nope + qk_rope, latent, qk_rope
+MLA = dict(h=128, d=192, rank=512, rope=64)
 QM = dict(h=64, hkv=4)                         # qwen3-moe's attention heads (head_dim 128)
 # the full-width moe models served on one card, cut in depth only (their
 # published depths, 61 and 94 layers, take 1.3 TB and 470 GB in bf16):
@@ -241,7 +246,7 @@ def ptxas_report(text: str) -> list[str]:
         m = re.search(r"Compiling entry function '.*?(paged_decode_attn|paged_combine|"
                       r"flash_attn_fwd|flash_attn_mma|conv_igemm_wgmma|conv_igemm|"
                       r"maxpool_valid|matmul_tiled_stream|matmul_tiled|"
-                      r"ssd_chunk_scan|gather_rows|stream_gd_update)"
+                      r"ssd_chunk_scan|paged_gather_bulk|stream_gd_update)"
                       r"(?:I(13__nv_bfloat16|5uint4|5uint2|f|j|t|h)?(?:L[ib](\d+)E)?"
                       r"(?:Li(\d+)E)?)?", line)
         if m:
@@ -571,19 +576,52 @@ def ssd_case(dtype, label, seq, carried, timed):
                      f"{label}: S={seq} H={h} P={p} N={n} chunk={chunk} {dtype}")
 
 
-def gather_case(dtype, timed, layers=36, slots=1024 // PS, hkv=HKV, d=D,
-                lens=(0, 1, 17, 100, 1024, 513, 64, 999)):
-    """``paged_gather`` of one cache leaf with 16-token pages of hkv x d,
-    8 lanes x ``slots`` slots with -1 holes: by default full-width
-    qwen2.5-3b's (36 layers in one call); ``layers=None`` gathers one
-    layer's pool, as the windowed paged decode does."""
+# the lanes' lengths in tokens of phase 2's gather tables (-1 past them)
+QWEN_LENS = (0, 1, 17, 100, 1024, 513, 64, 999)
+RG_LENS = (0, 1, 17, 2100, 4096, 513, 3000, 999)
+MLA_LENS = (0, 1, 17, 1100, 2048, 513, 1500, 999)
+# (label, pools as (leading layers or None, row elements), slots, lane lengths)
+GATHER_CASES = [
+    ("qwen2.5-3b leaf, 36 layers", [(36, PS * HKV * D)], 1024 // PS, QWEN_LENS),
+    ("recurrentgemma layer's k pool", [(None, PS * RG["hkv"] * RG["d"])], 4096 // PS,
+     RG_LENS),
+    ("recurrentgemma layer's k + v", [(None, PS * RG["hkv"] * RG["d"])] * 2, 4096 // PS,
+     RG_LENS),
+    ("MLA layer's latent pool", [(None, PS * MLA["rank"])], 2048 // PS, MLA_LENS),
+    ("MLA layer's latent + k_rope", [(None, PS * MLA["rank"]), (None, PS * MLA["rope"])],
+     2048 // PS, MLA_LENS),
+]
+
+
+def host_ms(fn, calls: int = 1000) -> float:
+    """Host time to issue one call: ``calls`` calls back to back on the
+    host's clock, then one synchronise outside the timed span."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e3
+
+
+def gather_case(dtype, timed: bool, label: str, specs, slots: int, lens):
+    """``paged_gather_many`` of the pools ``specs`` ((leading layers or
+    None, row elements) each) through one table of 8 lanes x ``slots``
+    slots of 16-token pages with -1 past each lane's length and a hole in
+    lane 3: bit-equal to the plain version, one launch.  Timed, it logs
+    the event time (``time_ms``), the device time (``device_ms``, cold) and
+    the host's issue time per call (``host_ms``) of the kernel and of one
+    ``index_select`` per pool, taken in turns (kernel, library, library,
+    kernel), beside the bound, and returns the kernels-line entry."""
     from repro_torch.kernels import ops, ref
 
     lanes = len(lens)
     n_pages = lanes * slots + 8
-    lead = () if layers is None else (layers,)
     gen = torch.Generator(device="cuda").manual_seed(11)
-    pool = torch.randn(*lead, n_pages, PS * hkv * d, generator=gen, device="cuda").to(dtype)
+    pools = [torch.randn(*(() if layers is None else (layers,)), n_pages, f, generator=gen,
+                         device="cuda").to(dtype) for layers, f in specs]
     bt = torch.randperm(n_pages, generator=gen, device="cuda")[: lanes * slots].reshape(
         lanes, slots).to(torch.int32)
     for i, n in enumerate(lens):
@@ -592,30 +630,47 @@ def gather_case(dtype, timed, layers=36, slots=1024 // PS, hkv=HKV, d=D,
     idx = bt.long().clamp(0, n_pages - 1).reshape(-1)
 
     def kernel():
-        return ops.paged_gather(pool, bt)
+        return ops.paged_gather_many(pools, bt)
 
     def plain():
-        return ref.paged_gather(pool, bt)
+        return ref.paged_gather_many(pools, bt)
 
+    def library():          # the same copies, holes read as page 0 (not zeroed)
+        return [torch.index_select(p, p.dim() - 2, idx) for p in pools]
+
+    before = ops.LAUNCHES["paged_gather"]
     out, want = kernel(), plain()
     torch.cuda.synchronize()
-    same = torch.equal(out, want)
-    log(f"  paged_gather {dtype} ({'one layer' if layers is None else f'{layers} layers'}, "
-        f"{lanes} x {slots} slots): bit-equal to the plain version: {same}")
-    if not same:
-        raise SystemExit(f"chip_smoke: paged_gather {dtype} differs from its plain version")
+    launched = ops.LAUNCHES["paged_gather"] - before
+    same = all(torch.equal(o, w) for o, w in zip(out, want))
+    log(f"  paged_gather {dtype} ({label}: {lanes} x {slots} slots, {len(pools)} pool(s) in "
+        f"{launched} launch): bit-equal to the plain version: {same}")
+    if not same or launched != 1:
+        raise SystemExit(f"chip_smoke: paged_gather {dtype} {label} differs from its plain "
+                         f"version or took {launched} launches")
+    del out, want
     if not timed:
         return None
-    row = PS * hkv * d * pool.element_size()
     filled = int((bt >= 0).sum())
-    nbytes = (layers or 1) * (lanes * slots + filled) * row + bt.numel() * 4
-
-    def library():          # the same copy, holes read as page 0 (not zeroed)
-        return torch.index_select(pool, pool.dim() - 2, idx)
-
-    return timed_row("paged_gather", 0.0, kernel, plain, library, nbytes, 0.0, dtype,
-                     f"{layers or 1} layer(s) x {lanes} lanes x {slots} slots ({filled} "
-                     f"filled), page {PS}x{hkv}x{d} {dtype}")
+    nbytes = sum((layers or 1) * (lanes * slots + filled) * f * pool.element_size()
+                 for (layers, f), pool in zip(specs, pools)) + bt.numel() * 4
+    b_ms, b_by = bound(nbytes, 0.0, dtype)
+    got = {}
+    for metric, how in (("event", time_ms), ("device", lambda f: device_ms(f, 20, cold=True)),
+                        ("host", host_ms)):
+        k1, l1, l2, k2 = how(kernel), how(library), how(library), how(kernel)
+        got[metric] = ((k1 + k2) / 2, (l1 + l2) / 2)
+        log(f"    {metric:6s} ms per call: kernel {k1:.4f} / {k2:.4f}, index_select x "
+            f"{len(pools)} {l1:.4f} / {l2:.4f}")
+    dev = got["device"][0]
+    log(f"    bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB): kernel device time at "
+        f"{100 * b_ms / dev:.0f} % of it, index_select's at {100 * b_ms / got['device'][1]:.0f} "
+        f"%; event time kernel / index_select {got['event'][0] / got['event'][1]:.2f}")
+    source, replaces, _ = KERNELS["paged_gather"]
+    return {"name": "paged_gather", "route": "cuda", "source": source, "replaces": replaces,
+            "max_abs_err": 0.0, "ms": got["event"][0], "plain_ms": time_ms(plain),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": got["event"][1],
+            "shape": f"{label}, {lanes} lanes x {slots} slots ({filled} filled) {dtype}"}
 
 
 # ---------------------------------------------------------------------------
@@ -738,18 +793,25 @@ def vgg16_card_vs_cpu(layers, batch, px) -> None:
         raise SystemExit("chip_smoke: VGG16 logits differ between card and CPU")
 
 
-def device_ms(fn, iters: int = 10) -> float:
+def device_ms(fn, iters: int = 10, cold: bool = False) -> float:
     """Mean device time per call of the kernels ``fn`` launches, from the
-    profiler: the host's issue of the call is not in it."""
+    profiler: the host's issue of the call is not in it.  ``cold`` runs
+    each call after a 64 MB write that evicts the 50 MB L2, as ``time_ms``
+    does, and leaves that write's own kernel out."""
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda") if cold else None
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(iters):
+            if cold:
+                flush.zero_()
             fn()
         torch.cuda.synchronize()
     return sum(e.self_device_time_total for e in prof.key_averages()
-               if str(getattr(e, "device_type", "")).endswith("CUDA")) / iters / 1e3
+               if str(getattr(e, "device_type", "")).endswith("CUDA")
+               and not (cold and any(w in e.key.lower() for w in ("fill", "memset")))
+               ) / iters / 1e3
 
 
 def stream_gd_cases() -> dict:
@@ -937,7 +999,7 @@ def kernel_group(name: str) -> str:
         return "flash_attention"
     if "ssd_chunk_scan" in name:
         return "ssd_scan"
-    if "gather_rows" in name:
+    if "paged_gather" in name:
         return "paged_gather"
     if any(t in name for t in ("gemm", "gemv", "cutlass", "nvjet", "cublas", "matmul")):
         return "matmul (cuBLAS)"
@@ -1225,8 +1287,9 @@ def serve_recurrentgemma(smi) -> dict:
     window) at the full width and depth of recurrentgemma-9b, bf16, seeded
     random weights, 8 lanes, max_len 4,096, 1,024-token prefill chunks, 64
     new tokens each.  Holds: every request finishes; 12 ``flash_attention``
-    launches per prefill slice, 24 ``paged_gather`` launches per decode step
-    and no ``paged_decode_attention``; the engine's first token equals a
+    launches per prefill slice, 12 ``paged_gather`` launches per decode step
+    (one per attention layer: k and v together) and no
+    ``paged_decode_attention``; the engine's first token equals a
     direct chunked prefill's.  Returns this run's launch counts."""
     from repro_torch.configs import get_arch
     from repro_torch.models import build_model
@@ -1263,9 +1326,9 @@ def serve_recurrentgemma(smi) -> dict:
     if run["flash_attention"] != n_attn * calls["extend_step"]:
         raise SystemExit(f"chip_smoke: {run['flash_attention']} flash launches, expected "
                          f"{n_attn} per prefill slice")
-    if run["paged_gather"] != 2 * n_attn * calls["decode_step_paged"]:
+    if run["paged_gather"] != n_attn * calls["decode_step_paged"]:
         raise SystemExit(f"chip_smoke: {run['paged_gather']} paged_gather launches, "
-                         f"expected {2 * n_attn} per decode step")
+                         f"expected {n_attn} per decode step")
     if run["paged_decode_attention"]:
         raise SystemExit("chip_smoke: the windowed layers launched paged_decode_attention")
     # the engine's first token agrees with a direct chunked prefill
@@ -1302,8 +1365,8 @@ def serve_moe(arch: str, smi) -> dict:
     tokens each, 8 lanes, max_len 2,048, 16-token pages, at the published
     widths of ``arch`` cut to ``MOE_DEPTH[arch]`` layers, bf16, seeded random
     weights.  Holds: every request finishes; one ``flash_attention`` launch
-    per attention layer per prefill; deepseek's MLA reads its pages with two
-    ``paged_gather`` launches per layer per decode step and never launches
+    per attention layer per prefill; deepseek's MLA reads its pages with one
+    ``paged_gather`` launch per layer per decode step and never launches
     ``paged_decode_attention``, qwen3-moe's GQA layers launch it every step;
     the engine's first token equals a direct prefill's.  Then a 1,024-token
     whole prompt and a 2,048-token prompt in 1,024-token chunks are timed
@@ -1346,9 +1409,9 @@ def serve_moe(arch: str, smi) -> dict:
     if run["flash_attention"] != cfg.n_layers * calls["prefill"]:
         raise SystemExit(f"chip_smoke: {run['flash_attention']} flash launches, expected "
                          f"{cfg.n_layers} per prefill")
-    if mla and (run["paged_gather"] != 2 * cfg.n_layers * calls["decode_step_paged"]
+    if mla and (run["paged_gather"] != cfg.n_layers * calls["decode_step_paged"]
                 or run["paged_decode_attention"]):
-        raise SystemExit("chip_smoke: MLA's paged decode should launch 2 paged_gather per "
+        raise SystemExit("chip_smoke: MLA's paged decode should launch one paged_gather per "
                          "layer and step and no paged_decode_attention")
     if not mla and run["paged_decode_attention"] < cfg.n_layers * calls["decode_step_paged"]:
         raise SystemExit("chip_smoke: a GQA layer's decode step skipped the paged kernel")
@@ -1870,6 +1933,8 @@ def main() -> int:
     for text in logs.values():
         for line in ptxas_report(text):
             log(f"    {line}")
+    log(f"    paged_gather_bulk: {ops.paged_gather_smem(8 * 256)} bytes of dynamic shared memory "
+        f"per bulk-copy block at an 8 x 256 table, {ops.paged_gather_smem(8 * 64)} at 8 x 64")
     kind = torch.cuda.get_device_name(0)
     smi = smi_line()
     log(f"  device: {kind} (count {torch.cuda.device_count()}); nvidia-smi: {smi}")
@@ -1881,7 +1946,6 @@ def main() -> int:
     log("== phase 2: kernels against their plain versions "
         f"(H={H}, Hkv={HKV}, D={D}, PS={PS})")
     rows = {}
-    rg_rows = []                  # recurrentgemma's shapes: logged, not in the JSON line
     flash_cases = [("prefill", 512, 512, 0, 512, None),
                    ("chunk", 128, 1024, 384, 512, None),
                    ("window", 512, 512, 0, 512, 128)]
@@ -1903,9 +1967,8 @@ def main() -> int:
                                         ("rg chunk", 1024, 4096, 2048, 3072)):
             row = flash_case(dtype, label, sq, sk, off, kvl, RG["window"],
                              dtype == torch.bfloat16, RG["h"], RG["hkv"], RG["d"])
-            if row:
+            if row:                 # logged, not in the JSON line
                 log_row(row)
-                rg_rows.append(row)
     vgg = {l.name: l for l in zoo.vgg16()}
     # (label: the VGG paper's name and the zoo's, layer); the JSON line keeps conv3_2
     conv_cases = [("conv1_1 (conv0)", vgg["conv0"]), ("conv1_2 (conv1)", vgg["conv1"]),
@@ -1939,21 +2002,10 @@ def main() -> int:
             if row:
                 log_row(row)
                 rows["ssd_scan"] = row
-        row = gather_case(dtype, timed)
-        if row:
-            log_row(row)
-            rows["paged_gather"] = row
-        # one recurrentgemma attention layer's k pool, as its windowed paged
-        # decode reads it: 8 lanes x 256 slots (4,096 tokens)
-        row = gather_case(dtype, timed, layers=None, slots=4096 // PS, hkv=RG["hkv"],
-                          d=RG["d"], lens=(0, 1, 17, 2100, 4096, 513, 3000, 999))
-        if row:
-            log_row(row)
-            rg_rows.append(row)
     log(f"  the moe family: deepseek-v3's MLA prefill (H = Hkv = {MLA['h']}, D = {MLA['d']}: "
         f"qk_nope + qk_rope, V padded; mma.sync, Q re-read per k tile), the reduced "
         f"model's D = 48, qwen3-moe's paged decode (H {QM['h']} over Hkv {QM['hkv']}: rep 16 "
-        "= MAX_REP) and one deepseek layer's latent pool:")
+        "= MAX_REP):")
     for dtype in (torch.float32, torch.bfloat16):
         timed = dtype == torch.bfloat16
         row = flash_case(dtype, "mla prompt", 1024, 1024, 0, 1024, None, timed, MLA["h"],
@@ -1962,13 +2014,18 @@ def main() -> int:
                    MLA["d"])
         flash_case(dtype, "reduced mla", 100, 100, 0, 100, None, False, 4, 4, 48)
         row_p = paged_case(dtype, timed, QM["h"], QM["hkv"], "qwen3-moe")
-        # one MLA layer's latent pool as its paged decode reads it: 8 lanes x
-        # 128 slots (2,048 tokens) of 16 x 512
-        row_g = gather_case(dtype, timed, layers=None, slots=2048 // PS, hkv=1,
-                            d=MLA["rank"], lens=(0, 1, 17, 1100, 2048, 513, 1500, 999))
-        for r in (row, row_p, row_g):       # logged, not in the JSON line
+        for r in (row, row_p):              # logged, not in the JSON line
             if r:
                 log_row(r)
+    log("  paged_gather, one launch per call: a full-width qwen2.5-3b cache leaf (the gather "
+        "path), one recurrentgemma attention layer's pools and one deepseek MLA layer's (the "
+        "paged decodes), alone and in the pairs a decode step gathers together:")
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, specs, slots, lens in GATHER_CASES:
+            row = gather_case(dtype, dtype == torch.bfloat16, label, specs, slots, lens)
+            if row:
+                log_row(row)
+                rows.setdefault("paged_gather", row)      # the JSON line keeps the leaf
     log("  stream_gd on full-width qwen2.5-3b's largest leaf (seg0 mlp.w_up):")
     rows["stream_gd"] = stream_gd_cases()
     log_row(rows["stream_gd"])
@@ -2077,8 +2134,14 @@ def main() -> int:
     log("  full-width qwen2.5-3b (bf16, phase 4's weights and requests), decode_path=gather:")
     ecfg = EngineConfig(batch_slots=8, max_len=1024,
                         cache=CacheConfig(page_size=PS, decode_path="gather"))
-    reqs, run = serve_full_width(model, params, qwen_prompts, ecfg, ("paged_gather",), smi)
+    calls = count_calls(model, ("decode_step",))
+    reqs, run = serve_full_width(model, params, qwen_prompts, ecfg, ("paged_gather",), smi,
+                                 on_reset=lambda: calls.update(decode_step=0))
     launches["paged_gather"] = run["paged_gather"]
+    log(f"  {calls['decode_step']} decode steps, paged_gather {run['paged_gather']} launches")
+    if run["paged_gather"] != calls["decode_step"]:
+        raise SystemExit("chip_smoke: the gather path should launch one paged_gather per "
+                         "decode step (every seq leaf in one launch)")
     same = sum(r.out_tokens == t for r, t in zip(reqs, paged_tokens))
     log(f"  {same}/{len(reqs)} requests gave the paged path's tokens (bf16: the plain "
         "decode attention rounds otherwise than the paged kernel)")

@@ -1,7 +1,7 @@
-// Hopper (sm_90a) building blocks shared by the redesigned convolution and
-// matmul: mbarriers, TMA tile loads and the tensor-map encoder reached
-// through the runtime (no -lcuda), and warpgroup products (wgmma) from
-// shared memory with 128-byte swizzled operands.
+// Hopper (sm_90a) building blocks shared by the redesigned convolution,
+// matmul and gather: mbarriers, TMA tile loads and the tensor-map encoder
+// reached through the runtime (no -lcuda), 1-D bulk copies, and warpgroup
+// products (wgmma) from shared memory with 128-byte swizzled operands.
 //
 // Shared-memory operand layouts (bf16, 128-byte swizzle, every tile based at
 // a multiple of 1024 bytes): a row of 64 elements fills 128 bytes, and its
@@ -125,6 +125,23 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t sr
           reinterpret_cast<uint64_t>(map)),
       "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// 1-D bulk copies (no tensor map): `bytes` contiguous bytes, a multiple of
+// 16, between 16-byte aligned addresses.  The load completes on `bar`'s
+// transaction count; the store is tracked by bulk groups.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(src), "r"(bytes)
+               : "memory");
 }
 
 __device__ __forceinline__ void bulk_commit() {

@@ -8,7 +8,8 @@ with B/C (B, S, N), ``paged_gather`` a (..., n_pages, F) pool with a
 (B, P) table, and ``stream_gd`` (J, *shape) streams with J coefficients, as
 ``repro.kernels.ops`` does (``ssd_scan`` also takes an initial state and
 returns the final one, ``paged_gather`` keeps the leading layers dim
-instead of moving it, and ``stream_gd_foreach`` is the optimizer's form
+instead of moving it, ``paged_gather_many`` gathers a list of pools
+through one table in one launch, and ``stream_gd_foreach`` is the optimizer's form
 of ``stream_gd``: a list of leaves in one launch, each with separate
 streams of their own types written in place, and an optional second stage
 that reads the first's output; ``stream_gd_into`` is its one-leaf,
@@ -26,12 +27,14 @@ only), so a run can show that its main path went through the kernels.
 ``stream_mac_conv`` and ``tiled_matmul`` choose between two designs by
 shape; ``PATHS`` names the one their last card call took.  A
 paged-decode call whose pages are split over blocks launches two: the
-partial pass and the merge of its splits; a ``stream_gd_foreach`` call
-whose leaves outgrow one launch's table launches one grid per table.
+partial pass and the merge of its splits; a ``stream_gd_foreach`` or
+``paged_gather_many`` call whose list outgrows one launch's table
+launches one grid per table.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 import threading
 from array import array
 from typing import NamedTuple
@@ -69,7 +72,9 @@ _SIGNATURES = {
     "tiled_matmul_plan": ("tiled_matmul", [_I] * 6 + [ctypes.POINTER(_I)]),
     "tiled_matmul_path": ("tiled_matmul", [_I] * 3),
     "ssd_scan_launch": ("ssd_scan", [_I] + [_P] * 8 + [_I] * 6 + [_L] * 6 + [_P]),
-    "paged_gather_launch": ("paged_gather", [_P, _P, _P, _L, _I, _I, _I, _L, _I, _P]),
+    "paged_gather_launch": ("paged_gather", [_I, _P]),
+    "paged_gather_capacity": ("paged_gather", []),
+    "paged_gather_smem": ("paged_gather", [_L]),
     "stream_gd_launch": ("stream_gd", [_I, _I, _I, ctypes.POINTER(_F), _I, _P, _P, _P, _P,
                                        ctypes.POINTER(_I)]),
     "stream_gd_capacity": ("stream_gd", [_I, _I]),
@@ -89,6 +94,17 @@ def _sm_count(device: torch.device) -> int:
     if idx not in _sm_counts:
         _sm_counts[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
     return _sm_counts[idx]
+
+
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)   # CUDA builds
+
+
+def _raw_stream(device: torch.device) -> int:
+    """The current stream's handle on ``device``, without building a
+    Python ``Stream`` object where torch offers that."""
+    if _RAW_STREAM is None:
+        return torch.cuda.current_stream(device).cuda_stream
+    return _RAW_STREAM(torch.cuda.current_device() if device.index is None else device.index)
 
 
 def _splits(device: torch.device, lanes: int, hkv: int, pages: int) -> tuple[int, int]:
@@ -458,34 +474,70 @@ def ssd_scan(
 
 
 def paged_gather(pool: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
-    """Block-table gather of page pools: pool (..., n_pages, F) of any type
+    """Block-table gather of a page pool: pool (..., n_pages, F) of any type
     and table (B, P) int32 → (..., B, P, F), with ``-1`` entries read as
     zeros; a bit-exact copy.  The leading dims (the layers) stay in front,
-    so one launch gathers every layer of a cache leaf.  On the card the
-    pool must be contiguous and entries other than -1 must name pages (not
-    checked: that would read the table back to the host)."""
-    _no_grad("paged_gather", pool)
-    if pool.ndim < 2 or pool.shape[-2] < 1 or block_table.ndim != 2:
-        raise ValueError(f"paged_gather: pool {tuple(pool.shape)} and table "
+    so one launch gathers every layer of a cache leaf.  The one-pool case
+    of ``paged_gather_many``."""
+    return paged_gather_many([pool], block_table)[0]
+
+
+def paged_gather_many(pools, block_table: torch.Tensor) -> list[torch.Tensor]:
+    """``paged_gather`` of every pool in ``pools`` through one table, in
+    one launch on the card (more only when the list outgrows one launch's
+    pool table, ``paged_gather_capacity``).  Each pool is (..., n_pages, F)
+    of its own type, row width and leading dims.  On the card the pools
+    must be contiguous and the table's entries other than -1 must name
+    pages of every pool (not checked: that would read the table back to
+    the host).  The card path checks the table once and packs the launch's
+    arguments into one array, so its host work per call stays small."""
+    _no_grad("paged_gather", *pools)
+    if not pools or pools[0].device.type != "cuda":
+        if block_table.ndim != 2 or any(p.ndim < 2 or p.shape[-2] < 1 for p in pools):
+            raise ValueError(f"paged_gather: pools {[tuple(p.shape) for p in pools]} and "
+                             f"table {tuple(block_table.shape)}")
+        if any(p.device.type != "cpu" for p in pools):
+            raise ValueError(f"paged_gather: tensors must be on the CPU or a CUDA device, "
+                             f"all on one, got {sorted({str(p.device) for p in pools})}")
+        return ref.paged_gather_many(pools, block_table)
+    device = pools[0].device
+    if block_table.ndim != 2:
+        raise ValueError(f"paged_gather: the table must be (lanes, slots), got "
                          f"{tuple(block_table.shape)}")
-    if pool.device.type == "cpu":
-        return ref.paged_gather(pool, block_table)
-    if pool.device.type != "cuda":
-        raise ValueError(f"paged_gather: tensors must be on the CPU or a CUDA device, "
-                         f"got {pool.device}")
-    if not pool.is_contiguous():
-        raise ValueError("paged_gather: the pool must be contiguous")
-    _check_index("paged_gather", block_table, pool.device, block_table.shape)
-    n, f = pool.shape[-2:]
+    _check_index("paged_gather", block_table, device, block_table.shape)
     lanes, slots = block_table.shape
-    out = torch.empty(pool.shape[:-2] + (lanes, slots, f), dtype=pool.dtype,
-                      device=pool.device)
+    # bt, lanes, slots, SMs, stream, the launch count (written back), then
+    # per pool: pool, out, layers, n_pages, row bytes
+    args = array("q", (block_table.data_ptr(), lanes, slots, _sm_count(device),
+                       _raw_stream(device), 0))
+    outs = []
+    for pool in pools:
+        shape = pool.shape
+        if len(shape) < 2 or shape[-2] < 1 or pool.device != device \
+                or not pool.is_contiguous():
+            raise ValueError(f"paged_gather: every pool must be a contiguous (..., n_pages, "
+                             f"F) tensor on {device}, got {tuple(shape)} on {pool.device}")
+        out = torch.empty(shape[:-2] + (lanes, slots, shape[-1]), dtype=pool.dtype,
+                          device=device)
+        args.extend((pool.data_ptr(), out.data_ptr(), math.prod(shape[:-2]), shape[-2],
+                     shape[-1] * pool.element_size()))
+        outs.append(out)
     lib, fn = _entry("paged_gather_launch")
-    err = fn(pool.data_ptr(), block_table.data_ptr(), out.data_ptr(),
-             pool.numel() // (n * f), n, lanes, slots, f * pool.element_size(),
-             _sm_count(pool.device), torch.cuda.current_stream(pool.device).cuda_stream)
-    _launched(lib, "paged_gather", err)
-    return out
+    err = fn(len(outs), args.buffer_info()[0])
+    _launched(lib, "paged_gather", err, args[5])
+    return outs
+
+
+def paged_gather_capacity() -> int:
+    """Pools one ``paged_gather_many`` launch takes (builds the kernel)."""
+    return _entry("paged_gather_capacity")[1]()
+
+
+def paged_gather_smem(table_entries: int) -> int:
+    """Dynamic shared memory in bytes of a ``paged_gather`` block that
+    copies rows in bulk, for a table of ``table_entries`` entries (builds
+    the kernel)."""
+    return _entry("paged_gather_smem")[1](table_entries)
 
 
 MAX_STREAMS = 8                    # streams of a one-stage stream_gd launch

@@ -141,6 +141,11 @@ def paged_gather(pool: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
     return torch.where(mask, view, torch.zeros((), dtype=pool.dtype, device=pool.device))
 
 
+def paged_gather_many(pools, block_table: torch.Tensor) -> list[torch.Tensor]:
+    """``paged_gather`` of each pool through the one table."""
+    return [paged_gather(pool, block_table) for pool in pools]
+
+
 def ssd_scan(
     xh: torch.Tensor,             # (B, S, H, P)
     b: torch.Tensor,              # (B, S, N)

@@ -149,15 +149,22 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, 1, h, d).to(q.dtype)
 
 
-def paged_lane_view(pool: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
-    """Per-lane contiguous view of one layer's page pool (n_pages, PS, *t)
-    through table (B, P) int32 → (B, P*PS, *t), ``-1`` slots read as zeros:
-    one ``paged_gather`` launch over the pool seen as (n_pages, PS·prod(t))
-    rows, bit-identical to the JAX package's ``paged_lane_view``."""
-    n_pages, ps = pool.shape[:2]
+def paged_lane_views(pools, block_table: torch.Tensor) -> list[torch.Tensor]:
+    """Per-lane contiguous views of one layer's page pools, each
+    (n_pages, PS, *t) of its own row, through table (B, P) int32 →
+    (B, P*PS, *t) each, ``-1`` slots read as zeros: one ``paged_gather``
+    launch over every pool, each seen as (n_pages, PS·prod(t)) rows, each
+    view bit-identical to the JAX package's ``paged_lane_view``."""
     b, p = block_table.shape
-    view = kops.paged_gather(pool.reshape(n_pages, -1), block_table)
-    return view.reshape((b, p * ps) + tuple(pool.shape[2:]))
+    views = kops.paged_gather_many([pool.reshape(pool.shape[0], -1) for pool in pools],
+                                   block_table)
+    return [view.reshape((b, p * pool.shape[1]) + tuple(pool.shape[2:]))
+            for pool, view in zip(pools, views)]
+
+
+def paged_lane_view(pool: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
+    """``paged_lane_views`` of one pool."""
+    return paged_lane_views([pool], block_table)[0]
 
 
 def paged_write_slots(block_table: torch.Tensor, positions: torch.Tensor,
@@ -177,11 +184,10 @@ def paged_decode_windowed(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.T
                           window: int | None, scale: float | None = None) -> torch.Tensor:
     """Paged decode for windowed (local) attention layers, which the paged
     kernel does not mask: the port of ``paged_decode_attention_xla``.  Each
-    lane's pages are gathered into a transient view (``paged_lane_view``,
-    one launch for k and one for v) and attended by ``decode_attention``
+    lane's pages are gathered into transient views (``paged_lane_views``:
+    one launch for k and v) and attended by ``decode_attention``
     with the window: q (B, 1, H, D) → (B, 1, H, D), bit-equal to the
     gather path's read.  As in the reference, a ``-1`` slot inside a lane's
     length reads as a zero row (the engine leaves no such holes)."""
-    kc = paged_lane_view(k_pool, block_table)
-    vc = paged_lane_view(v_pool, block_table)
+    kc, vc = paged_lane_views([k_pool, v_pool], block_table)
     return decode_attention(q, kc, vc, positions, window=window, scale=scale)

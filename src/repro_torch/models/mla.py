@@ -15,7 +15,7 @@ at ``qk_rope_head_dim`` (``mla_rope_tables``), not at ``cfg.hd``.
   (``_absorbed_attend``): queries are absorbed into latent space so the
   cache is never decompressed.  ``mla_decode`` reads dense per-lane views
   (the gather path), ``mla_decode_paged`` gathers the lanes' pages through
-  ``paged_lane_view`` (two ``paged_gather`` launches per layer) and then
+  ``paged_lane_views`` (one ``paged_gather`` launch per layer) and then
   runs the same contraction, so the two are bit-equal.  The contraction is
   plain torch, as the reference leaves it to XLA.
 
@@ -26,7 +26,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .attention import NEG_INF, attend, paged_lane_view
+from .attention import NEG_INF, attend, paged_lane_views
 from .common import PSpec, TensorSpec, apply_rope, rms_norm, rope_tables
 
 
@@ -161,7 +161,7 @@ def mla_decode_paged(cfg, p, x, pools: dict, block_table, positions, write, tabl
     latents and where (``attention.paged_write_slots``: idle lanes and
     lanes whose page is unallocated write nothing); the pools are updated
     in place.  Each lane's pages are then gathered into a transient view
-    (``paged_lane_view``: one ``paged_gather`` launch per pool) and
+    (``paged_lane_views``: one ``paged_gather`` launch for both) and
     attended as ``mla_decode`` attends its views, bit-equal to it.
     → (y (B, 1, D), pools)."""
     q_nope, q_rope = _project_q_at(cfg, p, x, tables)
@@ -170,8 +170,7 @@ def mla_decode_paged(cfg, p, x, pools: dict, block_table, positions, write, tabl
     lp, kp = pools["latent"], pools["k_rope"]
     lp[w_page, w_off] = new_latent[lanes, 0].to(lp.dtype)
     kp[w_page, w_off] = new_krope[lanes, 0].to(kp.dtype)
-    latent = paged_lane_view(lp, block_table)                     # (B, cap, rank)
-    k_rope = paged_lane_view(kp, block_table)
+    latent, k_rope = paged_lane_views([lp, kp], block_table)  # (B, cap, rank), (B, cap, qr)
     kpos = torch.arange(latent.shape[1], device=x.device)
     mask = (kpos[None, :] <= positions.long()[:, None])[:, None, None, :]
     out = _absorbed_attend(cfg, p, q_nope, q_rope, latent, k_rope, mask)

@@ -29,7 +29,7 @@ the plain ``decode_attention`` for ``decode_step`` of the gather path; and
 ``forward``/``loss``.  With ``cfg.mla`` (deepseek-v3) the dense and moe
 layers attend through ``models.mla`` instead: the flash kernel in prefill,
 the absorbed latent contraction in chunked prefill and both decodes (the
-paged one after two ``paged_gather`` launches per layer).  A ``moe`` layer
+paged one after one ``paged_gather`` launch per layer).  A ``moe`` layer
 has the routed-expert FFN of ``models.moe`` in place of the MLP: it drops
 tokens past each expert's capacity in the whole-prompt prefill and drops
 none (one group, ``drop=False``) in chunked prefill and decode, as the
@@ -535,9 +535,10 @@ class DecoderLM:
         dense layer then runs the paged-decode kernel over the pages the
         block table names, reading ``positions + 1`` tokens per active lane
         and none for an idle one; a local-attention layer (which that kernel
-        does not mask) gathers its lanes' pages through ``paged_gather`` and
-        attends within the window (``paged_decode_windowed``), as the JAX
-        package sends windowed layers to its XLA form; an MLA layer writes
+        does not mask) gathers its lanes' k and v pages through one
+        ``paged_gather`` launch and attends within the window
+        (``paged_decode_windowed``), as the JAX package sends windowed
+        layers to its XLA form; an MLA layer writes
         its latent and rotary key the same way and attends its gathered
         pages in the absorbed form (``mla.mla_decode_paged``).  Recurrent
         layers step the per-lane state leaves; idle lanes keep theirs.  The

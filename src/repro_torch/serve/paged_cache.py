@@ -35,19 +35,16 @@ def _is_seq(path) -> bool:
 def gather_views(pools, block_tables: torch.Tensor):
     """Per-lane contiguous views of the page pools: seq leaves
     (layers, n_pages, PS, *t) and table (lanes, P) → (layers, lanes, P*PS, *t),
-    one ``paged_gather`` per leaf; unallocated (-1) pages read as zeros.
-    State leaves pass through (the same tensors)."""
+    every seq leaf of the tree in one ``paged_gather`` launch; unallocated
+    (-1) pages read as zeros.  State leaves pass through (the same
+    tensors)."""
     bt = block_tables.to(torch.int32).contiguous()
     lanes, p = bt.shape
-
-    def leaf(path, x):
-        if not _is_seq(path):
-            return x
-        reps, n, ps = x.shape[:3]
-        view = kops.paged_gather(x.reshape(reps, n, -1), bt)    # (layers, lanes, P, row)
-        return view.reshape((reps, lanes, p * ps) + tuple(x.shape[3:]))
-
-    return tree_map_with_path(leaf, pools)
+    seq = [(path, x) for path, x in tree_items(pools) if _is_seq(path)]
+    rows = kops.paged_gather_many([x.reshape(x.shape[0], x.shape[1], -1) for _, x in seq], bt)
+    views = {path: view.reshape((x.shape[0], lanes, p * x.shape[2]) + tuple(x.shape[3:]))
+             for (path, x), view in zip(seq, rows)}       # (layers, lanes, P, row) each
+    return tree_map_with_path(lambda path, x: views.get(path, x), pools)
 
 
 def absorb_decode(pools, new_views, block_tables: torch.Tensor, positions: torch.Tensor,

@@ -126,8 +126,8 @@ SERVE_CASES = [
     ("recurrentgemma-9b", (70, 5, 60), 0, "paged"),
     ("recurrentgemma-9b", (70, 5, 60), 16, "paged"),
     ("recurrentgemma-9b", (70, 5, 60), 16, "gather"),
-    # the moe family: deepseek (MLA: flash at head_dim 48 in prefill, two
-    # paged_gather launches per layer in the paged decode) and qwen3-moe
+    # the moe family: deepseek (MLA: flash at head_dim 48 in prefill, one
+    # paged_gather launch per layer in the paged decode) and qwen3-moe
     ("deepseek-v3-671b", (21, 5, 40), 0, "paged"),
     ("deepseek-v3-671b", (21, 5, 40), 16, "paged"),
     ("deepseek-v3-671b", (21, 5, 40), 16, "gather"),
@@ -153,6 +153,18 @@ def test_served_tokens_on_card_match_cpu(card, arch, lengths, chunk, path):
     ecfg = EngineConfig(batch_slots=2, max_len=128 if hybrid else 64,
                         cache=CacheConfig(decode_path=path),
                         admission=AdmissionConfig(prefill_chunk=chunk))
+    steps = {"decode_step_paged": 0, "decode_step": 0}
+
+    def counted(name):
+        fn = getattr(model, name)
+
+        def call(*a, **k):
+            steps[name] += 1
+            return fn(*a, **k)
+        setattr(model, name, call)
+
+    for name in steps:
+        counted(name)
     out = {}
     for dev, p in (("cpu", params), (card, tree_map(lambda t: t.to(card), params))):
         eng = ServeEngine(model, p, ecfg, device=dev)
@@ -160,6 +172,7 @@ def test_served_tokens_on_card_match_cpu(card, arch, lengths, chunk, path):
         for r in reqs:
             eng.submit(r)
         ops.reset_launches()
+        steps.update(decode_step_paged=0, decode_step=0)
         eng.run()
         out[str(dev)] = [r.out_tokens for r in reqs]
     assert out["cpu"] == out["cuda"]
@@ -168,10 +181,21 @@ def test_served_tokens_on_card_match_cpu(card, arch, lengths, chunk, path):
     # whole-prompt prefill the flash kernel
     assert (ops.LAUNCHES[kernel] > 0) == (arch != "deepseek-v3-671b" or chunk == 0)
     # the hybrid's windowed layers and MLA read their pages through
-    # paged_gather on both paths, and never through the paged kernel
+    # paged_gather on both paths, and never through the paged kernel: one
+    # launch per windowed or MLA layer and paged decode step (k and v, or
+    # latent and k_rope, together), one per gather decode step (every seq
+    # leaf together; mamba2 has none)
     gathers = hybrid or arch == "deepseek-v3-671b"
-    assert (ops.LAUNCHES["paged_gather"] > 0) == (
-        gathers or (path == "gather" and kernel != "ssd_scan"))
+    if path == "gather":
+        want = steps["decode_step"] * (kernel != "ssd_scan")
+    else:
+        per_step = {"recurrentgemma-9b": sum(reps * pattern.count("attn")
+                                             for pattern, reps in model.segments),
+                    "deepseek-v3-671b": model.cfg.n_layers}.get(arch, 0)
+        want = steps["decode_step_paged"] * per_step
+    assert steps["decode_step" if path == "gather" else "decode_step_paged"] > 0
+    assert ops.LAUNCHES["paged_gather"] == want
+    assert (want > 0) == (gathers or (path == "gather" and kernel != "ssd_scan"))
     if gathers:
         assert ops.LAUNCHES["paged_decode_attention"] == 0
 
@@ -229,6 +253,70 @@ def test_paged_gather_kernel_bit_equal_to_plain(card, dtype, row):
     assert ops.LAUNCHES["paged_gather"] == before + 1
     assert torch.equal(got, ref.paged_gather(pool, bt))
     assert torch.all(got[:, 0] == 0)
+
+
+def _gather_pools(card, specs, seed=7):
+    """Pools of (leading dims, n_pages, row, dtype, base offset in elements:
+    a pool that starts past its storage's 16-byte boundary)."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    pools = []
+    for lead, n_pages, row, dtype, shift in specs:
+        numel = int(np.prod(lead + (n_pages, row)))
+        flat = (torch.randn(numel + shift, generator=g, device=card) * 100).to(
+            getattr(torch, dtype))
+        pools.append(flat[shift:].view(lead + (n_pages, row)))
+    return pools
+
+
+def _holed_table(card, lanes, slots, n_pages, seed=8):
+    g = torch.Generator(device=card).manual_seed(seed)
+    bt = torch.randperm(n_pages, generator=g, device=card)[: lanes * slots].reshape(
+        lanes, slots).int()
+    bt[0] = -1
+    bt[1, slots // 2:] = -1
+    bt[2, 1] = -1                                            # a hole inside lane 2
+    return bt
+
+
+@pytest.mark.parametrize("label,specs,lanes,slots", [
+    # an MLA layer's latent (16 x 512 bf16: 16 KiB) and k_rope (16 x 64: 2 KiB) pools
+    ("mla", [((), 80, 16 * 512, "bfloat16", 0), ((), 80, 16 * 64, "bfloat16", 0)], 8, 9),
+    # a recurrentgemma layer's k and v pools (16 x 256 bf16: 8 KiB each)
+    ("k+v", [((), 80, 16 * 256, "bfloat16", 0), ((), 80, 16 * 256, "bfloat16", 0)], 8, 9),
+    # rows that are no multiple of 16 bytes, and a base 2 bytes past one,
+    # beside bulk-copied rows
+    ("unaligned", [((2,), 40, 13, "uint8", 0), ((), 40, 7, "int16", 0),
+                   ((), 40, 16 * 128, "bfloat16", 1), ((3,), 40, 64, "float32", 0)], 5, 8),
+    # one layer and 36 layers in one call, and a 40 KiB row (bulk pieces)
+    ("layers", [((), 70, 16 * 2 * 128, "bfloat16", 0), ((36,), 70, 16 * 2 * 128, "bfloat16", 0),
+                ((2,), 70, 10240, "float32", 0)], 8, 8),
+    # a table of 8 x 600 entries: past what a block keeps in shared memory
+    ("long table", [((), 4810, 16 * 256, "bfloat16", 0), ((), 4810, 48, "float32", 0)], 8, 600),
+])
+def test_paged_gather_many_kernel_bit_equal_to_plain(card, label, specs, lanes, slots):
+    pools = _gather_pools(card, specs)
+    bt = _holed_table(card, lanes, slots, specs[0][1])
+    before = ops.LAUNCHES["paged_gather"]
+    got = ops.paged_gather_many(pools, bt)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["paged_gather"] == before + 1
+    for out, pool in zip(got, pools):
+        assert torch.equal(out, ref.paged_gather(pool, bt)), (label, tuple(pool.shape))
+        assert torch.all(out[..., 0, :, :] == 0)
+
+
+def test_paged_gather_many_past_one_table_launches_one_grid_per_table(card):
+    cap = ops.paged_gather_capacity()
+    specs = [((), 24, (16, 24, 13)[i % 3], ("bfloat16", "float32", "uint8")[i % 3], 0)
+             for i in range(cap + 3)]
+    pools = _gather_pools(card, specs, seed=9)
+    bt = _holed_table(card, 4, 4, 24)
+    before = ops.LAUNCHES["paged_gather"]
+    got = ops.paged_gather_many(pools, bt)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["paged_gather"] == before + 2
+    for out, pool in zip(got, pools):
+        assert torch.equal(out, ref.paged_gather(pool, bt))
 
 
 def _tol(dtype):

@@ -9,6 +9,10 @@ reduced qwen2.5-3b and mamba2-130m in float32.
 
 * the plain ``paged_gather`` is bit-equal to JAX ``ops.paged_gather``
   (Pallas, interpret mode) and ``ref.paged_gather``, with -1 holes;
+* ``paged_gather_many`` (plain) over pools of mixed types, row widths and
+  leading dims is bit-equal to one ``paged_gather`` per pool and to JAX
+  ``ops.paged_gather`` per pool and layer; ``paged_lane_views`` equals
+  ``paged_lane_view`` per pool and JAX's ``paged_lane_view``;
 * ``gather_views`` and ``absorb_decode`` are bit-equal to JAX's on both
   families' pools (seq leaves and per-lane state leaves);
 * ``decode_step`` logits and caches match JAX at atol = rtol = 1e-4;
@@ -28,12 +32,14 @@ from repro import serve as jserve  # noqa: E402
 from repro.configs import get_arch as jax_arch  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
+from repro.models import attention as jattn  # noqa: E402
 from repro.models import build_model as jax_build  # noqa: E402
 from repro.serve import paged_cache as jpc  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch import serve as tserve  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.common import tree_items  # noqa: E402
 from repro_torch.serve.paged_cache import absorb_decode, gather_views  # noqa: E402
@@ -110,6 +116,55 @@ def test_plain_paged_gather_bit_equal_to_jax(dtype):
     got3 = tops.paged_gather(layered, torch.from_numpy(TABLE))
     for i in range(3):
         assert torch.equal(got3[i], tops.paged_gather(layered[i], torch.from_numpy(TABLE)))
+
+
+# (leading dims, n_pages, row, dtype): an MLA layer's latent and k_rope
+# rows, a 2-layer leaf, and rows that are no multiple of 16 bytes
+MANY = [((), 12, 64, "bfloat16"), ((), 12, 8, "bfloat16"), ((2,), 12, 40, "float32"),
+        ((), 12, 7, "int16"), ((3,), 12, 13, "int32")]
+
+
+def _many_pools(rng):
+    """(JAX arrays, torch tensors) of the ``MANY`` pools."""
+    jpools, tpools = [], []
+    for lead, n, f, dt in MANY:
+        a = rng.standard_normal(lead + (n, f)) * 100
+        j = jnp.asarray(a, jnp.float32).astype(getattr(jnp, dt))
+        jpools.append(j)
+        tpools.append(torch.from_numpy(np.array(j.astype(jnp.float32))).to(getattr(torch, dt)))
+    return jpools, tpools
+
+
+def test_plain_paged_gather_many_bit_equal_to_jax():
+    jpools, tpools = _many_pools(np.random.default_rng(4))
+    table = torch.from_numpy(TABLE)
+    got = tops.paged_gather_many(tpools, table)
+    assert len(got) == len(tpools)
+    for out, tpool, jpool in zip(got, tpools, jpools):
+        assert out.dtype == tpool.dtype and out.shape == tpool.shape[:-2] + (3, 4) + (
+            tpool.shape[-1],)
+        assert torch.equal(out, tops.paged_gather(tpool, table))
+        flat_j = jpool.reshape((-1,) + jpool.shape[-2:])
+        for layer, jlayer in zip(out.reshape((-1,) + out.shape[-3:]), flat_j):
+            want = jops.paged_gather(jlayer, jnp.asarray(TABLE), interpret=True)
+            assert np.array_equal(layer.float().numpy(), np.asarray(want, np.float32))
+        assert torch.all(out[..., 2, :, :] == 0) and torch.all(out[..., 1, 1, :] == 0)
+    assert tops.paged_gather_many([], table) == []
+
+
+def test_paged_lane_views_equal_paged_lane_view_and_jax():
+    rng = np.random.default_rng(5)
+    # one layer's k and v pools (n_pages, PS, Hkv, D), an MLA latent pool and
+    # its k_rope pool (n_pages, PS, rank / qr)
+    shapes = [(12, 4, 2, 8), (12, 4, 2, 8), (12, 4, 16), (12, 4, 4)]
+    pools = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    table = torch.from_numpy(TABLE)
+    got = tattn.paged_lane_views([torch.from_numpy(p) for p in pools], table)
+    for view, pool in zip(got, pools):
+        assert view.shape == (3, 16) + pool.shape[2:]
+        assert torch.equal(view, tattn.paged_lane_view(torch.from_numpy(pool), table))
+        want = jattn.paged_lane_view(jnp.asarray(pool), jnp.asarray(TABLE))
+        assert np.array_equal(view.numpy(), np.asarray(want))
 
 
 def _pools_and_table(model, rng):
