@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port's main path on one NVIDIA card and check it.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --flash-times [--src DIR]
 
 Run from the root of a checkout (it imports ``src/repro_torch`` beside it;
 it never imports JAX or the ``repro`` package).  It drives the port's
@@ -30,9 +31,19 @@ each fatal:
    chunk at offset 2,048 against a 4,096-row cache holding 3,072), and the
    moe family's (``flash_attention`` at deepseek-v3's MLA prefill, 128
    heads = KV heads of head_dim 192, on a 1,024-token prompt and a chunk,
-   and the reduced model's head_dim 48; ``paged_decode_attention`` at
-   qwen3-moe's 64 query heads over 4 KV heads), logged with their times
-   but not in the JSON line; ``paged_gather``, one launch per call,
+   at qwen3-moe's 64 query heads over 4 KV heads of 128 on a 1,024-token
+   prompt, and the reduced model's head_dim 48; ``paged_decode_attention``
+   at qwen3-moe's 64 query heads over 4 KV heads), logged with their times
+   but not in the JSON line; each flash case logs the design it took
+   (``ops.PATHS``) and must have launched its design's compiled kernel
+   by the profiler's name (``flash_kernel_name``); four flash cases run at
+   batch 2, two of them with k and v one slice expanded over the batch;
+   the served flash shapes (qwen2.5-3b's 512-token
+   prefill, recurrentgemma's prompt and chunk, the MLA and qwen3-moe
+   prompts) and both paged-decode shapes are timed by CUDA events, by the
+   profiler's device time and by the host's issue time per call against
+   SDPA in turns, ``ssd_scan``'s prompt by the same three alone;
+   ``paged_gather``, one launch per call,
    bit-equal, 8 lanes with -1 holes: a full-width qwen2.5-3b cache leaf
    (36 layers, 64 slots; the JSON line's case), one recurrentgemma
    attention layer's k pool (256 slots of 16 x 256) and its k + v, one
@@ -95,12 +106,14 @@ each fatal:
     parameter, and the two-pass one) and the rest;
 12. train ``examples/torch_train_convnet.py``'s small net in float32 on the
     card and on the CPU from the same weights and batches, 6 steps of
-    momentum (with cuDNN and without) and of adamw (without: cuDNN's
-    Winograd weight gradients leave ~5e-8 where the CPU's are exactly 0,
-    which adamw amplifies; that drift is printed as a measurement): losses
-    within 1e-4 relative at every step, parameters within 1e-4, one
-    ``stream_gd`` launch per momentum step, and the card's checkpoint
-    restores bit-exactly;
+    momentum and of adamw, each with cuDNN and without (the float32 weight
+    gradient skips cuDNN's Winograd transform, whose ~5e-8 where the CPU's
+    gradient is exactly 0 adamw amplified): losses within 1e-4 relative at
+    every step, parameters within 1e-4, one ``stream_gd`` launch per
+    momentum step, and the card's checkpoint restores bit-exactly; then the
+    first step's weight gradients with no stray non-zero against the CPU
+    in float32, and in bf16 (cuDNN's weight gradient) the exact zeros of
+    the CPU and of the card counted and logged;
 13. train full-width VGG16 (``impl="xla"``: cuDNN convolutions through
     autograd, 224 x 224, batch 32, bf16 weights from a seeded He init,
     float32 momentum at lr 3e-3) for 6 steps on ``SyntheticImageData``
@@ -156,6 +169,13 @@ each fatal:
 20. the same for qwen3-moe-235b-a22b cut to 10 layers, whose GQA layers
     decode through ``paged_decode_attention`` (64 over 4 heads).
 
+``--flash-times`` runs only phase 2's timed flash rows (the served bf16
+prefill shapes, each held to its plain version and timed against SDPA in
+turns) and prints one JSON line of their times; ``--src`` names the
+``src`` directory whose ``repro_torch`` it times, so another commit
+unpacked under ``build/`` (``git archive``) can be timed in the same call,
+one process each: parent, change, change, parent.
+
 A kernel's ``launches`` in the JSON line sums its counts over the paths
 that drive it (serving, VGG16 inference, the gather path, the three
 training paths, recurrentgemma-9b serving and reduced training, the moe
@@ -165,6 +185,7 @@ and power limit, and, last, ``{"ok": true, "device": {...}}``.  Without a
 card, or without the package beside it, it exits non-zero and prints no
 result.
 """
+import argparse
 import dataclasses
 import gc
 import importlib.util
@@ -196,6 +217,18 @@ RG = dict(h=16, hkv=1, d=256, window=2048, chunk=1024)   # recurrentgemma-9b's a
 # deepseek-v3's MLA: heads, qk_nope + qk_rope, latent, qk_rope
 MLA = dict(h=128, d=192, rank=512, rope=64)
 QM = dict(h=64, hkv=4)                         # qwen3-moe's attention heads (head_dim 128)
+# the served flash prefill shapes that phase 2 times in bf16 against SDPA
+FLASH_SERVED = {
+    "prefill": dict(sq=512, sk=512, q_offset=0, kv_len=512, window=None),   # qwen2.5-3b
+    "rg prompt": dict(sq=3072, sk=3072, q_offset=0, kv_len=3072, window=RG["window"],
+                      h=RG["h"], hkv=RG["hkv"], d=RG["d"]),
+    "rg chunk": dict(sq=1024, sk=4096, q_offset=2048, kv_len=3072, window=RG["window"],
+                     h=RG["h"], hkv=RG["hkv"], d=RG["d"]),
+    "mla prompt": dict(sq=1024, sk=1024, q_offset=0, kv_len=1024, window=None, h=MLA["h"],
+                       hkv=MLA["h"], d=MLA["d"]),
+    "qwen3-moe prompt": dict(sq=1024, sk=1024, q_offset=0, kv_len=1024, window=None,
+                             h=QM["h"], hkv=QM["hkv"]),
+}
 # the full-width moe models served on one card, cut in depth only (their
 # published depths, 61 and 94 layers, take 1.3 TB and 470 GB in bf16):
 # deepseek-v3-671b keeps its 3 dense layers and 2 of its 58 MoE layers
@@ -244,7 +277,7 @@ def ptxas_report(text: str) -> list[str]:
              "j": "4 B", "t": "2 B", "h": "1 B", None: ""}
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '.*?(paged_decode_attn|paged_combine|"
-                      r"flash_attn_fwd|flash_attn_mma|conv_igemm_wgmma|conv_igemm|"
+                      r"flash_attn_fwd|flash_attn_mma|flash_attn_wgmma|conv_igemm_wgmma|conv_igemm|"
                       r"maxpool_valid|matmul_tiled_stream|matmul_tiled|"
                       r"ssd_chunk_scan|paged_gather_bulk|stream_gd_update)"
                       r"(?:I(13__nv_bfloat16|5uint4|5uint2|f|j|t|h)?(?:L[ib](\d+)E)?"
@@ -305,24 +338,66 @@ def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
     return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
 
 
+def in_turns(kernel, library, lib_name: str, calls: int = 1000) -> dict:
+    """Event (``time_ms``), device (``device_ms``, cold) and host-issue
+    (``host_ms`` over ``calls`` calls) time per call of ``kernel`` and of
+    ``library`` (None: the kernel alone), taken in turns (kernel, library,
+    library, kernel); logs each and returns {metric: (kernel, library)},
+    the means of the two turns (library None where there is none)."""
+    got = {}
+    for metric, how in (("event", time_ms), ("device", lambda f: device_ms(f, 20, cold=True)),
+                        ("host", lambda f: host_ms(f, calls))):
+        if library is None:
+            k1, k2 = how(kernel), how(kernel)
+            got[metric] = ((k1 + k2) / 2, None)
+            log(f"    {metric:6s} ms per call: kernel {k1:.4f} / {k2:.4f}")
+            continue
+        k1, l1, l2, k2 = how(kernel), how(library), how(library), how(kernel)
+        got[metric] = ((k1 + k2) / 2, (l1 + l2) / 2)
+        log(f"    {metric:6s} ms per call: kernel {k1:.4f} / {k2:.4f}, {lib_name} {l1:.4f} / "
+            f"{l2:.4f}")
+    return got
+
+
 def timed_row(name, err, kernel, plain, library, nbytes, flops, dtype, shape,
-              plain_iters=50) -> dict:
+              plain_iters=50, turns=False, calls=200) -> dict:
     """The kernels-line entry of one checked case: kernel, plain and
-    library times and the bound (``dtype`` names the peak rate)."""
-    source, replaces, _ = KERNELS[name]
+    library times and the bound (``dtype`` names the peak rate).  With
+    ``turns`` the kernel and the library are timed by ``in_turns`` (issue
+    over ``calls`` calls: few enough that the launch queue never fills) and
+    the row also holds their device and host-issue times."""
+    source, replaces, lib_name = KERNELS[name]
     b_ms, b_by = bound(nbytes, flops, dtype)
-    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "max_abs_err": err, "ms": time_ms(kernel), "plain_ms": time_ms(plain, plain_iters),
-            "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None if library is None else time_ms(library), "shape": shape}
+    row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+           "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by, "shape": shape}
+    if turns:
+        log(f"  timing {shape} in turns:")
+        got = in_turns(kernel, library, lib_name or "", calls)
+        row.update(ms=got["event"][0], library_ms=got["event"][1],
+                   device_ms=got["device"][0], host_ms=got["host"][0],
+                   library_device_ms=got["device"][1], library_host_ms=got["host"][1])
+        log(f"    device time at {100 * b_ms / row['device_ms']:.0f} % of the bound"
+            + ("" if library is None else
+               f"; kernel / {lib_name}: event {row['ms'] / row['library_ms']:.2f}, device "
+               f"{row['device_ms'] / row['library_device_ms']:.2f}"))
+    else:
+        row.update(ms=time_ms(kernel), library_ms=None if library is None else time_ms(library))
+    row["plain_ms"] = time_ms(plain, plain_iters)
+    return row
 
 
 def log_row(row) -> None:
     lib = KERNELS[row["name"]][2]
     lib = (f"{lib} {row['library_ms']:.4f} ms" if lib else
            "no single PyTorch call computes it")
+    extra = ""
+    if "device_ms" in row:
+        extra = f"; device {row['device_ms']:.4f} ms, host issue {row['host_ms']:.4f} ms"
+        if row["library_device_ms"] is not None:
+            extra += (f" ({KERNELS[row['name']][2]} device {row['library_device_ms']:.4f}, "
+                      f"host {row['library_host_ms']:.4f})")
     log(f"  timing {row['shape']}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-        f"{lib}, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+        f"{lib}, bound {row['bound_ms']:.4f} ms ({row['bound_by']}){extra}")
 
 
 # ---------------------------------------------------------------------------
@@ -383,18 +458,33 @@ def paged_case(dtype, timed: bool, h=H, hkv=HKV, label="qwen2.5-3b"):
 
     return timed_row("paged_decode_attention", err, kernel, plain, library, nbytes, flops,
                      dtype, f"{label}: 8 lanes, {tokens} tokens, H={h} Hkv={hkv} D={D} "
-                     f"PS={PS} {dtype}")
+                     f"PS={PS} {dtype}", turns=True)
 
 
-def flash_case(dtype, label, sq, sk, q_offset, kv_len, window, timed, h=H, hkv=HKV, d=D):
+def flash_kernel_name(dtype, d) -> str:
+    """The compiled kernel ``flash_attention`` must launch for ``dtype`` and
+    head dim ``d``: the CUDA-core loop in float32, mma.sync at bf16 D <= 64,
+    wgmma + TMA at the served bf16 head dims."""
+    if dtype == torch.float32:
+        return f"flash_attn_fwd<float, {d}>"
+    return f"flash_attn_mma<{d}>" if d <= 64 else f"flash_attn_wgmma<{d}>"
+
+
+def flash_case(dtype, label, sq, sk, q_offset, kv_len, window, timed, h=H, hkv=HKV, d=D,
+               turns=False, b=1, expand=False, design=True):
+    """One flash case at batch ``b`` against its plain version, logging the
+    design it took and (``design``) holding the profiled kernel to
+    ``flash_kernel_name``; ``expand``: k and v one slice expanded over the
+    batch (stride 0).  Timed, its row (``turns``: by ``in_turns`` against
+    SDPA)."""
     from repro_torch.kernels import ops, ref
 
     F = torch.nn.functional
     gen = torch.Generator(device="cuda").manual_seed(2)
     # the model's (B, S, H, D) projections, viewed as (B, H, S, D)
-    q = torch.randn(1, sq, h, d, generator=gen, device="cuda").to(dtype).transpose(1, 2)
-    k = torch.randn(1, sk, hkv, d, generator=gen, device="cuda").to(dtype).transpose(1, 2)
-    v = torch.randn(1, sk, hkv, d, generator=gen, device="cuda").to(dtype).transpose(1, 2)
+    q = torch.randn(b, sq, h, d, generator=gen, device="cuda").to(dtype).transpose(1, 2)
+    k, v = (torch.randn(1 if expand else b, sk, hkv, d, generator=gen, device="cuda")
+            .to(dtype).expand(b, sk, hkv, d).transpose(1, 2) for _ in range(2))
     kw = dict(causal=True, window=window, q_offset=q_offset, kv_len=kv_len)
 
     def kernel():
@@ -406,6 +496,18 @@ def flash_case(dtype, label, sq, sk, q_offset, kv_len, window, timed, h=H, hkv=H
     out, want = kernel(), plain()
     torch.cuda.synchronize()
     err = check_close(f"flash_attention[{label}]", out, want, dtype)
+    path = ops.PATHS.get("flash_attention")
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        kernel()
+        torch.cuda.synchronize()
+    names = sorted({e.key.replace("(anonymous namespace)::", "").replace("void ", "")
+                    .split("(")[0][:60] for e in prof.key_averages()
+                    if str(getattr(e, "device_type", "")).endswith("CUDA")})
+    log(f"    design: {path}; profiled kernel: {names}")
+    if design and names != [flash_kernel_name(dtype, d)]:
+        raise SystemExit(f"chip_smoke: flash_attention[{label}] launched {names}, expected "
+                         f"{flash_kernel_name(dtype, d)}")
     if not timed:
         return None
     qpos = torch.arange(sq, device="cuda")[:, None] + q_offset
@@ -417,15 +519,15 @@ def flash_case(dtype, label, sq, sk, q_offset, kv_len, window, timed, h=H, hkv=H
     keys = int(mask.any(0).sum())
     pairs = int(mask.sum())
     item = q.element_size()
-    nbytes = 2 * sq * h * d * item + keys * hkv * d * 2 * item
-    flops = 4.0 * pairs * h * d
+    nbytes = b * 2 * sq * h * d * item + (1 if expand else b) * keys * hkv * d * 2 * item
+    flops = 4.0 * b * pairs * h * d
 
     def library():
         return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
 
     return timed_row("flash_attention", err, kernel, plain, library, nbytes, flops, dtype,
                      f"{label}: Sq={sq} Sk={sk} q_offset={q_offset} kv_len={kv_len} "
-                     f"window={window} H={h} Hkv={hkv} D={d} {dtype}")
+                     f"window={window} H={h} Hkv={hkv} D={d} {dtype}", turns=turns)
 
 
 def conv_case(dtype, l, label, timed):
@@ -573,7 +675,7 @@ def ssd_case(dtype, label, seq, carried, timed):
     nbytes = (seq * (h * p + 2 * n) * conv.element_size() + seq * h * 4 + h * 4
               + seq * h * p * 4 + (2 if carried else 1) * h * p * n * 4)
     return timed_row("ssd_scan", err, kernel, plain, None, nbytes, flops, torch.float32,
-                     f"{label}: S={seq} H={h} P={p} N={n} chunk={chunk} {dtype}")
+                     f"{label}: S={seq} H={h} P={p} N={n} chunk={chunk} {dtype}", turns=True)
 
 
 # the lanes' lengths in tokens of phase 2's gather tables (-1 past them)
@@ -655,13 +757,7 @@ def gather_case(dtype, timed: bool, label: str, specs, slots: int, lens):
     nbytes = sum((layers or 1) * (lanes * slots + filled) * f * pool.element_size()
                  for (layers, f), pool in zip(specs, pools)) + bt.numel() * 4
     b_ms, b_by = bound(nbytes, 0.0, dtype)
-    got = {}
-    for metric, how in (("event", time_ms), ("device", lambda f: device_ms(f, 20, cold=True)),
-                        ("host", host_ms)):
-        k1, l1, l2, k2 = how(kernel), how(library), how(library), how(kernel)
-        got[metric] = ((k1 + k2) / 2, (l1 + l2) / 2)
-        log(f"    {metric:6s} ms per call: kernel {k1:.4f} / {k2:.4f}, index_select x "
-            f"{len(pools)} {l1:.4f} / {l2:.4f}")
+    got = in_turns(kernel, library, f"index_select x {len(pools)}")
     dev = got["device"][0]
     log(f"    bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB): kernel device time at "
         f"{100 * b_ms / dev:.0f} % of it, index_select's at {100 * b_ms / got['device'][1]:.0f} "
@@ -797,21 +893,26 @@ def device_ms(fn, iters: int = 10, cold: bool = False) -> float:
     """Mean device time per call of the kernels ``fn`` launches, from the
     profiler: the host's issue of the call is not in it.  ``cold`` runs
     each call after a 64 MB write that evicts the 50 MB L2, as ``time_ms``
-    does, and leaves that write's own kernel out."""
+    does, and leaves that write's own kernel out.  A profile that holds no
+    device time at all (the tracer now and then drops a profile's kernel
+    records) is taken again, up to three times."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda") if cold else None
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(iters):
-            if cold:
-                flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if str(getattr(e, "device_type", "")).endswith("CUDA")
-               and not (cold and any(w in e.key.lower() for w in ("fill", "memset")))
-               ) / iters / 1e3
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(iters):
+                if cold:
+                    flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if str(getattr(e, "device_type", "")).endswith("CUDA")
+                    and not (cold and any(w in e.key.lower() for w in ("fill", "memset"))))
+        if total > 0:
+            return total / iters / 1e3
+    raise SystemExit("chip_smoke: three profiles in a row recorded no device time")
 
 
 def stream_gd_cases() -> dict:
@@ -1698,23 +1799,24 @@ def load_example(name: str):
 
 def convnet_train_card_vs_cpu(ex) -> None:
     """``examples/torch_train_convnet.py``'s small net in float32 from the
-    same weights and batches, 6 steps of momentum and of adamw (the example's
-    settings) on the card and on the CPU: losses within 1e-4 relative at
-    every step, parameters within 1e-4 (atol = rtol), one stream_gd launch
-    per momentum step, and the card's checkpoint (under build/) restores
-    bit-exactly.
+    same weights and batches, 6 steps of momentum and of adamw (the
+    example's settings) on the card, with cuDNN and without, and on the
+    CPU: losses within 1e-4 relative at every step, parameters within 1e-4
+    (atol = rtol), one stream_gd launch per momentum step, and the card's
+    checkpoint (under build/) restores bit-exactly.
 
-    cuDNN computes conv4's float32 weight gradient with a Winograd
-    transform, which leaves ~5e-8 where the true gradient is exactly 0 (a
-    dead channel); adamw (eps 1e-8) turns that into steps of ~0.8 lr for
-    weights the CPU leaves in place.  So momentum is held to the CPU with
-    cuDNN and without it, and adamw without it (im2col and cuBLAS, which
-    keep exact zeros); adamw's drift with cuDNN is printed as a
-    measurement, not held to the tolerance."""
+    The card's float32 weight gradient skips cuDNN (``conv2d_exact_wgrad``):
+    cuDNN computes conv4's with a Winograd transform, which left ~5e-8
+    where the true gradient is exactly 0 (a dead channel) and adamw (eps
+    1e-8) turned that into steps of ~0.8 lr.  The first step's gradients
+    are held to have no stray non-zero against the CPU; in bf16, which
+    keeps cuDNN's weight gradient, the same count is logged."""
     from repro_torch.core.convnet import ConvNetExecutor, make_small_convnet
+    from repro_torch.data.pipeline import SyntheticImageData
     from repro_torch.kernels import ops
     from repro_torch.models.common import tree_items, tree_map
     from repro_torch.train import checkpoint
+    from repro_torch.train.train_step import value_and_grad
 
     steps = 6
     init = ConvNetExecutor(make_small_convnet(10, 16, 16), impl="xla").init(
@@ -1741,52 +1843,64 @@ def convnet_train_card_vs_cpu(ex) -> None:
         return rel, perr
 
     cpu = {opt: run(opt, "cpu", True) for opt in ("momentum", "adamw")}
-    for opt, cudnn in (("momentum", True), ("momentum", False), ("adamw", False)):
-        card = run(opt, "cuda", cudnn)
-        gl, gp, launches, ckpt = card
-        rel, perr = gap(card, cpu[opt])
-        got, extra, step = checkpoint.restore(ckpt, gp, device="cuda")
-        exact = step == steps and extra == {"data": {"seed": 0, "step": steps}} and all(
-            torch.equal(a, b) for (_, a), (_, b) in zip(tree_items(got), tree_items(gp)))
-        log(f"  {opt}, cuDNN {'on' if cudnn else 'off'}: card losses "
-            f"{['%.5f' % x for x in gl]}, max rel diff to the CPU {rel:.2e}, params at "
-            f"{perr:.3f} of the 1e-4 tolerance; {launches} stream_gd launches on the card; "
-            f"checkpoint of step {step} restores bit-exactly: {exact}")
-        if rel > 1e-4 or perr > 1.0 or not np.isfinite(gl).all():
-            raise SystemExit(f"chip_smoke: ConvNet {opt} training on the card differs from "
-                             "the CPU")
-        want = steps if opt == "momentum" else 0
-        if launches != want:
-            raise SystemExit(f"chip_smoke: {launches} stream_gd launches, expected {want}")
-        if not exact:
-            raise SystemExit("chip_smoke: the ConvNet checkpoint does not restore bit-exactly")
-    rel, perr = gap(run("adamw", "cuda", True), cpu["adamw"])
-    log(f"  measured, not held to the tolerance: adamw, cuDNN on: max rel loss diff "
-        f"{rel:.2e}, params at {perr:.3f} of the 1e-4 tolerance")
-    # why: the first step's gradients, card (cuDNN) against CPU, and the
-    # weight-gradient kernels cuDNN picked
-    from repro_torch.data.pipeline import SyntheticImageData
-    from repro_torch.train.train_step import value_and_grad
+    for opt in ("momentum", "adamw"):
+        for cudnn in (True, False):
+            card = run(opt, "cuda", cudnn)
+            gl, gp, launches, ckpt = card
+            rel, perr = gap(card, cpu[opt])
+            got, extra, step = checkpoint.restore(ckpt, gp, device="cuda")
+            exact = step == steps and extra == {"data": {"seed": 0, "step": steps}} and all(
+                torch.equal(a, b) for (_, a), (_, b) in zip(tree_items(got), tree_items(gp)))
+            log(f"  {opt}, cuDNN {'on' if cudnn else 'off'}: card losses "
+                f"{['%.5f' % x for x in gl]}, max rel diff to the CPU {rel:.2e}, params at "
+                f"{perr:.3f} of the 1e-4 tolerance; {launches} stream_gd launches on the "
+                f"card; checkpoint of step {step} restores bit-exactly: {exact}")
+            if rel > 1e-4 or perr > 1.0 or not np.isfinite(gl).all():
+                raise SystemExit(f"chip_smoke: ConvNet {opt} training on the card differs "
+                                 "from the CPU")
+            want = steps if opt == "momentum" else 0
+            if launches != want:
+                raise SystemExit(f"chip_smoke: {launches} stream_gd launches, expected {want}")
+            if not exact:
+                raise SystemExit("chip_smoke: the ConvNet checkpoint does not restore "
+                                 "bit-exactly")
 
+    # the first step's weight gradients, card (cuDNN on) against CPU: exact
+    # zeros per leaf, and the card's elements that are 0 on the CPU but not here
     exe = ConvNetExecutor(make_small_convnet(10, 16, 16), impl="xla")
-    x, y = SyntheticImageData(px=16, channels=3, classes=10, batch=32).next()
-    _, want = value_and_grad(exe.loss_fn, init, torch.from_numpy(x), torch.from_numpy(y))
-    card = tree_map(lambda t: t.to("cuda", copy=True), init)
+    x, y = (torch.from_numpy(a) for a in
+            SyntheticImageData(px=16, channels=3, classes=10, batch=32).next())
+
+    def grads(dtype, dev):
+        p = tree_map(lambda t: t.to(dev, dtype, copy=True), init)
+        return value_and_grad(exe.loss_fn, p, x.to(dev, dtype), y.to(dev))[1]
+
+    def count(label, want, got, held):
+        zeros = {".".join(path): (int((w == 0).sum()), int((g.cpu() == 0).sum()),
+                                  int(((w == 0) & (g.cpu() != 0)).sum()))
+                 for (path, w), (_, g) in zip(tree_items(want), tree_items(got))
+                 if path[-1] == "w"}
+        stray = sum(s for _, _, s in zeros.values())
+        log(f"    {label}: weight-gradient exact zeros (CPU, card, stray: 0 on the CPU and "
+            f"not on the card) {zeros}; {stray} stray")
+        if held and stray:
+            raise SystemExit(f"chip_smoke: {label}: {stray} weight-gradient elements are 0 on "
+                             "the CPU and not on the card")
+        return stray
+
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    f32 = grads(torch.float32, "cpu")
     with torch.profiler.profile(activities=acts) as prof:
-        _, got = value_and_grad(exe.loss_fn, card, torch.from_numpy(x).to("cuda"),
-                                torch.from_numpy(y).to("cuda"))
+        card = grads(torch.float32, "cuda")
         torch.cuda.synchronize()
-    for (path, w), (_, g) in zip(tree_items(want), tree_items(got)):
-        g = g.cpu()
-        stray = (w == 0) & (g != 0)
-        if stray.any():
-            log(f"    step 1, {'.'.join(path)}: {int(stray.sum())} of {w.numel()} gradient "
-                f"elements are 0 on the CPU and up to {float(g[stray].abs().max()):.1e} on "
-                f"the card (largest |gradient| {float(w.abs().max()):.2f})")
+    log("  step 1's weight gradients, card (cuDNN on) against the CPU:")
+    count("float32 (im2col weight gradient)", f32, card, True)
     wgrad = sorted({e.key.split("(")[0][:80] for e in prof.key_averages()
-                    if "wgrad" in e.key.lower()})
-    log(f"    weight-gradient kernels on the card: {wgrad}")
+                    if str(getattr(e, "device_type", "")).endswith("CUDA")
+                    and "wgrad" in e.key.lower()})
+    log(f"    float32 weight-gradient kernels from cuDNN: {wgrad or 'none'}")
+    count("bf16 (cuDNN's weight gradient)", grads(torch.bfloat16, "cpu"),
+          grads(torch.bfloat16, "cuda"), False)
     shutil.rmtree(root, ignore_errors=True)
 
 
@@ -1902,16 +2016,43 @@ def mamba2_eval_kernel_vs_xla(tr, state) -> int:
     return launches
 
 
+def flash_times(src: Path) -> int:
+    """``--flash-times``: phase 2's timed flash rows alone, in bf16, of the
+    ``repro_torch`` under ``src``.  Each case is held to its plain version;
+    its design is logged, not checked (another commit has other designs)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = smi_line()
+    log(f"== flash_attention at the served shapes, {src} ({smi})")
+    out = {"src": str(src), "device": smi, "rows": {}}
+    for label, shape in FLASH_SERVED.items():
+        row = flash_case(torch.bfloat16, label, timed=True, turns=True, design=False, **shape)
+        log_row(row)
+        out["rows"][label] = {k: row[k] for k in ("ms", "device_ms", "host_ms", "library_ms",
+                                                  "library_device_ms", "library_host_ms",
+                                                  "bound_ms")}
+    print(json.dumps(out))
+    return 0
+
+
 def main() -> int:
-    if not (ROOT / "src" / "repro_torch" / "__init__.py").is_file():
-        print("chip_smoke: src/repro_torch is not beside this script; run it from the "
-              "root of a checkout", file=sys.stderr)
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--flash-times", action="store_true",
+                    help="time only phase 2's served flash rows")
+    ap.add_argument("--src", type=Path, default=ROOT / "src",
+                    help="the src directory whose repro_torch is run (default: beside this "
+                         "script)")
+    args = ap.parse_args()
+    if not (args.src / "repro_torch" / "__init__.py").is_file():
+        print(f"chip_smoke: {args.src}/repro_torch is not beside this script; run it from "
+              "the root of a checkout", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(args.src.resolve()))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this script runs the port on "
               "the card", file=sys.stderr)
         return 1
+    if args.flash_times:
+        return flash_times(args.src)
     from repro_torch.configs import get_arch
     from repro_torch.core import zoo
     from repro_torch.core.convnet import narrow_convnet
@@ -1946,27 +2087,26 @@ def main() -> int:
     log("== phase 2: kernels against their plain versions "
         f"(H={H}, Hkv={HKV}, D={D}, PS={PS})")
     rows = {}
-    flash_cases = [("prefill", 512, 512, 0, 512, None),
-                   ("chunk", 128, 1024, 384, 512, None),
-                   ("window", 512, 512, 0, 512, 128)]
+    flash_cases = {"prefill": FLASH_SERVED["prefill"],
+                   "chunk": dict(sq=128, sk=1024, q_offset=384, kv_len=512, window=None),
+                   "window": dict(sq=512, sk=512, q_offset=0, kv_len=512, window=128)}
     for dtype in (torch.float32, torch.bfloat16):
         timed = dtype == torch.bfloat16
         row = paged_case(dtype, timed)
         if row:
             rows["paged_decode_attention"] = row
-        for label, sq, sk, off, kvl, win in flash_cases:
-            row = flash_case(dtype, label, sq, sk, off, kvl, win, timed)
+        for label, shape in flash_cases.items():
+            row = flash_case(dtype, label, timed=timed, turns=label == "prefill", **shape)
             if row:
                 log_row(row)
                 rows.setdefault("flash_attention", row)
     log_row(rows["paged_decode_attention"])
     log(f"  recurrentgemma-9b attention (H={RG['h']}, Hkv={RG['hkv']}, D={RG['d']}, "
-        f"window {RG['window']}; D = 256 runs the CUDA-core variant):")
+        f"window {RG['window']}; bf16 runs wgmma + TMA, float32 the CUDA cores):")
     for dtype in (torch.float32, torch.bfloat16):
-        for label, sq, sk, off, kvl in (("rg prompt", 3072, 3072, 0, 3072),
-                                        ("rg chunk", 1024, 4096, 2048, 3072)):
-            row = flash_case(dtype, label, sq, sk, off, kvl, RG["window"],
-                             dtype == torch.bfloat16, RG["h"], RG["hkv"], RG["d"])
+        for label in ("rg prompt", "rg chunk"):
+            row = flash_case(dtype, label, timed=dtype == torch.bfloat16, turns=True,
+                             **FLASH_SERVED[label])
             if row:                 # logged, not in the JSON line
                 log_row(row)
     vgg = {l.name: l for l in zoo.vgg16()}
@@ -2003,20 +2143,33 @@ def main() -> int:
                 log_row(row)
                 rows["ssd_scan"] = row
     log(f"  the moe family: deepseek-v3's MLA prefill (H = Hkv = {MLA['h']}, D = {MLA['d']}: "
-        f"qk_nope + qk_rope, V padded; mma.sync, Q re-read per k tile), the reduced "
-        f"model's D = 48, qwen3-moe's paged decode (H {QM['h']} over Hkv {QM['hkv']}: rep 16 "
-        "= MAX_REP):")
+        f"qk_nope + qk_rope, V padded), qwen3-moe's prefill (H {QM['h']} over Hkv "
+        f"{QM['hkv']}, D = {D}), the reduced MLA's D = 48, qwen3-moe's paged decode "
+        "(rep 16 = MAX_REP):")
     for dtype in (torch.float32, torch.bfloat16):
         timed = dtype == torch.bfloat16
-        row = flash_case(dtype, "mla prompt", 1024, 1024, 0, 1024, None, timed, MLA["h"],
-                         MLA["h"], MLA["d"])
+        row = flash_case(dtype, "mla prompt", timed=timed, turns=True,
+                         **FLASH_SERVED["mla prompt"])
+        row_q = flash_case(dtype, "qwen3-moe prompt", timed=timed, turns=True,
+                           **FLASH_SERVED["qwen3-moe prompt"])
         flash_case(dtype, "mla chunk", 256, 1024, 512, 768, None, False, MLA["h"], MLA["h"],
                    MLA["d"])
         flash_case(dtype, "reduced mla", 100, 100, 0, 100, None, False, 4, 4, 48)
         row_p = paged_case(dtype, timed, QM["h"], QM["hkv"], "qwen3-moe")
-        for r in (row, row_p):              # logged, not in the JSON line
+        for r in (row, row_q, row_p):       # logged, not in the JSON line
             if r:
                 log_row(r)
+    log("  flash_attention at batch 2 (a batched prefill, as make_eval_step gives it) at "
+        "each served head dim; 'k/v expanded': one slice over the batch (stride 0):")
+    for dtype in (torch.float32, torch.bfloat16):
+        for d, h, hkv, sq, sk, off, kvl, win, expand in (
+                (128, 16, 2, 200, 200, 0, 200, None, False),
+                (192, 8, 8, 150, 300, 100, 250, None, True),
+                (256, 16, 1, 333, 333, 0, 333, 100, False),
+                (256, 16, 1, 100, 400, 250, 350, 64, True)):
+            flash_case(dtype, f"batch 2, D {d}, q_offset {off}"
+                       + (", k/v expanded" if expand else ""), sq, sk, off, kvl, win, False,
+                       h, hkv, d, b=2, expand=expand)
     log("  paged_gather, one launch per call: a full-width qwen2.5-3b cache leaf (the gather "
         "path), one recurrentgemma attention layer's pools and one deepseek MLA layer's (the "
         "paged decodes), alone and in the pairs a decode step gathers together:")

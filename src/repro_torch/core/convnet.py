@@ -25,8 +25,12 @@ as the JAX executor does.  Three implementations:
     H axis, with stride ``sy`` and padding ``py``, as in JAX), the bias
     added after the convolution in x's type, ``F.max_pool2d`` after -inf
     padding, and ``torch.matmul`` for fc layers.  Autograd runs through it
-    end to end.  It is the training path; no path switches to it, or away
-    from it, by itself.
+    end to end.  On the card, a float32 convolution takes its weight
+    gradient from ``conv2d_exact_wgrad`` (im2col and one cuBLAS product)
+    instead of cuDNN, whose Winograd weight gradient leaves ~5e-8 where
+    the reference's direct convolution gives exact zeros; bf16 keeps
+    cuDNN's, which leaves none.  It is the training path; no path
+    switches to it, or away from it, by itself.
 
 Global average pooling, and the bias and ReLU of fc layers and of the
 tiled schedule's summed partials, are plain tensor ops, as in JAX.
@@ -110,10 +114,52 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
 
 
+class _ConvExactWgrad(torch.autograd.Function):
+    """``F.conv2d`` of NCHW x and OIHW w whose backward takes the input
+    gradient from the convolution backward (cuDNN on the card) and the
+    weight gradient as im2col (``F.unfold``) times the output gradient in
+    one matrix product over every (image, position) pair: a direct sum, so
+    a weight whose every product is 0 gets exactly 0, as in the
+    reference's direct convolution."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride, padding):
+        ctx.save_for_backward(x, w)
+        ctx.stride, ctx.padding = stride, padding
+        return F.conv2d(x, w, stride=stride, padding=padding)
+
+    @staticmethod
+    def backward(ctx, go):
+        x, w = ctx.saved_tensors
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = torch.nn.grad.conv2d_input(x.shape, w, go, stride=ctx.stride,
+                                            padding=ctx.padding)
+        if ctx.needs_input_grad[1]:
+            co, k = w.shape[0], w[0].numel()
+            cols = F.unfold(x, w.shape[2:], padding=ctx.padding, stride=ctx.stride)
+            gw = (go.transpose(0, 1).reshape(co, -1)
+                  @ cols.transpose(0, 1).reshape(k, -1).t()).view_as(w)
+        return gx, gw, None, None
+
+
+def conv2d_exact_wgrad(x: torch.Tensor, w: torch.Tensor, stride: tuple[int, int],
+                       padding: tuple[int, int]) -> torch.Tensor:
+    """``F.conv2d(x, w, stride=stride, padding=padding)`` (NCHW, OIHW) with
+    the weight gradient of ``_ConvExactWgrad``."""
+    return _ConvExactWgrad.apply(x, w, tuple(stride), tuple(padding))
+
+
 def _conv_xla(x: torch.Tensor, w: torch.Tensor, l: ConvLayerSpec) -> torch.Tensor:
     """JAX's ``_conv_xla``: NHWC x, HWIO w, strides (sy, sx), padding (py, px)."""
-    return _nhwc(F.conv2d(_nchw(x), w.permute(3, 2, 0, 1), stride=(l.sy, l.sx),
-                          padding=(l.py, l.px)))
+    xn, wn = _nchw(x), w.permute(3, 2, 0, 1)
+    stride, padding = (l.sy, l.sx), (l.py, l.px)
+    # float32 on the card: cuDNN picks a Winograd weight gradient for small
+    # layers in every mode (the small net's conv4 left 575 of 9,216 stray
+    # elements), so the weight gradient skips it
+    if x.is_cuda and x.dtype == torch.float32:
+        return _nhwc(conv2d_exact_wgrad(xn, wn, stride, padding))
+    return _nhwc(F.conv2d(xn, wn, stride=stride, padding=padding))
 
 
 def _maxpool_xla(x: torch.Tensor, l: ConvLayerSpec) -> torch.Tensor:

@@ -1,8 +1,9 @@
 // Blocked causal GQA attention (flash attention forward) for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel `flash_attention` in
-// src/repro/kernels/flash_attention.py (body `_attn_kernel`, reached from
-// `ops.flash_attention` in src/repro/kernels/ops.py).
+// src/repro/kernels/flash_attention.py (function at :87, `pl.pallas_call` at
+// :115, body `_attn_kernel` at :23), reached from `ops.flash_attention` in
+// src/repro/kernels/ops.py.
 //
 // What it computes: q (B, H, Sq, D) against k, v (B, Hkv, Sk, D); head h
 // reads KV head h / (H / Hkv).  Key kpos is visible to query row i when
@@ -11,38 +12,75 @@
 // float accumulation; a row with no visible key writes zeros.  causal,
 // window, q_offset and kv_len are run-time arguments, so chunked prefill
 // (a nonzero offset against a capacity-length cache) runs the same binary.
+// q, k and v are read through strides (the model's (B, S, H, D)
+// projections go in as (B, H, S, D) views) and the output is written
+// through strides into the (B, Sq, H, D) storage the wrapper allocates.
 //
-// What bounds it on the H100: bytes for short prompts, operations for long
-// ones.  A causal prefill of S tokens reads q and k, v once and writes the
-// output once, (2 * H + 2 * Hkv) * D * S * itemsize bytes, and does
-// 4 * H * D flops per visible (q, k) pair, about 2 * H * D * S^2.  At the
-// qwen2.5-3b widths in bf16 the two meet near S = 660 (3.35 TB/s against
-// 989 dense Tflop/s): a 512-token prefill is bytes-bound (1.41 us of bytes
-// against 1.09 us of flops), longer prefills are operations-bound.  Both
-// are microseconds at these lengths, so launch latency and occupancy, not
-// either roofline, set the measured time.
+// What bounds it on the H100 (3.35 TB/s, 989 dense bf16 Tflop/s): a prompt
+// reads q, k, v once and writes the output once and does 4 * H * D flops
+// per visible (q, k) pair.  At the served shapes in bf16:
+//   qwen2.5-3b prefill, 512 tokens, H 16 over Hkv 2, D 128:  bytes, 1.41 us
+//     (the flops, 1.09 us, are close);
+//   qwen3-moe prompt, 1,024 tokens, H 64 over Hkv 4, D 128: operations,
+//     17.2 GFLOP = 17.4 us;
+//   deepseek-v3 MLA prompt, 1,024 tokens, H = Hkv = 128, D 192 (V zero-
+//     padded to 192): bytes, 201 MB = 60 us (the flops 52 us);
+//   recurrentgemma-9b prompt, 3,072 tokens, H 16 over Hkv 1, D 256, window
+//     2,048: operations, 68.7 GFLOP = 69.5 us; its 1,024-token chunk at
+//     offset 2,048 against kv_len 3,072: operations, about 35 us.
+// So the served shapes need the tensor cores at their full rate, and K/V
+// loads that overlap them.
 //
-// What the design does about that: one block per (batch, head, 64-row q
-// tile) keeps its q tile on chip and streams K/V tiles through shared
-// memory, so K/V are read once per q tile instead of once per row.  bf16
-// with head_dim <= 128 (the serving path) runs both contractions on the
-// tensor cores with mma.sync m16n8k16 (f32 accumulation): each warp owns 16
-// q rows, keeps its Q fragments and its output in registers, and feeds the
-// score fragments back as the A operand of P @ V (P rounded to bf16, as
-// FlashAttention-2 does); MLA's head_dim 192 (and the reduced model's 48)
-// takes the same variant, its Q fragments re-read from shared memory per
-// k tile.  float32 and head_dim 256 run a CUDA-core variant
-// of the same loop (float math from shared memory) — float32 is the
-// end-to-end check against the CPU, not a serving type.  Both skip k tiles
-// that the causal or window mask hides entirely, mask the ragged Sq and Sk
-// edges instead of padding them, and read q, k and v through strides, so
-// the model's (B, S, H, D) projections go in without a transposing copy.
-// Not yet used: wgmma and TMA, the next factor of speed.
+// Three designs, chosen by dtype and head_dim (`ops.flash_path` holds the
+// table; `ops.PATHS["flash_attention"]` names the one a card call took):
+//
+// wgmma + TMA (bf16 at the served head dims 128, 192, 256).  One block of
+// three warpgroups per 128 query rows of one head.  The grid runs the
+// heaviest q tiles (the last, under a causal mask) first, and the query
+// heads of one KV head next to each other, so the rep heads that read the
+// same K/V tiles run together and share them in L2.  One producer thread
+// loads the block's Q (once) and its K and V tiles by TMA, through 4-D
+// tensor maps over the strided (D, S, H, B) views with the 128-byte
+// swizzle, into a ring of 2-3 stages with a full barrier each for K and for
+// V and an empty barrier the consumers release; the map's position extent
+// is min(Sk, kv_len), so rows past kv_len, Sk or Sq come back zero-filled
+// (no copy pads them) and only the mask sees them.  Two consumer
+// warpgroups own 64 query rows each: S = Q K^T is one warpgroup product
+// (wgmma m64nBNk16, Q and K both from swizzled shared memory, K read
+// K-major), the online softmax runs on S in registers (exp2, the scale
+// folded in), P is rounded to bf16 in registers and O += P V is a second
+// warpgroup product with P as the register A operand and V read as a
+// transposed (N-major) B operand, O (64 x D float) staying in registers.
+// Registers: at D 256 O takes 128 a thread, S 32 and P 16, so the keys per
+// tile are 64 (128 at D 128) and setmaxnreg moves registers from the
+// producer warpgroup (40) to the consumers (232).  Shared memory: Q 128 x D
+// and the ring, 160 KB at D 128 (2 stages of 128 keys), 192 KB at D 192
+// (3 of 64) and D 256 (2 of 64).  k tiles that the causal mask or the
+// window hides from the whole block are never loaded; a warpgroup whose
+// own rows see none of a loaded tile skips its products but still waits
+// for the tile and releases it, so the ring's phases never fall behind;
+// only the tiles on the diagonal, past kv_len or on the window's edge are
+// masked element by element.  The tensor maps are encoded on the host by
+// `cuTensorMapEncodeTiled` and kept in a small cache keyed by (pointer,
+// shape, strides, box), so a call whose operands the caching allocator
+// placed where an earlier call's were pays a lookup, not an encode.
+//
+// mma.sync (bf16 at the reduced head dims 32, 48, 64): one block per 64
+// query rows of one head, 4 warps of 16 rows; K/V tiles of 64 keys staged
+// by all threads; S and O += P V on mma.sync m16n8k16 with Q's fragments
+// and O in registers and P fed back from S's fragments.
+//
+// CUDA cores (float32, every head dim): the same loop in float math from
+// shared memory; float32 is the card-against-CPU check type, not a serving
+// type.
 
 #include <cstdint>
+#include <cstring>
+#include <mutex>
 #include <type_traits>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -208,7 +246,7 @@ __global__ void __launch_bounds__(rt::kThreads) flash_attn_fwd(const FlashArgs a
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores (head_dim <= 192): mma.sync m16n8k16, f32 accumulate
+// bf16 at the reduced head dims (<= 64): mma.sync m16n8k16, f32 accumulate
 // ---------------------------------------------------------------------------
 
 constexpr int kMmaRows = 64;   // q rows per block: 16 per warp
@@ -291,22 +329,15 @@ __global__ void __launch_bounds__(rt::kThreads) flash_attn_mma(const FlashArgs a
       q_s, [&](int r) -> const bf16* { return r < q_rows ? qb + (q0 + r) * a.q_ss : nullptr; });
   __syncthreads();
   const int r0 = warp * 16 + g;                // this lane's rows: r0 and r0 + 8
-  auto q_frag = [&](int kk, uint32_t (&f)[4]) {
-    const bf16* p = q_s + r0 * PITCH + kk * 16 + 2 * t;
-    f[0] = ld32(p);
-    f[1] = ld32(p + 8 * PITCH);
-    f[2] = ld32(p + 8);
-    f[3] = ld32(p + 8 * PITCH + 8);
-  };
-  // Up to D = 128 the Q fragments stay in registers for the whole k loop.
-  // Wider heads (MLA's 192) would hold 4 * D / 16 more registers beside
-  // the 16 x D output, so they read Q's fragments from shared memory
-  // again for every k tile instead of spilling.
-  constexpr bool kQInRegs = D <= 128;
-  uint32_t qa[kQInRegs ? KD : 1][4];
-  if constexpr (kQInRegs) {
+  // Q's fragments stay in registers for the whole k loop
+  uint32_t qa[KD][4];
 #pragma unroll
-    for (int kk = 0; kk < KD; ++kk) q_frag(kk, qa[kk]);
+  for (int kk = 0; kk < KD; ++kk) {
+    const bf16* p = q_s + r0 * PITCH + kk * 16 + 2 * t;
+    qa[kk][0] = ld32(p);
+    qa[kk][1] = ld32(p + 8 * PITCH);
+    qa[kk][2] = ld32(p + 8);
+    qa[kk][3] = ld32(p + 8 * PITCH + 8);
   }
 
   int k_hi = kv_end;
@@ -334,19 +365,10 @@ __global__ void __launch_bounds__(rt::kThreads) flash_attn_mma(const FlashArgs a
     for (int j = 0; j < NJ; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KD; ++kk) {
-      uint32_t qf[4];
-      if constexpr (kQInRegs) {
-        qf[0] = qa[kk][0];
-        qf[1] = qa[kk][1];
-        qf[2] = qa[kk][2];
-        qf[3] = qa[kk][3];
-      } else {
-        q_frag(kk, qf);
-      }
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
         const bf16* p = k_s + (j * 8 + g) * PITCH + kk * 16 + 2 * t;
-        mma_16816(s[j], qf, ld32(p), ld32(p + 8));
+        mma_16816(s[j], qa[kk], ld32(p), ld32(p + 8));
       }
     }
 
@@ -424,6 +446,427 @@ __global__ void __launch_bounds__(rt::kThreads) flash_attn_mma(const FlashArgs a
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 at the served head dims (128, 192, 256): wgmma + TMA, warp-specialised
+// ---------------------------------------------------------------------------
+
+namespace wg {
+
+constexpr int BM = 128;          // q rows per block: two consumer warpgroups of 64
+constexpr int THREADS = 384;     // the producer warpgroup, then the two consumers
+constexpr int BOX = 64;          // bf16 columns per 128-byte swizzled box
+
+template <int D>
+struct Cfg;
+template <>
+struct Cfg<128> { static constexpr int BN = 128, STAGES = 2; };
+template <>
+struct Cfg<192> { static constexpr int BN = 64, STAGES = 3; };
+template <>
+struct Cfg<256> { static constexpr int BN = 64, STAGES = 2; };
+
+// Shared memory, every tile based at a multiple of 1024 bytes: each
+// warpgroup's 64 Q rows, then the ring's K tiles, then its V tiles.  A tile
+// of R rows is D / 64 boxes of R rows x 128 bytes.
+template <int D>
+struct Lay {
+  static constexpr int BN = Cfg<D>::BN, STAGES = Cfg<D>::STAGES, DB = D / BOX;
+  static constexpr int Q_BOX = 64 * 128, Q_WG = DB * Q_BOX;
+  static constexpr int KV_BOX = BN * 128, KV = DB * KV_BOX;
+  static constexpr int K_OFF = 2 * Q_WG, V_OFF = K_OFF + STAGES * KV;
+  static constexpr size_t SMEM = V_OFF + STAGES * KV + 1024;   // + alignment to 1024
+};
+
+// The coordinate of a head or batch index in a tensor map: 1, or 0 where
+// the view broadcasts that dim (stride 0) and the map holds one slice.
+struct Coords {
+  int qh, qb, kh, kb, vh, vb;
+};
+
+// d (64 x N, float) = (acc ? d : 0) + A (64 x 16, K-major, shared memory) @
+// B (16 x N), B read from shared memory as N rows of K (K-major): S = Q K^T.
+template <int N>
+struct SS;
+// d (64 x N, float) += A (64 x 16, registers) @ B (16 x N, N-major in shared
+// memory, the transpose flag): O += P V.
+template <int N>
+struct RS;
+
+template <>
+struct SS<64> {
+  static constexpr int R = 32;
+  __device__ __forceinline__ static void mma(float (&d)[R], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+        "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+          "+f"(d[31])
+        : "l"(a), "l"(b), "r"(acc));
+  }
+};
+
+template <>
+struct SS<128> {
+  static constexpr int R = 64;
+  __device__ __forceinline__ static void mma(float (&d)[R], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+        "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+        "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+        "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, 0;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+          "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+          "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+          "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+          "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+          "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(acc));
+  }
+};
+
+template <>
+struct RS<128> {
+  static constexpr int R = 64;
+  __device__ __forceinline__ static void mma(float (&d)[R], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+        "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+        "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+        "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+          "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+          "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+          "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+          "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+          "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct RS<192> {
+  static constexpr int R = 96;
+  __device__ __forceinline__ static void mma(float (&d)[R], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %101, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+        "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+        "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+        "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, "
+        "%66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, "
+        "%82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+        "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+          "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+          "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+          "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+          "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+          "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]),
+          "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]),
+          "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]),
+          "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+          "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+          "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct RS<256> {
+  static constexpr int R = 128;
+  __device__ __forceinline__ static void mma(float (&d)[R], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+        "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+        "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+        "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, "
+        "%66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, "
+        "%82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
+        "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, "
+        "%125, %126, %127"
+        "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+          "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+          "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+          "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+          "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+          "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]),
+          "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]),
+          "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]),
+          "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+          "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+          "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]),
+          "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]),
+          "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]),
+          "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+          "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]),
+          "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]),
+          "+f"(d[127])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+
+template <int R>
+__device__ __forceinline__ void fence_u32(uint32_t (&r)[R][4]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+}  // namespace wg
+
+// Accumulator layout of a warpgroup's 64 x N product: thread 32 w + 4 g + t
+// holds d[4 j + 2 i + e] = row 16 w + g + 8 i, column 8 j + 2 t + e, which is
+// also the layout of the A operand from registers (per 16-column k step),
+// so S's fragments become P's without leaving registers.
+template <int D>
+__global__ void __launch_bounds__(wg::THREADS, 1)
+    flash_attn_wgmma(const FlashArgs a, const wg::Coords c,
+                     const __grid_constant__ CUtensorMap qmap,
+                     const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap) {
+  using L = wg::Lay<D>;
+  using Smm = wg::SS<L::BN>;
+  using Pvm = wg::RS<D>;
+  constexpr int BN = L::BN, ST = L::STAGES;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t q_full, k_full[ST], v_full[ST], empty[ST];
+  const uint32_t base = (hop::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const int tid = threadIdx.x;
+
+  // heads fastest (the rep heads of a KV head together), heaviest q tiles first
+  const int h = blockIdx.x, b = blockIdx.y, hg = h / a.rep;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * wg::BM;
+  const int rows = min(wg::BM, a.sq - q0);
+  const int kv_end = min(a.sk, a.kv_len);
+  // k tiles the causal mask or the window hides from every row of the block
+  int k_hi = kv_end;
+  if (a.causal) k_hi = min(k_hi, q0 + rows + a.q_offset);
+  int k_lo = 0;
+  if (a.window > 0) k_lo = max(0, q0 + a.q_offset - a.window + 1) / BN * BN;
+  const int n_tiles = k_hi > k_lo ? (k_hi - k_lo + BN - 1) / BN : 0;
+
+  if (tid == 0) {
+    hop::mbar_init(hop::smem_u32(&q_full), 1);
+    for (int s = 0; s < ST; ++s) {
+      hop::mbar_init(hop::smem_u32(&k_full[s]), 1);    // the producer's arrival + bytes
+      hop::mbar_init(hop::smem_u32(&v_full[s]), 1);
+      hop::mbar_init(hop::smem_u32(&empty[s]), 8);     // one per consumer warp
+    }
+    hop::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid < 128) {
+    // ---- producer: one thread issues every load ----
+    hop::regs_dec<40>();
+    if (tid == 0 && n_tiles > 0) {
+      const uint32_t qb = hop::smem_u32(&q_full);
+      hop::mbar_arrive_tx(qb, 2 * L::Q_WG);
+#pragma unroll
+      for (int w = 0; w < 2; ++w)
+#pragma unroll
+        for (int j = 0; j < L::DB; ++j)
+          hop::tma_load_4d(base + w * L::Q_WG + j * L::Q_BOX, &qmap, qb, j * wg::BOX,
+                           q0 + 64 * w, h * c.qh, b * c.qb);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % ST, k0 = k_lo + t * BN;
+        hop::mbar_wait(hop::smem_u32(&empty[s]), ((t / ST) & 1) ^ 1);
+        const uint32_t kb = hop::smem_u32(&k_full[s]), vb = hop::smem_u32(&v_full[s]);
+        hop::mbar_arrive_tx(kb, L::KV);
+#pragma unroll
+        for (int j = 0; j < L::DB; ++j)
+          hop::tma_load_4d(base + L::K_OFF + s * L::KV + j * L::KV_BOX, &kmap, kb, j * wg::BOX,
+                           k0, hg * c.kh, b * c.kb);
+        hop::mbar_arrive_tx(vb, L::KV);
+#pragma unroll
+        for (int j = 0; j < L::DB; ++j)
+          hop::tma_load_4d(base + L::V_OFF + s * L::KV + j * L::KV_BOX, &vmap, vb, j * wg::BOX,
+                           k0, hg * c.vh, b * c.vb);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup w owns rows q0 + 64 w .. q0 + 64 w + 63 ----
+  hop::regs_inc<232>();
+  const int w = tid / 128 - 1, warp = tid % 128 / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int qw = q0 + 64 * w, rows_w = min(64, a.sq - qw);
+  // the keys this warpgroup's rows can see, within the block's range
+  int hi_w = rows_w > 0 ? kv_end : 0;
+  if (a.causal) hi_w = min(hi_w, qw + rows_w + a.q_offset);
+  const int lo_w = a.window > 0 ? qw + a.q_offset - a.window + 1 : 0;
+  const int qpos0 = qw + warp * 16 + g + a.q_offset;      // rows qpos0 and qpos0 + 8
+  const float sl2 = a.scale * 1.4426950408889634f;        // scores in log2 units
+  const uint32_t qs = base + w * L::Q_WG;
+
+  float o[Pvm::R];
+#pragma unroll
+  for (int i = 0; i < Pvm::R; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  if (n_tiles > 0) hop::mbar_wait(hop::smem_u32(&q_full), 0);
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % ST, k0 = k_lo + it * BN;
+    const uint32_t ph = (it / ST) & 1;
+    const uint32_t ks = base + L::K_OFF + s * L::KV, vs = base + L::V_OFF + s * L::KV;
+    // every warpgroup waits for every tile, seen or not, so that its release
+    // of the stage below never runs a phase ahead of the producer
+    hop::mbar_wait(hop::smem_u32(&k_full[s]), ph);
+    if (k0 < hi_w && k0 + BN > lo_w) {
+      float sc[Smm::R];
+      hop::fence_regs(sc);
+      hop::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk % 4) * 32;                // k16 = 32 bytes of a row
+        Smm::mma(sc, hop::sw128_desc(qs + (kk / 4) * L::Q_BOX + off, 16, 1024),
+                 hop::sw128_desc(ks + (kk / 4) * L::KV_BOX + off, 16, 1024), kk > 0);
+      }
+      hop::wgmma_commit();
+      hop::wgmma_wait<0>();
+      hop::fence_regs(sc);
+
+      // mask only the tiles on the diagonal, past kv_len or on the window's edge
+      const bool edge = k0 + BN > kv_end || (a.causal && k0 + BN - 1 > qw + a.q_offset) ||
+                        (a.window > 0 && k0 < lo_w + rows_w - 1);
+      if (edge) {
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kpos = k0 + 8 * j + 2 * t4 + (e & 1), qpos = qpos0 + 8 * (e >> 1);
+            bool ok = kpos < kv_end;
+            if (a.causal) ok = ok && qpos >= kpos;
+            if (a.window > 0) ok = ok && qpos - kpos < a.window;
+            if (!ok) sc[4 * j + e] = -INFINITY;
+          }
+      }
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], sc[4 * j + e]);
+      float alpha[2], mu[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float m_new = fmaxf(m[i], mx[i] * sl2);
+        mu[i] = m_new == -INFINITY ? 0.f : m_new;      // a row with nothing visible yet
+        alpha[i] = exp2f(m[i] - mu[i]);
+        m[i] = m_new;
+      }
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = exp2f(fmaf(sc[4 * j + e], sl2, -mu[e >> 1]));
+          sc[4 * j + e] = p;
+          sum[e >> 1] += p;
+        }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + sum[i];   // this thread's columns
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[4 * j + e] *= alpha[e >> 1];
+      uint32_t pa[BN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) pa[kk][r] = pack(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+
+      hop::mbar_wait(hop::smem_u32(&v_full[s]), ph);
+      wg::fence_u32(pa);
+      hop::fence_regs(o);
+      hop::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+        Pvm::mma(o, pa[kk], hop::sw128_desc(vs + kk * 16 * 128, L::KV_BOX, 1024));
+      hop::wgmma_commit();
+      hop::wgmma_wait<0>();
+      hop::fence_regs(o);
+      wg::fence_u32(pa);
+    } else {
+      hop::mbar_wait(hop::smem_u32(&v_full[s]), ph);
+    }
+    __syncwarp();
+    if (lane == 0) hop::mbar_arrive(hop::smem_u32(&empty[s]));
+  }
+
+  // O / l, rows past Sq not stored; a row that saw no key has l = 0 and O = 0
+  __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(a.out) + b * a.o_sb + h * a.o_sh;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const int r = qw + warp * 16 + g + 8 * i - q0;
+    if (r >= rows) continue;
+    const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
+    __nv_bfloat16* orow = ob + static_cast<long long>(q0 + r) * a.o_ss + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+          __floats2bfloat162_rn(o[4 * j + 2 * i] * inv, o[4 * j + 2 * i + 1] * inv);
+  }
+}
+
 template <typename T, int D>
 cudaError_t launch(const FlashArgs& a, int batch, int heads, cudaStream_t stream) {
   constexpr size_t smem = flash_smem_bytes<D>();
@@ -444,42 +887,147 @@ cudaError_t launch_mma(const FlashArgs& a, int batch, int heads, cudaStream_t st
   return cudaGetLastError();
 }
 
-// float32 and head_dim 256 run on the CUDA cores; bf16 up to 192 on the
-// tensor cores (48 and 192 are MLA's heads: qk_nope + qk_rope of the
-// reduced and the published deepseek-v3)
-template <typename T>
-cudaError_t dispatch(int head_dim, const FlashArgs& a, int batch, int heads, cudaStream_t s) {
-  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+// ---- tensor maps: encoded once, kept by (pointer, shape, strides, box) ----
+
+struct MapKey {
+  const void* base;
+  long long ss, sh, sb;
+  int d, rows, heads, batch, box_rows, pad;
+};
+
+struct MapEntry {
+  MapKey key;
+  CUtensorMap map;
+  int hm, bm;
+  bool used;
+};
+
+constexpr int kMapSlots = 64;
+std::mutex map_mu;
+MapEntry map_cache[kMapSlots];
+
+// x (B, heads, rows, D) with element strides sb, sh, ss and unit stride
+// along D, as the 4-D map (D, rows, heads, B) with boxes of 64 columns x
+// box_rows rows.  A head or batch dim that the view broadcasts (stride 0)
+// becomes a dim of 1 read at coordinate 0 (*hm, *bm = 0; else 1); the stride
+// of a dim of 1 is never used and is set to a packed one.  Returns a CUresult
+// (0 = success).
+int encode_rows(CUtensorMap* map, int* hm, int* bm, const void* base, int d, int rows,
+                int heads, int batch, long long ss, long long sh, long long sb, int box_rows) {
+  MapKey key;
+  std::memset(&key, 0, sizeof key);
+  key.base = base;
+  key.ss = ss;
+  key.sh = sh;
+  key.sb = sb;
+  key.d = d;
+  key.rows = rows;
+  key.heads = heads;
+  key.batch = batch;
+  key.box_rows = box_rows;
+  uint64_t hash = 1469598103934665603ull;          // FNV-1a over the key's bytes
+  const unsigned char* p = reinterpret_cast<const unsigned char*>(&key);
+  for (size_t i = 0; i < sizeof key; ++i) hash = (hash ^ p[i]) * 1099511628211ull;
+  MapEntry& slot = map_cache[hash % kMapSlots];
+  std::lock_guard<std::mutex> lock(map_mu);
+  if (slot.used && std::memcmp(&slot.key, &key, sizeof key) == 0) {
+    *map = slot.map;
+    *hm = slot.hm;
+    *bm = slot.bm;
+    return 0;
+  }
+  if (rows > 1 && ss == 0) return CUDA_ERROR_INVALID_VALUE;
+  const uint64_t row_bytes = static_cast<uint64_t>(d) * 2;
+  const uint64_t s_rows = rows > 1 ? static_cast<uint64_t>(ss) * 2 : row_bytes;
+  const bool h_on = heads > 1 && sh != 0, b_on = batch > 1 && sb != 0;
+  const uint64_t s_heads = h_on ? static_cast<uint64_t>(sh) * 2 : s_rows * rows;
+  const uint64_t s_batch = b_on ? static_cast<uint64_t>(sb) * 2 : s_heads * (h_on ? heads : 1);
+  const uint64_t dims[4] = {static_cast<uint64_t>(d), static_cast<uint64_t>(rows),
+                            static_cast<uint64_t>(h_on ? heads : 1),
+                            static_cast<uint64_t>(b_on ? batch : 1)};
+  const uint64_t strides[3] = {s_rows, s_heads, s_batch};
+  const uint32_t box[4] = {static_cast<uint32_t>(wg::BOX), static_cast<uint32_t>(box_rows), 1, 1};
+  const int res = hop::encode_bf16(map, base, 4, dims, strides, box);
+  if (res != 0) return res;
+  *hm = h_on;
+  *bm = b_on;
+  slot.key = key;
+  slot.map = *map;
+  slot.hm = *hm;
+  slot.bm = *bm;
+  slot.used = true;
+  return 0;
+}
+
+template <int D>
+cudaError_t launch_wgmma(const FlashArgs& a, int batch, int heads, cudaStream_t stream) {
+  using L = wg::Lay<D>;
+  const int kv_end = a.sk < a.kv_len ? a.sk : a.kv_len;
+  CUtensorMap qmap, kmap, vmap;
+  std::memset(&kmap, 0, sizeof kmap);
+  std::memset(&vmap, 0, sizeof vmap);
+  wg::Coords c{0, 0, 0, 0, 0, 0};
+  if (encode_rows(&qmap, &c.qh, &c.qb, a.q, D, a.sq, heads, batch, a.q_ss, a.q_sh, a.q_sb,
+                  64) != 0)
+    return cudaErrorNotSupported;
+  // with no key to read (kv_len 0) no block loads K or V: the maps stay empty
+  if (kv_end > 0 &&
+      (encode_rows(&kmap, &c.kh, &c.kb, a.k, D, kv_end, heads / a.rep, batch, a.k_ss, a.k_sh,
+                   a.k_sb, L::BN) != 0 ||
+       encode_rows(&vmap, &c.vh, &c.vb, a.v, D, kv_end, heads / a.rep, batch, a.v_ss, a.v_sh,
+                   a.v_sb, L::BN) != 0))
+    return cudaErrorNotSupported;
+  cudaError_t err = rt::allow_smem(flash_attn_wgmma<D>, L::SMEM);
+  if (err != cudaSuccess) return err;
+  const int q_tiles = (a.sq + wg::BM - 1) / wg::BM;
+  if (q_tiles > 65535 || batch > 65535) return cudaErrorInvalidValue;
+  const dim3 grid(heads, batch, q_tiles);
+  flash_attn_wgmma<D><<<grid, wg::THREADS, L::SMEM, stream>>>(a, c, qmap, kmap, vmap);
+  return cudaGetLastError();
+}
+
+// design: 0 = CUDA cores (float32), 1 = mma.sync (bf16 head_dim <= 64),
+// 2 = wgmma + TMA (bf16 head_dim 128, 192, 256); `ops.flash_path` picks it
+cudaError_t dispatch(int dtype, int design, int head_dim, const FlashArgs& a, int batch,
+                     int heads, cudaStream_t s) {
+  if (dtype == 0 && design == 0) {
+    switch (head_dim) {
+      case 32: return launch<float, 32>(a, batch, heads, s);
+      case 48: return launch<float, 48>(a, batch, heads, s);
+      case 64: return launch<float, 64>(a, batch, heads, s);
+      case 128: return launch<float, 128>(a, batch, heads, s);
+      case 192: return launch<float, 192>(a, batch, heads, s);
+      case 256: return launch<float, 256>(a, batch, heads, s);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  if (dtype == 1 && design == 1) {
     switch (head_dim) {
       case 32: return launch_mma<32>(a, batch, heads, s);
       case 48: return launch_mma<48>(a, batch, heads, s);
       case 64: return launch_mma<64>(a, batch, heads, s);
-      case 128: return launch_mma<128>(a, batch, heads, s);
-      case 192: return launch_mma<192>(a, batch, heads, s);
-      case 256: return launch<T, 256>(a, batch, heads, s);
-      default: return cudaErrorInvalidValue;
-    }
-  } else {
-    switch (head_dim) {
-      case 32: return launch<T, 32>(a, batch, heads, s);
-      case 48: return launch<T, 48>(a, batch, heads, s);
-      case 64: return launch<T, 64>(a, batch, heads, s);
-      case 128: return launch<T, 128>(a, batch, heads, s);
-      case 192: return launch<T, 192>(a, batch, heads, s);
-      case 256: return launch<T, 256>(a, batch, heads, s);
       default: return cudaErrorInvalidValue;
     }
   }
+  if (dtype == 1 && design == 2) {
+    switch (head_dim) {
+      case 128: return launch_wgmma<128>(a, batch, heads, s);
+      case 192: return launch_wgmma<192>(a, batch, heads, s);
+      case 256: return launch_wgmma<256>(a, batch, heads, s);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
-// launch (0 = launched).  Launches on `stream`, allocates nothing and does
-// not synchronise.
+// dtype: 0 = float32, 1 = bfloat16; design as `dispatch` reads it.  Returns
+// cudaGetLastError() after the launch (0 = launched).  Launches on
+// `stream`, allocates nothing and does not synchronise.
 extern "C" int flash_attention_launch(
-    int dtype, int head_dim, const void* q, const void* k, const void* v, void* out,
-    int batch, int heads, int rep, int sq, int sk,
+    int dtype, int design, int head_dim, const void* q, const void* k, const void* v,
+    void* out, int batch, int heads, int rep, int sq, int sk,
     long long q_sb, long long q_sh, long long q_ss, long long k_sb, long long k_sh,
     long long k_ss, long long v_sb, long long v_sh, long long v_ss, long long o_sb,
     long long o_sh, long long o_ss, int causal, int window, int q_offset, int kv_len,
@@ -489,9 +1037,6 @@ extern "C" int flash_attention_launch(
   const FlashArgs a{q, k, v, out, rep, sq, sk,
                     q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,
                     causal, window, q_offset, kv_len, scale};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = dtype == 0   ? dispatch<float>(head_dim, a, batch, heads, s)
-                    : dtype == 1 ? dispatch<__nv_bfloat16>(head_dim, a, batch, heads, s)
-                                 : cudaErrorInvalidValue;
-  return static_cast<int>(err);
+  return static_cast<int>(
+      dispatch(dtype, design, head_dim, a, batch, heads, static_cast<cudaStream_t>(stream)));
 }

@@ -25,7 +25,8 @@ gradient and training would go silently wrong.
 Each wrapper counts the kernels it launches in ``LAUNCHES`` (on the card
 only), so a run can show that its main path went through the kernels.
 ``stream_mac_conv`` and ``tiled_matmul`` choose between two designs by
-shape; ``PATHS`` names the one their last card call took.  A
+shape and ``flash_attention`` among three by dtype and head dim
+(``flash_path``); ``PATHS`` names the one their last card call took.  A
 paged-decode call whose pages are split over blocks launches two: the
 partial pass and the merge of its splits; a ``stream_gd_foreach`` or
 ``paged_gather_many`` call whose list outgrows one launch's table
@@ -52,6 +53,9 @@ _count_lock = threading.Lock()
 PATHS: dict[str, str] = {}
 CONV_PATHS = ("mma.sync 128x64", "wgmma+TMA 128x64", "wgmma+TMA 128x128", "wgmma+TMA 128x256")
 MATMUL_PATHS = ("tiles 64x128", "TMA weight stream 16x128")
+# flash attention's designs (rows x keys per tile) and the code the launch takes
+FLASH_PATHS = {"CUDA cores": 0, "mma.sync 64x64": 1, "wgmma+TMA 128x128": 2,
+               "wgmma+TMA 128x64": 2}
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
@@ -62,7 +66,7 @@ _SIGNATURES = {
     ),
     "flash_attention_launch": (
         "flash_attention",
-        [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+        [_I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
          _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _I, _I, _I, _I, _F, _P],
     ),
     "stream_mac_conv_launch": (
@@ -195,6 +199,23 @@ def _launched(lib, name: str, err: int, kernels: int = 1) -> None:
     _count(name, kernels)
 
 
+def flash_path(dtype: torch.dtype, head_dim: int) -> str:
+    """The design ``flash_attention`` launches on the card for ``dtype`` and
+    ``head_dim``: float32 on the CUDA cores (the card-against-CPU check
+    type), bf16 at the reduced head dims (32, 48, 64) on mma.sync, and bf16
+    at the served ones on wgmma + TMA, 128 query rows by 128 keys per tile
+    at 128 and by 64 at 192 and 256 (where O's registers leave room for no
+    more)."""
+    if head_dim not in FLASH_HEAD_DIMS or dtype not in _DTYPES:
+        raise ValueError(f"flash_attention: no design for head_dim {head_dim} in {dtype} "
+                         f"(head dims {FLASH_HEAD_DIMS}, float32 or bfloat16)")
+    if dtype == torch.float32:
+        return "CUDA cores"
+    if head_dim <= 64:
+        return "mma.sync 64x64"
+    return "wgmma+TMA 128x128" if head_dim == 128 else "wgmma+TMA 128x64"
+
+
 def flash_attention(
     q: torch.Tensor,              # (B, H, Sq, D)
     k: torch.Tensor,              # (B, Hkv, Sk, D)
@@ -224,16 +245,17 @@ def flash_attention(
             or k.shape[3] != d:
         raise ValueError(f"flash_attention: unsupported shapes q {tuple(q.shape)}"
                          f" k {tuple(k.shape)} v {tuple(v.shape)}")
+    path = flash_path(q.dtype, d)
     # (B, Sq, H, D) storage: the model's next step merges heads for free
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
     lib, fn = _entry("flash_attention_launch")
-    err = fn(code, d, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             b, h, h // hkv, sq, sk, *q.stride()[:3], *k.stride()[:3],
+    err = fn(code, FLASH_PATHS[path], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+             out.data_ptr(), b, h, h // hkv, sq, sk, *q.stride()[:3], *k.stride()[:3],
              *v.stride()[:3], *out.stride()[:3], int(causal),
              0 if window is None else int(window), int(q_offset),
-             sk if kv_len is None else max(0, int(kv_len)), scale,
-             torch.cuda.current_stream(q.device).cuda_stream)
+             sk if kv_len is None else max(0, int(kv_len)), scale, _raw_stream(q.device))
     _launched(lib, "flash_attention", err)
+    PATHS["flash_attention"] = path
     return out
 
 

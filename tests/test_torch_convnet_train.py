@@ -135,6 +135,43 @@ def test_maxpool_backward_over_relu_ties_matches_jax(pool):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6, rtol=0)
 
 
+# (H, W, Ci, Co, KH, KW, stride, padding): the small net's 3x3 / pad 1, a
+# strided 2x2 with no padding, AlexNet's conv1 shape cut in width (11x11 / 4)
+EXACT_WGRAD_CASES = [(8, 8, 16, 32, 3, 3, (1, 1), (1, 1)),
+                     (9, 7, 5, 6, 2, 2, (2, 2), (0, 0)),
+                     (23, 23, 3, 8, 11, 11, (4, 4), (2, 2))]
+
+
+@pytest.mark.parametrize("case", EXACT_WGRAD_CASES, ids=["3x3s1p1", "2x2s2", "11x11s4p2"])
+def test_conv2d_exact_wgrad_matches_jax(case):
+    """``conv2d_exact_wgrad`` (the card's float32 convolution in ``impl="xla"``,
+    weight gradient by im2col) against JAX's ``_conv_xla`` and its VJP: values
+    and both gradients at the module's tolerance, and exact zeros where an
+    input channel is all zero (as in the reference's direct convolution)."""
+    h, w_, ci, co, kh, kw, stride, padding = case
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((2, h, w_, ci)).astype(np.float32)
+    x[..., 0] = 0.0                                   # a dead input channel
+    wt = rng.standard_normal((kh, kw, ci, co)).astype(np.float32)
+    layer = tconvnet.ConvLayerSpec("conv", h, w_, ci, co, kh, kw, stride[0], stride[1],
+                                   padding[0], padding[1], "conv", False)
+    jl = jtiling.ConvLayerSpec(**dataclasses.asdict(layer))
+    want, vjp = jax.vjp(lambda a, b: jconvnet._conv_xla(a, b, jl), jnp.asarray(x),
+                        jnp.asarray(wt))
+    gout = rng.standard_normal(want.shape).astype(np.float32)
+    want_gx, want_gw = vjp(jnp.asarray(gout))
+    tx = torch.from_numpy(x).requires_grad_()
+    tw = torch.from_numpy(wt).requires_grad_()
+    got = tconvnet._nhwc(tconvnet.conv2d_exact_wgrad(tconvnet._nchw(tx), tw.permute(3, 2, 0, 1),
+                                                     stride, padding))
+    gx, gw = torch.autograd.grad(got, (tx, tw), torch.from_numpy(gout))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
+    for g, w in ((gx, want_gx), (gw, want_gw)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
+                                   atol=1e-4 * float(np.abs(w).max()))
+    assert np.all(np.asarray(want_gw)[:, :, 0] == 0) and torch.all(gw[:, :, 0] == 0)
+
+
 def test_kernel_executor_still_refuses_grad():
     layers, _, jparams, x, labels = _setup("small")
     params = convert.params_from_numpy(_np_tree(jparams))

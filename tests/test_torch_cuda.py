@@ -36,6 +36,28 @@ def card():
     return torch.device("cuda")
 
 
+def _flash_design(dtype: str, d: int) -> tuple[str, str]:
+    """(compiled kernel, ``ops.PATHS`` entry) that a flash call must take:
+    float32 on the CUDA cores, bf16 on mma.sync at D <= 64 and on wgmma +
+    TMA at the served head dims (128 keys a tile at D 128, 64 above)."""
+    if dtype == "float32":
+        return f"flash_attn_fwd<float, {d}>", "CUDA cores"
+    if d <= 64:
+        return f"flash_attn_mma<{d}>", "mma.sync 64x64"
+    return f"flash_attn_wgmma<{d}>", f"wgmma+TMA 128x{128 if d == 128 else 64}"
+
+
+def _profiled(fn):
+    """``fn()`` and the names of the device kernels it launched."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    names = {e.key.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0]
+             for e in prof.key_averages() if str(getattr(e, "device_type", "")).endswith("CUDA")}
+    return out, names
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("d,h,hkv,sq,sk,q_offset,kv_len,window", [
     (128, 16, 2, 77, 77, 0, None, None),
@@ -48,6 +70,25 @@ def card():
     (48, 4, 4, 40, 40, 0, None, None),
     (192, 8, 8, 100, 100, 0, None, None),
     (192, 8, 8, 64, 256, 128, 192, None),
+    # the wgmma design's served shapes at small length: D 128 at rep 16
+    # (qwen3-moe), D 192 with H = Hkv, D 256 at rep 16 with a window
+    (128, 16, 1, 150, 150, 0, None, None),
+    (128, 64, 4, 200, 200, 0, None, None),
+    (192, 16, 16, 300, 300, 0, None, None),
+    (256, 16, 1, 333, 333, 0, None, 100),
+    # chunks at a nonzero q_offset against a longer kv_len
+    (128, 16, 2, 70, 300, 200, 270, None),
+    (256, 16, 1, 100, 400, 250, 350, 64),
+    # Sq and Sk multiples of no tile
+    (192, 16, 16, 131, 197, 0, None, None),
+    (128, 8, 2, 131, 197, 50, None, None),
+    # kv_len 0: every row reads zeros
+    (192, 4, 4, 40, 64, 0, 0, None),
+    (128, 16, 2, 40, 64, 10, 0, None),
+    # fully masked rows: the whole chunk past the window's reach, and a
+    # chunk whose first rows see nothing (window 16 behind a short kv_len)
+    (256, 16, 1, 4, 64, 80, 40, 8),
+    (128, 16, 2, 96, 160, 20, 30, 16),
 ])
 def test_flash_kernel_matches_plain(card, dtype, d, h, hkv, sq, sk, q_offset, kv_len, window):
     dt = getattr(torch, dtype)
@@ -57,9 +98,65 @@ def test_flash_kernel_matches_plain(card, dtype, d, h, hkv, sq, sk, q_offset, kv
     v = torch.randn(1, sk, hkv, d, generator=g, device=card).to(dt).transpose(1, 2)
     kw = dict(causal=True, q_offset=q_offset, kv_len=kv_len, window=window)
     before = ops.LAUNCHES["flash_attention"]
-    got = ops.flash_attention(q, k, v, **kw)
-    torch.cuda.synchronize()
+    got, names = _profiled(lambda: ops.flash_attention(q, k, v, **kw))
     assert ops.LAUNCHES["flash_attention"] == before + 1
+    kernel, design = _flash_design(dtype, d)
+    assert names == {kernel} and ops.PATHS["flash_attention"] == design
+    want = ref.flash_attention(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), **(F32 if dtype == "float32" else BF16))
+    # rows that see no key are zeros, exactly
+    qpos = torch.arange(sq, device=card)[:, None] + q_offset
+    kpos = torch.arange(sk, device=card)[None, :]
+    seen = (kpos < (sk if kv_len is None else kv_len)) & (qpos >= kpos)
+    if window is not None:
+        seen &= qpos - kpos < window
+    assert torch.all(got[:, :, ~seen.any(1)] == 0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d,h", [(128, 16), (192, 8), (256, 4)])
+def test_flash_kernel_reads_strided_views(card, dtype, d, h):
+    """q sliced from a wider projection (head stride 2 D, not D), k the
+    concatenation of a per-head part and one part expanded over the heads
+    (MLA's ``torch.cat``) and v an expand over the KV heads (head stride 0),
+    each read where it lies."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=card).manual_seed(3)
+    s = 150
+    q = torch.randn(1, s, h, 2 * d, generator=g, device=card).to(dt)[..., :d].transpose(1, 2)
+    k_nope = torch.randn(1, s, h, d - 64, generator=g, device=card).to(dt)
+    k_rope = torch.randn(1, s, 1, 64, generator=g, device=card).to(dt)
+    k = torch.cat([k_nope, k_rope.expand(1, s, h, 64)], dim=-1).transpose(1, 2)
+    v = torch.randn(1, s, 1, d, generator=g, device=card).to(dt).expand(1, s, h, d)
+    v = v.transpose(1, 2)
+    assert q.stride(1) == 2 * d and v.stride(1) == 0
+    got, names = _profiled(lambda: ops.flash_attention(q, k, v, causal=True))
+    kernel, design = _flash_design(dtype, d)
+    assert names == {kernel} and ops.PATHS["flash_attention"] == design
+    want = ref.flash_attention(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(), **(F32 if dtype == "float32" else BF16))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d,h,hkv,window", [(128, 16, 2, None), (192, 8, 8, None),
+                                            (256, 16, 1, 64)])
+@pytest.mark.parametrize("expand", [False, True], ids=["batch", "kv_expanded"])
+def test_flash_kernel_batch_of_two(card, dtype, d, h, hkv, window, expand):
+    """A batch of 2 (a batched prefill) at each served head dim, a chunk at a
+    nonzero q_offset against a longer kv_len; ``kv_expanded``: k and v one
+    slice expanded over the batch (batch stride 0)."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=card).manual_seed(4)
+    sq, sk, q_offset, kv_len = 150, 300, 100, 250
+    q = torch.randn(2, sq, h, d, generator=g, device=card).to(dt).transpose(1, 2)
+    k, v = (torch.randn(1 if expand else 2, sk, hkv, d, generator=g, device=card).to(dt)
+            .expand(2, sk, hkv, d).transpose(1, 2) for _ in range(2))
+    assert (k.stride(0) == 0) == expand
+    kw = dict(causal=True, q_offset=q_offset, kv_len=kv_len, window=window)
+    before = ops.LAUNCHES["flash_attention"]
+    got, names = _profiled(lambda: ops.flash_attention(q, k, v, **kw))
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    assert names == {_flash_design(dtype, d)[0]}
     want = ref.flash_attention(q, k, v, **kw)
     torch.testing.assert_close(got.float(), want.float(), **(F32 if dtype == "float32" else BF16))
 
@@ -477,6 +574,37 @@ def test_convnet_logits_on_card_match_cpu(card, impl):
             ops.LAUNCHES["tiled_matmul"]) == (convs, 5, 3)
     torch.testing.assert_close(got.cpu(), want, **F32)
     assert torch.equal(got.cpu().argmax(-1), want.argmax(-1))
+
+
+def test_convnet_weight_grads_on_card_keep_the_cpu_zeros(card):
+    """float32 ``impl="xla"`` gradients of the small ConvNet on the card with
+    cuDNN on (TF32 off): every element that is exactly 0 on the CPU is 0 on
+    the card, and the rest match.  cuDNN's own weight gradient (a Winograd
+    transform at conv4) left 575 such elements near 5e-8."""
+    from repro_torch.core.convnet import ConvNetExecutor, make_small_convnet
+    from repro_torch.data.pipeline import SyntheticImageData
+    from repro_torch.models.common import tree_items, tree_map
+    from repro_torch.train.train_step import value_and_grad
+
+    exe = ConvNetExecutor(make_small_convnet(10, 16, 16), impl="xla")
+    params = exe.init(torch.Generator().manual_seed(0), "cpu")
+    x, y = (torch.from_numpy(a) for a in
+            SyntheticImageData(px=16, channels=3, classes=10, batch=32).next())
+    _, want = value_and_grad(exe.loss_fn, params, x, y)
+    tf32, on = torch.backends.cudnn.allow_tf32, torch.backends.cudnn.enabled
+    torch.backends.cudnn.allow_tf32, torch.backends.cudnn.enabled = False, True
+    try:
+        _, got = value_and_grad(exe.loss_fn, tree_map(lambda t: t.to(card), params),
+                                x.to(card), y.to(card))
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cudnn.enabled = tf32, on
+    zeros = 0
+    for (path, w), (_, g) in zip(tree_items(want), tree_items(got)):
+        g = g.cpu()
+        zeros += int((w == 0).sum())
+        assert not bool(((w == 0) & (g != 0)).any()), path
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4 * float(w.abs().max()))
+    assert zeros > 0                     # the net has dead channels to keep
 
 
 # (streams' types, output type, in place): the optimizer's launches (sgd; the

@@ -32,6 +32,10 @@ FLASH_CASES = [
     ("window", 1, 4, 2, 32, 32, 32, True, 8, 0, None),
     ("kv_len", 1, 4, 2, 8, 32, 32, True, None, 12, 20),
     ("fully_masked_rows", 1, 4, 2, 4, 16, 32, True, 4, 20, 8),
+    # the ratios and head dims the card's wgmma design serves: rep 16 at D 128
+    # (qwen3-moe), and at D 256 a windowed chunk at an offset (recurrentgemma)
+    ("rep16_d128", 1, 16, 1, 24, 24, 128, True, None, 0, None),
+    ("rep16_d256_window_chunk", 1, 16, 1, 8, 40, 256, True, 16, 24, 36),
 ]
 
 
@@ -60,6 +64,27 @@ def test_flash_attention_matches_jax(case):
     np.testing.assert_allclose(got, pallas, **TOL)
     if case[0] == "fully_masked_rows":
         assert np.all(got == 0.0)
+
+
+# (dtype, head dim) -> the design the card launches; the table ``flash_path`` holds
+FLASH_DESIGNS = [(torch.float32, d, "CUDA cores") for d in tops.FLASH_HEAD_DIMS] + [
+    (torch.bfloat16, 32, "mma.sync 64x64"), (torch.bfloat16, 48, "mma.sync 64x64"),
+    (torch.bfloat16, 64, "mma.sync 64x64"), (torch.bfloat16, 128, "wgmma+TMA 128x128"),
+    (torch.bfloat16, 192, "wgmma+TMA 128x64"), (torch.bfloat16, 256, "wgmma+TMA 128x64")]
+
+
+@pytest.mark.parametrize("dtype,d,path", FLASH_DESIGNS,
+                         ids=[f"{str(t)[6:]}-{d}" for t, d, _ in FLASH_DESIGNS])
+def test_flash_design_table(dtype, d, path):
+    assert tops.flash_path(dtype, d) == path
+    assert path in tops.FLASH_PATHS
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 96), (torch.float32, 512),
+                                     (torch.float16, 128)])
+def test_flash_design_table_refuses_what_has_no_design(dtype, d):
+    with pytest.raises(ValueError, match="no design"):
+        tops.flash_path(dtype, d)
 
 
 def _paged_inputs(h, hkv, d=32, ps=4, lens=(5, 0, 11), seed=0):
