@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port's main path on one NVIDIA card and check it.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --flash-times [--src DIR]
+    python3 chip_smoke.py --attn-times [--src DIR]
 
 Run from the root of a checkout (it imports ``src/repro_torch`` beside it;
 it never imports JAX or the ``repro`` package).  It drives the port's
@@ -33,16 +33,20 @@ each fatal:
    heads = KV heads of head_dim 192, on a 1,024-token prompt and a chunk,
    at qwen3-moe's 64 query heads over 4 KV heads of 128 on a 1,024-token
    prompt, and the reduced model's head_dim 48; ``paged_decode_attention``
-   at qwen3-moe's 64 query heads over 4 KV heads), logged with their times
-   but not in the JSON line; each flash case logs the design it took
+   at qwen3-moe's 64 query heads over 4 KV heads, on ragged lanes and at
+   its served context of ~1,036 tokens over 128 slots), logged with their
+   times but not in the JSON line; each paged case logs its design
+   (``ops.PATHS``) and its launches per call (one); each flash case logs the design it took
    (``ops.PATHS``) and must have launched its design's compiled kernel
    by the profiler's name (``flash_kernel_name``); four flash cases run at
    batch 2, two of them with k and v one slice expanded over the batch;
    the served flash shapes (qwen2.5-3b's 512-token
    prefill, recurrentgemma's prompt and chunk, the MLA and qwen3-moe
-   prompts) and both paged-decode shapes are timed by CUDA events, by the
+   prompts) and the three paged-decode shapes are timed by CUDA events, by the
    profiler's device time and by the host's issue time per call against
-   SDPA in turns, ``ssd_scan``'s prompt by the same three alone;
+   SDPA in turns, each paged row beside the device time of an empty
+   kernel's launch (the floor under any launch) and its own device time
+   with every lane empty, ``ssd_scan``'s prompt by the same three alone;
    ``paged_gather``, one launch per call,
    bit-equal, 8 lanes with -1 holes: a full-width qwen2.5-3b cache leaf
    (36 layers, 64 slots; the JSON line's case), one recurrentgemma
@@ -66,7 +70,8 @@ each fatal:
    prefill: the greedy tokens must be identical;
 4. serve 16 requests at the full width of qwen2.5-3b (36 layers, bf16,
    seeded random weights) with 8 lanes, max_len 1024 and 16-token pages;
-   every request must finish and both attention kernels must have launched;
+   every request must finish, both attention kernels must have launched,
+   ``paged_decode_attention`` exactly once per layer per decode step;
 5. run a narrow VGG16 (channels / 16, 32-px input) in float32 on the card
    (kernels) and on the CPU (plain versions) with the same weights: the
    logits must agree within 1e-4 and the argmax must be equal;
@@ -167,11 +172,13 @@ each fatal:
     dispatch range, the rest) and the decode step with its busy share and
     launches;
 20. the same for qwen3-moe-235b-a22b cut to 10 layers, whose GQA layers
-    decode through ``paged_decode_attention`` (64 over 4 heads).
+    decode through ``paged_decode_attention`` (64 over 4 heads), exactly
+    one launch per layer per decode step.
 
-``--flash-times`` runs only phase 2's timed flash rows (the served bf16
-prefill shapes, each held to its plain version and timed against SDPA in
-turns) and prints one JSON line of their times; ``--src`` names the
+``--attn-times`` runs only phase 2's timed attention rows (the served bf16
+flash prefill shapes and the three paged-decode shapes, each held to its
+plain version and timed against SDPA in turns) and prints one JSON line of
+their times; ``--src`` names the
 ``src`` directory whose ``repro_torch`` it times, so another commit
 unpacked under ``build/`` (``git archive``) can be timed in the same call,
 one process each: parent, change, change, parent.
@@ -276,7 +283,7 @@ def ptxas_report(text: str) -> list[str]:
     types = {"f": "f32", "13__nv_bfloat16": "bf16", "5uint4": "16 B", "5uint2": "8 B",
              "j": "4 B", "t": "2 B", "h": "1 B", None: ""}
     for line in text.splitlines():
-        m = re.search(r"Compiling entry function '.*?(paged_decode_attn|paged_combine|"
+        m = re.search(r"Compiling entry function '.*?(paged_decode_mma|paged_decode_fma|"
                       r"flash_attn_fwd|flash_attn_mma|flash_attn_wgmma|conv_igemm_wgmma|conv_igemm|"
                       r"maxpool_valid|matmul_tiled_stream|matmul_tiled|"
                       r"ssd_chunk_scan|paged_gather_bulk|stream_gd_update)"
@@ -396,6 +403,10 @@ def log_row(row) -> None:
         if row["library_device_ms"] is not None:
             extra += (f" ({KERNELS[row['name']][2]} device {row['library_device_ms']:.4f}, "
                       f"host {row['library_host_ms']:.4f})")
+    if row.get("floor_ms") is not None:
+        extra += f"; empty-launch floor {row['floor_ms']:.4f} ms (device)"
+    if "empty_ms" in row:
+        extra += f"; every lane empty {row['empty_ms']:.4f} ms (device)"
     log(f"  timing {row['shape']}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
         f"{lib}, bound {row['bound_ms']:.4f} ms ({row['bound_by']}){extra}")
 
@@ -405,22 +416,65 @@ def log_row(row) -> None:
 # ---------------------------------------------------------------------------
 
 
-def paged_case(dtype, timed: bool, h=H, hkv=HKV, label="qwen2.5-3b"):
-    """Paged decode of 8 lanes at up to 1,024 tokens, holes in two tables;
-    ``h`` query heads over ``hkv`` KV heads of head_dim D."""
+# lane lengths of the paged-decode cases: ragged up to 1,024 tokens over 64
+# slots (two tables with holes), and qwen3-moe's served decode (phase 20:
+# 8 lanes at ~1,036 tokens, max_len 2,048 = 128 slots, no holes)
+PAGED_RAGGED = [0, 1, 17, 100, 1024, 513, 64, 999]
+PAGED_SERVED_MOE = [1036, 1029, 1041, 1033, 1038, 1031, 1044, 1036]
+
+
+def empty_launch_ms() -> float | None:
+    """Device time (profiler) of one launch of a kernel that does nothing:
+    the floor no single launch goes under.  None for a ``repro_torch``
+    whose library has no such kernel (an older commit)."""
+    import ctypes
+
+    from repro_torch.kernels import build
+
+    fn = getattr(build.library("paged_attn"), "paged_decode_empty_launch", None)
+    if fn is None:
+        return None
+    fn.argtypes = [ctypes.c_void_p]
+    stream = torch.cuda.current_stream().cuda_stream
+    return device_ms(lambda: fn(stream), 50)
+
+
+def profiled_kernels(fn) -> list[str]:
+    """The names of the device kernels one call of ``fn`` launches."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key.replace("(anonymous namespace)::", "").replace("void ", "")
+                   .split("(")[0][:60] for e in prof.key_averages()
+                   if str(getattr(e, "device_type", "")).endswith("CUDA")})
+
+
+def paged_case(dtype, timed: bool, h=H, hkv=HKV, label="qwen2.5-3b", lens=None,
+               slots=1024 // PS, holes=True, floor=None, design=True):
+    """Paged decode of 8 lanes (``lens``, default ``PAGED_RAGGED``) over
+    ``slots``-slot tables, with holes in two tables when ``holes``; ``h``
+    query heads over ``hkv`` KV heads of head_dim D.  With ``design`` a call
+    must be one launch of the compiled kernel its dtype calls for
+    (``paged_decode_mma<D>`` in bf16, ``paged_decode_fma<D>`` in float32).
+    Timed, the row also
+    holds ``floor`` (``empty_launch_ms``), logged beside the bound, and the
+    device time of the same call with every lane empty (``empty_ms``): the
+    kernel's work around its loads (staging, merging, barriers) alone."""
     from repro_torch.kernels import ops, ref
 
     F = torch.nn.functional
-    lens = [0, 1, 17, 100, 1024, 513, 64, 999]
-    b, p = len(lens), 1024 // PS
+    lens = PAGED_RAGGED if lens is None else lens
+    b, p = len(lens), slots
     n_pages = b * p + 8
     gen = torch.Generator(device="cuda").manual_seed(1)
     perm = torch.randperm(n_pages, generator=gen, device="cuda")[: b * p]
     bt = perm.reshape(b, p).to(torch.int32)
     for i, n in enumerate(lens):
         bt[i, -(-n // PS):] = -1
-    bt[3, 2] = -1                                 # a hole inside lane 3's length
-    bt[6, 0] = -1                                 # and one at lane 6's start
+    if holes:
+        bt[3, 2] = -1                             # a hole inside lane 3's length
+        bt[6, 0] = -1                             # and one at lane 6's start
     q = torch.randn(b, h, D, generator=gen, device="cuda").to(dtype)
     kp = torch.randn(n_pages, PS, hkv, D, generator=gen, device="cuda").to(dtype)
     vp = torch.randn(n_pages, PS, hkv, D, generator=gen, device="cuda").to(dtype)
@@ -434,9 +488,18 @@ def paged_case(dtype, timed: bool, h=H, hkv=HKV, label="qwen2.5-3b"):
     def kernel():
         return ops.paged_attention(q, kp, vp, bt, ln)
 
+    before = ops.LAUNCHES["paged_decode_attention"]
     out, want = kernel(), plain()
     torch.cuda.synchronize()
+    launched = ops.LAUNCHES["paged_decode_attention"] - before
     err = check_close(f"paged_decode_attention[{label}]", out, want, dtype)
+    names = profiled_kernels(kernel)
+    log(f"    design: {ops.PATHS.get('paged_decode_attention', 'one design')}, {launched} "
+        f"launch(es) a call; profiled kernels: {names}")
+    expected = f"paged_decode_{'mma' if dtype == torch.bfloat16 else 'fma'}<{D}>"
+    if design and (launched != 1 or names != [expected]):
+        raise SystemExit(f"chip_smoke: paged_decode_attention[{label}] made {launched} "
+                         f"launches of {names}, expected one of {expected}")
     if not timed:
         return None
     # tokens this run's tables really hold: positions < length on pages != -1
@@ -456,9 +519,13 @@ def paged_case(dtype, timed: bool, h=H, hkv=HKV, label="qwen2.5-3b"):
     def library():
         return F.scaled_dot_product_attention(q4, kg, vg, attn_mask=mask, enable_gqa=True)
 
-    return timed_row("paged_decode_attention", err, kernel, plain, library, nbytes, flops,
-                     dtype, f"{label}: 8 lanes, {tokens} tokens, H={h} Hkv={hkv} D={D} "
-                     f"PS={PS} {dtype}", turns=True)
+    row = timed_row("paged_decode_attention", err, kernel, plain, library, nbytes, flops,
+                    dtype, f"{label}: 8 lanes, {tokens} tokens, {p} slots, H={h} Hkv={hkv} "
+                    f"D={D} PS={PS} {dtype}", turns=True)
+    row["floor_ms"] = floor
+    none = torch.zeros_like(ln)
+    row["empty_ms"] = device_ms(lambda: ops.paged_attention(q, kp, vp, bt, none), 20, cold=True)
+    return row
 
 
 def flash_kernel_name(dtype, d) -> str:
@@ -497,13 +564,7 @@ def flash_case(dtype, label, sq, sk, q_offset, kv_len, window, timed, h=H, hkv=H
     torch.cuda.synchronize()
     err = check_close(f"flash_attention[{label}]", out, want, dtype)
     path = ops.PATHS.get("flash_attention")
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        kernel()
-        torch.cuda.synchronize()
-    names = sorted({e.key.replace("(anonymous namespace)::", "").replace("void ", "")
-                    .split("(")[0][:60] for e in prof.key_averages()
-                    if str(getattr(e, "device_type", "")).endswith("CUDA")})
+    names = profiled_kernels(kernel)
     log(f"    design: {path}; profiled kernel: {names}")
     if design and names != [flash_kernel_name(dtype, d)]:
         raise SystemExit(f"chip_smoke: flash_attention[{label}] launched {names}, expected "
@@ -1094,8 +1155,8 @@ def serve(model, params, ecfg, prompts, max_new, device):
 def kernel_group(name: str) -> str:
     """The device group of a kernel, by its name."""
     name = name.lower()
-    if "paged_decode_attn" in name or "paged_combine" in name:
-        return "paged_decode_attention (kernel + split merge)"
+    if "paged_decode_mma" in name or "paged_decode_fma" in name:
+        return "paged_decode_attention"
     if "flash_attn" in name:
         return "flash_attention"
     if "ssd_chunk_scan" in name:
@@ -1468,7 +1529,8 @@ def serve_moe(arch: str, smi) -> dict:
     weights.  Holds: every request finishes; one ``flash_attention`` launch
     per attention layer per prefill; deepseek's MLA reads its pages with one
     ``paged_gather`` launch per layer per decode step and never launches
-    ``paged_decode_attention``, qwen3-moe's GQA layers launch it every step;
+    ``paged_decode_attention``, qwen3-moe's GQA layers launch it exactly
+    once per layer per step;
     the engine's first token equals a direct prefill's.  Then a 1,024-token
     whole prompt and a 2,048-token prompt in 1,024-token chunks are timed
     with their device split, and the decode step with its.  Returns this
@@ -1514,8 +1576,9 @@ def serve_moe(arch: str, smi) -> dict:
                 or run["paged_decode_attention"]):
         raise SystemExit("chip_smoke: MLA's paged decode should launch one paged_gather per "
                          "layer and step and no paged_decode_attention")
-    if not mla and run["paged_decode_attention"] < cfg.n_layers * calls["decode_step_paged"]:
-        raise SystemExit("chip_smoke: a GQA layer's decode step skipped the paged kernel")
+    if not mla and run["paged_decode_attention"] != cfg.n_layers * calls["decode_step_paged"]:
+        raise SystemExit("chip_smoke: a GQA layer's decode step should launch the paged kernel "
+                         "exactly once")
     logits, _ = model.prefill(params, torch.as_tensor(prompts[0], device="cuda")[None].long())
     if logits.shape != (1, 1, cfg.padded_vocab) or not torch.isfinite(logits).all():
         raise SystemExit(f"chip_smoke: bad {arch} prefill logits {tuple(logits.shape)}")
@@ -2016,28 +2079,41 @@ def mamba2_eval_kernel_vs_xla(tr, state) -> int:
     return launches
 
 
-def flash_times(src: Path) -> int:
-    """``--flash-times``: phase 2's timed flash rows alone, in bf16, of the
-    ``repro_torch`` under ``src``.  Each case is held to its plain version;
-    its design is logged, not checked (another commit has other designs)."""
+# the paged-decode rows --attn-times takes: (label, heads, KV heads, lens, slots, holes)
+PAGED_TIMED = [("qwen2.5-3b", H, HKV, PAGED_RAGGED, 1024 // PS, True),
+               ("qwen3-moe", QM["h"], QM["hkv"], PAGED_RAGGED, 1024 // PS, True),
+               ("qwen3-moe served", QM["h"], QM["hkv"], PAGED_SERVED_MOE, 2048 // PS, False)]
+
+
+def attn_times(src: Path) -> int:
+    """``--attn-times``: phase 2's timed attention rows alone, in bf16, of
+    the ``repro_torch`` under ``src``: the served flash shapes and the three
+    paged-decode rows.  Each case is held to its plain version; its design
+    is logged, not checked (another commit has other designs)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = smi_line()
-    log(f"== flash_attention at the served shapes, {src} ({smi})")
+    log(f"== attention at the served shapes, {src} ({smi})")
     out = {"src": str(src), "device": smi, "rows": {}}
+    keys = ("ms", "device_ms", "host_ms", "library_ms", "library_device_ms", "library_host_ms",
+            "bound_ms")
     for label, shape in FLASH_SERVED.items():
         row = flash_case(torch.bfloat16, label, timed=True, turns=True, design=False, **shape)
         log_row(row)
-        out["rows"][label] = {k: row[k] for k in ("ms", "device_ms", "host_ms", "library_ms",
-                                                  "library_device_ms", "library_host_ms",
-                                                  "bound_ms")}
+        out["rows"][label] = {k: row[k] for k in keys}
+    floor = empty_launch_ms()
+    for label, h, hkv, lens, slots, holes in PAGED_TIMED:
+        row = paged_case(torch.bfloat16, True, h, hkv, f"paged {label}", lens, slots, holes,
+                         floor, design=False)
+        log_row(row)
+        out["rows"][f"paged {label}"] = {k: row[k] for k in keys + ("floor_ms", "empty_ms")}
     print(json.dumps(out))
     return 0
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--flash-times", action="store_true",
-                    help="time only phase 2's served flash rows")
+    ap.add_argument("--attn-times", action="store_true",
+                    help="time only phase 2's served flash and paged-decode rows")
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="the src directory whose repro_torch is run (default: beside this "
                          "script)")
@@ -2051,8 +2127,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available; this script runs the port on "
               "the card", file=sys.stderr)
         return 1
-    if args.flash_times:
-        return flash_times(args.src)
+    if args.attn_times:
+        return attn_times(args.src)
     from repro_torch.configs import get_arch
     from repro_torch.core import zoo
     from repro_torch.core.convnet import narrow_convnet
@@ -2087,12 +2163,15 @@ def main() -> int:
     log("== phase 2: kernels against their plain versions "
         f"(H={H}, Hkv={HKV}, D={D}, PS={PS})")
     rows = {}
+    floor = empty_launch_ms()
+    log(f"  an empty kernel's launch takes {floor:.4f} ms of device time (profiler): the floor "
+        "under any single launch")
     flash_cases = {"prefill": FLASH_SERVED["prefill"],
                    "chunk": dict(sq=128, sk=1024, q_offset=384, kv_len=512, window=None),
                    "window": dict(sq=512, sk=512, q_offset=0, kv_len=512, window=128)}
     for dtype in (torch.float32, torch.bfloat16):
         timed = dtype == torch.bfloat16
-        row = paged_case(dtype, timed)
+        row = paged_case(dtype, timed, floor=floor)
         if row:
             rows["paged_decode_attention"] = row
         for label, shape in flash_cases.items():
@@ -2145,7 +2224,8 @@ def main() -> int:
     log(f"  the moe family: deepseek-v3's MLA prefill (H = Hkv = {MLA['h']}, D = {MLA['d']}: "
         f"qk_nope + qk_rope, V padded), qwen3-moe's prefill (H {QM['h']} over Hkv "
         f"{QM['hkv']}, D = {D}), the reduced MLA's D = 48, qwen3-moe's paged decode "
-        "(rep 16 = MAX_REP):")
+        "(rep 16 = MAX_REP) on ragged lanes and at its served context (~1,036 tokens, 128 "
+        "slots):")
     for dtype in (torch.float32, torch.bfloat16):
         timed = dtype == torch.bfloat16
         row = flash_case(dtype, "mla prompt", timed=timed, turns=True,
@@ -2155,8 +2235,10 @@ def main() -> int:
         flash_case(dtype, "mla chunk", 256, 1024, 512, 768, None, False, MLA["h"], MLA["h"],
                    MLA["d"])
         flash_case(dtype, "reduced mla", 100, 100, 0, 100, None, False, 4, 4, 48)
-        row_p = paged_case(dtype, timed, QM["h"], QM["hkv"], "qwen3-moe")
-        for r in (row, row_q, row_p):       # logged, not in the JSON line
+        row_p = paged_case(dtype, timed, QM["h"], QM["hkv"], "qwen3-moe", floor=floor)
+        row_s = paged_case(dtype, timed, QM["h"], QM["hkv"], "qwen3-moe served",
+                           lens=PAGED_SERVED_MOE, slots=2048 // PS, holes=False, floor=floor)
+        for r in (row, row_q, row_p, row_s):       # logged, not in the JSON line
             if r:
                 log_row(r)
     log("  flash_attention at batch 2 (a batched prefill, as make_eval_step gives it) at "
@@ -2205,8 +2287,15 @@ def main() -> int:
     rng = np.random.default_rng(4)
     qwen_prompts = [rng.integers(0, cfg.vocab_size, size=(int(n),)).astype(np.int32)
                     for n in rng.integers(128, 513, size=16)]
-    reqs, run = serve_full_width(model, params, qwen_prompts, ecfg, SERVE_KERNELS, smi)
+    calls = count_calls(model, ("decode_step_paged",))
+    reqs, run = serve_full_width(model, params, qwen_prompts, ecfg, SERVE_KERNELS, smi,
+                                 on_reset=lambda: calls.update(decode_step_paged=0))
     launches = {k: run[k] for k in SERVE_KERNELS}
+    log(f"  {calls['decode_step_paged']} decode steps, paged_decode_attention "
+        f"{run['paged_decode_attention']} launches ({cfg.n_layers} layers)")
+    if run["paged_decode_attention"] != cfg.n_layers * calls["decode_step_paged"]:
+        raise SystemExit("chip_smoke: paged_decode_attention should launch once per layer "
+                         "per decode step")
     paged_tokens = [r.out_tokens for r in reqs]
     # the engine's first token agrees with a direct prefill, whose logits are finite
     logits, _ = model.prefill(params, torch.as_tensor(qwen_prompts[0],

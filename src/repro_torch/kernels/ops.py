@@ -25,12 +25,11 @@ gradient and training would go silently wrong.
 Each wrapper counts the kernels it launches in ``LAUNCHES`` (on the card
 only), so a run can show that its main path went through the kernels.
 ``stream_mac_conv`` and ``tiled_matmul`` choose between two designs by
-shape and ``flash_attention`` among three by dtype and head dim
-(``flash_path``); ``PATHS`` names the one their last card call took.  A
-paged-decode call whose pages are split over blocks launches two: the
-partial pass and the merge of its splits; a ``stream_gd_foreach`` or
-``paged_gather_many`` call whose list outgrows one launch's table
-launches one grid per table.
+shape, ``flash_attention`` among three by dtype and head dim
+(``flash_path``) and ``paged_attention`` by dtype and its cluster size
+(``paged_plan``); ``PATHS`` names the one their last card call took.  A
+``stream_gd_foreach`` or ``paged_gather_many`` call whose list outgrows
+one launch's table launches one grid per table.
 """
 from __future__ import annotations
 
@@ -61,9 +60,9 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 _SIGNATURES = {
     "paged_decode_attention_launch": (
         "paged_attn",
-        [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-         _L, _L, _L, _F, _P],
+        [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _L, _F, _P],
     ),
+    "paged_decode_attention_max_cluster": ("paged_attn", [_I, _I, _I, _I]),
     "flash_attention_launch": (
         "flash_attention",
         [_I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -88,6 +87,7 @@ HEAD_DIMS = (32, 64, 128, 256)     # the head sizes the paged-decode kernel is b
 # flash attention's, with MLA's query-key heads (reduced 48, published 192)
 FLASH_HEAD_DIMS = (32, 48, 64, 128, 192, 256)
 MAX_REP = 16                       # query heads per KV head in paged decode
+MAX_CLUSTER = 16                   # blocks a paged-decode cluster may hold (8 is portable)
 
 
 _sm_counts: dict[int, int] = {}
@@ -111,12 +111,33 @@ def _raw_stream(device: torch.device) -> int:
     return _RAW_STREAM(torch.cuda.current_device() if device.index is None else device.index)
 
 
-def _splits(device: torch.device, lanes: int, hkv: int, pages: int) -> tuple[int, int]:
-    """(splits, pages per split) for paged decode: enough blocks for about
-    two per SM, never more splits than block-table slots."""
-    want = max(1, min(pages, -(-2 * _sm_count(device) // (lanes * hkv))))
-    per = -(-pages // want)
-    return -(-pages // per), per
+def paged_plan(sm_count: int, lanes: int, hkv: int, slots: int,
+               max_cluster: int = MAX_CLUSTER) -> int:
+    """Blocks per (lane, KV head) pair in paged decode, which split the
+    pair's tokens and merge in one thread-block cluster: the largest power
+    of two that keeps every pair's blocks within one block per SM, at most
+    ``max_cluster`` and at most the table's slots (at least 1).  A pure
+    function of the shape: the lengths stay on the card."""
+    pairs, c = lanes * hkv, 1
+    while 2 * c <= min(max_cluster, slots) and pairs * 2 * c <= sm_count:
+        c *= 2
+    return c
+
+
+_paged_plans: dict[tuple, tuple[int, str]] = {}
+
+
+def _paged_plan(device: torch.device, code: int, lanes: int, hkv: int, slots: int,
+                page_size: int, d: int) -> tuple[int, str]:
+    """(cluster size, design name) of a paged-decode launch, cached per shape;
+    the cluster is capped by what the card fits (asked once per shape)."""
+    key = (device.index, code, lanes, hkv, slots, page_size, d)
+    got = _paged_plans.get(key)
+    if got is None:
+        fits = _entry("paged_decode_attention_max_cluster")[1](code, d, slots, page_size)
+        c = paged_plan(_sm_count(device), lanes, hkv, slots, max(1, fits))
+        got = _paged_plans[key] = (c, f"{'mma.sync' if code else 'CUDA cores'}, cluster of {c}")
+    return got
 
 
 def reset_launches() -> None:
@@ -293,17 +314,14 @@ def paged_attention(
         raise ValueError("paged_attention: the block table has no page slots")
     _check_index("paged_attention", block_table, q.device, (b, p))
     _check_index("paged_attention", lengths, q.device, (b,))
+    cluster, path = _paged_plan(q.device, code, b, hkv, p, ps, d)
     out = torch.empty_like(q)
-    splits, per = _splits(q.device, b, hkv, p)
-    # per-split partials (acc, max, sum) that the kernel's second pass merges
-    part = (torch.empty(b * hkv * splits * rep * (d + 2), dtype=torch.float32,
-                        device=q.device) if splits > 1 else None)
     lib, fn = _entry("paged_decode_attention_launch")
     err = fn(code, d, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-             block_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-             None if part is None else part.data_ptr(), b, hkv, rep, ps, p, splits, per,
-             *k_pool.stride()[:3], scale, torch.cuda.current_stream(q.device).cuda_stream)
-    _launched(lib, "paged_decode_attention", err, 2 if splits > 1 else 1)
+             block_table.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, hkv, rep, ps, p,
+             cluster, *k_pool.stride()[:3], scale, _raw_stream(q.device))
+    _launched(lib, "paged_decode_attention", err)
+    PATHS["paged_decode_attention"] = path
     return out
 
 

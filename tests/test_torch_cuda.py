@@ -161,9 +161,41 @@ def test_flash_kernel_batch_of_two(card, dtype, d, h, hkv, window, expand):
     torch.testing.assert_close(got.float(), want.float(), **(F32 if dtype == "float32" else BF16))
 
 
+def _paged_design(dtype: str, d: int) -> tuple[str, str]:
+    """(compiled kernel, the ``ops.PATHS`` entry's design) of a paged-decode
+    call: bf16 on mma.sync, float32 on the CUDA cores, either one launch
+    whose splits merge in a cluster."""
+    if dtype == "float32":
+        return f"paged_decode_fma<{d}>", "CUDA cores"
+    return f"paged_decode_mma<{d}>", "mma.sync"
+
+
+def _paged_plain(q, kp, vp, bt, lens):
+    b, h, d = q.shape
+    hkv = kp.shape[2]
+    return ref.paged_decode_attention(q.view(b, hkv, h // hkv, d), kp.permute(2, 0, 1, 3),
+                                      vp.permute(2, 0, 1, 3), bt, lens).view(b, h, d)
+
+
+def _paged_call_checked(dtype, q, kp, vp, bt, lens):
+    """One profiled call: exactly one launch, of the design ``ops.PATHS``
+    names, and equal to the plain version."""
+    before = ops.LAUNCHES["paged_decode_attention"]
+    got, names = _profiled(lambda: ops.paged_attention(q, kp, vp, bt, lens))
+    assert ops.LAUNCHES["paged_decode_attention"] == before + 1
+    kernel, design = _paged_design(dtype, q.shape[2])
+    assert names == {kernel}
+    path = ops.PATHS["paged_decode_attention"]
+    assert path.startswith(design + ", cluster of ")
+    assert int(path.rsplit(" ", 1)[1]) in (1, 2, 4, 8, 16)
+    want = _paged_plain(q, kp, vp, bt, lens)
+    torch.testing.assert_close(got.float(), want.float(), **(F32 if dtype == "float32" else BF16))
+    return got
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-# a split call launches the partial pass and the merge; an unsplit one, one kernel
-@pytest.mark.parametrize("p,lengths,kernels", [(8, [0, 5, 128, 70], 2), (1, [0, 5, 16, 9], 1)],
+# every call is one launch: the splits merge inside it
+@pytest.mark.parametrize("p,lengths,kernels", [(8, [0, 5, 128, 70], 1), (1, [0, 5, 16, 9], 1)],
                          ids=["split_pages", "one_page_no_split"])
 def test_paged_kernel_matches_plain(card, dtype, p, lengths, kernels):
     dt = getattr(torch, dtype)
@@ -186,6 +218,98 @@ def test_paged_kernel_matches_plain(card, dtype, p, lengths, kernels):
                                       vp.permute(2, 0, 1, 3), bt, lens).view(b, h, d)
     torch.testing.assert_close(got.float(), want.float(), **(F32 if dtype == "float32" else BF16))
     assert torch.all(got[0] == 0)
+
+
+# lane lengths over an 8-slot table of 16-token pages: empty, 1, 15, 16, 17,
+# the full table, then a lane with a hole at slot 0, one with a hole inside
+# its length and one whose every slot within its length is -1
+PAGED_EDGE_LENS = [0, 1, 15, 16, 17, 128, 40, 70, 50]
+
+
+def _paged_edge_inputs(card, dt, rep, d, hkv=2, slots=8, ps=16, seed=11):
+    g = torch.Generator(device=card).manual_seed(seed)
+    b = len(PAGED_EDGE_LENS)
+    n_pages = b * slots + 3
+    bt = torch.randperm(n_pages, generator=g, device=card)[: b * slots].reshape(b, slots).int()
+    for i, n in enumerate(PAGED_EDGE_LENS):
+        bt[i, -(-n // ps):] = -1
+    bt[6, 0] = -1
+    bt[7, 2] = -1
+    bt[8] = -1
+    lens = torch.tensor(PAGED_EDGE_LENS, dtype=torch.int32, device=card)
+    q = torch.randn(b, hkv * rep, d, generator=g, device=card).to(dt)
+    kp = torch.randn(n_pages, ps, hkv, d, generator=g, device=card).to(dt)
+    vp = torch.randn(n_pages, ps, hkv, d, generator=g, device=card).to(dt)
+    return q, kp, vp, bt, lens
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rep", [8, 16])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+def test_paged_kernel_edge_lengths_and_holes(card, dtype, rep, d):
+    """Lengths 0, 1, 15, 16, 17 and the full table, holes at slot 0 and
+    inside a length, a lane with nothing but holes, at rep 8 and 16 and each
+    head dim: one launch, equal to the plain version; lanes that see nothing
+    read zeros."""
+    q, kp, vp, bt, lens = _paged_edge_inputs(card, getattr(torch, dtype), rep, d)
+    got = _paged_call_checked(dtype, q, kp, vp, bt, lens)
+    assert torch.all(got[0] == 0) and torch.all(got[8] == 0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("view", ["layer_of_a_stack", "page_stride", "head_stride"])
+def test_paged_kernel_reads_strided_pools(card, dtype, view):
+    """Pools read where they lie: one layer of a per-layer stack (as the
+    serving cache holds them), a page stride wider than a page (layers
+    inside the page dim) and a head stride of 2 D (a slice of wider rows)."""
+    dt = getattr(torch, dtype)
+    q, kp, vp, bt, lens = _paged_edge_inputs(card, dt, 16, 128)
+    n, ps, hkv, d = kp.shape
+    if view == "layer_of_a_stack":
+        stack = torch.zeros(3, 2, n, ps, hkv, d, dtype=dt, device=card)
+        stack[1, 0], stack[1, 1] = kp, vp
+        kv = stack[1, 0], stack[1, 1]
+    elif view == "page_stride":
+        wide = torch.zeros(n, 3, ps, hkv, d, dtype=dt, device=card)
+        wide2 = torch.zeros(n, 3, ps, hkv, d, dtype=dt, device=card)
+        wide[:, 1], wide2[:, 1] = kp, vp
+        kv = wide[:, 1], wide2[:, 1]
+    else:
+        wide = torch.zeros(n, ps, hkv, 2 * d, dtype=dt, device=card)
+        wide2 = torch.zeros(n, ps, hkv, 2 * d, dtype=dt, device=card)
+        wide[..., d:], wide2[..., d:] = kp, vp
+        kv = wide[..., d:], wide2[..., d:]
+    assert not kv[0].is_contiguous() or view == "layer_of_a_stack"
+    got = _paged_call_checked(dtype, q, kv[0], kv[1], bt, lens)
+    torch.testing.assert_close(got, ops.paged_attention(q, kp, vp, bt, lens), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_kernel_in_a_cuda_graph(card, dtype):
+    """A call captured once and replayed after ``lengths`` and
+    ``block_table`` change in place gives the plain version's answer for
+    the new contents: the kernel keeps no per-call host state."""
+    q, kp, vp, bt, lens = _paged_edge_inputs(card, getattr(torch, dtype), 16, 128)
+    ops.paged_attention(q, kp, vp, bt, lens)         # builds, plans, warms up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.paged_attention(q, kp, vp, bt, lens)
+    graph.replay()
+    torch.cuda.synchronize()
+    tol = F32 if dtype == "float32" else BF16
+    torch.testing.assert_close(out.float(), _paged_plain(q, kp, vp, bt, lens).float(), **tol)
+    g = torch.Generator(device=card).manual_seed(12)
+    lens.copy_(torch.tensor([128, 0, 33, 16, 1, 99, 64, 17, 128], dtype=torch.int32,
+                            device=card))
+    bt.copy_(torch.randperm(kp.shape[0], generator=g, device=card)[: bt.numel()]
+             .reshape(bt.shape).int())
+    bt[2, 1] = -1
+    graph.replay()
+    torch.cuda.synchronize()
+    want = _paged_plain(q, kp, vp, bt, lens)
+    torch.testing.assert_close(out.float(), want.float(), **tol)
+    assert torch.all(out[1] == 0)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

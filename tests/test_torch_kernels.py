@@ -102,10 +102,17 @@ def _paged_inputs(h, hkv, d=32, ps=4, lens=(5, 0, 11), seed=0):
     return q, kp, vp, bt, np.asarray(lens, np.int32)
 
 
-@pytest.mark.parametrize("h,hkv", [(4, 4), (4, 2), (8, 2)], ids=["rep1", "rep2", "rep4"])
-def test_paged_attention_matches_jax(h, hkv):
-    q, kp, vp, bt, lens = _paged_inputs(h, hkv)
-    b, d = q.shape[0], q.shape[2]
+# h, hkv, head dim, page size, lane lengths; rep 8 and 16 at D 128, PS 16 are
+# the served shapes (qwen2.5-3b, qwen3-moe): lane 2 fills its table, a hole at slot 1
+PAGED_CASES = [(4, 4, 32, 4, (5, 0, 11)), (4, 2, 32, 4, (5, 0, 11)), (8, 2, 32, 4, (5, 0, 11)),
+               (16, 2, 128, 16, (37, 0, 64)), (32, 2, 128, 16, (37, 0, 64))]
+
+
+@pytest.mark.parametrize("h,hkv,d,ps,lens", PAGED_CASES,
+                         ids=["rep1", "rep2", "rep4", "rep8_d128_ps16", "rep16_d128_ps16"])
+def test_paged_attention_matches_jax(h, hkv, d, ps, lens):
+    q, kp, vp, bt, lens = _paged_inputs(h, hkv, d, ps, lens)
+    b = q.shape[0]
     got = tops.paged_attention(torch.from_numpy(q), torch.from_numpy(kp),
                                torch.from_numpy(vp), torch.from_numpy(bt),
                                torch.from_numpy(lens)).numpy()
@@ -126,6 +133,32 @@ def test_paged_attention_matches_jax(h, hkv):
         torch.from_numpy(kp).permute(2, 0, 1, 3), torch.from_numpy(vp).permute(2, 0, 1, 3),
         torch.from_numpy(bt), torch.from_numpy(lens)).numpy().reshape(b, h, d)
     np.testing.assert_allclose(plain, want, **TOL)
+
+
+# sm count, lanes, KV heads, table slots, the card's cluster cap -> blocks per pair
+PAGED_PLANS = [
+    (132, 8, 2, 64, 16, 8),       # qwen2.5-3b decode: 16 pairs x 8 = 128 blocks
+    (132, 8, 4, 128, 16, 4),      # qwen3-moe decode: 32 pairs x 4
+    (132, 1, 2, 64, 16, 16),      # one lane: the non-portable cluster of 16
+    (132, 1, 2, 64, 8, 8),        # ... where the card fits only 8
+    (132, 3, 2, 6, 16, 4),        # the reduced model (phase 3): capped by the 6 slots
+    (132, 64, 8, 64, 16, 1),      # 512 pairs fill the card unsplit
+    (132, 8, 2, 1, 16, 1),        # one slot
+    (114, 8, 2, 64, 16, 4),       # a card of 114 SMs
+]
+
+
+@pytest.mark.parametrize("sm,lanes,hkv,slots,cap,want", PAGED_PLANS)
+def test_paged_plan_is_a_function_of_the_shape(sm, lanes, hkv, slots, cap, want):
+    c = tops.paged_plan(sm, lanes, hkv, slots, cap)
+    assert c == want
+    pairs = lanes * hkv
+    assert c & (c - 1) == 0 and 1 <= c <= min(cap, tops.MAX_CLUSTER)
+    assert c == 1 or (c <= slots and pairs * c <= sm)
+    assert pairs * c >= pairs                        # every pair has its blocks
+    # the largest such: doubling breaks a limit
+    assert 2 * c > min(cap, slots) or pairs * 2 * c > sm
+    assert tops.paged_plan(sm, lanes, hkv, slots, cap) == c
 
 
 def test_cpu_calls_launch_nothing_and_other_devices_raise():
