@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port's main path on one NVIDIA card and check it.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --attn-times [--src DIR]
+    python3 chip_smoke.py --kernel-times [--src DIR]
 
 Run from the root of a checkout (it imports ``src/repro_torch`` beside it;
 it never imports JAX or the ``repro`` package).  It drives the port's
@@ -25,7 +25,14 @@ each fatal:
    followed by ``add_`` and ``relu_``; pool: VGG16's pool1; matmul: fc6,
    fc7 and fc8, two calls bit-equal; all at batch 16; ``ssd_scan``:
    full-width mamba2-130m, a 512-token prompt in 256-token chunks from zero
-   and from a carried state, and a ragged 44-token slice; recurrentgemma-9b's
+   and from a carried state, a 256-token served slice, ragged 44-, 1- and
+   255-token slices, phase 14's eval shape (B 4, 1,024 tokens, from zero and
+   carried), B 2 with distinct carried states and a prompt whose seg spans
+   more than 120 (the decay clip engages; held to the plain version
+   evaluated in float64, whose float32 evaluation is itself off there),
+   each one launch of the design's
+   kernel by the profiler's name (``ssd_scan_mma`` in bf16,
+   ``ssd_scan_fma`` in float32) with ``ops.PATHS`` logged; recurrentgemma-9b's
    shapes besides (16 query heads over 1 KV head, head_dim 256, window
    2,048: ``flash_attention`` on a 3,072-token prompt and on a 1,024-token
    chunk at offset 2,048 against a 4,096-row cache holding 3,072), and the
@@ -46,7 +53,8 @@ each fatal:
    profiler's device time and by the host's issue time per call against
    SDPA in turns, each paged row beside the device time of an empty
    kernel's launch (the floor under any launch) and its own device time
-   with every lane empty, ``ssd_scan``'s prompt by the same three alone;
+   with every lane empty, ``ssd_scan``'s prompt and served slice by the
+   same three alone, beside the design's bound and the float32 one;
    ``paged_gather``, one launch per call,
    bit-equal, 8 lanes with -1 holes: a full-width qwen2.5-3b cache leaf
    (36 layers, 64 slots; the JSON line's case), one recurrentgemma
@@ -87,8 +95,9 @@ each fatal:
 8. serve 16 requests of 128-512 prompt tokens at the full width of
    mamba2-130m (24 layers, bf16, seeded random weights) with 8 lanes,
    256-token prefill chunks and 32 new tokens each: every request finishes,
-   ``ssd_scan`` launches; tok/s, prefill ms, decode-step ms and the
-   device-busy share (the decode step runs no port kernel: it is the plain
+   ``ssd_scan`` launches; tok/s, prefill ms (with ``ssd_scan``'s device
+   group and launches, 24 per slice), decode-step ms and the device-busy
+   share (the decode step runs no port kernel: it is the plain
    ``ssm_decode``);
 9. the gather decode path: reduced qwen2.5-3b in float32 with
    ``decode_path="gather"`` gives the CPU's tokens and the card's paged
@@ -175,10 +184,11 @@ each fatal:
     decode through ``paged_decode_attention`` (64 over 4 heads), exactly
     one launch per layer per decode step.
 
-``--attn-times`` runs only phase 2's timed attention rows (the served bf16
-flash prefill shapes and the three paged-decode shapes, each held to its
-plain version and timed against SDPA in turns) and prints one JSON line of
-their times; ``--src`` names the
+``--kernel-times`` runs only phase 2's timed
+rows (the served bf16 flash prefill shapes and the three paged-decode
+shapes, each held to its plain version and timed against SDPA in turns, and
+``ssd_scan``'s prompt and served slice in bf16 and float32, timed alone)
+and prints one JSON line of their times; ``--src`` names the
 ``src`` directory whose ``repro_torch`` it times, so another commit
 unpacked under ``build/`` (``git archive``) can be timed in the same call,
 one process each: parent, change, change, parent.
@@ -279,20 +289,24 @@ def ptxas_report(text: str) -> list[str]:
     registers, spills (shared memory is dynamic, sized at launch)."""
     out, name, spill = [], None, ""
     int_arg = {"maxpool_valid": "V", "matmul_tiled": "aligned",
-               "stream_gd_update": "J1, J2", "conv_igemm_wgmma": "BN"}   # else head_dim
+               "stream_gd_update": "J1, J2", "conv_igemm_wgmma": "BN",
+               "ssd_scan_mma": "VEC, PP, TMA", "ssd_scan_fma": "VEC, PP"}   # else head_dim
     types = {"f": "f32", "13__nv_bfloat16": "bf16", "5uint4": "16 B", "5uint2": "8 B",
              "j": "4 B", "t": "2 B", "h": "1 B", None: ""}
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '.*?(paged_decode_mma|paged_decode_fma|"
                       r"flash_attn_fwd|flash_attn_mma|flash_attn_wgmma|conv_igemm_wgmma|conv_igemm|"
                       r"maxpool_valid|matmul_tiled_stream|matmul_tiled|"
-                      r"ssd_chunk_scan|paged_gather_bulk|stream_gd_update)"
+                      r"ssd_scan_mma|ssd_scan_fma|paged_gather_bulk|stream_gd_update)"
                       r"(?:I(13__nv_bfloat16|5uint4|5uint2|f|j|t|h)?(?:L[ib](\d+)E)?"
-                      r"(?:Li(\d+)E)?)?", line)
+                      r"(?:Li(\d+)E)?(?:Lb(\d+)E)?)?", line)
         if m:
             label = int_arg.get(m.group(1), "D")
-            ints = ", ".join(x for x in m.group(3, 4) if x)
-            args = [types[m.group(2)], f"{label}={ints}" if ints else ""]
+            vals = [x for x in m.group(3, 4, 5) if x]
+            names = label.split(", ")
+            ints = (", ".join(f"{k}={v}" for k, v in zip(names, vals)) if len(names) == len(vals)
+                    else f"{label}={', '.join(vals)}" if vals else "")
+            args = [types[m.group(2)], ints]
             args = ", ".join(x for x in args if x)
             name = f"{m.group(1)}<{args}>" if args else m.group(1)
         elif "spill" in line:
@@ -441,13 +455,7 @@ def empty_launch_ms() -> float | None:
 
 def profiled_kernels(fn) -> list[str]:
     """The names of the device kernels one call of ``fn`` launches."""
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sorted({e.key.replace("(anonymous namespace)::", "").replace("void ", "")
-                   .split("(")[0][:60] for e in prof.key_averages()
-                   if str(getattr(e, "device_type", "")).endswith("CUDA")})
+    return [name for name, _ in profiled_launches(fn)]
 
 
 def paged_case(dtype, timed: bool, h=H, hkv=HKV, label="qwen2.5-3b", lens=None,
@@ -702,19 +710,78 @@ def fc_case(dtype, l, label, timed):
                      f"{label}: ({CNN_BATCH}, {k}) @ ({k}, {l.co}), {dtype}")
 
 
-def ssd_case(dtype, label, seq, carried, timed):
+def ssd_kernel_name(dtype) -> str:
+    """The compiled kernel ``ssd_scan`` must launch: mma.sync in bf16, the
+    CUDA cores in float32."""
+    return "ssd_scan_mma" if dtype == torch.bfloat16 else "ssd_scan_fma"
+
+
+def profiled_launches(fn) -> list[tuple[str, int]]:
+    """(name, launches) of each device kernel one call of ``fn`` launches.  A
+    profile that holds no kernel at all (the tracer now and then drops a
+    profile's kernel records) is taken again, up to three times."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        got = sorted((e.key.replace("(anonymous namespace)::", "").replace("void ", "")
+                      .split("(")[0][:60], e.count) for e in prof.key_averages()
+                     if str(getattr(e, "device_type", "")).endswith("CUDA"))
+        if got:
+            return got
+    return got
+
+
+def ssd_bounds(dtype, batch, seq, carried) -> tuple[float, float, float]:
+    """(bytes, operations of the design, float32 operations) of one
+    ``ssd_scan`` call at mamba2-130m's widths.  Bytes: x, B, C and dt read
+    once, y written in float32, the state read (carried) and written.  The
+    float32 figure is every product once (the causal halves of the head-free
+    C.B^T and of the y product, C.S and the update), at the CUDA cores'
+    rate: the bound the first version of the kernel was held to.  The bf16
+    design issues C.B^T once, the y product and C.S in three bf16 terms and
+    the update in two."""
+    h, p, n, chunk = SSM["h"], SSM["p"], SSM["n"], SSM["chunk"]
+    q = min(chunk, seq)
+    nc, tri = seq // q, q * (q + 1) / 2
+    f32 = 2.0 * batch * nc * (tri * (n + h * p) + 2 * q * n * h * p)
+    ops = f32 if dtype == torch.float32 else 2.0 * batch * nc * (
+        tri * n + 3 * tri * h * p + (3 + 2) * q * n * h * p)
+    item = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (batch * seq * (h * p + 2 * n) * item + batch * seq * h * 4 + h * 4
+              + batch * seq * h * p * 4 + (2 if carried else 1) * batch * h * p * n * 4)
+    return nbytes, ops, f32
+
+
+def ssd_case(dtype, label, seq, carried, timed, batch=1, clip=False, design=True):
     """``ssd_scan`` at mamba2-130m's widths, x/B/C strided views of one conv
-    output as the model hands them over."""
+    output as the model hands them over, ``batch`` rows (each its own
+    carried state); ``clip``: dt and a large enough that a chunk's seg spans
+    more than 120, so the decay clip engages.  Logs the design
+    (``ops.PATHS``) and the profiled kernels: one launch of
+    ``ssd_kernel_name`` (``design``: else it fails).  Timed, its row by
+    ``in_turns``, with the design's bound and the float32 one beside it."""
     from repro_torch.kernels import ops, ref
 
     h, p, n, chunk = SSM["h"], SSM["p"], SSM["n"], SSM["chunk"]
     gen = torch.Generator(device="cuda").manual_seed(10)
-    conv = (torch.randn(1, seq, h * p + 2 * n, generator=gen, device="cuda") * 0.5).to(dtype)
-    xh = conv[..., :h * p].reshape(1, seq, h, p)
+    conv = (torch.randn(batch, seq, h * p + 2 * n, generator=gen, device="cuda") * 0.5).to(dtype)
+    xh = conv[..., :h * p].reshape(batch, seq, h, p)
     bb, cc = conv[..., h * p:h * p + n], conv[..., h * p + n:]
-    dt = torch.rand(1, seq, h, generator=gen, device="cuda") * 0.49 + 0.01
-    a = -(torch.rand(h, generator=gen, device="cuda") + 0.5)
-    st = torch.randn(1, h, p, n, generator=gen, device="cuda") if carried else None
+    if clip:
+        dt = torch.rand(batch, seq, h, generator=gen, device="cuda") * 0.5 + 0.5
+        a = -(torch.rand(h, generator=gen, device="cuda") + 1.0)
+    else:
+        dt = torch.rand(batch, seq, h, generator=gen, device="cuda") * 0.49 + 0.01
+        a = -(torch.rand(h, generator=gen, device="cuda") + 0.5)
+    st = torch.randn(batch, h, p, n, generator=gen, device="cuda") if carried else None
+    q = min(chunk, seq)
+    if clip:
+        span = float((dt * a).reshape(batch, seq // q, q, h).sum(2).abs().max())
+        log(f"  ssd_scan[{label}]: the largest span of seg in a chunk is {span:.1f}")
+        if span <= 120:
+            raise SystemExit(f"chip_smoke: ssd_scan[{label}] does not engage the clip")
 
     def kernel():
         return ops.ssd_scan(xh, bb, cc, dt, a, chunk, st)
@@ -724,19 +791,54 @@ def ssd_case(dtype, label, seq, carried, timed):
 
     (y, fin), (want_y, want_fin) = kernel(), plain()
     torch.cuda.synchronize()
+    if clip:
+        # where the clip engages, whole runs of tokens carry clipped weights
+        # that hang on seg to a few ulp and on float32 sums of e^60-sized
+        # terms: the plain version evaluated in float32 is itself up to 3.2x
+        # the tolerance from the exact result (its serial cumsum on the
+        # card; on the CPU it depends on the host), so the kernel is held to
+        # the plain version evaluated in float64 and the float32 one is logged
+        gap = float((want_y - y).abs().max())
+        want_y, want_fin = ref.ssd_scan(xh, bb, cc, dt, a, chunk, st, dtype=torch.float64)
+        log(f"  ssd_scan[{label}]: the plain version in float32 is {gap:.3e} from the kernel's "
+            "y; held to the plain version in float64:")
     # y and the state are float32 whatever the inputs: float32 tolerance
     err = max(check_close(f"ssd_scan[{label}] y", y, want_y, torch.float32),
               check_close(f"ssd_scan[{label}] final state", fin, want_fin, torch.float32))
+    got = profiled_launches(kernel)
+    log(f"    design: {ops.PATHS.get('ssd_scan')}; profiled: "
+        f"{got or 'nothing recorded (the tracer dropped the profile; not measured)'}")
+    if design and got and (len(got) != 1 or got[0][1] != 1
+                   or got[0][0].split("<")[0] != ssd_kernel_name(dtype)):
+        raise SystemExit(f"chip_smoke: ssd_scan[{label}] launched {got}, expected one "
+                         f"{ssd_kernel_name(dtype)}")
     if not timed:
         return None
-    q = min(chunk, seq)
-    # the causal half of each chunk's C.B^T (once, head-free) and of the
-    # y contraction, plus C.S and the state update
-    flops = 2.0 * (seq // q) * (q * (q + 1) / 2 * (n + h * p) + 2 * q * n * h * p)
-    nbytes = (seq * (h * p + 2 * n) * conv.element_size() + seq * h * 4 + h * 4
-              + seq * h * p * 4 + (2 if carried else 1) * h * p * n * 4)
-    return timed_row("ssd_scan", err, kernel, plain, None, nbytes, flops, torch.float32,
-                     f"{label}: S={seq} H={h} P={p} N={n} chunk={chunk} {dtype}", turns=True)
+    nbytes, ops_n, f32 = ssd_bounds(dtype, batch, seq, carried)
+    row = timed_row("ssd_scan", err, kernel, plain, None, nbytes, ops_n, dtype,
+                    f"{label}: B={batch} S={seq} H={h} P={p} N={n} chunk={chunk} {dtype}",
+                    turns=True)
+    row["bound_f32_ms"] = bound(nbytes, f32, torch.float32)[0]
+    log(f"    bound {row['bound_ms']:.4f} ms ({row['bound_by']}; bytes at 3.35 TB/s "
+        f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f}, the design's products "
+        f"{ops_n / PEAK_FLOPS[str(dtype)] * 1e3:.4f}); every product once at float32's "
+        f"67 TFLOP/s {row['bound_f32_ms']:.4f} ms (the first version's bound)")
+    return row
+
+
+# phase 2's ssd_scan cases: (label, tokens, carried state, batch, clip, timed in bf16);
+# the timed rows are the prompt (two chunks from zero) and the served slice (one
+# chunk with a carried state: what phase 8 launches)
+SSD_CASES = [("prompt", 512, False, 1, False, True),
+             ("served slice", 256, True, 1, False, True),
+             ("carried", 512, True, 1, False, False),
+             ("ragged slice", 44, True, 1, False, False),
+             ("1-token slice", 1, True, 1, False, False),
+             ("255-token slice", 255, True, 1, False, False),
+             ("eval, B 4", 1024, False, 4, False, False),
+             ("eval, B 4 carried", 1024, True, 4, False, False),
+             ("B 2 carried", 256, True, 2, False, False),
+             ("clip", 512, True, 1, True, False)]
 
 
 # the lanes' lengths in tokens of phase 2's gather tables (-1 past them)
@@ -1159,7 +1261,7 @@ def kernel_group(name: str) -> str:
         return "paged_decode_attention"
     if "flash_attn" in name:
         return "flash_attention"
-    if "ssd_chunk_scan" in name:
+    if "ssd_scan_m" in name or "ssd_scan_f" in name or "ssd_chunk_scan" in name:
         return "ssd_scan"
     if "paged_gather" in name:
         return "paged_gather"
@@ -1351,10 +1453,11 @@ def card_vs_cpu_tokens(arch, cases, smi, **over) -> None:
 
 
 def prefill_ms(model, params, vocab, seq: int, chunk: int, ranges=(),
-               whole: bool = False) -> float:
+               whole: bool = False, group: str | None = None) -> float:
     """One ``seq``-token prompt prefilled in ``chunk``-token slices (as the
     engine's chunked prefill runs it), or with ``whole`` in one
-    ``DecoderLM.prefill``: wall ms and the device split.  Returns the wall
+    ``DecoderLM.prefill``: wall ms and the device split (``group``: that
+    kernel group's line once more, with its launches).  Returns the wall
     ms."""
     from repro_torch.models.common import tree_map
 
@@ -1382,7 +1485,11 @@ def prefill_ms(model, params, vocab, seq: int, chunk: int, ranges=(),
     how = "whole" if whole else f"in {chunk}-token slices"
     log(f"  prefill of one {seq}-token prompt {how}: {ms:.3f} ms wall "
         f"(median of 5) = {seq / ms * 1e3:.0f} prompt tokens/s")
-    log_groups("prefill", ms, *device_groups(run, 3, ranges))
+    groups, launches, top = device_groups(run, 3, ranges)
+    log_groups("prefill", ms, groups, launches, top)
+    if group is not None:
+        log(f"  {group} in the prefill: {groups.get(group, 0.0):.3f} ms of device time over "
+            f"{launches.get(group, 0):g} launches")
     return ms
 
 
@@ -2079,20 +2186,21 @@ def mamba2_eval_kernel_vs_xla(tr, state) -> int:
     return launches
 
 
-# the paged-decode rows --attn-times takes: (label, heads, KV heads, lens, slots, holes)
+# the paged-decode rows --kernel-times takes: (label, heads, KV heads, lens, slots, holes)
 PAGED_TIMED = [("qwen2.5-3b", H, HKV, PAGED_RAGGED, 1024 // PS, True),
                ("qwen3-moe", QM["h"], QM["hkv"], PAGED_RAGGED, 1024 // PS, True),
                ("qwen3-moe served", QM["h"], QM["hkv"], PAGED_SERVED_MOE, 2048 // PS, False)]
 
 
-def attn_times(src: Path) -> int:
-    """``--attn-times``: phase 2's timed attention rows alone, in bf16, of
-    the ``repro_torch`` under ``src``: the served flash shapes and the three
-    paged-decode rows.  Each case is held to its plain version; its design
-    is logged, not checked (another commit has other designs)."""
+def kernel_times(src: Path) -> int:
+    """``--kernel-times``: phase 2's timed rows alone, of the ``repro_torch``
+    under ``src``: the served flash shapes and the three paged-decode rows in
+    bf16, and ``ssd_scan``'s prompt and served slice in bf16 and float32.
+    Each case is held to its plain version; its design is logged, not
+    checked (another commit has other designs)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = smi_line()
-    log(f"== attention at the served shapes, {src} ({smi})")
+    log(f"== kernels at the served shapes, {src} ({smi})")
     out = {"src": str(src), "device": smi, "rows": {}}
     keys = ("ms", "device_ms", "host_ms", "library_ms", "library_device_ms", "library_host_ms",
             "bound_ms")
@@ -2106,14 +2214,21 @@ def attn_times(src: Path) -> int:
                          floor, design=False)
         log_row(row)
         out["rows"][f"paged {label}"] = {k: row[k] for k in keys + ("floor_ms", "empty_ms")}
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, seq, carried, batch, clip, timed in SSD_CASES:
+            if timed:
+                row = ssd_case(dtype, label, seq, carried, True, batch, clip, design=False)
+                log_row(row)
+                out["rows"][f"ssd {label} {dtype}"] = {k: row[k] for k in keys + (
+                    "plain_ms", "bound_f32_ms")}
     print(json.dumps(out))
     return 0
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--attn-times", action="store_true",
-                    help="time only phase 2's served flash and paged-decode rows")
+    ap.add_argument("--kernel-times", action="store_true",
+                    help="time only phase 2's served flash, paged-decode and ssd_scan rows")
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="the src directory whose repro_torch is run (default: beside this "
                          "script)")
@@ -2127,8 +2242,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available; this script runs the port on "
               "the card", file=sys.stderr)
         return 1
-    if args.attn_times:
-        return attn_times(args.src)
+    if args.kernel_times:
+        return kernel_times(args.src)
     from repro_torch.configs import get_arch
     from repro_torch.core import zoo
     from repro_torch.core.convnet import narrow_convnet
@@ -2212,15 +2327,15 @@ def main() -> int:
             if row:
                 log_row(row)
                 rows.setdefault("tiled_matmul", row)
-    log("  mamba2-130m SSD scan (H=24, P=64, N=128, chunk 256):")
+    log("  mamba2-130m SSD scan (H=24, P=64, N=128, chunk 256; bf16 on mma.sync, float32 "
+        "on the CUDA cores, one launch a call):")
     for dtype in (torch.float32, torch.bfloat16):
-        timed = dtype == torch.bfloat16
-        for label, seq, carried in (("prompt", 512, False), ("carried", 512, True),
-                                    ("ragged slice", 44, True)):
-            row = ssd_case(dtype, label, seq, carried, timed and label == "prompt")
+        for label, seq, carried, batch, clip, timed in SSD_CASES:
+            row = ssd_case(dtype, label, seq, carried, timed and dtype == torch.bfloat16,
+                           batch, clip)
             if row:
                 log_row(row)
-                rows["ssd_scan"] = row
+                rows.setdefault("ssd_scan", row)        # the JSON line keeps the prompt
     log(f"  the moe family: deepseek-v3's MLA prefill (H = Hkv = {MLA['h']}, D = {MLA['d']}: "
         f"qk_nope + qk_rope, V padded), qwen3-moe's prefill (H {QM['h']} over Hkv "
         f"{QM['hkv']}, D = {D}), the reduced MLA's D = 48, qwen3-moe's paged decode "
@@ -2356,7 +2471,7 @@ def main() -> int:
         raise SystemExit("chip_smoke: mamba2 engine's first token differs from a direct "
                          "chunked prefill")
     log("  chunked-prefill logits finite; first token matches the engine")
-    prefill_ms(model, params, cfg.vocab_size, 512, SSM["chunk"])
+    prefill_ms(model, params, cfg.vocab_size, 512, SSM["chunk"], group="ssd_scan")
     decode_breakdown(model, params, cfg.vocab_size, prefill_chunk=SSM["chunk"])
     log("  (the decode step runs no port kernel: ssm_decode is plain torch, as the "
         "JAX package leaves it to XLA)")

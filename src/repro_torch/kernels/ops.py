@@ -26,8 +26,9 @@ Each wrapper counts the kernels it launches in ``LAUNCHES`` (on the card
 only), so a run can show that its main path went through the kernels.
 ``stream_mac_conv`` and ``tiled_matmul`` choose between two designs by
 shape, ``flash_attention`` among three by dtype and head dim
-(``flash_path``) and ``paged_attention`` by dtype and its cluster size
-(``paged_plan``); ``PATHS`` names the one their last card call took.  A
+(``flash_path``), and ``paged_attention`` and ``ssd_scan`` by dtype and
+their cluster size (``paged_plan``, ``ssd_plan``); ``PATHS`` names the one
+their last card call took.  A
 ``stream_gd_foreach`` or ``paged_gather_many`` call whose list outgrows
 one launch's table launches one grid per table.
 """
@@ -74,7 +75,7 @@ _SIGNATURES = {
     "tiled_matmul_launch": ("tiled_matmul", [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "tiled_matmul_plan": ("tiled_matmul", [_I] * 6 + [ctypes.POINTER(_I)]),
     "tiled_matmul_path": ("tiled_matmul", [_I] * 3),
-    "ssd_scan_launch": ("ssd_scan", [_I] + [_P] * 8 + [_I] * 6 + [_L] * 6 + [_P]),
+    "ssd_scan_launch": ("ssd_scan", [_I] + [_P] * 8 + [_I] * 8 + [_L] * 6 + [_P]),
     "paged_gather_launch": ("paged_gather", [_I, _P]),
     "paged_gather_capacity": ("paged_gather", []),
     "paged_gather_smem": ("paged_gather", [_L]),
@@ -88,6 +89,8 @@ HEAD_DIMS = (32, 64, 128, 256)     # the head sizes the paged-decode kernel is b
 FLASH_HEAD_DIMS = (32, 48, 64, 128, 192, 256)
 MAX_REP = 16                       # query heads per KV head in paged decode
 MAX_CLUSTER = 16                   # blocks a paged-decode cluster may hold (8 is portable)
+SSD_MAX_CHUNK = 512                # ssd_scan: 8 blocks of at most 64 chunk rows
+SSD_MAX_P = 64                     # ssd_scan's head dims: P padded to 16, 32 or 64
 
 
 _sm_counts: dict[int, int] = {}
@@ -468,6 +471,58 @@ def _check_f32(name: str, device, **tensors) -> None:
             raise ValueError(f"{name}: {arg} must be contiguous float32 on {device}")
 
 
+class SsdPlan(NamedTuple):
+    cluster: int    # blocks per (batch row, head), one thread-block cluster
+    rows: int       # rows of a chunk per block, in rows / 16 tiles of 16 (at most 4)
+    blocks: int     # blocks of the launch: batch x heads x cluster
+    strips: int     # strips of the P x N state, at most one per warp of a cluster
+    warps: int      # warps per block
+
+
+def ssd_plan(sm_count: int, batch: int, heads: int, p: int, n: int, q: int,
+             bf16: bool = True) -> SsdPlan:
+    """The launch plan of ``ssd_scan`` for a chunk of ``q`` tokens, a pure
+    function of the shape and type.  A cluster of ``cluster`` blocks serves
+    one (batch row, head): block r takes the 16-row tiles r, r + cluster,
+    r + 2 cluster, ... of every chunk, ``rows / 16`` of them (their C.B^T
+    and y), and each of its warps (8 in bf16, 4 in float32) one strip of
+    the state (16 rows of P by 16 columns of N in bf16, 32 in float32), so
+    the cluster needs ``cluster * rows >= q`` and ``warps * cluster >=
+    strips``.  The smallest power of two that holds both is doubled while
+    the grid stays within one block per SM, the cluster at 4 and every
+    block with at least 16 rows."""
+    if p > SSD_MAX_P or q > SSD_MAX_CHUNK or p < 1 or n < 1 or q < 1:
+        raise ValueError(f"ssd_scan: no design for P={p} (at most {SSD_MAX_P}) and a "
+                         f"{q}-token chunk (at most {SSD_MAX_CHUNK})")
+    warps, strip_tiles = (8, 2) if bf16 else (4, 4)
+    strips = -(-p // 16) * -(-(-(-n // 16) * 2) // strip_tiles)
+    need, c = max(-(-q // 64), -(-strips // warps)), 1
+    while c < need:
+        c *= 2
+    if c > 8:
+        raise ValueError(f"ssd_scan: no design for P={p}, N={n} ({strips} state strips "
+                         f"over at most 8 blocks of {warps} warps)")
+    while 2 * c <= 4 and batch * heads * 2 * c <= sm_count and q >= 32 * c:
+        c *= 2
+    rows = -(-(-(-q // c)) // 16) * 16
+    return SsdPlan(c, rows, batch * heads * c, strips, warps)
+
+
+_ssd_plans: dict[tuple, tuple[SsdPlan, str]] = {}
+
+
+def _ssd_plan(device: torch.device, code: int, b: int, s: int, h: int, p: int, n: int,
+              q: int) -> tuple[SsdPlan, str]:
+    """(plan, design name) of an ``ssd_scan`` launch, cached per shape."""
+    key = (device.index, code, b, s, h, p, n, q)
+    got = _ssd_plans.get(key)
+    if got is None:
+        plan = ssd_plan(_sm_count(device), b, h, p, n, q, bf16=code == 1)
+        design = "mma.sync bf16 split x3" if code else "CUDA cores"
+        got = _ssd_plans[key] = (plan, f"{design}, cluster of {plan.cluster}")
+    return got
+
+
 def ssd_scan(
     xh: torch.Tensor,             # (B, S, H, P)
     b: torch.Tensor,              # (B, S, N)
@@ -481,8 +536,9 @@ def ssd_scan(
     (y (B, S, H, P) float32, final state (B, H, P, N) float32); no D-skip.
     S must be a multiple of the chunk, as in ``ssd_chunked``.  The card
     path takes xh, b and c as strided views (contiguous last dims, as the
-    model slices them out of one projection) in float32 or bfloat16, and N
-    a multiple of 4."""
+    model slices them out of one projection) in float32 or bfloat16, N a
+    multiple of 4, P at most 64 and a chunk of at most 512 tokens; it is
+    one launch (``ssd_plan``)."""
     _no_grad("ssd_scan", xh, b, c, dt, a, init_state)
     bsz, sl, h, p = xh.shape
     n = b.shape[-1]
@@ -502,14 +558,16 @@ def ssd_scan(
     if xh.stride(2) != p or n % 4:
         raise ValueError(f"ssd_scan: xh needs contiguous (H, P) rows (strides "
                          f"{xh.stride()}) and N a multiple of 4 (N={n})")
+    plan, path = _ssd_plan(xh.device, code, bsz, sl, h, p, n, q)
     y = torch.empty((bsz, sl, h, p), dtype=torch.float32, device=xh.device)
     final = torch.empty((bsz, h, p, n), dtype=torch.float32, device=xh.device)
     lib, fn = _entry("ssd_scan_launch")
     err = fn(code, xh.data_ptr(), b.data_ptr(), c.data_ptr(), dt.data_ptr(), a.data_ptr(),
              None if init_state is None else init_state.data_ptr(), y.data_ptr(),
-             final.data_ptr(), bsz, sl, h, p, n, q, *xh.stride()[:2], *b.stride()[:2],
-             *c.stride()[:2], torch.cuda.current_stream(xh.device).cuda_stream)
+             final.data_ptr(), bsz, sl, h, p, n, q, plan.cluster, plan.rows,
+             *xh.stride()[:2], *b.stride()[:2], *c.stride()[:2], _raw_stream(xh.device))
     _launched(lib, "ssd_scan", err)
+    PATHS["ssd_scan"] = path
     return y, final
 
 

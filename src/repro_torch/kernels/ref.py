@@ -154,6 +154,7 @@ def ssd_scan(
     a: torch.Tensor,              # (H,) negative decay rates
     chunk: int,
     init_state: torch.Tensor | None = None,   # (B, H, P, N)
+    dtype: torch.dtype = torch.float32,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Mamba-2 SSD sequence mix over chunks of ``min(chunk, S)`` tokens
     (S must be a multiple), in float32 → (y (B, S, H, P), final state
@@ -161,16 +162,18 @@ def ssd_scan(
     ``C·Bᵀ`` times ``dt·x·e_in``, times ``e_out`` (the decay factored at the
     chunk midpoint, exponents clipped to ±60); ``C·S·exp(seg)`` from the
     state before the chunk; then ``S' = exp(Σ dt·a)·S + Σ_j exp(seg_Q −
-    seg_j)·dt_j·B_j⊗x_j``.  No D-skip."""
+    seg_j)·dt_j·B_j⊗x_j``.  No D-skip.  ``dtype`` float64 evaluates the
+    same function (the float32 products dt·a, then everything in float64)
+    for checks where float32 rounding of the clipped decays matters."""
     bsz, sl, h, p = xh.shape
     n = b.shape[-1]
     q = min(chunk, sl)
     nc = sl // q
-    xf = xh.float().reshape(bsz, nc, q, h, p)
-    bc = b.float().reshape(bsz, nc, q, n)
-    cc = c.float().reshape(bsz, nc, q, n)
-    dtc = dt.float().reshape(bsz, nc, q, h)
-    dac = dtc * a.float()
+    xf = xh.to(dtype).reshape(bsz, nc, q, h, p)
+    bc = b.to(dtype).reshape(bsz, nc, q, n)
+    cc = c.to(dtype).reshape(bsz, nc, q, n)
+    dtc = dt.float().to(dtype).reshape(bsz, nc, q, h)
+    dac = (dt.float() * a.float()).to(dtype).reshape(bsz, nc, q, h)
     seg = torch.cumsum(dac, dim=2)                                  # (B, NC, Q, H)
     causal = torch.ones(q, q, dtype=torch.bool, device=xh.device).tril()
     scores = torch.einsum("bcin,bcjn->bcij", cc, bc)
@@ -183,8 +186,8 @@ def ssd_scan(
     decay_to_end = torch.exp(seg[:, :, -1:] - seg)
     states = torch.einsum("bcjh,bcjn,bcjhp->bchpn", decay_to_end * dtc, bc, xf)
     chunk_decay = torch.exp(dac.sum(dim=2))                         # (B, NC, H)
-    state = (torch.zeros((bsz, h, p, n), dtype=torch.float32, device=xh.device)
-             if init_state is None else init_state.float())
+    state = (torch.zeros((bsz, h, p, n), dtype=dtype, device=xh.device)
+             if init_state is None else init_state.to(dtype))
     prev = []
     for ci in range(nc):
         prev.append(state)

@@ -421,6 +421,54 @@ def test_served_tokens_on_card_match_cpu(card, arch, lengths, chunk, path):
         assert ops.LAUNCHES["paged_decode_attention"] == 0
 
 
+def _ssd_design(dtype: str) -> tuple[str, str]:
+    """(compiled kernel, start of the ``ops.PATHS`` entry) an ``ssd_scan``
+    call must take: mma.sync in bf16, the CUDA cores in float32."""
+    if dtype == "bfloat16":
+        return "ssd_scan_mma", "mma.sync bf16 split x3, cluster of "
+    return "ssd_scan_fma", "CUDA cores, cluster of "
+
+
+def _ssd_check(dtype, xh, bb, cc, dts, a, chunk, st, plain_dtype=torch.float32):
+    """One ``ssd_scan`` call against the plain version (evaluated in
+    ``plain_dtype``): one launch counted, one device kernel of the design's
+    name profiled, ``ops.PATHS`` naming the design."""
+    kernel, path = _ssd_design(dtype)
+    before = ops.LAUNCHES["ssd_scan"]
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        y, fin = ops.ssd_scan(xh, bb, cc, dts, a, chunk, st)
+        torch.cuda.synchronize()
+    assert ops.LAUNCHES["ssd_scan"] == before + 1
+    assert ops.PATHS["ssd_scan"].startswith(path), ops.PATHS["ssd_scan"]
+    got = [(e.key.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0],
+            e.count) for e in prof.key_averages()
+           if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    assert len(got) == 1 and got[0][1] == 1 and got[0][0].split("<")[0] == kernel, got
+    want_y, want_fin = ref.ssd_scan(xh, bb, cc, dts, a, chunk, st, dtype=plain_dtype)
+    torch.testing.assert_close(y, want_y.float(), **F32)
+    torch.testing.assert_close(fin, want_fin.float(), **F32)
+
+
+def _ssd_inputs(card, dtype, b, s, h, p, n, init, pad, clip=False):
+    """x, B and C as the model slices them out of one conv output; dt and a
+    as the model's (``clip``: large enough that a 256-token chunk's seg
+    spans more than 120); a distinct random state per batch row."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=card).manual_seed(5)
+    conv = (torch.randn(b, s, h * p + 2 * n + pad, generator=g, device=card) * 0.5).to(dt)
+    xh = conv[..., :h * p].reshape(b, s, h, p)
+    bb, cc = conv[..., h * p:h * p + n], conv[..., h * p + n:h * p + 2 * n]
+    if clip:
+        dts = torch.rand(b, s, h, generator=g, device=card) * 0.5 + 0.5
+        a = -(torch.rand(h, generator=g, device=card) + 1.0)
+    else:
+        dts = torch.rand(b, s, h, generator=g, device=card) * 0.49 + 0.01
+        a = -(torch.rand(h, generator=g, device=card) + 0.5)
+    st = torch.randn(b, h, p, n, generator=g, device=card) if init else None
+    return xh, bb, cc, dts, a, st
+
+
 # F32 holds for bf16 inputs too: kernel and plain version widen them to
 # float32 and both write float32
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -430,24 +478,32 @@ def test_served_tokens_on_card_match_cpu(card, arch, lengths, chunk, path):
     (2, 44, 4, 32, 16, 256, True, 0),      # a ragged 44-token slice
     (1, 96, 3, 8, 8, 32, False, 0),        # P under one 16-column slice, N = 8
     (2, 96, 2, 16, 12, 32, True, 1),       # rows that are not 16-byte aligned: element loads
+    (4, 1024, 24, 64, 128, 256, False, 0),  # the eval's shape: 4 rows, four chunks
+    (4, 1024, 24, 64, 128, 256, True, 0),   # the same from carried states
+    (1, 1, 24, 64, 128, 256, True, 0),     # 1-token and 255-token slices: rows of the
+    (1, 255, 24, 64, 128, 256, True, 0),   # cluster past the chunk's end
+    (2, 256, 24, 64, 128, 256, True, 0),   # two rows, each its own carried state
+    (1, 64, 8, 32, 16, 32, True, 0),       # the reduced model's widths, two chunks
 ])
 def test_ssd_scan_kernel_matches_plain(card, dtype, b, s, h, p, n, chunk, init, pad):
-    dt = getattr(torch, dtype)
-    g = torch.Generator(device=card).manual_seed(5)
-    # x, B and C as the model slices them out of one conv output
-    conv = (torch.randn(b, s, h * p + 2 * n + pad, generator=g, device=card) * 0.5).to(dt)
-    xh = conv[..., :h * p].reshape(b, s, h, p)
-    bb, cc = conv[..., h * p:h * p + n], conv[..., h * p + n:h * p + 2 * n]
-    dts = torch.rand(b, s, h, generator=g, device=card) * 0.49 + 0.01
-    a = -(torch.rand(h, generator=g, device=card) + 0.5)
-    st = torch.randn(b, h, p, n, generator=g, device=card) if init else None
-    before = ops.LAUNCHES["ssd_scan"]
-    y, fin = ops.ssd_scan(xh, bb, cc, dts, a, chunk, st)
-    torch.cuda.synchronize()
-    assert ops.LAUNCHES["ssd_scan"] == before + 1
-    want_y, want_fin = ref.ssd_scan(xh, bb, cc, dts, a, chunk, st)
-    torch.testing.assert_close(y, want_y, **F32)
-    torch.testing.assert_close(fin, want_fin, **F32)
+    xh, bb, cc, dts, a, st = _ssd_inputs(card, dtype, b, s, h, p, n, init, pad)
+    _ssd_check(dtype, xh, bb, cc, dts, a, chunk, st)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("init", [False, True])
+def test_ssd_scan_kernel_keeps_the_decay_clip(card, dtype, init):
+    """A chunk whose seg spans more than 120: the kernel computes the
+    clipped factorization e_out * e_in as the plain version does, which
+    then differs from exp(seg_i - seg_j).  There the clipped weights of
+    whole runs of tokens hang on seg (|seg| ~ 290) to a few ulp and on
+    float32 sums of e^60-sized terms: the plain version evaluated in float32
+    (its serial cumsum on the card) is up to 3.2 times the tolerance from
+    the exact result, so the kernel is held to it evaluated in float64."""
+    xh, bb, cc, dts, a, st = _ssd_inputs(card, dtype, 1, 512, 24, 64, 128, init, 0, clip=True)
+    span = (dts * a).reshape(1, 2, 256, 24).sum(2).abs().min()
+    assert span > 120, span
+    _ssd_check(dtype, xh, bb, cc, dts, a, 256, st, plain_dtype=torch.float64)
 
 
 @pytest.mark.parametrize("dtype,row", [

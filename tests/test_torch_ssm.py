@@ -100,6 +100,7 @@ def _layer(params, r=0):
     (2, 64, 4, 8, 16, 16),
     (2, 64, 4, 8, 16, 64),       # single chunk
     (1, 128, 3, 16, 8, 32),
+    (1, 512, 24, 64, 128, 256),  # mamba2-130m's widths: a 512-token prompt
 ])
 def test_plain_ssd_scan_matches_jax_kernel(b, s, h, p, n, chunk, dtype):
     rng = np.random.default_rng(0)
@@ -120,6 +121,130 @@ def test_plain_ssd_scan_matches_jax_kernel(b, s, h, p, n, chunk, dtype):
     for want in (jops.ssd_scan(xh, bb, cc, dts, a, chunk=chunk, interpret=True),
                  jref.ssd_scan(xh, bb, cc, dts, a)):
         np.testing.assert_allclose(y.numpy(), np.asarray(want, np.float32), **tol)
+
+
+def test_plain_ssd_scan_keeps_the_decay_clip():
+    """A chunk whose seg spans more than 120 (dt 0.5-1 and a -1 to -2 over
+    256 tokens): the plain version computes the clipped factorization
+    e_out * e_in of the Pallas kernel (in interpret mode) at its float32
+    tolerance, where the sequential oracle, which does not clip, differs."""
+    rng = np.random.default_rng(1)
+    b, s, h, p, n, chunk = 1, 512, 4, 16, 32, 256
+    xh = jnp.asarray(rng.normal(size=(b, s, h, p)), jnp.float32) * 0.5
+    bb = jnp.asarray(rng.normal(size=(b, s, n)), jnp.float32) * 0.5
+    cc = jnp.asarray(rng.normal(size=(b, s, n)), jnp.float32) * 0.5
+    dts = jnp.asarray(rng.uniform(0.5, 1.0, size=(b, s, h)), jnp.float32)
+    a = -jnp.asarray(rng.uniform(1.0, 2.0, size=(h,)), jnp.float32)
+    span = np.abs(np.asarray(dts * a).reshape(b, s // chunk, chunk, h).sum(2)).min()
+    assert span > 120, span
+    y, _ = tops.ssd_scan(_t(xh), _t(bb), _t(cc), _t(dts), _t(a), chunk)
+    want = np.asarray(jops.ssd_scan(xh, bb, cc, dts, a, chunk=chunk, interpret=True))
+    np.testing.assert_allclose(y.numpy(), want, rtol=5e-4, atol=5e-4)
+    oracle = np.asarray(jref.ssd_scan(xh, bb, cc, dts, a))
+    assert np.abs(y.numpy() - oracle).max() > 1e-2
+
+
+@pytest.mark.parametrize("bf16", [True, False])
+def test_ssd_plan_covers_every_head_and_row(bf16):
+    """The launch plan as a pure function of the shape: one cluster per
+    (batch row, head), every 16-row tile of a chunk in exactly one block of
+    it (block r takes tiles r, r + cluster, ...), at most one state strip
+    per warp, the cluster a power of two within 8."""
+    warps, strip_cols = (8, 16) if bf16 else (4, 32)
+    for sms in (132, 8):
+        for batch, heads, p, n, q in [(1, 24, 64, 128, 256), (1, 24, 64, 128, 44),
+                                      (4, 24, 64, 128, 256), (1, 24, 64, 128, 1),
+                                      (1, 24, 64, 128, 255), (2, 4, 32, 16, 32),
+                                      (1, 3, 8, 8, 32), (2, 2, 16, 12, 32), (1, 8, 32, 16, 8),
+                                      (1, 24, 64, 128, 512), (3, 8, 64, 64, 64),
+                                      (1, 2, 64, 256, 128)]:
+            plan = tops.ssd_plan(sms, batch, heads, p, n, q, bf16)
+            assert plan.cluster in (1, 2, 4, 8) and plan.warps == warps
+            assert plan.blocks == batch * heads * plan.cluster >= batch * heads
+            assert plan.rows % 16 == 0 and 16 <= plan.rows <= 64
+            tiles = -(-q // 16)
+            owners = np.zeros(tiles, int)
+            for r in range(plan.cluster):
+                for k in range(plan.rows // 16):
+                    if r + plan.cluster * k < tiles:
+                        owners[r + plan.cluster * k] += 1
+            assert (owners == 1).all(), (batch, heads, p, n, q, plan)
+            strips = -(-p // 16) * -(-(-(-n // 16) * 16) // strip_cols)
+            assert plan.strips == strips <= warps * plan.cluster, (p, n, plan)
+    with pytest.raises(ValueError, match="no design"):
+        tops.ssd_plan(132, 1, 2, 128, 16, 64, bf16)       # P over 64
+    with pytest.raises(ValueError, match="no design"):
+        tops.ssd_plan(132, 1, 2, 64, 16, 1024, bf16)      # a chunk over 512
+
+
+def _ssd_split_emulation(xh, bb, cc, dt, a, chunk, init, score_terms, state_terms,
+                         update_terms):
+    """``ssd_scan`` as the bf16 kernel computes it: C.B^T of exact bf16
+    values, the three float32 operands of its tensor-core products (scores
+    * dt * e_in, the state copy that C.S reads, dt * exp(seg_last - seg) *
+    x) each replaced by the sum of its first bf16 terms, every product
+    exact (float64 here)."""
+    def terms(v, k):
+        v = v.float()
+        out = torch.zeros_like(v, dtype=torch.float64)
+        for _ in range(k):
+            t = v.to(torch.bfloat16).float()
+            out += t.double()
+            v = v - t
+        return out
+
+    x, bm, cm = xh.double(), bb.double(), cc.double()
+    bsz, sl, h, p = x.shape
+    state = init.double()
+    causal = torch.ones(chunk, chunk, dtype=torch.bool).tril()
+    ys = []
+    for s0 in range(0, sl, chunk):
+        xs, bs, cs = x[:, s0:s0 + chunk], bm[:, s0:s0 + chunk], cm[:, s0:s0 + chunk]
+        d = dt[:, s0:s0 + chunk].float()
+        seg = torch.cumsum((d * a.float()).double(), 1).float()
+        mid = 0.5 * (seg[:, :1] + seg[:, -1:])
+        e_out = torch.exp(torch.clamp(seg - mid, -60.0, 60.0))
+        e_in = torch.exp(torch.clamp(mid - seg, -60.0, 60.0))
+        scores = torch.einsum("bin,bjn->bij", cs, bs).float().masked_fill(~causal, 0.0)
+        w = terms(scores[..., None] * (d * e_in)[:, None], score_terms)      # (B, i, j, H)
+        y = torch.einsum("bijh,bjhp->bihp", w, xs) * e_out.double()[..., None]
+        y = y + (torch.einsum("bin,bhpn->bihp", cs, terms(state, state_terms))
+                 * torch.exp(seg).double()[..., None])
+        ws = terms((d * torch.exp(seg[:, -1:] - seg))[..., None] * xs.float(), update_terms)
+        state = (state * torch.exp(seg[:, -1]).double()[:, :, None, None]
+                 + torch.einsum("bjhp,bjn->bhpn", ws, bs))
+        ys.append(y)
+    return torch.cat(ys, 1).float(), state.float()
+
+
+@pytest.mark.parametrize("regime", ["served", "clip"])
+def test_ssd_split_terms_hold_the_card_tolerance(regime):
+    """The bf16 kernel's split at phase 2's shapes (mamba2-130m, 512 tokens
+    in 256-token chunks, a carried state): three bf16 terms of the scores
+    and of the state copy and two of the update stay within the card
+    check's atol = rtol = 1e-4 of the plain version; one bf16 rounding of
+    the same operands does not."""
+    g = torch.Generator().manual_seed(5)
+    b, s, h, p, n, chunk = 1, 512, 24, 64, 128, 256
+    conv = (torch.randn(b, s, h * p + 2 * n, generator=g) * 0.5).to(torch.bfloat16)
+    xh = conv[..., :h * p].reshape(b, s, h, p)
+    bb, cc = conv[..., h * p:h * p + n], conv[..., h * p + n:]
+    if regime == "clip":
+        dt = torch.rand(b, s, h, generator=g) * 0.5 + 0.5
+        a = -(torch.rand(h, generator=g) + 1.0)
+    else:
+        dt = torch.rand(b, s, h, generator=g) * 0.49 + 0.01
+        a = -(torch.rand(h, generator=g) + 0.5)
+    st = torch.randn(b, h, p, n, generator=g)
+    want_y, want_fin = tops.ssd_scan(xh, bb, cc, dt, a, chunk, st)
+
+    def worst(got, want):
+        return float(((got - want).abs() / (1e-4 + 1e-4 * want.abs())).max())
+
+    y, fin = _ssd_split_emulation(xh, bb, cc, dt, a, chunk, st, 3, 3, 2)
+    assert worst(y, want_y) <= 1.0 and worst(fin, want_fin) <= 1.0
+    y1, fin1 = _ssd_split_emulation(xh, bb, cc, dt, a, chunk, st, 1, 1, 1)
+    assert worst(y1, want_y) > 1.0 and worst(fin1, want_fin) > 1.0
 
 
 def test_ssd_scan_refuses_a_ragged_length_and_other_devices():
