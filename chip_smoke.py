@@ -10,10 +10,10 @@ paths: paged-KV serving of qwen2.5-3b, ConvNet inference of VGG16, serving
 of mamba2-130m, the gather decode path, training of qwen2.5-3b, ConvNet
 training (VGG16), training of mamba2-130m, serving of recurrentgemma-9b
 (its training runs reduced: full width does not fit one card) and serving
-of the moe family (deepseek-v3-671b and qwen3-moe-235b-a22b).  Every
-serving path runs at full width; all but the moe family's at full depth
-(``MOE_DEPTH``: 671 B and 235 B parameters do not fit one card).  Phases,
-each fatal:
+and training of the moe family (deepseek-v3-671b and qwen3-moe-235b-a22b).
+Every serving path runs at full width; all but the moe family's at full
+depth (``MOE_DEPTH``, ``MOE_TRAIN``: 671 B and 235 B parameters do not
+fit one card).  Phases, each fatal:
 
 1. build the eight CUDA kernels from ``src/repro_torch/kernels/csrc``
    (``nvcc``, printing the ``-Xptxas -v`` register report) and name the card;
@@ -182,7 +182,23 @@ each fatal:
     launches;
 20. the same for qwen3-moe-235b-a22b cut to 10 layers, whose GQA layers
     decode through ``paged_decode_attention`` (64 over 4 heads), exactly
-    one launch per layer per decode step.
+    one launch per layer per decode step;
+21. train reduced deepseek-v3-671b and qwen3-moe-235b-a22b (80 tokens) as
+    phase 10 does qwen2.5-3b, card against CPU, with each step's aux loss
+    logged and held to the CPU's and the routed expert choices compared
+    dispatch for dispatch;
+22. train qwen3-moe-235b-a22b at published widths cut to 2 layers
+    (``MOE_TRAIN``: bf16, seeded random weights, momentum, batch 8 x 1,024
+    tokens, remat full, the capacity-drop dispatch, the chunked-scan
+    attention) through ``Trainer`` for 6 steps: every loss finite, one
+    ``stream_gd`` launch per step; step ms, trained tokens/s, peak memory
+    beside ``launch.train.training_bytes``, the forward's and backward's
+    peaks, the step's work against its bound, one layer's attention timed
+    alone, a profiled step's split (the MoE dispatch and the attention as
+    ranges); then the eval loss through ``flash_attention`` (one launch per
+    layer, D 128 at 64/4 heads) within the bf16 tolerance of ``impl="xla"``;
+23. the same for deepseek-v3-671b cut to 4 layers (its 3 dense layers and
+    1 MoE layer), sgd, batch 4 x 1,024; flash at D 192, 128 = 128 heads.
 
 ``--kernel-times`` runs only phase 2's timed
 rows (the served bf16 flash prefill shapes and the three paged-decode
@@ -196,8 +212,8 @@ one process each: parent, change, change, parent.
 A kernel's ``launches`` in the JSON line sums its counts over the paths
 that drive it (serving, VGG16 inference, the gather path, the three
 training paths, recurrentgemma-9b serving and reduced training, the moe
-family's serving), each counted from 0 around its own run.  Then it prints
-one JSON line with each kernel's numbers, the card's name
+family's serving and training), each counted from 0 around its own run.
+Then it prints one JSON line with each kernel's numbers, the card's name
 and power limit, and, last, ``{"ok": true, "device": {...}}``.  Without a
 card, or without the package beside it, it exits non-zero and prints no
 result.
@@ -1498,38 +1514,35 @@ def prefill_ms(model, params, vocab, seq: int, chunk: int, ranges=(),
 # ---------------------------------------------------------------------------
 
 
-def scan_range():
-    """Wrap the RG-LRU doubling scan in a ``record_function`` range named
-    ``rglru_scan`` (for the profiler's split); returns the undo."""
-    from repro_torch.models import rglru
-
-    plain = rglru.linear_scan
-
-    def ranged(a, b):
-        with torch.profiler.record_function("rglru_scan"):
-            return plain(a, b)
-
-    rglru.linear_scan = ranged
-    return lambda: setattr(rglru, "linear_scan", plain)
-
-
-def dispatch_range():
-    """Wrap the MoE routing and dispatch (``moe._dispatch``) and the combine
-    (``moe._combine``) in a ``record_function`` range named ``moe_dispatch``
-    (for the profiler's split); returns the undo."""
-    from repro_torch.models import moe
-
-    plain = {name: getattr(moe, name) for name in ("_dispatch", "_combine")}
+def host_range(module, names, label: str):
+    """Wrap each named function of ``module`` in a ``record_function`` range
+    called ``label`` (for the profiler's split); returns the undo."""
+    plain = {name: getattr(module, name) for name in names}
 
     def ranged(fn):
-        def call(*args):
-            with torch.profiler.record_function("moe_dispatch"):
-                return fn(*args)
+        def call(*args, **kwargs):
+            with torch.profiler.record_function(label):
+                return fn(*args, **kwargs)
         return call
 
     for name, fn in plain.items():
-        setattr(moe, name, ranged(fn))
-    return lambda: [setattr(moe, name, fn) for name, fn in plain.items()]
+        setattr(module, name, ranged(fn))
+    return lambda: [setattr(module, name, fn) for name, fn in plain.items()]
+
+
+def scan_range():
+    """The RG-LRU doubling scan in a range named ``rglru_scan``."""
+    from repro_torch.models import rglru
+
+    return host_range(rglru, ("linear_scan",), "rglru_scan")
+
+
+def dispatch_range():
+    """The MoE routing and dispatch (``moe._dispatch``) and the combine
+    (``moe._combine``) in a range named ``moe_dispatch``."""
+    from repro_torch.models import moe
+
+    return host_range(moe, ("_dispatch", "_combine"), "moe_dispatch")
 
 
 def count_calls(model, names) -> dict[str, int]:
@@ -1722,11 +1735,58 @@ def serve_moe(arch: str, smi) -> dict:
 LR = {"sgd": {"lr": 1e-2}, "momentum": {"lr": 1e-2}, "adamw": {}}
 
 
+def record_routing(model):
+    """Record what the moe family's training forward routes: each call's
+    aux loss (``model.forward``) and each dispatch's router probabilities
+    (``moe._dispatch_masks``).  Returns (auxes, gates, undo)."""
+    from repro_torch.models import moe
+
+    auxes, gates = [], []
+    plain_forward, plain_masks = model.forward, moe._dispatch_masks
+
+    def forward(*args, **kwargs):
+        logits, aux = plain_forward(*args, **kwargs)
+        auxes.append(aux.detach())
+        return logits, aux
+
+    def masks(g, *args, **kwargs):
+        gates.append(g.detach().cpu())
+        return plain_masks(g, *args, **kwargs)
+
+    model.forward, moe._dispatch_masks = forward, masks
+
+    def undo():
+        del model.forward
+        moe._dispatch_masks = plain_masks
+
+    return auxes, gates, undo
+
+
+def routing_flips(cpu_gates, card_gates, k: int) -> int:
+    """(token, rank) expert choices that differ between the CPU's and the
+    card's dispatches, call for call; logs the first few with the gate
+    values of the two choices on both sides."""
+    flips = 0
+    for call, (a, b) in enumerate(zip(cpu_gates, card_gates)):
+        ia, ib = torch.topk(a, k, dim=-1)[1], torch.topk(b, k, dim=-1)[1]
+        for g, t, r in (ia != ib).nonzero().tolist():
+            if flips < 5:
+                x, y = int(ia[g, t, r]), int(ib[g, t, r])
+                log(f"    routing flip: dispatch {call}, group {g}, token {t}, rank {r}: CPU "
+                    f"expert {x} ({float(a[g, t, x]):.9g} vs {float(a[g, t, y]):.9g}), card "
+                    f"expert {y} ({float(b[g, t, y]):.9g} vs {float(b[g, t, x]):.9g})")
+            flips += 1
+    return flips
+
+
 def train_card_vs_cpu(arch: str, seq: int, **over) -> int:
     """Reduced ``arch`` in float32 (``over`` replaces config fields): 4
     steps of each optimizer with 1 and 2 microbatches from the same weights
     and batches on the card and on the CPU; losses and grad norms within
-    1e-4 relative at every step, parameters within 1e-4 (atol = rtol).
+    1e-4 relative at every step, parameters within 1e-4 (atol = rtol).  For
+    the moe family also each step's aux loss (the mean over its
+    microbatches' forwards) within 1e-4 relative, logged on both sides, and
+    the routing's expert choices compared call for call (``routing_flips``).
     Returns the card's ``stream_gd`` launches."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
@@ -1744,6 +1804,7 @@ def train_card_vs_cpu(arch: str, seq: int, **over) -> int:
     total = 0
     batches = [rng.integers(0, cfg.vocab_size, size=(4, seq + 1)).astype(np.int32)
                for _ in range(4)]
+    moe = cfg.family == "moe"
     for opt in ("sgd", "momentum", "adamw"):
         for n_micro in (1, 2):
             runs = {}
@@ -1752,14 +1813,24 @@ def train_card_vs_cpu(arch: str, seq: int, **over) -> int:
                 p = tree_map(lambda t, d=dev: t.to(d, copy=True), params)
                 state = o.init(p)
                 step = make_train_step(model, o, n_microbatches=n_micro)
+                if moe:
+                    auxes, gates, undo = record_routing(model)
                 ops.reset_launches()
                 metrics = []
-                for toks in batches:
-                    t = torch.from_numpy(toks).to(dev)
-                    p, state, mt = step(p, state, {"tokens": t[:, :-1], "targets": t[:, 1:]})
-                    metrics.append((float(mt["loss"]), float(mt["grad_norm"])))
-                runs[dev] = (np.array(metrics), p, ops.LAUNCHES["stream_gd"])
-            (cm, cp, _), (gm, gp, launches) = runs["cpu"], runs["cuda"]
+                try:
+                    for toks in batches:
+                        t = torch.from_numpy(toks).to(dev)
+                        p, state, mt = step(p, state, {"tokens": t[:, :-1], "targets": t[:, 1:]})
+                        metrics.append((float(mt["loss"]), float(mt["grad_norm"])))
+                finally:
+                    if moe:
+                        undo()
+                aux = (np.array([float(a) for a in auxes]).reshape(len(batches), n_micro)
+                       .mean(1) if moe else None)
+                runs[dev] = (np.array(metrics), p, ops.LAUNCHES["stream_gd"], aux,
+                             gates if moe else None)
+            (cm, cp, _, caux, cgates), (gm, gp, launches, gaux, ggates) = (runs["cpu"],
+                                                                         runs["cuda"])
             rel = float(np.max(np.abs(gm - cm) / np.abs(cm)))
             perr = max(float(((a.cpu() - b).abs() / (1e-4 + 1e-4 * b.abs())).max())
                        for (_, a), (_, b) in zip(tree_items(gp), tree_items(cp)))
@@ -1768,6 +1839,16 @@ def train_card_vs_cpu(arch: str, seq: int, **over) -> int:
                 f"1e-4 tolerance; {launches} stream_gd launches on the card")
             if rel > 1e-4 or perr > 1.0 or not np.isfinite(gm).all():
                 raise SystemExit(f"chip_smoke: {opt} training on the card differs from the CPU")
+            if moe:
+                aux_rel = float(np.max(np.abs(gaux - caux) / np.abs(caux)))
+                flips = routing_flips(cgates, ggates, cfg.experts_per_token)
+                log(f"    aux loss per step: card {['%.7f' % x for x in gaux]}, CPU "
+                    f"{['%.7f' % x for x in caux]}, max rel diff {aux_rel:.2e}; {flips} of "
+                    f"{sum(g[..., 0].numel() for g in cgates) * cfg.experts_per_token} routed "
+                    f"(token, rank) choices differ over {len(cgates)} dispatches")
+                if aux_rel > 1e-4:
+                    raise SystemExit(f"chip_smoke: {opt} aux loss on the card differs from the "
+                                     "CPU")
             want = {"sgd": 1, "momentum": 1, "adamw": 0}[opt] * len(batches)
             if launches != want:
                 raise SystemExit(f"chip_smoke: {launches} stream_gd launches, expected {want}")
@@ -1804,23 +1885,30 @@ def train_fault_on_card() -> None:
         raise SystemExit("chip_smoke: crash -> restore -> resume did not reproduce the clean run")
 
 
-def profile_split(fn) -> dict:
+def profile_split(fn, ranges=()) -> dict:
     """``fn()`` under torch.profiler: device ms of all kernels, of the update
     (``stream_gd`` kernels), of the gradient sums, division and norm (the
     ``train_step.accumulate`` ranges), of cuBLAS and cuDNN, and the largest
     kernels.  The rest of the device time is the forward and backward (whose
-    kernels autograd launches from its own thread)."""
+    kernels autograd launches from its own thread).  Each name in
+    ``ranges`` (a ``host_range``) also gets the device ms of the kernels
+    linked to it: the forward's and the remat recompute's, not the
+    backward's (autograd launches those outside the range)."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
     split = {"busy": 0.0, "update": 0.0, "update_launches": 0, "accumulate": 0.0,
-             "library": 0.0, "launches": 0, "top": []}
+             "library": 0.0, "launches": 0, "top": [],
+             "ranges": {name: sum(us for _, us in range_kernels(prof, name)) / 1e3
+                        for name in ranges}}
     library = ("gemm", "gemv", "cutlass", "nvjet", "cublas", "matmul", "cudnn", "conv",
                "xmma", "implicit", "wgrad", "dgrad")
     for e in prof.key_averages():
         cuda = str(getattr(e, "device_type", "")).endswith("CUDA")
-        if e.key.startswith(("train_step.", "ProfilerStep")):
+        # a range also shows as a device-side annotation spanning its kernels
+        # and the gaps between them: not a kernel, not counted
+        if e.key.startswith(("train_step.", "ProfilerStep")) or e.key in ranges:
             if not cuda and e.key == "train_step.accumulate":
                 split["accumulate"] += e.device_time_total / 1e3
             continue
@@ -1841,11 +1929,11 @@ def profile_split(fn) -> dict:
     return split
 
 
-def step_split(tr, state) -> tuple[float, dict]:
+def step_split(tr, state, ranges=()) -> tuple[float, dict]:
     """One more step of the Trainer ``tr`` under the profiler: its wall ms
     (profiler on) and ``profile_split``'s split."""
     tr.tcfg.total_steps = state.step + 1
-    split = profile_split(lambda: tr.run(state))
+    split = profile_split(lambda: tr.run(state), ranges)
     return state.step_s[-1] * 1e3, split
 
 
@@ -1870,6 +1958,10 @@ def log_split(wall_ms, split, step_ms, bytes_update, n_params, two_pass=False) -
         f"3.35 TB/s){two}")
     log(f"    rest (float32 gradient sums, division, grad norm): {split['accumulate']:.2f} ms "
         f"({100 * split['accumulate'] / busy:.1f} %)")
+    for name, ms in split["ranges"].items():
+        log(f"    the {name!r} range's kernels (forward and remat recompute; its backward "
+            f"is not linked to it): {ms:.2f} ms ({100 * ms / busy:.1f} %)"
+            if ms else f"    profiler: no kernel linked to the {name!r} range (not measured)")
     for ms, n, name in sorted(split["top"], reverse=True)[:10]:
         log(f"      {ms:.2f} ms, {n} launches: {name}")
 
@@ -1926,6 +2018,245 @@ def train_full_width(smi, arch: str, batch: int, seq: int, lr: str):
     grad_size = 4 if tr.tcfg.n_microbatches > 1 else None
     log_split(wall_ms, split, step_ms, update_bytes(leaves, grad_size), n_params, two_pass=True)
     return launches, tr, state
+
+
+# the moe models trained at published widths on one card, cut in depth only
+# (launch.train's training_bytes, weights + gradients + optimizer state
+# without activations): qwen3-moe-235b-a22b 2 of 94 layers (6.220 B
+# parameters, momentum 49.8 GB), deepseek-v3-671b its 3 dense layers and 1
+# of its 58 MoE layers (15.111 B, sgd 60.5 GB)
+MOE_TRAIN = {
+    "qwen3-moe-235b-a22b": dict(over=dict(n_layers=2), optimizer="momentum", batch=8),
+    "deepseek-v3-671b": dict(over=dict(n_layers=4), optimizer="sgd", batch=4),
+}
+MOE_TRAIN_SEQ = 1024
+EVAL_ROWS = 4                                  # rows of a fresh batch that eval_kernel_vs_xla takes
+# (label, heads, KV heads, head dim) of flash_attention in phases 22 and 23's kernel evals
+EVAL_FLASH = [("qwen3-moe eval", QM["h"], QM["hkv"], D),
+              ("deepseek-v3 eval", MLA["h"], MLA["h"], MLA["d"])]
+
+
+def moe_step_work(cfg, batch: int, seq: int) -> dict:
+    """Multiply-adds of one training forward at these shapes: ``macs`` of
+    the layers' bf16 matmuls (attention projections, the dense MLPs, the
+    router, the shared expert and the experts over their whole capacity
+    slab), ``head`` of the LM head, ``attn`` of the float32 chunked-scan
+    attention (every pair of chunks, masked or not; MLA's V padded to
+    qk_nope + qk_rope); and the dispatch's ``groups``, ``capacity`` per
+    expert, slab ``rows`` per MoE layer and routed (token, expert) ``pairs``."""
+    from repro_torch.models.moe import n_groups_for
+
+    tokens = batch * seq
+    d, h, e, k = cfg.d_model, cfg.n_heads, cfg.n_experts, cfg.experts_per_token
+    f = cfg.moe_d_ff or cfg.d_ff
+    groups = n_groups_for(batch, seq)
+    cap = max(int(tokens // groups * k * cfg.capacity_factor / e), 4)
+    rows = groups * e * cap
+    if cfg.mla:
+        m = cfg.mla
+        dqk = m.qk_nope_head_dim + m.qk_rope_head_dim
+        proj = (d * m.q_lora_rank + m.q_lora_rank * h * dqk
+                + d * (m.kv_lora_rank + m.qk_rope_head_dim)
+                + m.kv_lora_rank * h * (m.qk_nope_head_dim + m.v_head_dim) + h * m.v_head_dim * d)
+        dv = dqk
+    else:
+        proj = 2 * d * h * cfg.hd + 2 * d * cfg.n_kv_heads * cfg.hd
+        dqk = dv = cfg.hd
+    span = -(-seq // cfg.attn_chunk) * min(cfg.attn_chunk, seq)
+    n_moe = cfg.n_layers - cfg.first_dense_layers
+    per_token = (cfg.n_layers * proj + cfg.first_dense_layers * 3 * d * cfg.d_ff
+                 + n_moe * (d * e + 3 * d * f * cfg.n_shared_experts))
+    return dict(macs=per_token * tokens + n_moe * rows * 3 * d * f,
+                head=d * cfg.padded_vocab * tokens,
+                attn=cfg.n_layers * batch * h * span * span * (dqk + dv),
+                groups=groups, capacity=cap, rows=rows, pairs=tokens * k)
+
+
+def attention_ms(cfg, batch: int, seq: int) -> tuple[float, float]:
+    """Device ms of one layer's chunked-scan attention (``attend(impl="xla")``,
+    as the training forward calls it) at the step's shapes, bf16 inputs from
+    a seed: the forward alone and the forward with its backward."""
+    from repro_torch.models.attention import attend
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    if cfg.mla:
+        m = cfg.mla
+        d = m.qk_nope_head_dim + m.qk_rope_head_dim
+        hkv, scale = cfg.n_heads, d ** -0.5
+    else:
+        d, hkv, scale = cfg.hd, cfg.n_kv_heads, None
+    q, k, v = (torch.randn(batch, seq, h, d, generator=gen, device="cuda",
+                           dtype=torch.bfloat16).requires_grad_()
+               for h in (cfg.n_heads, hkv, hkv))
+    dout = torch.randn(batch, seq, cfg.n_heads, d, generator=gen, device="cuda",
+                       dtype=torch.bfloat16)
+
+    def fwd():
+        with torch.no_grad():
+            attend(q, k, v, causal=True, scale=scale, impl="xla", chunk=cfg.attn_chunk)
+
+    def fwd_bwd():
+        out = attend(q, k, v, causal=True, scale=scale, impl="xla", chunk=cfg.attn_chunk)
+        torch.autograd.grad(out, (q, k, v), dout)
+
+    return device_ms(fwd, 3), device_ms(fwd_bwd, 3)
+
+
+def train_moe_full_width(smi, arch: str) -> tuple[int, int]:
+    """``arch`` at published widths cut to ``MOE_TRAIN[arch]``'s depth, bf16,
+    seeded random weights, through ``Trainer`` (remat full, 1 microbatch,
+    ``MOE_TRAIN_SEQ`` tokens a row) for 6 steps: every loss finite and one
+    ``stream_gd`` launch per step; prints step ms (median of steps 2-6),
+    trained tokens/s, peak device memory beside ``training_bytes``, where
+    the memory peaks (an extra step's forward and backward apart), with sgd
+    that step's update of a leaf past 2^31 elements held to the plain
+    version (``sgd_update_past_2_31``), the step's work against its bound, a profiled step's split (the MoE dispatch
+    and the chunked-scan attention as ranges, the attention's backward
+    timed alone), then the eval loss of the trained weights through
+    ``flash_attention`` (one launch per layer) against ``impl="xla"``.
+    Returns (stream_gd launches, flash_attention launches)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import training_bytes
+    from repro_torch.models import attention, build_model
+    from repro_torch.models.common import tree_items
+    from repro_torch.train.train_step import value_and_grad
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    run = MOE_TRAIN[arch]
+    steps, batch, seq, opt = 6, run["batch"], MOE_TRAIN_SEQ, run["optimizer"]
+    full = get_arch(arch)
+    cfg = dataclasses.replace(full, **run["over"])
+    model = build_model(cfg)
+    reduced = ", ".join(f"{k}: {getattr(full, k)} -> {v}" for k, v in run["over"].items())
+    log(f"  reduced = {{{reduced}}}: segments {model.segments}, d_model {cfg.d_model}, "
+        + (f"MLA {cfg.n_heads} heads (q_lora {cfg.mla.q_lora_rank}, kv_lora "
+           f"{cfg.mla.kv_lora_rank}, attention head dim "
+           f"{cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim})" if cfg.mla else
+           f"GQA {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, qk_norm {cfg.qk_norm}")
+        + f", {cfg.n_experts} experts top-{cfg.experts_per_token} (+{cfg.n_shared_experts} "
+        f"shared) of {cfg.moe_d_ff}, vocab {cfg.vocab_size}; remat {cfg.remat}, attention "
+        f"chunk {cfg.attn_chunk}; {opt}, batch {batch} x seq {seq}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    need = training_bytes(model, opt, 1)
+    data = SyntheticLMData(cfg, batch=batch, seq=seq, device="cuda")
+    tr = Trainer(model, data, TrainerConfig(total_steps=steps, optimizer=opt, lr=1e-4,
+                                            log_every=100), device="cuda")
+    t0 = time.perf_counter()
+    state = tr.init_state(0)
+    torch.cuda.synchronize()
+    leaves = [t for _, t in tree_items(state.params)]
+    n_params = sum(t.numel() for t in leaves)
+    log(f"  {n_params / 1e9:.3f} B parameters in {len(leaves)} leaves, initialised in "
+        f"{time.perf_counter() - t0:.1f} s; weights + gradients + {opt} state "
+        f"(training_bytes) {need / 1e9:.1f} GB")
+    ops.reset_launches()
+    state = tr.run(state)
+    torch.cuda.synchronize()
+    launches = ops.LAUNCHES["stream_gd"]
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = statistics.median(state.step_s[1:]) * 1e3
+    log(f"  losses {['%.4f' % x for x in state.losses]}")
+    log(f"  step {step_ms:.1f} ms (median of steps 2-{steps}; first step "
+        f"{state.step_s[0] * 1e3:.1f} ms), {batch * seq / step_ms * 1e3:.0f} trained tokens/s, "
+        f"peak device memory {peak / 1e9:.2f} GB ({peak / 2**30:.2f} GiB) against "
+        f"training_bytes' {need / 1e9:.1f} GB ({smi})")
+    log(f"  stream_gd launches {launches} = {launches / steps:g} per step")
+    if state.step != steps or not all(np.isfinite(state.losses)):
+        raise SystemExit(f"chip_smoke: {arch} training gave a non-finite loss")
+    if launches != steps:
+        raise SystemExit(f"chip_smoke: {launches} stream_gd launches, expected {steps}")
+    # where the memory peaks: one more batch's forward, then its backward
+    batch_x = data.next()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fwd = {}
+
+    def loss_fn(params, b):
+        out = model.loss(params, b)
+        fwd["peak"] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        return out
+
+    _, grads = value_and_grad(loss_fn, state.params, batch_x)
+    bwd, after = torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated()
+    log(f"  memory: {held / 1e9:.2f} GB held between steps (weights + {opt} state); an extra "
+        f"step's forward peaks at {fwd['peak'] / 1e9:.2f} GB, its backward at "
+        f"{bwd / 1e9:.2f} GB, {after / 1e9:.2f} GB held with its gradients")
+    sgd_update_past_2_31(tr, state, grads)
+    del grads
+    work = moe_step_work(cfg, batch, seq)
+    flops = 8 * work["macs"] + 6 * work["head"]          # forward, recompute, backward
+    attn_flops = 8 * work["attn"]
+    upd = (update_bytes(leaves) if opt == "momentum" else
+           sum(3 * t.numel() * t.element_size() for t in leaves))
+    bound_ms = (flops / PEAK_FLOPS["torch.bfloat16"] + attn_flops / PEAK_FLOPS["torch.float32"]
+                + upd / HBM_BYTES_PER_S) * 1e3
+    log(f"  dispatch: {work['groups']} groups of {batch * seq // work['groups']} tokens, "
+        f"capacity {work['capacity']} per expert: {work['rows']} slab rows per MoE layer for "
+        f"{work['pairs']} routed (token, expert) pairs ({work['rows'] / work['pairs']:.2f}x "
+        "the routed work)")
+    log(f"  work per step: {flops / 1e12:.1f} TFLOP of bf16 matmuls (forward, remat recompute "
+        f"and backward; the experts over their slab), {attn_flops / 1e12:.2f} TFLOP of float32 "
+        f"chunked-scan attention, an update of {upd / 1e9:.1f} GB: bound {bound_ms:.1f} ms "
+        f"(989 TFLOP/s bf16, 67 TFLOP/s float32, 3.35 TB/s); the step at "
+        f"{100 * bound_ms / step_ms:.0f} % of it")
+    fwd_ms, fwd_bwd_ms = attention_ms(cfg, batch, seq)
+    attn_step = cfg.n_layers * (fwd_ms + fwd_bwd_ms)
+    log(f"  chunked-scan attention alone, one layer: forward {fwd_ms:.2f} ms, forward + "
+        f"backward {fwd_bwd_ms:.2f} ms; x {cfg.n_layers} layers with the remat recompute = "
+        f"{attn_step:.1f} ms, {100 * attn_step / step_ms:.1f} % of the step")
+    undo = [dispatch_range(), host_range(attention, ("flash_attention_xla",),
+                                         "chunked_attention")]
+    try:
+        wall_ms, split = step_split(tr, state, ranges=("moe_dispatch", "chunked_attention"))
+    finally:
+        for u in undo:
+            u()
+    log_split(wall_ms, split, step_ms, upd, n_params)
+    flash = eval_kernel_vs_xla(tr, state, "flash_attention")
+    del tr, state, data, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, flash
+
+
+def sgd_update_past_2_31(tr, state, grads, piece: int = 1 << 28) -> None:
+    """For an sgd trainer whose largest leaf has more than 2^31 elements:
+    one more update through its optimizer (one ``stream_gd`` launch over the
+    whole tree, as each step makes), then that leaf's elements from 2^31 -
+    2^20 to its end held bit-equal to the plain version on copies taken
+    before, ``piece`` elements at a time.  The launch is a comparison's and
+    is not among the phase's counted launches."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.common import tree_items
+
+    path, w = max(tree_items(state.params), key=lambda kv: kv[1].numel())
+    if tr.tcfg.optimizer != "sgd" or w.numel() <= 2**31:
+        return
+    g = dict(tree_items(grads))[path]
+    path = "/".join(map(str, path))
+    start = 2**31 - 2**20
+    w0, g0 = w.view(-1)[start:].clone(), g.view(-1)[start:].clone()
+    before = ops.LAUNCHES["stream_gd"]
+    tr.optimizer.update(grads, state.opt_state, state.params)
+    torch.cuda.synchronize()
+    launched = ops.LAUNCHES["stream_gd"] - before
+    coeffs = ops.coeffs_f32((1.0, -tr.tcfg.lr))     # the Trainer's sgd: no weight decay
+    tail = w.view(-1)[start:]
+    same = all(torch.equal(tail[i:i + piece],
+                           ref.stream_gd((w0[i:i + piece], g0[i:i + piece]), coeffs, w.dtype))
+               for i in range(0, tail.numel(), piece))
+    log(f"  one more sgd update ({launched} stream_gd launch over the tree): {path} "
+        f"{tuple(w.shape)} = {w.numel() / 1e9:.3f} G elements, elements {start} to "
+        f"{w.numel() - 1} (past 2^31) bit-equal to the plain version: {same}")
+    del w0, g0
+    if launched != 1 or not same:
+        raise SystemExit(f"chip_smoke: stream_gd's update of {path} past element 2^31 "
+                         "differs from its plain version")
 
 
 def save_params_once(params, step) -> None:
@@ -2164,25 +2495,27 @@ def vgg16_train(ex, smi) -> dict[str, int]:
     return {"stream_gd": launches, **run}
 
 
-def mamba2_eval_kernel_vs_xla(tr, state) -> int:
-    """The eval loss of the trained full-width mamba2 weights on one batch
-    of the trainer's stream with ``impl="kernel"`` (``ssd_scan``) and with
-    ``impl="xla"``, within the bf16 tolerance.  Returns the ssd_scan
-    launches."""
+def eval_kernel_vs_xla(tr, state, kernel: str) -> int:
+    """The eval loss of the trained weights on ``EVAL_ROWS`` rows of a fresh batch of
+    the trainer's stream with ``impl="kernel"`` (``kernel``: ``ssd_scan`` for
+    mamba2, ``flash_attention`` for the attention layers) and with
+    ``impl="xla"``, within the bf16 tolerance; one launch of ``kernel`` per
+    layer.  Returns its launches."""
     from repro_torch.kernels import ops
     from repro_torch.train.train_step import make_eval_step
 
-    batch = {k: v[:4] for k, v in tr.data.next().items()}
+    cfg = tr.model.cfg
+    batch = {k: v[:EVAL_ROWS] for k, v in tr.data.next().items()}
     ops.reset_launches()
     got = make_eval_step(tr.model, "kernel")(state.params, batch)
     torch.cuda.synchronize()
-    launches = ops.LAUNCHES["ssd_scan"]
+    launches = ops.LAUNCHES[kernel]
     want = make_eval_step(tr.model, "xla")(state.params, batch)
     log(f"  eval loss on a fresh batch {tuple(batch['tokens'].shape)}: kernel "
-        f"{float(got):.5f}, xla {float(want):.5f}; ssd_scan launches {launches}")
-    check_close("mamba2 eval loss, kernel against xla", got, want, torch.bfloat16)
-    if launches != tr.model.cfg.n_layers:
-        raise SystemExit(f"chip_smoke: {launches} ssd_scan launches, expected one per layer")
+        f"{float(got):.5f}, xla {float(want):.5f}; {kernel} launches {launches}")
+    check_close(f"{cfg.name} eval loss, kernel against xla", got, want, torch.bfloat16)
+    if launches != cfg.n_layers:
+        raise SystemExit(f"chip_smoke: {launches} {kernel} launches, expected one per layer")
     return launches
 
 
@@ -2367,6 +2700,11 @@ def main() -> int:
             flash_case(dtype, f"batch 2, D {d}, q_offset {off}"
                        + (", k/v expanded" if expand else ""), sq, sk, off, kvl, win, False,
                        h, hkv, d, b=2, expand=expand)
+    log("  flash_attention at the shapes of phases 22 and 23's kernel evals (make_eval_step "
+        "on 4 rows of 1,024 tokens, bf16): qwen3-moe's GQA and deepseek-v3's MLA:")
+    for label, h, hkv, d in EVAL_FLASH:
+        flash_case(torch.bfloat16, label, MOE_TRAIN_SEQ, MOE_TRAIN_SEQ, 0, MOE_TRAIN_SEQ, None,
+                   False, h, hkv, d, b=EVAL_ROWS)
     log("  paged_gather, one launch per call: a full-width qwen2.5-3b cache leaf (the gather "
         "path), one recurrentgemma attention layer's pools and one deepseek MLA layer's (the "
         "paged decodes), alone and in the pairs a decode step gathers together:")
@@ -2541,7 +2879,7 @@ def main() -> int:
     log("  full-width mamba2-130m (bf16, random weights, momentum) through the launcher:")
     n, tr, state = train_full_width(smi, "mamba2-130m", 16, 1024, "1e-4")
     launches["stream_gd"] += n
-    launches["ssd_scan"] += mamba2_eval_kernel_vs_xla(tr, state)
+    launches["ssd_scan"] += eval_kernel_vs_xla(tr, state, "ssd_scan")
     del tr, state
     torch.cuda.empty_cache()
 
@@ -2587,6 +2925,21 @@ def main() -> int:
             launches[name] += run[name]
         gc.collect()
         torch.cuda.empty_cache()
+
+    # -- phase 21 ---------------------------------------------------------------
+    log("== phase 21: reduced deepseek-v3-671b and qwen3-moe-235b-a22b training in float32, "
+        "card against CPU (80 tokens: two 64-token attention chunks)")
+    for arch in MOE_DEPTH:
+        log(f"  {arch}:")
+        launches["stream_gd"] += train_card_vs_cpu(arch, 80)
+
+    # -- phases 22 and 23 ---------------------------------------------------------
+    for phase, arch in zip((22, 23), MOE_TRAIN):
+        log(f"== phase {phase}: {arch} training at published widths, cut in depth (bf16, "
+            "random weights) on the card")
+        n, flash = train_moe_full_width(smi, arch)
+        launches["stream_gd"] += n
+        launches["flash_attention"] += flash
 
     for name in KERNELS:
         rows[name]["launches"] = launches[name]

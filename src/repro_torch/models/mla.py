@@ -6,11 +6,13 @@ the KV latent (B, S, kv_lora_rank) and the shared rotary key
 (B, S, qk_rope_head_dim), which has no heads axis.  Rotary tables are built
 at ``qk_rope_head_dim`` (``mla_rope_tables``), not at ``cfg.hd``.
 
-* ``mla_attention`` (prefill) decompresses K and V, pads V from
-  ``v_head_dim`` to ``qk_nope + qk_rope`` so one attention serves both,
-  and attends through ``attention.attend``: the ``flash_attention`` kernel
-  on the card (head_dim 192 at the published widths), its plain version on
-  the CPU, where the reference runs ``flash_attention_xla``.
+* ``mla_attention`` (prefill and training) decompresses K and V, pads V
+  from ``v_head_dim`` to ``qk_nope + qk_rope`` so one attention serves
+  both, and attends through ``attention.attend``: in prefill the
+  ``flash_attention`` kernel on the card (head_dim 192 at the published
+  widths), its plain version on the CPU; in training (``impl="xla"``) the
+  differentiable chunked scan, as the reference runs
+  ``flash_attention_xla`` on both.
 * Decode and chunked prefill use the published weight-absorption form
   (``_absorbed_attend``): queries are absorbed into latent space so the
   cache is never decompressed.  ``mla_decode`` reads dense per-lane views
@@ -73,9 +75,13 @@ def _latent_kv_at(cfg, p, x, tables):
     return latent, apply_rope(kv[..., rank:], cos[..., 0, :], sin[..., 0, :])
 
 
-def mla_attention(cfg, p, x, tables):
-    """Prefill over a whole sequence: x (B, S, D) at positions 0..S-1 →
-    (y (B, S, D), cache {"latent", "k_rope"})."""
+def mla_attention(cfg, p, x, tables, impl: str = "kernel"):
+    """Prefill or the training forward over a whole sequence: x (B, S, D)
+    at positions 0..S-1 → (y (B, S, D), cache {"latent", "k_rope"}).
+    ``impl="kernel"`` (serving) attends through the flash kernel, which
+    refuses grad-requiring inputs; ``"xla"`` through the differentiable
+    chunked scan in blocks of ``cfg.attn_chunk``, as the reference trains
+    (``flash_attention_xla``), with the same scale and V padding."""
     m = cfg.mla
     b, s, _ = x.shape
     h = cfg.n_heads
@@ -88,7 +94,8 @@ def mla_attention(cfg, p, x, tables):
     k = torch.cat([k_nope, k_rope[:, :, None].expand(b, s, h, qr)], dim=-1)
     # pad V's head dim up to qk + qr so one attention serves both
     vpad = F.pad(v, (0, qk + qr - vd))
-    out = attend(q, k, vpad, causal=True, scale=float(qk + qr) ** -0.5)[..., :vd]
+    out = attend(q, k, vpad, causal=True, scale=float(qk + qr) ** -0.5, impl=impl,
+                 chunk=cfg.attn_chunk)[..., :vd]
     y = out.reshape(b, s, h * vd) @ p["wo"]
     return y, {"latent": latent, "k_rope": k_rope}
 

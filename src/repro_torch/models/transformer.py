@@ -33,14 +33,16 @@ paged one after one ``paged_gather`` launch per layer).  A ``moe`` layer
 has the routed-expert FFN of ``models.moe`` in place of the MLP: it drops
 tokens past each expert's capacity in the whole-prompt prefill and drops
 none (one group, ``drop=False``) in chunked prefill and decode, as the
-reference does; the training ``forward``/``loss`` of the family are not
-ported yet and raise.  An ssm layer is pre-norm Mamba-2 + residual
-(``models.ssm``; its prefill runs the ``ssd_scan`` kernel, its decode step
-is plain torch, and the training ``forward``/``loss`` run the
-differentiable ``ssd_chunked(impl="xla")``).  A ``rec`` layer is pre-norm
-RG-LRU + residual, then the MLP block (``models.rglru``, plain torch on
-every path, its scan the doubling scan).  Projections and the MLP stay
-``torch.matmul``, as the JAX package leaves them to XLA.
+reference does; the training ``forward``/``loss`` (whose MLA layers
+attend through the chunked scan) drop as the whole-prompt prefill does and
+add each layer's router aux loss to the loss.  An ssm layer is pre-norm
+Mamba-2 + residual (``models.ssm``; its prefill runs the ``ssd_scan``
+kernel, its decode step is plain torch, and the training
+``forward``/``loss`` run the differentiable ``ssd_chunked(impl="xla")``).
+A ``rec`` layer is pre-norm RG-LRU + residual, then the MLP block
+(``models.rglru``, plain torch on every path, its scan the doubling scan).
+Projections and the MLP stay ``torch.matmul``, as the JAX package leaves
+them to XLA.
 
 The training forward is functional (autograd runs through it) and shares
 ``_qkv``, ``_rope_qk`` and ``mlp_apply`` with serving; the serving methods
@@ -295,16 +297,21 @@ class DecoderLM:
         return self.cfg.rglru.attn_window if kind == "attn" else None
 
     def _ffn_block(self, kind, p, x, path="prefill"):
-        """x + the layer's FFN of the normed x: the MLP, or for a moe layer
-        the routed experts with ``path``'s dispatch (``MOE_DISPATCH``)."""
+        """(x + the layer's FFN of the normed x, its aux loss): the MLP, or
+        for a moe layer the routed experts with ``path``'s dispatch
+        (``MOE_DISPATCH``) and the router's float32 aux loss.  A layer
+        without a router gives None in place of the reference's float32
+        zero, which adds nothing to the sum (and costs the serving paths,
+        which ignore the aux, no zero-fill launch per layer)."""
         h = self._norm(p["ln2"], x)
         if kind == "moe":
-            y, _ = _moe.moe_ffn(self.cfg, p["moe"], h, **MOE_DISPATCH[path])
-            return x + y
-        return x + mlp_apply(self.cfg, p["mlp"], h)
+            y, aux = _moe.moe_ffn(self.cfg, p["moe"], h, **MOE_DISPATCH[path])
+            return x + y, aux
+        return x + mlp_apply(self.cfg, p["mlp"], h), None
 
     def _attn_out(self, kind, p, out, x, path="prefill"):
-        """x + the attention output (B, S, H, hd) projected, then the FFN block."""
+        """x + the attention output (B, S, H, hd) projected, then the FFN
+        block → (x, aux) as ``_ffn_block``."""
         b, s = out.shape[:2]
         x = x + out.reshape(b, s, self.cfg.n_heads * self.cfg.hd) @ p["attn"]["wo"]
         return self._ffn_block(kind, p, x, path)
@@ -327,54 +334,62 @@ class DecoderLM:
     # -- training API -------------------------------------------------------
 
     def _train_layer(self, kind, p, x, tables, impl):
+        """One layer of the training forward → (x, its aux loss or None)."""
         cfg = self.cfg
         if kind == "ssm":
             y, _, _ = _ssm.ssm_block(cfg, p["mix"], self._norm(p["ln1"], x), impl=impl)
-            return x + y
+            return x + y, None
         if kind == "rec":
             y, _ = _rglru.rglru_block(cfg, p["mix"], self._norm(p["ln1"], x))
+            return self._ffn_block(kind, p, x + y)
+        if cfg.mla:
+            y, _ = _mla.mla_attention(cfg, p["attn"], self._norm(p["ln1"], x), tables,
+                                      impl=impl)
             return self._ffn_block(kind, p, x + y)
         q, k, v = self._qkv_rope(p, x, tables)
         out = attend(q, k, v, causal=True, window=self._window(kind), impl=impl,
                      chunk=cfg.attn_chunk)
         return self._attn_out(kind, p, out, x)
 
-    def _train_repeat(self, pattern, p, x, tables, impl):
-        """One repeat of a segment's pattern: the unit ``remat="full"``
-        recomputes, as the JAX package checkpoints its scanned body."""
+    def _train_repeat(self, pattern, p, x, aux, tables, impl):
+        """One repeat of a segment's pattern → (x, aux + its layers' aux
+        losses): the unit ``remat="full"`` recomputes, as the JAX package
+        checkpoints its scanned body with the (x, aux) carry."""
         for i, kind in enumerate(pattern):
-            x = self._train_layer(kind, p[f"s{i}_{kind}"], x, tables, impl)
-        return x
+            x, a = self._train_layer(kind, p[f"s{i}_{kind}"], x, tables, impl)
+            if a is not None:
+                aux = aux + a
+        return x, aux
 
     def forward(self, params, tokens, impl: str = "xla"):
-        """tokens (B, S) → (logits (B, S, V) in the model's type, aux loss
-        (a float32 zero: the moe family, the one with an aux loss, refuses
-        training for now)).  Differentiable;
+        """tokens (B, S) → (logits (B, S, V) in the model's type, aux loss:
+        the moe layers' router losses summed in float32, each already
+        weighted by ``router_aux_weight``; a float32 zero for a model
+        without a router).  Differentiable; a moe layer dispatches with
+        capacity drops and the default groups (``MOE_DISPATCH["prefill"]``),
+        as the reference trains.
         ``cfg.remat == "full"`` recomputes each repeat of a segment's pattern
         in the backward (``torch.utils.checkpoint``), ``"none"`` keeps every
-        activation.  ``impl="xla"`` attends with the chunked scan (dense and
-        local attention) or mixes with the plain-torch SSD (ssm), as JAX's
-        train step does; ``"kernel"`` runs the flash or ``ssd_scan`` kernel,
-        which has no backward and refuses grad-requiring inputs.  The RG-LRU
-        always runs its plain doubling scan.  Recurrent layers start from a
-        zero state and a zero conv context."""
+        activation.  ``impl="xla"`` attends with the chunked scan (dense,
+        local and MLA attention) or mixes with the plain-torch SSD (ssm), as
+        JAX's train step does; ``"kernel"`` runs the flash or ``ssd_scan``
+        kernel, which has no backward and refuses grad-requiring inputs.
+        The RG-LRU always runs its plain doubling scan.  Recurrent layers
+        start from a zero state and a zero conv context."""
         cfg = self.cfg
-        if cfg.family == "moe":
-            raise NotImplementedError(
-                "MoE training is not ported yet (the family serves; forward and loss "
-                "with the router's aux loss come next)")
         if cfg.remat not in ("none", "full"):
             raise NotImplementedError(f"remat={cfg.remat!r} is not ported ('none' or 'full')")
         x = self._embed(params, tokens.long())
         tables = self._rope(torch.arange(x.shape[1], device=x.device)[None])
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for si, (pattern, reps) in enumerate(self.segments):
             for p in _unstack(params[f"seg{si}"], reps):
                 if cfg.remat == "full":
-                    x = checkpoint(self._train_repeat, pattern, p, x, tables, impl,
-                                   use_reentrant=False)
+                    x, aux = checkpoint(self._train_repeat, pattern, p, x, aux, tables, impl,
+                                        use_reentrant=False)
                 else:
-                    x = self._train_repeat(pattern, p, x, tables, impl)
-        return self._head(params, x), torch.zeros((), dtype=torch.float32, device=x.device)
+                    x, aux = self._train_repeat(pattern, p, x, aux, tables, impl)
+        return self._head(params, x), aux
 
     def loss(self, params, batch, impl: str = "xla"):
         """Mean next-token cross-entropy + aux.  batch: {"tokens",
@@ -407,13 +422,13 @@ class DecoderLM:
             return x + y, {"state": st, "conv": cv}
         if kind == "rec":
             y, c = _rglru.rglru_block(cfg, p["mix"], self._norm(p["ln1"], x))
-            return self._ffn_block(kind, p, x + y), c
+            return self._ffn_block(kind, p, x + y)[0], c
         if cfg.mla:
             y, c = _mla.mla_attention(cfg, p["attn"], self._norm(p["ln1"], x), tables)
-            return self._ffn_block(kind, p, x + y), c
+            return self._ffn_block(kind, p, x + y)[0], c
         q, k, v = self._qkv_rope(p, x, tables)
         out = attend(q, k, v, causal=True, window=self._window(kind))
-        return self._attn_out(kind, p, out, x), {"k": k, "v": v}
+        return self._attn_out(kind, p, out, x)[0], {"k": k, "v": v}
 
     @torch.no_grad()
     def prefill(self, params, tokens):
@@ -461,11 +476,11 @@ class DecoderLM:
                                              _at(leaves, r))
                 for n, t in new.items():
                     leaves[n][r].copy_(t)
-                x = self._ffn_block(kind, p, x + y)
+                x, _ = self._ffn_block(kind, p, x + y)
             elif cfg.mla:
                 y, _ = _mla.mla_extend(cfg, p["attn"], self._norm(p["ln1"], x),
                                        _at(leaves, r), position, tables)
-                x = self._ffn_block(kind, p, x + y, "extend")
+                x, _ = self._ffn_block(kind, p, x + y, "extend")
             else:
                 q, k, v = self._qkv_rope(p, x, tables)
                 kc, vc = leaves["k"][r], leaves["v"][r]
@@ -473,7 +488,7 @@ class DecoderLM:
                 vc[:, position:position + c] = v
                 out = attend(q, kc, vc, causal=True, window=self._window(kind),
                              q_offset=position, kv_len=position + c)
-                x = self._attn_out(kind, p, out, x, "extend")
+                x, _ = self._attn_out(kind, p, out, x, "extend")
         return self._head(params, x), cache
 
     def _decode_state(self, kind, p, x, state):
@@ -483,7 +498,7 @@ class DecoderLM:
             y, st, cv = _ssm.ssm_decode(self.cfg, p["mix"], h, state["state"], state["conv"])
             return x + y, {"state": st, "conv": cv}
         y, new = _rglru.rglru_decode(self.cfg, p["mix"], h, state)
-        return self._ffn_block(kind, p, x + y), new
+        return self._ffn_block(kind, p, x + y)[0], new
 
     @torch.no_grad()
     def decode_step(self, params, cache, tokens, positions):
@@ -510,14 +525,14 @@ class DecoderLM:
             if self.cfg.mla:
                 y, _ = _mla.mla_decode(self.cfg, p["attn"], self._norm(p["ln1"], x),
                                        _at(leaves, r), positions, tables)
-                x = self._ffn_block(kind, p, x + y, "decode")
+                x, _ = self._ffn_block(kind, p, x + y, "decode")
                 continue
             q, k, v = self._qkv_rope(p, x, tables)
             kc, vc = leaves["k"][r], leaves["v"][r]
             kc[rows, positions] = k[:, 0].to(kc.dtype)
             vc[rows, positions] = v[:, 0].to(vc.dtype)
             out = decode_attention(q, kc, vc, positions, window=self._window(kind))
-            x = self._attn_out(kind, p, out, x, "decode")
+            x, _ = self._attn_out(kind, p, out, x, "decode")
         new_cache = [dict(seg) for seg in cache]
         for (si, key), sts in states.items():
             new_cache[si][key] = {n: torch.stack([st[n] for st in sts]) for n in sts[0]}
@@ -568,7 +583,7 @@ class DecoderLM:
                 y, _ = _mla.mla_decode_paged(cfg, p["attn"], self._norm(p["ln1"], x),
                                              _at(leaves, r), block_tables, positions, write,
                                              tables)
-                x = self._ffn_block(kind, p, x + y, "decode")
+                x, _ = self._ffn_block(kind, p, x + y, "decode")
                 continue
             q, k, v = self._qkv_rope(p, x, tables)
             kp, vp = leaves["k"][r], leaves["v"][r]
@@ -580,7 +595,7 @@ class DecoderLM:
             else:
                 out = paged_decode(q.reshape(b, cfg.n_heads, cfg.hd), kp, vp,
                                    block_tables, lengths).reshape(b, 1, cfg.n_heads, cfg.hd)
-            x = self._attn_out(kind, p, out, x, "decode")
+            x, _ = self._attn_out(kind, p, out, x, "decode")
         return self._head(params, x), pools
 
     # -- cache layouts ----------------------------------------------------------

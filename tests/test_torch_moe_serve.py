@@ -17,7 +17,10 @@ by ``repro_torch.convert``; tokens and caches come from numpy with a seed.
 * engine tokens identical to the JAX engine's, request for request: whole
   prompt, chunked prefill sync and async, ``recompute`` preemption and
   ``decode_path="gather"``;
-* training refuses the family; ``launch.serve`` runs both archs on the CPU.
+* training through the serving kernel is refused (``impl="kernel"`` with
+  grad-requiring weights; the family trains through ``impl="xla"``,
+  tests/test_torch_moe_train.py); ``launch.serve`` runs both archs on the
+  CPU.
 """
 import dataclasses
 import os
@@ -39,7 +42,7 @@ from repro_torch import convert  # noqa: E402
 from repro_torch import serve as tserve  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
-from repro_torch.models.common import SEQ_CACHE_KEYS, tree_items  # noqa: E402
+from repro_torch.models.common import SEQ_CACHE_KEYS, tree_items, tree_map  # noqa: E402
 from repro_torch.serve.paged_cache import absorb_decode, gather_views  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
@@ -327,17 +330,20 @@ def test_engine_tokens_match_jax_engine(models, name):
 
 
 # ---------------------------------------------------------------------------
-# training refused; the launcher
+# training through the serving kernel refused; the launcher
 # ---------------------------------------------------------------------------
 
 
 def test_training_is_refused(models):
+    """The family trains (tests/test_torch_moe_train.py), but not through
+    the flash kernel the serving paths run: it has no backward."""
     _, _, model, params = models
     toks = torch.zeros(1, 8, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="MoE training is not ported yet"):
-        model.forward(params, toks)
-    with pytest.raises(NotImplementedError, match="MoE training is not ported yet"):
-        model.loss(params, {"tokens": toks, "targets": toks.long()})
+    tree = tree_map(lambda t: t.detach().requires_grad_(), params)
+    with pytest.raises(RuntimeError, match="has no backward"):
+        model.forward(tree, toks, impl="kernel")
+    with pytest.raises(RuntimeError, match="has no backward"):
+        model.loss(tree, {"tokens": toks, "targets": toks.long()}, impl="kernel")
 
 
 @pytest.mark.parametrize("arch", ARCHS)

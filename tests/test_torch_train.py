@@ -303,20 +303,15 @@ def test_training_forward_refuses_what_is_not_ported():
     params = model.init(torch.Generator().manual_seed(0), "cpu")
     with pytest.raises(NotImplementedError, match="remat='dots'"):
         model.forward(params, toks)
-    # the ssm and hybrid families train (tests/test_torch_ssm_train.py,
-    # tests/test_torch_hybrid.py); what stays refused is the non-factorized
-    # SSD decay and the families not ported yet
+    # the ssm, hybrid and moe families train (tests/test_torch_ssm_train.py,
+    # tests/test_torch_hybrid.py, tests/test_torch_moe_train.py); what stays
+    # refused is the non-factorized SSD decay and the families not ported yet
     ssm_cfg = get_arch("mamba2-130m").reduced()
     with pytest.raises(NotImplementedError, match="factorized"):
         build_model(dataclasses.replace(
             ssm_cfg, ssm=dataclasses.replace(ssm_cfg.ssm, factorized=False)))
     with pytest.raises(NotImplementedError, match="family 'vlm' is not ported"):
         build_model(get_arch("llava-next-mistral-7b").reduced())
-    # the moe family serves (tests/test_torch_moe_serve.py) but does not train yet
-    moe = build_model(dataclasses.replace(get_arch("deepseek-v3-671b").reduced(),
-                                          dtype="float32"))
-    with pytest.raises(NotImplementedError, match="MoE training is not ported yet"):
-        moe.forward(moe.init(torch.Generator().manual_seed(0), "cpu"), toks)
 
 
 # ---------------------------------------------------------------------------
