@@ -10,7 +10,9 @@ paths: paged-KV serving of qwen2.5-3b, ConvNet inference of VGG16, serving
 of mamba2-130m, the gather decode path, training of qwen2.5-3b, ConvNet
 training (VGG16), training of mamba2-130m, serving of recurrentgemma-9b
 (its training runs reduced: full width does not fit one card) and serving
-and training of the moe family (deepseek-v3-671b and qwen3-moe-235b-a22b).
+and training of the moe family (deepseek-v3-671b and qwen3-moe-235b-a22b),
+and the serving engine's memory tiers (swap preemption through the host
+tier, prefix sharing with host retire).
 Every serving path runs at full width; all but the moe family's at full
 depth (``MOE_DEPTH``, ``MOE_TRAIN``: 671 B and 235 B parameters do not
 fit one card).  Phases, each fatal:
@@ -198,7 +200,37 @@ fit one card).  Phases, each fatal:
     ranges); then the eval loss through ``flash_attention`` (one launch per
     layer, D 128 at 64/4 heads) within the bf16 tolerance of ``impl="xla"``;
 23. the same for deepseek-v3-671b cut to 4 layers (its 3 dense layers and
-    1 MoE layer), sgd, batch 4 x 1,024; flash at D 192, 128 = 128 heads.
+    1 MoE layer), sgd, batch 4 x 1,024; flash at D 192, 128 = 128 heads;
+24. the memory tiers on reduced qwen2.5-3b, mamba2-130m, recurrentgemma-9b
+    and deepseek-v3-671b in float32, card against CPU: the forced-preemption
+    cell of tests/test_tiered_cache.py (3 lanes on 7 pages of 4 tokens)
+    with swap at swap_token_cost 0, recompute and the gather path, and the
+    prefix rounds of tests/test_prefix_cache.py with every index page
+    retired to the host tier between rounds: the tokens equal the CPU's
+    and one another, swaps, swap-ins, hits and (where the family has
+    pages) retired and restored pages fire, and every page not held by the
+    prefix index comes back;
+25. (run right after phase 4, on its model) full-width qwen2.5-3b under
+    page pressure: phase 4's 16 requests with 64 new tokens each on 8
+    lanes, inline admission, unpressured, on ``PRESSURE_PAGES`` (112)
+    pages with swap preemption (the default cost model, a host tier of
+    twice the pool) and with recompute: every request finishes, at least
+    4 swap preemptions, the swap run's tokens equal the unpressured run's
+    (else the first diverging request and token are reported as a fault),
+    it prefills the prompts' tokens only, ``paged_gather`` launches once
+    per swap-out batch and ``paged_decode_attention`` once per layer per
+    decode step; tok/s of the three runs, each swap-out's and swap-in's
+    pages, bytes and ms beside a pinned copy of the same size, the
+    recompute run's extra prefill tokens, and a profiled decode step after
+    a swap-in;
+26. (after phase 25) full-width qwen2.5-3b prefix sharing: 16 requests of
+    one 512-token system prompt + 64-256 own tokens, 32 new each, 256-token
+    chunks, async admission, ``prefix_sharing`` off and on: identical
+    tokens, hits, prefill tokens saved = hit tokens, one fork per request
+    with a partly filled tail page; tok/s and the mean time to first token
+    of both; then every index page retired to the host tier (one
+    ``paged_gather`` read) and 4 requests replayed: host-restored pages,
+    identical tokens.
 
 ``--kernel-times`` runs only phase 2's timed
 rows (the served bf16 flash prefill shapes and the three paged-decode
@@ -212,7 +244,8 @@ one process each: parent, change, change, parent.
 A kernel's ``launches`` in the JSON line sums its counts over the paths
 that drive it (serving, VGG16 inference, the gather path, the three
 training paths, recurrentgemma-9b serving and reduced training, the moe
-family's serving and training), each counted from 0 around its own run.
+family's serving and training, the memory tiers' runs of phases 24-26),
+each counted from 0 around its own run.
 Then it prints one JSON line with each kernel's numbers, the card's name
 and power limit, and, last, ``{"ok": true, "device": {...}}``.  Without a
 card, or without the package beside it, it exits non-zero and prints no
@@ -1724,6 +1757,396 @@ def serve_moe(arch: str, smi) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phases 24-26: the memory tiers (host tier, swap preemption, prefix sharing)
+# ---------------------------------------------------------------------------
+
+
+# the forced-preemption cell of tests/test_tiered_cache.py: 3 lanes on a
+# 7-page pool of 4-token pages; 3 requests of 7 tokens, 12 new each
+PRESSURE = dict(batch_slots=3, max_len=32, page_size=4, n_pages=7)
+TIER_FAMILIES = ("qwen2.5-3b", "mamba2-130m", "recurrentgemma-9b", "deepseek-v3-671b")
+# phase 25's device pool: 112 pages of 16 tokens (66.1 MB at full-width
+# qwen2.5-3b) for 16 requests of 128-512 tokens + 64 new on 8 lanes; under
+# inline admission the scheduling depends on lengths alone, and this pool
+# makes at least 4 swap preemptions fire
+PRESSURE_PAGES = 112
+
+
+def index_host_pages(prefix) -> int:
+    """Host pages the prefix index holds (nodes and terminals with a retired
+    copy), by a walk of its trie."""
+    held, stack = 0, [prefix.root]
+    while stack:
+        node = stack.pop()
+        held += sum(t.host_page is not None for t in node.terminals.values())
+        for child in node.children.values():
+            held += child.host_page is not None
+            stack.append(child)
+    return held
+
+
+def pages_back(eng, label: str) -> None:
+    """Every device and host page not held by the prefix index is back in
+    its free list, and the pool partition is sane."""
+    cache = eng.cache
+    held = len(cache.prefix.by_page) if cache.prefix is not None else 0
+    host_held = index_host_pages(cache.prefix) if cache.prefix is not None else 0
+    cache.check_invariant()
+    ok = cache.allocator.n_free == cache.n_pages - held
+    if cache.host is not None:
+        ok = ok and cache.host.allocator.n_free == cache.host.n_pages - host_held
+    if not ok:
+        raise SystemExit(f"chip_smoke: {label}: pages did not come back (device "
+                         f"{cache.allocator.n_free}/{cache.n_pages} free, {held} indexed)")
+
+
+def tiers_card_vs_cpu(smi) -> dict[str, int]:
+    """Phase 24: the reduced families in float32, card against CPU, on the
+    forced-preemption cell (swap at swap_token_cost 0, recompute, the gather
+    path) and on the prefix rounds of tests/test_prefix_cache.py with every
+    index page retired to the host tier between rounds.  Returns the card
+    runs' kernel launches."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_map
+    from repro_torch.serve import CacheConfig, EngineConfig, Request, ServeEngine
+
+    launches = dict.fromkeys(KERNELS, 0)
+    for arch in TIER_FAMILIES:
+        cfg = dataclasses.replace(get_arch(arch).reduced(), dtype="float32")
+        model = build_model(cfg)
+        params = {"cpu": model.init(torch.Generator().manual_seed(0), "cpu")}
+        params["cuda"] = tree_map(lambda t: t.to("cuda"), params["cpu"])
+        rng = np.random.default_rng(7)
+        prompts = [rng.integers(0, cfg.vocab_size, size=(7,)).astype(np.int32)
+                   for _ in range(3)]
+        top = dict(batch_slots=PRESSURE["batch_slots"], max_len=PRESSURE["max_len"])
+        pool = dict(page_size=PRESSURE["page_size"], n_pages=PRESSURE["n_pages"])
+        cases = [("card swap", "cuda", dict(swap_token_cost=0.0)),
+                 ("cpu swap", "cpu", dict(swap_token_cost=0.0)),
+                 ("card recompute", "cuda", dict(preempt_policy="recompute")),
+                 ("card swap, gather path", "cuda", dict(swap_token_cost=0.0,
+                                                         decode_path="gather"))]
+        got, tel = {}, {}
+        for label, dev, knobs in cases:
+            ops.reset_launches()
+            reqs, done, eng = serve(model, params[dev], EngineConfig(
+                **top, cache=CacheConfig(**pool, **knobs)), prompts, 12, dev)
+            for k in launches:
+                launches[k] += ops.LAUNCHES[k]
+            if len(done) != len(prompts):
+                raise SystemExit(f"chip_smoke: {arch} {label}: {len(done)} requests finished")
+            got[label], tel[label] = [r.out_tokens for r in reqs], eng.telemetry()
+            pages_back(eng, f"{arch} {label}")
+        sw, host = tel["card swap"], tel["card swap"]["host_tier"]
+        same = all(v == got["cpu swap"] for v in got.values())
+        log(f"  {arch}, 3 lanes on 7 pages of 4: card swap {sw['swap_preemptions']} swap "
+            f"preemptions ({host['swap_ins']} swap-ins, {host['pages_out']} pages out, "
+            f"{host['bytes_out']} B), recompute {tel['card recompute']['recompute_preemptions']}; "
+            f"tokens of card swap, recompute and gather "
+            f"{'identical to' if same else 'DIFFER from'} the CPU's")
+        if not same:
+            for label, toks in got.items():
+                log(f"    {label}: {toks}")
+            raise SystemExit("chip_smoke: swap, recompute and gather tokens differ")
+        if (sw["swap_preemptions"] <= 0 or sw["recompute_preemptions"] != 0
+                or host["swap_ins"] <= 0
+                or tel["card recompute"]["recompute_preemptions"] <= 0):
+            raise SystemExit(f"chip_smoke: {arch}: the pressure cell did not swap and recompute")
+        # the prefix rounds: [a, b] twice, every index page retired to the
+        # host tier before the replay
+        rng = np.random.default_rng(5)
+        a, b = [rng.integers(0, cfg.vocab_size, size=(10 + i,)).astype(np.int32)
+                for i in range(2)]
+        got, tel = {}, {}
+        for label, dev, on in (("card prefix on", "cuda", True), ("card prefix off", "cuda", False),
+                               ("cpu prefix on", "cpu", True)):
+            eng = ServeEngine(model, params[dev], EngineConfig(
+                batch_slots=2, max_len=64, cache=CacheConfig(
+                    page_size=4, n_pages=24, host_pages=32, prefix_sharing=on)), device=dev)
+            ops.reset_launches()
+            out, uid = {}, 0
+            for rnd in range(2):
+                if rnd and on:
+                    with eng._lock:
+                        eng.cache.prefix_retire(eng.cache.n_pages)
+                for p in (a, b):
+                    eng.submit(Request(uid=uid, prompt=p, max_new_tokens=5))
+                    uid += 1
+                out.update({r.uid: r.out_tokens for r in eng.run()})
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                for k in launches:
+                    launches[k] += ops.LAUNCHES[k]
+            got[label], tel[label] = out, eng.telemetry()
+            pages_back(eng, f"{arch} {label}")
+        pr = tel["card prefix on"]["prefix"]
+        same = all(v == got["cpu prefix on"] for v in got.values())
+        log(f"  {arch}, prefix rounds with a host retire between: hits {pr['hits']}, retired "
+            f"{pr['retired_pages']}, restored {pr['restored_pages']} pages; card on/off tokens "
+            f"{'identical to' if same else 'DIFFER from'} the CPU's")
+        if not same:
+            raise SystemExit(f"chip_smoke: {arch}: prefix on/off tokens differ: {got}")
+        has_seq = arch != "mamba2-130m"         # the ssm shares state snapshots, no pages
+        if pr["hits"] < 2 or (has_seq and (pr["retired_pages"] <= 0
+                                           or pr["restored_pages"] <= 0)):
+            raise SystemExit(f"chip_smoke: {arch}: the prefix rounds did not hit, retire and "
+                             "restore")
+    log(f"  ({smi})")
+    return launches
+
+
+def link_ms(nbytes: int, to_host: bool) -> float:
+    """Median ms of one pinned host<->device copy of ``nbytes`` (the rate the
+    host link reaches on this machine for that size)."""
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    src, dst = (dev, host) if to_host else (host, dev)
+    times = []
+    for i in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dst.copy_(src, non_blocking=True)
+        torch.cuda.synchronize()
+        if i:
+            times.append(time.perf_counter() - t0)
+    return statistics.median(times) * 1e3
+
+
+def probe_swaps(eng, ops) -> tuple[list, list]:
+    """Time every swap-out batch and swap-in staging of ``eng`` (each between
+    two synchronisations): ``(pages, bytes, ms, paged_gather launches)`` per
+    swap-out, ``(pages, bytes, ms)`` per swap-in."""
+    cache = eng.cache
+    outs, ins = [], []
+    swap_out_batch, stage_in = cache.swap_out_batch, cache.stage_in
+
+    def timed_out(items):
+        torch.cuda.synchronize()
+        b0, g0 = cache.host.stats["bytes_out"], ops.LAUNCHES["paged_gather"]
+        t0 = time.perf_counter()
+        swap_out_batch(items)
+        torch.cuda.synchronize()
+        outs.append((sum(len(d) for _, d in items), cache.host.stats["bytes_out"] - b0,
+                     (time.perf_counter() - t0) * 1e3, ops.LAUNCHES["paged_gather"] - g0))
+
+    def timed_in(handle):
+        torch.cuda.synchronize()
+        b0 = cache.host.stats["bytes_in"]
+        t0 = time.perf_counter()
+        got = stage_in(handle)
+        torch.cuda.synchronize()
+        ins.append((len(handle.host_pages), cache.host.stats["bytes_in"] - b0,
+                    (time.perf_counter() - t0) * 1e3))
+        return got
+
+    cache.swap_out_batch, cache.stage_in = timed_out, timed_in
+    return outs, ins
+
+
+def serve_under_pressure(model, params, prompts, calls, smi) -> dict[str, int]:
+    """Phase 25: full-width qwen2.5-3b, 8 lanes, max_len 1,024, 16-token
+    pages, 16 requests of 128-512 tokens + 64 new, inline admission, three
+    ways: unpressured, on ``PRESSURE_PAGES`` pages with swap preemption
+    (default cost model, host tier 2x), and with recompute.  ``calls``
+    counts ``decode_step_paged``.  Returns the three runs' launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import AdmissionConfig, CacheConfig, EngineConfig, Request, ServeEngine
+
+    cfg = model.cfg
+    max_new = 64
+    runs = {"unpressured": {}, "swap": dict(n_pages=PRESSURE_PAGES),
+            "recompute": dict(n_pages=PRESSURE_PAGES, preempt_policy="recompute")}
+    launches = dict.fromkeys(KERNELS, 0)
+    got, tel, probes = {}, {}, {}
+    for label, cache in runs.items():
+        eng = ServeEngine(model, params, EngineConfig(
+            batch_slots=8, max_len=1024, cache=CacheConfig(page_size=PS, **cache),
+            admission=AdmissionConfig(async_prefill=False)), device="cuda")
+        if label == "swap":
+            probes = probe_swaps(eng, ops)
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=max_new) for i, p in enumerate(prompts)]
+        ops.reset_launches()
+        calls.update(decode_step_paged=0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for r in reqs:
+            eng.submit(r)
+        done = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        run = dict(ops.LAUNCHES)
+        for k in launches:
+            launches[k] += run[k]
+        t = tel[label] = eng.telemetry()
+        got[label] = [r.out_tokens for r in reqs]
+        n_tok = sum(len(r.out_tokens) for r in reqs)
+        log(f"  {label}: {eng.cache.n_pages} pages; {len(done)}/{len(reqs)} requests, "
+            f"{n_tok} tokens in {wall:.2f} s = {n_tok / wall:.1f} tok/s; {t['steps']} steps, "
+            f"prefill tokens {t['prefill_tokens']}; preemptions swap {t['swap_preemptions']}, "
+            f"recompute {t['recompute_preemptions']}; decode idle fraction "
+            f"{t['decode_idle_fraction']:.3f} ({smi})")
+        if len(done) != len(reqs) or not all(len(r.out_tokens) == max_new for r in reqs):
+            raise SystemExit(f"chip_smoke: {label}: not every request finished")
+        if run["paged_decode_attention"] != cfg.n_layers * calls["decode_step_paged"]:
+            raise SystemExit(f"chip_smoke: {label}: paged_decode_attention should launch once "
+                             "per layer per decode step")
+        if label == "swap":
+            swap_run = run
+        pages_back(eng, label)
+    prompt_tokens = sum(len(p) for p in prompts)
+    sw = tel["swap"]
+    host = sw["host_tier"]
+    outs, ins = probes
+    log(f"  swap run: {sw['swap_preemptions']} swap preemptions in {len(outs)} swap-out "
+        f"batches, {host['pages_out']} pages ({host['bytes_out'] / 1e6:.1f} MB) out, "
+        f"{host['swap_ins']} swap-ins, {host['pages_in']} pages ({host['bytes_in'] / 1e6:.1f} "
+        f"MB) in; paged_gather {swap_run['paged_gather']} launches")
+    for kind, rows, to_host in (("swap-out", outs, True), ("swap-in", ins, False)):
+        for i, row in enumerate(rows):
+            pages, nbytes, ms = row[:3]
+            ref_ms = link_ms(nbytes, to_host) if nbytes else float("nan")
+            log(f"    {kind} {i}: {pages} pages, {nbytes / 1e6:.2f} MB in {ms:.3f} ms = "
+                f"{nbytes / ms / 1e6:.2f} GB/s; a pinned {'device->host' if to_host else 'host->device'}"
+                f" copy of the same size {ref_ms:.3f} ms = {nbytes / ref_ms / 1e6:.2f} GB/s"
+                + (f"; paged_gather launches {row[3]}" if kind == "swap-out" else ""))
+    log(f"  (the first swap-out also pins the host tier's buffers: "
+        f"{2 * PRESSURE_PAGES} pages)")
+    if sw["swap_preemptions"] < 4:
+        raise SystemExit(f"chip_smoke: only {sw['swap_preemptions']} swap preemptions fired "
+                         f"on {PRESSURE_PAGES} pages (at least 4 wanted)")
+    if sw["prefill_tokens"] != prompt_tokens:
+        raise SystemExit(f"chip_smoke: the swap run prefilled {sw['prefill_tokens']} tokens, "
+                         f"not the prompts' {prompt_tokens}")
+    if swap_run["paged_gather"] != sum(1 for row in outs if row[0]) or any(
+            row[3] != (1 if row[0] else 0) for row in outs):
+        raise SystemExit("chip_smoke: paged_gather should launch once per swap-out batch")
+    for i, (a, b) in enumerate(zip(got["swap"], got["unpressured"])):
+        if a != b:
+            step = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+            raise SystemExit(f"chip_smoke: FAULT: swap request {i} diverges from the "
+                             f"unpressured run at token {step}")
+    rec = tel["recompute"]
+    same = sum(a == b for a, b in zip(got["recompute"], got["unpressured"]))
+    log(f"  swap tokens identical to the unpressured run's for all {len(prompts)} requests; "
+        f"recompute re-prefilled {rec['prefill_tokens'] - prompt_tokens} extra tokens in "
+        f"{rec['recompute_preemptions']} preemptions, {same}/{len(prompts)} requests gave the "
+        "unpressured tokens (bf16: a re-prefill rounds otherwise than decode)")
+    # the decode step's device-busy share under pressure: a fourth swap run,
+    # profiled over 5 steps once a lane has been swapped out and back
+    eng = ServeEngine(model, params, EngineConfig(
+        batch_slots=8, max_len=1024, cache=CacheConfig(page_size=PS, n_pages=PRESSURE_PAGES),
+        admission=AdmissionConfig(async_prefill=False)), device="cuda")
+    for i, p in enumerate(prompts):
+        eng.submit(Request(uid=i, prompt=p, max_new_tokens=max_new))
+    while eng.load and eng.cache.host.stats["swap_ins"] < 1:
+        eng.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        eng.step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 5 * 1e3
+    log(f"  decode step after a swap-in, {len(eng.sched.running)} lanes running: "
+        f"{step_ms:.3f} ms wall (mean of 5)")
+    log_groups("step", step_ms, *device_groups(eng.step, 5))
+    eng.pipeline.shutdown()
+    return launches
+
+
+def serve_shared_prefix(model, params, smi) -> dict[str, int]:
+    """Phase 26: full-width qwen2.5-3b, an unpressured pool, 256-token
+    prefill chunks, async admission; 16 requests of one 512-token system
+    prompt + 64-256 own tokens, 32 new each, with ``prefix_sharing`` off
+    and on; then every index page retired to the host tier and 4 of the
+    requests replayed.  Returns the runs' launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import AdmissionConfig, CacheConfig, EngineConfig, Request, ServeEngine
+
+    cfg = model.cfg
+    rng = np.random.default_rng(26)
+    system = rng.integers(0, cfg.vocab_size, size=(512,))
+    prompts = [np.concatenate([system, rng.integers(0, cfg.vocab_size, size=(int(n),))])
+               .astype(np.int32) for n in rng.integers(64, 257, size=16)]
+    launches = dict.fromkeys(KERNELS, 0)
+
+    def drive(eng, batch):
+        """Submit ``batch`` at once and step to the end: (tokens, mean time to
+        first token at step granularity, tok/s)."""
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=32) for i, p in enumerate(batch)]
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for r in reqs:
+            eng.submit(r)
+        first = {}
+        while eng.load:
+            eng.step()
+            now = time.perf_counter()
+            for r in reqs:
+                if r.out_tokens and r.uid not in first:
+                    first[r.uid] = now - t0
+        eng.pipeline.shutdown()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for k in launches:
+            launches[k] += ops.LAUNCHES[k]
+        if not all(r.done and len(r.out_tokens) == 32 for r in reqs):
+            raise SystemExit("chip_smoke: a shared-prefix request did not finish")
+        n_tok = sum(len(r.out_tokens) for r in reqs)
+        return ([r.out_tokens for r in reqs], statistics.mean(first.values()) * 1e3,
+                n_tok / wall)
+
+    got, tel = {}, {}
+    for on in (False, True):
+        eng = ServeEngine(model, params, EngineConfig(
+            batch_slots=8, max_len=1024, cache=CacheConfig(page_size=PS, prefix_sharing=on),
+            admission=AdmissionConfig(prefill_chunk=256)), device="cuda")
+        toks, ttft, tps = drive(eng, prompts)
+        got[on], tel[on] = toks, eng.telemetry()
+        log(f"  prefix sharing {'on ' if on else 'off'}: {tps:.1f} tok/s, mean time to first "
+            f"token {ttft:.1f} ms (read after each step), prefill tokens "
+            f"{tel[on]['prefill_tokens']} ({smi})")
+    pr = tel[True]["prefix"]
+    saved = tel[False]["prefill_tokens"] - tel[True]["prefill_tokens"]
+    log(f"  prefix on: hits {pr['hits']}, misses {pr['misses']}, hit tokens {pr['hit_tokens']} "
+        f"(hit rate {pr['hit_rate']:.3f}), {saved} fewer prefill tokens, forks {pr['forks']}")
+    if got[True] != got[False]:
+        bad = [i for i, (a, b) in enumerate(zip(got[True], got[False])) if a != b]
+        raise SystemExit(f"chip_smoke: prefix on/off tokens differ for requests {bad}")
+    # the system prompt's 32 pages are full and no lane writes them; each
+    # finished prefill shares its partly filled tail page with its index
+    # terminal, so its lane forks that page at its first decode write
+    tails = sum(1 for p in prompts if len(p) % PS)
+    if pr["hits"] < 1 or saved != pr["hit_tokens"] or pr["forks"] != tails:
+        raise SystemExit(f"chip_smoke: the shared prefix did not hit as it should ({tails} "
+                         "tail pages to fork)")
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with eng._lock:
+        retired = eng.cache.prefix_retire(eng.cache.n_pages)
+    ms = (time.perf_counter() - t0) * 1e3
+    put = ops.LAUNCHES["paged_gather"]
+    launches["paged_gather"] += put
+    host = eng.telemetry()["host_tier"]
+    log(f"  retired {retired} index pages to the host tier in {ms:.3f} ms "
+        f"({host['bytes_out'] / 1e6:.1f} MB, paged_gather {put} launches; the first copy-out "
+        "also pins the host tier's buffers)")
+    replay, ttft, tps = drive(eng, prompts[:4])
+    pr2 = eng.telemetry()["prefix"]
+    log(f"  4 replays (full matches): restored {pr2['restored_pages']} pages, forks "
+        f"{pr2['forks'] - pr['forks']} (their shared tail pages), mean time to first token "
+        f"{ttft:.1f} ms, {tps:.1f} tok/s")
+    if put < 1:
+        raise SystemExit("chip_smoke: the retire read no page through paged_gather")
+    if replay != got[True][:4] or pr2["restored_pages"] <= 0:
+        raise SystemExit("chip_smoke: the host-restored replay differs or restored nothing")
+    pages_back(eng, "prefix on, after the replay")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phases 10 and 11: training
 # ---------------------------------------------------------------------------
 
@@ -2759,6 +3182,16 @@ def main() -> int:
         raise SystemExit("chip_smoke: engine's first token differs from a direct prefill")
     log("  prefill logits finite, shape (1, 1, V); first token matches the engine")
     decode_breakdown(model, params, cfg.vocab_size)
+
+    # -- phases 25 and 26 (on phase 4's model) ------------------------------------
+    log(f"== phase 25: full-width qwen2.5-3b under page pressure ({PRESSURE_PAGES} pages of "
+        f"{PS}), unpressured, swap and recompute")
+    for name, n in serve_under_pressure(model, params, qwen_prompts, calls, smi).items():
+        launches[name] = launches.get(name, 0) + n      # every kernel's key from here
+    log("== phase 26: full-width qwen2.5-3b prefix sharing (a 512-token system prompt, "
+        "256-token chunks, async admission)")
+    for name, n in serve_shared_prefix(model, params, smi).items():
+        launches[name] += n
     del model, params
     torch.cuda.empty_cache()
 
@@ -2769,7 +3202,8 @@ def main() -> int:
     # -- phase 6 ----------------------------------------------------------------
     log(f"== phase 6: full-width VGG16 (224 x 224, batch {CNN_BATCH}, bf16, random weights) "
         "on the card")
-    launches.update(vgg16_forward(smi))
+    for name, n in vgg16_forward(smi).items():
+        launches[name] += n
     log("  full width in float32, two images, card against CPU:")
     vgg16_card_vs_cpu(zoo.vgg16(), 2, 224)
 
@@ -2797,7 +3231,7 @@ def main() -> int:
     prompts = [rng.integers(0, cfg.vocab_size, size=(int(n),)).astype(np.int32)
                for n in rng.integers(128, 513, size=16)]
     reqs, run = serve_full_width(model, params, prompts, ecfg, ("ssd_scan",), smi)
-    launches["ssd_scan"] = run["ssd_scan"]
+    launches["ssd_scan"] += run["ssd_scan"]
     cache = tree_map(lambda sp: torch.zeros(sp.shape, dtype=sp.dtype, device="cuda"),
                      model.cache_specs(1, len(prompts[0])))
     toks = torch.as_tensor(prompts[0], device="cuda")[None].long()
@@ -2832,7 +3266,7 @@ def main() -> int:
     calls = count_calls(model, ("decode_step",))
     reqs, run = serve_full_width(model, params, qwen_prompts, ecfg, ("paged_gather",), smi,
                                  on_reset=lambda: calls.update(decode_step=0))
-    launches["paged_gather"] = run["paged_gather"]
+    launches["paged_gather"] += run["paged_gather"]      # phases 25 and 26 counted before
     log(f"  {calls['decode_step']} decode steps, paged_gather {run['paged_gather']} launches")
     if run["paged_gather"] != calls["decode_step"]:
         raise SystemExit("chip_smoke: the gather path should launch one paged_gather per "
@@ -2855,7 +3289,8 @@ def main() -> int:
     # -- phase 11 ---------------------------------------------------------------
     log("== phase 11: full-width qwen2.5-3b training (bf16, random weights, momentum) "
         "on the card")
-    launches["stream_gd"], tr, state = train_full_width(smi, "qwen2.5-3b", 8, 1024, "1e-4")
+    n, tr, state = train_full_width(smi, "qwen2.5-3b", 8, 1024, "1e-4")
+    launches["stream_gd"] += n
     save_params_once(state.params, state.step)
     del tr, state
     torch.cuda.empty_cache()
@@ -2940,6 +3375,12 @@ def main() -> int:
         n, flash = train_moe_full_width(smi, arch)
         launches["stream_gd"] += n
         launches["flash_attention"] += flash
+
+    # -- phase 24 -------------------------------------------------------------------
+    log("== phase 24: the memory tiers, reduced qwen2.5-3b, mamba2-130m, recurrentgemma-9b "
+        "and deepseek-v3-671b in float32, card against CPU")
+    for name, n in tiers_card_vs_cpu(smi).items():
+        launches[name] += n
 
     for name in KERNELS:
         rows[name]["launches"] = launches[name]

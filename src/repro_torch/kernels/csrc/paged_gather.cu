@@ -369,6 +369,10 @@ cudaError_t launch(const long long* desc, int n, const int* bt, long long ls, in
 // Pools per launch: a longer list goes out in several.
 extern "C" int paged_gather_capacity() { return kCap; }
 
+// Table entries a block keeps in shared memory (a longer table is read from
+// device memory).
+extern "C" int paged_gather_table_cache() { return kTableCache; }
+
 // Dynamic shared memory of a bulk block for a table of `entries` entries.
 extern "C" long long paged_gather_smem(long long entries) {
   return kSmemBase + (entries <= kTableCache ? entries * 4 : 0);

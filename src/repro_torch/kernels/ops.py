@@ -79,6 +79,7 @@ _SIGNATURES = {
     "paged_gather_launch": ("paged_gather", [_I, _P]),
     "paged_gather_capacity": ("paged_gather", []),
     "paged_gather_smem": ("paged_gather", [_L]),
+    "paged_gather_table_cache": ("paged_gather", []),
     "stream_gd_launch": ("stream_gd", [_I, _I, _I, ctypes.POINTER(_F), _I, _P, _P, _P, _P,
                                        ctypes.POINTER(_I)]),
     "stream_gd_capacity": ("stream_gd", [_I, _I]),
@@ -629,6 +630,12 @@ def paged_gather_many(pools, block_table: torch.Tensor) -> list[torch.Tensor]:
 def paged_gather_capacity() -> int:
     """Pools one ``paged_gather_many`` launch takes (builds the kernel)."""
     return _entry("paged_gather_capacity")[1]()
+
+
+def paged_gather_table_cache() -> int:
+    """Table entries a ``paged_gather`` block keeps in shared memory: a
+    longer table is read from device memory (builds the kernel)."""
+    return _entry("paged_gather_table_cache")[1]()
 
 
 def paged_gather_smem(table_entries: int) -> int:

@@ -3,7 +3,7 @@
 Serves seeded random requests with the reduced config of ``--arch`` and
 random weights from a seeded generator, on the card unless ``--device cpu``
 is given.  The flags are those of ``python -m repro.launch.serve`` that the
-port supports (no host tier, prefix sharing, tracing or cubes yet).
+port supports (no temperature, tracing or cubes yet).
 """
 import argparse
 import json
@@ -37,6 +37,16 @@ def main(argv=None):
     ap.add_argument("--async-prefill", choices=["on", "off"], default="on",
                     help="run prefill on the admission pipeline thread (on, "
                          "default) or inline per step (off); identical tokens")
+    ap.add_argument("--preempt-policy", choices=["swap", "recompute"], default="swap",
+                    help="eviction: swap pages to the host tier and restore them on "
+                         "resume (default), or free them and prefill again")
+    ap.add_argument("--host-pages", type=int, default=0,
+                    help="host-tier page pool size (0 = 2x device pool under "
+                         "--preempt-policy swap)")
+    ap.add_argument("--swap-cost", type=float, default=0.25,
+                    help="cost of moving one token of KV relative to recomputing it")
+    ap.add_argument("--prefix-sharing", action="store_true",
+                    help="index resident prompt prefixes so repeats share pages")
     args = ap.parse_args(argv)
 
     device = resolve(args.device)
@@ -45,7 +55,10 @@ def main(argv=None):
     params = model.init(torch.Generator(device=device).manual_seed(0), device)
     ecfg = EngineConfig(
         batch_slots=args.slots, max_len=args.max_len,
-        cache=CacheConfig(page_size=args.page_size, n_pages=args.pages or None),
+        cache=CacheConfig(page_size=args.page_size, n_pages=args.pages or None,
+                          host_pages=args.host_pages or None,
+                          preempt_policy=args.preempt_policy, swap_token_cost=args.swap_cost,
+                          prefix_sharing=args.prefix_sharing),
         admission=AdmissionConfig(
             policy=args.policy, prefill_chunk=args.prefill_chunk,
             max_step_tokens=args.max_step_tokens,

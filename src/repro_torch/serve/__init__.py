@@ -1,4 +1,6 @@
 """Paged continuous-batching serving of the port."""
+from .admission import AdmissionPipeline  # noqa: F401
 from .engine import AdmissionConfig, CacheConfig, EngineConfig, Request, ServeEngine  # noqa: F401
-from .paged_cache import PageAllocator, PagedKVCache  # noqa: F401
+from .host_tier import HostPagePool, SwapHandle  # noqa: F401
+from .paged_cache import PageAllocator, PagedKVCache, PrefixClaim, PrefixIndex  # noqa: F401
 from .scheduler import RequestState, Scheduler, SchedulerConfig  # noqa: F401

@@ -1,27 +1,28 @@
-"""Admission pipeline: prefill beside the decode loop (the port's copy of
-``repro/serve/admission.py``, without host-tier restores and prefix matches).
+"""Admission pipeline: prefill chunks, host-tier restores and prefix matches
+beside the decode loop (the port's copy of ``repro/serve/admission.py``).
 
 * **async mode** (``AdmissionConfig.async_prefill=True``): one worker thread
-  pulls work items — run one prefill chunk, admit the next waiting request —
-  and hands finished requests to the decode loop through the scheduler's
-  ready queue.
+  pulls work items — stage a restore, finish a prefix match, run one
+  prefill chunk, admit the next waiting request — and hands finished
+  requests to the decode loop through the scheduler's ready queue.
 * **sync mode**: ``pump`` runs the same code inline once per engine step.
 
-Both modes give identical tokens: the pipeline computes into *private*
-per-request caches (``RequestState.prefill_cache``) and only the decode
-loop writes the shared page pools.
+Both modes give identical tokens: the pipeline computes and stages into
+*private* per-request tensors (``RequestState.prefill_cache``, ``staged``,
+``prefix_staged``) and only the decode loop writes the shared page pools.
 
 Thread discipline:
 
-1. all queue/allocator/stats mutation happens under ``engine._lock``;
-2. compute happens outside it, on private state;
+1. all queue/allocator/counter mutation happens under ``engine._lock``;
+2. compute and copies happen outside it, on private state;
 3. the decode loop owns ``cache.pools`` and the block tables exclusively;
 4. hand-offs signal ``engine._cv`` so neither loop spins.
 
 On the card both threads launch on the device's default stream, so their
-kernels run in issue order.  The hand-off is ordered besides:
-``sample_prefill_token`` reads the prefill's last logits on the host (a
-synchronisation) before the request reaches the ready queue.
+kernels and copies run in issue order: a restore's host→device copy is
+issued before the request reaches the ready queue, and so before the
+decode loop's scatter of it.  A prefill's hand-off is ordered besides:
+``sample_prefill_token`` reads the last logits on the host first.
 """
 from __future__ import annotations
 
@@ -33,7 +34,9 @@ from repro_torch.analysis.ownership import admission_api
 
 
 class AdmissionPipeline:
-    """Prefill pipeline feeding a ``ServeEngine``'s ready queue."""
+    """Prefill/restore pipeline feeding a ``ServeEngine``'s ready queue."""
+
+    _STAT_KEYS = ("admitted", "chunks_run", "restores_staged", "prefills_done", "matches")
 
     def __init__(self, engine, async_mode: bool):
         self.engine = engine
@@ -41,6 +44,33 @@ class AdmissionPipeline:
         self._thread: threading.Thread | None = None
         self._stop = False
         self.error: BaseException | None = None
+        # pipeline counters live in the engine's registry, whose lock is the
+        # engine lock: the decode loop's progress check and telemetry read
+        # them as one coherent cut
+        self._c = {k: engine.metrics.counter("pipeline." + k) for k in self._STAT_KEYS}
+
+    @property
+    def stats(self) -> dict[str, int]:
+        """Point-in-time copy of the pipeline counters (one lock cut)."""
+        return self.engine.metrics.counters("pipeline.")
+
+    # -- shared work items (compute and copies outside the lock) ------------
+
+    @admission_api
+    def _stage(self, st) -> None:
+        """Host→device copy of a swapped-out request, then hand to ready.
+        Touches the host buffers and fresh device tensors only, never the
+        pools."""
+        eng = self.engine
+        staged, state = eng.cache.stage_in(st.swap_handle)
+        with eng._lock:
+            st.staged, st.state_cache = staged, state
+            st.swapped = False
+            # restore-resume: length/pending_token survived the swap —
+            # straight to ready, no prefill re-run
+            eng.sched.to_ready(st)
+            self._c["restores_staged"].inc()
+            eng._cv.notify_all()
 
     @admission_api
     def _chunk(self, st, chunk: int) -> None:
@@ -50,21 +80,54 @@ class AdmissionPipeline:
         done = eng.run_prefill(st, chunk)
         tok = eng.sample_prefill_token(st) if done else None
         with eng._lock:
-            eng._inc("pipeline.chunks_run")
-            eng._inc("prefill_tokens", chunk)
+            self._c["chunks_run"].inc()
+            eng._c_prefill.inc(chunk)
             if done:
-                eng._inc("pipeline.prefills_done")
+                self._c["prefills_done"].inc()
                 eng.finish_prefill(st, tok)
             eng._cv.notify_all()
 
     @admission_api
+    def _match(self, st) -> None:
+        """Full prefix hit: stage any host-retired prefix pages (a
+        host→device copy outside the lock), take the terminal's state
+        snapshot onto the device, and hand the request straight to ready —
+        no prefill compute at all."""
+        eng = self.engine
+        claim = st.prefix_claim
+        staged = None
+        if claim.restore:
+            staged = eng.cache.host.get_pages([hp for _h, hp, _d in claim.restore])
+        state = ({path: s.to(eng.device) for path, s in claim.state.items()}
+                 if claim.state is not None else None)
+        with eng._lock:
+            if staged is not None:
+                st.prefix_staged = (staged, [d for _h, _hp, d in claim.restore])
+            if state is not None:
+                st.state_cache = state
+            self._c["matches"].inc()
+            eng.finish_match(st)
+            eng._cv.notify_all()
+
+    # -- sync mode ----------------------------------------------------------
+
+    @admission_api
     def pump(self, budget: int) -> bool:
         """Run the pipeline inline for one engine step (sync mode): admit
-        under the token budget, advance each in-flight prefill by one chunk."""
+        under the token budget, stage every pending restore, finish every
+        match, advance each in-flight prefill by one chunk."""
         eng, s = self.engine, self.engine.sched
         with eng._lock:
             progressed = bool(s.admissions(eng.cache, budget))
+        for st in [x for x in s.admitting if x.phase == "restore"]:
+            self._stage(st)
+            progressed = True
+        for st in [x for x in s.admitting if x.phase == "match"]:
+            self._match(st)
+            progressed = True
         for st in list(s.admitting):
+            if st.phase != "prefill":
+                continue
             chunk = s.chunk_for(st)
             if s.cfg.prefill_chunk > 0:
                 chunk = min(chunk, budget)
@@ -76,6 +139,8 @@ class AdmissionPipeline:
             budget -= chunk
             progressed = True
         return progressed
+
+    # -- async mode ---------------------------------------------------------
 
     def kick(self) -> None:
         """Ensure the worker thread is running (started lazily on submit,
@@ -102,15 +167,18 @@ class AdmissionPipeline:
 
     @admission_api
     def _select(self):
-        """The next work item, under the engine lock: in-flight prefill
-        chunks in admission order, then a fresh admission."""
+        """The next work item, under the engine lock.  Restores first (a
+        copy, unblocks a decode lane soonest), then matches, then in-flight
+        prefill chunks in admission order, then a fresh admission."""
         s = self.engine.sched
-        if s.admitting:
-            return s.admitting[0], s.chunk_for(s.admitting[0])
+        for phase in ("restore", "match", "prefill"):
+            for st in s.admitting:
+                if st.phase == phase:
+                    return phase, st, s.chunk_for(st)
         st = s.admit_next(self.engine.cache)
         if st is not None:
-            self.engine._inc("pipeline.admitted")
-            return st, s.chunk_for(st)
+            self._c["admitted"].inc()
+            return st.phase, st, s.chunk_for(st)
         return None
 
     @admission_api
@@ -125,11 +193,20 @@ class AdmissionPipeline:
                         return
                     work = self._select()
                     if work is None:
+                        # nothing admissible: wait for a submit, a page free
+                        # or shutdown (every state change notifies; the
+                        # timeout is a backstop)
                         eng._cv.wait(timeout=0.5)
                         if self._stop:
                             return
                         continue
-                self._chunk(*work)
+                phase, st, chunk = work
+                if phase == "restore":
+                    self._stage(st)
+                elif phase == "match":
+                    self._match(st)
+                else:
+                    self._chunk(st, chunk)
         except BaseException as e:  # noqa: B036 - surfaced in the decode loop
             with eng._lock:
                 self.error = e

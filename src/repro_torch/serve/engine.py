@@ -2,8 +2,10 @@
 ``repro/serve/engine.py``).
 
 * The **decode loop** (``step``/``run``, the caller's thread) owns the page
-  pools and block tables exclusively: lane assignment, page growth,
-  recompute preemption and the batched decode step.  The decode path is
+  pools and block tables exclusively: lane assignment (with the scatter of
+  restored and prefix pages), page growth, copy-on-write forks, batched
+  preemption (swap to the host tier, or recompute) and the batched decode
+  step.  The decode path is
   ``CacheConfig.decode_path``: ``"paged"`` (default) runs
   ``DecoderLM.decode_step_paged`` (the paged-decode kernel for GQA
   attention layers, ``paged_gather`` and a plain read for the hybrid's
@@ -15,21 +17,31 @@
 * The **admission pipeline** (``serve.admission.AdmissionPipeline``) runs
   prefill (whole prompt, or chunks through ``extend_step``; both run the
   flash kernel, the ``ssd_scan`` kernel for ssm layers and the plain
-  RG-LRU scan for rec layers) on a worker
-  thread (``AdmissionConfig.async_prefill``, default on) or inline,
-  computing into *private* per-request caches and handing finished requests
-  to the decode loop through the ready queue.
+  RG-LRU scan for rec layers), host-tier restores and prefix matches on a
+  worker thread (``AdmissionConfig.async_prefill``, default on) or inline,
+  computing into *private* per-request tensors and handing finished
+  requests to the decode loop through the ready queue.
 
-Shared bookkeeping (queues, free list, counters) lives under one engine
-lock; no tensor work runs inside it.  Both pipeline modes give identical
-tokens.
+Memory tiers (``CacheConfig``): ``preempt_policy="swap"`` (the default, as
+in the JAX package) moves a victim's pages to a host tier of
+``host_pages`` (default twice the device pool) and restores them on
+resume, the swap-out read through one ``paged_gather`` launch;
+``"recompute"`` frees them and prefills again.  ``prefix_sharing`` (off by
+default) indexes finished prompts page by page, so a request whose prompt
+starts with a resident prefix shares its pages (copy-on-write at the first
+divergent write) and prefills only the rest; cold prefix pages retire into
+the host tier.
+
+Shared bookkeeping (queues, free lists, counters in a ``MetricsRegistry``
+sharing the engine lock) lives under one engine lock; no tensor work runs
+inside it, except the batched swap-out and the fork copy, as in the JAX
+package.  Both pipeline modes give identical tokens.
 
 The engine runs on the card unless ``device="cpu"`` is passed (then every
 kernel runs its plain PyTorch version); the parameters must already live on
-that device.  Not ported yet: the host tier and swap preemption, prefix
-sharing, tracing and inter-cube migration.  The engine is generic over
-the model's cache tree: any mix of seq leaves (pages) and per-lane state
-leaves, over any number of segments.  A state-only model (ssm)
+that device.  Not ported yet: tracing and inter-cube migration.  The
+engine is generic over the model's cache tree: any mix of seq leaves (pages)
+and per-lane state leaves, over any number of segments.  A state-only model (ssm)
 still acquires pages per token, as in the JAX package, so page accounting,
 preemption and step counts match it.
 """
@@ -45,14 +57,11 @@ import torch
 from repro_torch.analysis.ownership import admission_api, decode_loop_only, pool_mutator
 from repro_torch.device import resolve
 from repro_torch.models.common import tree_map
+from repro_torch.obs.metrics import MetricsRegistry
 
 from .admission import AdmissionPipeline, prefill_logits_token
 from .paged_cache import PagedKVCache, absorb_decode, gather_views
 from .scheduler import Scheduler, SchedulerConfig
-
-_COUNTERS = ("steps", "prefill_tokens", "decode_tokens", "lane_step_sum",
-             "lane_slot_sum", "pipeline.admitted", "pipeline.chunks_run",
-             "pipeline.prefills_done")
 
 
 @dataclass
@@ -66,15 +75,27 @@ class Request:
 
 @dataclass
 class CacheConfig:
-    """Paged-KV memory.  Preemption frees a victim's pages and recomputes
-    its prefill on resume (the host tier for swapping is not ported)."""
+    """Paged-KV memory: device pool, host tier, preemption, decode path,
+    prefix sharing."""
 
     page_size: int = 16
     n_pages: int | None = None      # None → batch_slots * max_len / page_size
+    host_pages: int | None = None   # host-tier size; None → 2x n_pages when
+    #                                 preempt_policy='swap', else 0 (no tier)
+    # 'swap' moves a victim's pages to the host tier and restores them on
+    # resume (recompute when the tier is exhausted or the cost model says
+    # so); 'recompute' frees them and prefills prompt + generated again
+    preempt_policy: str = "swap"
+    swap_token_cost: float = 0.25   # moving one token of KV relative to
+    #                                 recomputing it (0: always swap)
     # 'paged' hands block tables straight to the model (decode_step_paged);
     # 'gather' materializes dense per-lane views, decodes and scatters the
     # written column back: the oracle the paged path is held against
     decode_path: str = "paged"
+    # a radix index over page-sized prompt chunks: admissions share resident
+    # prefix pages (refcounted, copy-on-write); cold prefixes retire into the
+    # host tier.  Off by default, so throughput runs don't include cache hits
+    prefix_sharing: bool = False
 
 
 @dataclass
@@ -86,8 +107,8 @@ class AdmissionConfig:
     # sync pipeline's inline prefill, bounds decode lanes only in async mode
     max_step_tokens: int = 0
     prefill_chunk: int = 0          # 0 = whole-prompt prefill
-    # True runs prefill on a worker thread feeding the ready queue; False
-    # runs the identical pipeline inline each step
+    # True runs prefill and restores on a worker thread feeding the ready
+    # queue; False runs the identical pipeline inline each step
     async_prefill: bool = True
 
 
@@ -104,8 +125,11 @@ class ServeEngine:
     cache, a request scheduler and an admission pipeline."""
 
     def __init__(self, model, params, ecfg: EngineConfig, device=None):
-        if ecfg.cache.decode_path not in ("paged", "gather"):
-            raise ValueError(f"unknown decode_path: {ecfg.cache.decode_path!r}")
+        cc, ac = ecfg.cache, ecfg.admission
+        if cc.decode_path not in ("paged", "gather"):
+            raise ValueError(f"unknown decode_path: {cc.decode_path!r}")
+        if cc.preempt_policy not in ("swap", "recompute"):
+            raise ValueError(f"unknown preempt_policy: {cc.preempt_policy!r}")
         self.device = resolve(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"parameters live on {params['embed'].device}, "
@@ -115,22 +139,42 @@ class ServeEngine:
         self.ecfg = ecfg
         self.cfg = model.cfg
         # ONE bookkeeping lock shared by the decode loop and the admission
-        # pipeline; no tensor work runs under it.  The condition variable
-        # signals hand-offs both ways so neither loop spins.
+        # pipeline; the condition variable signals hand-offs both ways so
+        # neither loop spins.  Created first: the metrics registry shares it
+        # (one-lock telemetry cuts) and the cache and host tier count
+        # through the registry.
         self._lock = threading.RLock()
         self._cv = threading.Condition(self._lock)
-        self._counters = dict.fromkeys(_COUNTERS, 0)
-        self._occ_sum = 0.0
-        self._occ_max = 0.0
-        cc, ac = ecfg.cache, ecfg.admission
+        self.metrics = MetricsRegistry(lock=self._lock)
         n_pages = (cc.n_pages if cc.n_pages is not None
                    else ecfg.batch_slots * -(-ecfg.max_len // cc.page_size))
+        host_pages = cc.host_pages
+        if host_pages is None:
+            # host memory is the big tier: twice the device pool, so swap
+            # preemption rarely hits the exhaustion fallback
+            host_pages = 2 * n_pages if cc.preempt_policy == "swap" else 0
         self.cache = PagedKVCache(model, lanes=ecfg.batch_slots, n_pages=n_pages,
                                   page_size=cc.page_size, max_len=ecfg.max_len,
-                                  device=self.device)
+                                  device=self.device, host_pages=host_pages,
+                                  metrics=self.metrics, prefix_sharing=cc.prefix_sharing)
         chunk = ac.prefill_chunk if model.supports_chunked_prefill else 0
-        self.sched = Scheduler(SchedulerConfig(policy=ac.policy, prefill_chunk=chunk))
+        self.sched = Scheduler(SchedulerConfig(
+            policy=ac.policy, prefill_chunk=chunk, preempt_policy=cc.preempt_policy,
+            swap_token_cost=cc.swap_token_cost))
         self.completed: list[Request] = []
+        # engine counters, made up front so hot paths inc without a registry
+        # lookup; lane_step/lane_slot: active lanes against capacity, summed
+        # per step (1 - their ratio is the decode idle fraction)
+        m = self.metrics
+        self._c_steps = m.counter("steps")
+        self._c_prefill = m.counter("prefill_tokens")
+        self._c_decode = m.counter("decode_tokens")
+        self._c_lane_step = m.counter("lane_step_sum")
+        self._c_lane_slot = m.counter("lane_slot_sum")
+        self._h_occ = m.histogram("occupancy", tuple(i / 10 for i in range(1, 11)))
+        self._g_occ = m.gauge("occupancy")
+        self._h_step = m.histogram("step_latency_s")
+        self._h_queue = m.histogram("queue_wait_s")
         self.pipeline = AdmissionPipeline(self, ac.async_prefill)
         self._idle_since: float | None = None
         self._idle_pipe_mark = -1
@@ -139,10 +183,6 @@ class ServeEngine:
         pipeline = getattr(self, "pipeline", None)
         if pipeline is not None:
             pipeline.shutdown()
-
-    def _inc(self, name: str, n: int = 1) -> None:
-        with self._lock:
-            self._counters[name] += n
 
     # -- request handling ------------------------------------------------------
 
@@ -184,6 +224,13 @@ class ServeEngine:
             return True
         if st.prefill_cache is None:
             st.prefill_cache = self._fresh_prefill_tree()
+            claim = st.prefix_claim
+            if claim is not None and claim.seed_pages:
+                # partial prefix hit: the shared pages' rows go into the
+                # private tree, so the extend resumes at the matched offset
+                # (st.prefilled was set to it at admission)
+                st.prefill_cache = self.cache.seed_prefix(
+                    st.prefill_cache, st.pages[: claim.seed_pages])
         toks = st.resume_tokens[st.prefilled: st.prefilled + chunk]
         logits, st.prefill_cache = self.model.extend_step(
             self.params, st.prefill_cache,
@@ -223,17 +270,55 @@ class ServeEngine:
         return False
 
     @admission_api
+    def finish_match(self, st) -> bool:
+        """Queue bookkeeping for a full prefix hit (under the lock): the
+        prompt's pages and its stored first greedy token are in hand, so
+        the request skips prefill and goes straight to ready, or retires
+        when the stored token already ends it.  Returns True if retired."""
+        st.length = len(st.resume_tokens)
+        st.prefilled = len(st.resume_tokens)
+        req = st.req
+        if st.is_resume:
+            # recompute-resume: the continuation token was sampled before
+            # preemption — the terminal's stored token does not apply
+            st.pending_token = int(req.out_tokens[-1])
+            self.sched.to_ready(st)
+            return False
+        tok = int(st.prefix_claim.first_token)
+        st.pending_token = tok
+        req.out_tokens.append(tok)
+        if len(req.out_tokens) >= req.max_new_tokens:
+            self.sched.admitting.remove(st)
+            self._retire(st)
+            return True
+        self.sched.to_ready(st)
+        return False
+
+    @admission_api
     def _retire(self, st):
-        """Retirement bookkeeping shared by both threads: queues, free list,
-        held buffers — never lane or pool state (``_retire_lane`` releases
+        """Retirement bookkeeping shared by both threads: queues, free lists,
+        held tensors — never lane or pool state (``_retire_lane`` releases
         those first for a request that held a lane)."""
         with self._lock:
             assert st.lane < 0, "retiring a laned request: use _retire_lane"
             st.req.done = True
+            # release, not free: pages shared with the prefix index (or
+            # another lane) survive; only sole-owned pages hit the free list
             self.cache.allocator.release(st.pages)
             st.pages = []
-            st.prefill_cache = None
+            if st.prefix_claim is not None:
+                self.cache.abort_match(st.prefix_claim)
+                st.prefix_claim = None
+            st.prefix_staged = None
+            if st.swap_handle is not None:
+                self.cache.host_free(st.swap_handle)
+                st.swap_handle = None
+            # a retired request pins no device memory (prefill caches,
+            # staged restores, logits rows), and its per-uid counters fold
+            # into their high-water marks
+            st.prefill_cache = st.state_cache = st.staged = None
             st.last_logits = None
+            self.sched.retire_uid(st.req.uid)
             st.phase = "done"
             self.completed.append(st.req)
             self._cv.notify_all()        # freed pages: admissions may resume
@@ -251,8 +336,10 @@ class ServeEngine:
     @decode_loop_only
     def _fill_lanes(self) -> bool:
         """Drain the ready queue into free decode lanes and fold the
-        pipeline's private prefill caches into the pools."""
+        pipeline's private results (prefill caches, staged restores, prefix
+        pages) into the pools; the decode loop is the only pools writer."""
         s = self.sched
+        now = time.monotonic()
         with self._lock:
             free_lanes = [l for l in range(self.ecfg.batch_slots) if l not in s.running]
             take = []
@@ -261,38 +348,92 @@ class ServeEngine:
                 st.lane = free_lanes.pop(0)
                 st.phase = "running"
                 s.running[st.lane] = st
+                # submit (or preemption requeue) → lane assignment
+                self._h_queue.observe(now - st.submit_ts)
                 take.append(st)
             if take:
                 self._cv.notify_all()    # ready drained: backpressure lifts
+        inserts: list = []
         for st in take:
             self.cache.assign_lane(st.lane, st.pages)
-            self.cache.write_prefill(st.pages, st.prefill_cache, lane=st.lane)
-            st.prefill_cache = None
+            if st.prefix_staged is not None:
+                # host-retired prefix pages staged by the pipeline: scatter
+                # them into their (freshly acquired) device pages
+                staged, dev_pages = st.prefix_staged
+                self.cache.commit_swap_in(staged, dev_pages)
+                st.prefix_staged = None
+            if st.staged is not None:                 # swap-in restore
+                self.cache.commit_swap_in(st.staged, st.pages)
+                st.staged = None
+            elif st.prefill_cache is not None:        # held prefill cache
+                claim = st.prefix_claim
+                skip = claim.seed_pages if claim is not None else 0
+                if self.cache.prefix is not None and not st.is_resume:
+                    # snapshot the recurrent state OUTSIDE the lock (a device
+                    # read) before the private tree is dropped, so the index
+                    # can serve full-terminal hits for state families
+                    inserts.append((st, self.cache.snapshot_state(st.prefill_cache)))
+                self.cache.write_prefill(st.pages, st.prefill_cache, lane=st.lane,
+                                         skip_pages=skip)
+                st.prefill_cache = None
+            if st.state_cache is not None:            # restored lane state
+                self.cache.write_state(st.lane, st.state_cache)
+                st.state_cache = None
+        if self.cache.prefix is not None:
+            post = [st for st in take if st.prefix_claim is not None]
+            if post or inserts:
+                with self._lock:
+                    for st in post:
+                        if st.prefix_claim.restore:
+                            self.cache.prefix_finish_restore(st.prefix_claim)
+                        st.prefix_claim = None
+                    for st, state in inserts:
+                        self.cache.prefix_insert(st.resume_tokens, st.pages, state,
+                                                 st.pending_token)
         return bool(take)
 
     @decode_loop_only
     def _ensure_pages(self):
         """Every running lane needs a page slot for its next write position.
-        Reserve what the free pool covers, pick victims for the shortfall
-        (longest-running first), evict them as one batch, then grow the
-        surviving lanes.  Under the engine lock."""
+
+        Plans the step's page demand at once: reserve what the free pool
+        covers, reclaim cold prefix pages, pick victims for the rest
+        (longest-running first), evict them as one batch (one page read for
+        the swap-outs), grow the surviving lanes, then fork the shared pages
+        lanes are about to write (copy-on-write).  Under the engine lock:
+        the admission pipeline can neither take the reserved pages nor race
+        the victim bookkeeping."""
         s, cache = self.sched, self.cache
         alloc = cache.allocator
         ps = cache.page_size
         with self._lock:
             grow = {lane: max(0, st.length // ps + 1 - len(st.pages))
                     for lane, st in s.running.items()}
-            if not any(grow.values()):
+            # copy-on-write: a lane whose next write position lands in a page
+            # it shares (with the prefix index or another lane) forks it
+            # before the decode step writes into it
+            forks: dict[int, int] = {}
+            for lane, st in s.running.items():
+                i = st.length // ps
+                if i < len(st.pages) and alloc.refcount(st.pages[i]) > 1:
+                    forks[lane] = i
+            if not any(grow.values()) and not forks:
                 return
             hold = alloc.acquire(min(sum(grow.values()), alloc.n_free)) or []
             victims: list = []
 
             def shortfall() -> int:
-                want = sum(n for lane, n in grow.items()
-                           if s.running[lane] not in victims)
-                freed = sum(len(v.pages) for v in victims)
+                want = sum(n for lane, n in grow.items() if s.running[lane] not in victims)
+                want += sum(1 for lane in forks if s.running[lane] not in victims)
+                # a victim's shared pages survive its eviction: only
+                # sole-owned pages come back to the free list
+                freed = sum(1 for v in victims for p in v.pages if alloc.refcount(p) == 1)
                 return want - len(hold) - alloc.n_free - freed
 
+            # before evicting a live lane, reclaim cold prefix-index pages:
+            # the prefix cache always yields to running requests
+            if shortfall() > 0 and cache.prefix is not None:
+                cache.prefix_retire(shortfall())
             while shortfall() > 0:
                 cands = [st for st in s.running.values() if st not in victims]
                 # evicting the last running lane only helps when an admitted
@@ -316,6 +457,30 @@ class ServeEngine:
                     st.pages.append(page)
             if hold:
                 alloc.release(hold)
+            # forks last, from the replenished pool: remap the lane to a
+            # private copy, leaving the shared original with its co-owners
+            copies: list[tuple[int, int]] = []
+            for lane, i in forks.items():
+                st = s.running.get(lane)
+                if st is None:                  # the lane was evicted above
+                    continue
+                old = st.pages[i]
+                if alloc.refcount(old) <= 1:    # its co-owner went meanwhile
+                    continue
+                new = alloc.fork_for_write(old)
+                if new is None:
+                    raise RuntimeError(
+                        "page pool exhausted during copy-on-write fork — "
+                        "grow CacheConfig.n_pages")
+                st.pages[i] = new
+                cache.assign_lane(lane, st.pages)
+                copies.append((old, new))
+                if cache.prefix is not None:
+                    cache.prefix.note_fork()
+            if copies:
+                # one batched copy of the forked rows under the lock, as the
+                # swap-out (the decode loop owns the pools: nothing races it)
+                cache.fork_pages(copies)
 
     @decode_loop_only
     @pool_mutator("pools")
@@ -357,8 +522,8 @@ class ServeEngine:
                     or st.length >= self.ecfg.max_len - 1):
                 self._retire_lane(st)
         with self._lock:
-            self._counters["decode_tokens"] += done
-            self._counters["lane_step_sum"] += n_active
+            self._c_decode.inc(done)
+            self._c_lane_step.inc(n_active)
 
     # -- step loop -------------------------------------------------------------
 
@@ -367,6 +532,15 @@ class ServeEngine:
         """One decode-loop round: (sync mode: pump the admission pipeline) →
         drain ready into lanes → one batched decode step.  Returns False when
         the engine is drained."""
+        t0 = time.monotonic()
+        try:
+            return self._step_inner()
+        finally:
+            with self._lock:
+                self._h_step.observe(time.monotonic() - t0)
+
+    @decode_loop_only
+    def _step_inner(self) -> bool:
         if self.pipeline.error is not None:
             err, self.pipeline.error = self.pipeline.error, None
             raise RuntimeError("admission pipeline died") from err
@@ -391,11 +565,11 @@ class ServeEngine:
                 self._decode_lanes()
             progressed = True
         with self._lock:
-            self._counters["steps"] += 1
-            self._counters["lane_slot_sum"] += self.ecfg.batch_slots
+            self._c_steps.inc()
+            self._c_lane_slot.inc(self.ecfg.batch_slots)
             occ = self.cache.occupancy()
-            self._occ_sum += occ
-            self._occ_max = max(self._occ_max, occ)
+            self._h_occ.observe(occ)     # mean = sum/count (count == steps)
+            self._g_occ.set(occ)         # last value + high-water max
         if progressed:
             self._idle_since = None
             return True
@@ -407,11 +581,9 @@ class ServeEngine:
             return True
         # async: the pipeline holds all in-flight work — wait for a hand-off
         # instead of spinning; the watchdog resets whenever the pipeline
-        # progresses
+        # progresses (one coherent cut of its counters)
         now = time.monotonic()
-        with self._lock:
-            pipe_mark = sum(v for k, v in self._counters.items()
-                            if k.startswith("pipeline."))
+        pipe_mark = self.metrics.total("pipeline.")
         if self._idle_since is None or pipe_mark != self._idle_pipe_mark:
             self._idle_since = now
             self._idle_pipe_mark = pipe_mark
@@ -439,41 +611,86 @@ class ServeEngine:
         with self._lock:
             return self.sched.load
 
+    def prefix_match_tokens(self, prompt) -> int:
+        """Resident-prefix coverage of a prompt in tokens (a router's
+        prefix-affinity signal); 0 when prefix sharing is off."""
+        if self.cache.prefix is None:
+            return 0
+        with self._lock:
+            return self.cache.prefix.preview(np.asarray(prompt, np.int32))
+
     @property
     def stats(self) -> dict:
-        """The JAX engine's ``stats`` keys, from one lock cut (a copy)."""
-        with self._lock:
-            c = self._counters
-            return {
-                "steps": c["steps"],
-                "prefill_tokens": c["prefill_tokens"],
-                "decode_tokens": c["decode_tokens"],
-                "occupancy_sum": self._occ_sum,
-                "occupancy_max": self._occ_max,
-                "lane_step_sum": c["lane_step_sum"],
-                "lane_slot_sum": c["lane_slot_sum"],
-            }
+        """The JAX engine's ``stats`` keys, from one metrics snapshot (a
+        copy: mutating it never touches live metrics)."""
+        snap = self.metrics.snapshot()
+        c = snap["counters"]
+        occ = snap["histograms"]["occupancy"]
+        return {
+            "steps": c["steps"],
+            "prefill_tokens": c["prefill_tokens"],
+            "decode_tokens": c["decode_tokens"],
+            "occupancy_sum": occ["sum"],
+            "occupancy_max": snap["gauges"]["occupancy"]["max"],
+            "lane_step_sum": c["lane_step_sum"],
+            "lane_slot_sum": c["lane_slot_sum"],
+        }
+
+    def reset_stats(self) -> None:
+        """Zero every metric (engine + pipeline + host tier + prefix) in
+        place."""
+        self.metrics.reset()
 
     def telemetry(self) -> dict:
+        """The JAX engine's ``telemetry()`` layout (without its migrations,
+        which belong to cube processes), from one lock cut; a deep copy."""
         with self._lock:
-            c = dict(self._counters)
-            st = {
-                "steps": c["steps"],
-                "prefill_tokens": c["prefill_tokens"],
-                "decode_tokens": c["decode_tokens"],
+            snap = self.metrics.snapshot()
+            sched = {
                 "queue_depth": self.sched.queue_depth(),
                 "admitting": len(self.sched.admitting),
                 "ready": len(self.sched.ready),
                 "running": len(self.sched.running),
                 "preemptions": self.sched.n_preemptions,
-                "occupancy_mean": self._occ_sum / c["steps"] if c["steps"] else 0.0,
-                "occupancy_max": self._occ_max,
-                "page_occupancy": self.cache.occupancy(),
+                "swap_preemptions": self.sched.n_swap_preemptions,
+                "recompute_preemptions": self.sched.n_recompute_preemptions,
+                "max_request_preemptions": max(
+                    [self.sched.max_preemptions_per_request]
+                    + list(self.sched.preemptions_by_uid.values())),
+                "max_request_prefix_hit_tokens": max(
+                    [self.sched.max_prefix_hit_tokens]
+                    + list(self.sched.prefix_hit_tokens_by_uid.values())),
             }
-        st["lane_utilization"] = (c["lane_step_sum"] / c["lane_slot_sum"]
-                                  if c["lane_slot_sum"] else 0.0)
+            page_occ = self.cache.occupancy()
+            host_occ = self.cache.host_occupancy()
+            has_host = self.cache.host is not None
+            has_prefix = self.cache.prefix is not None
+        c = snap["counters"]
+        st: dict = {
+            "steps": c["steps"],
+            "prefill_tokens": c["prefill_tokens"],
+            "decode_tokens": c["decode_tokens"],
+        }
+        st.update(sched)
+        occ = snap["histograms"]["occupancy"]
+        st["occupancy_mean"] = occ["sum"] / occ["count"] if occ["count"] else 0.0
+        st["occupancy_max"] = snap["gauges"]["occupancy"]["max"]
+        lane_cap = c["lane_slot_sum"]
+        st["lane_utilization"] = c["lane_step_sum"] / lane_cap if lane_cap else 0.0
+        st["decode_idle_fraction"] = 1.0 - st["lane_utilization"]
         st["async_prefill"] = self.ecfg.admission.async_prefill
         st["pipeline"] = {k[len("pipeline."):]: v for k, v in c.items()
                           if k.startswith("pipeline.")}
+        st["page_occupancy"] = page_occ
+        st["host_page_occupancy"] = host_occ
+        if has_host:
+            st["host_tier"] = {k[len("host."):]: v for k, v in c.items()
+                               if k.startswith("host.")}
+        if has_prefix:
+            pr = {k[len("prefix."):]: v for k, v in c.items() if k.startswith("prefix.")}
+            lookup = pr.get("lookup_tokens", 0)
+            pr["hit_rate"] = pr.get("hit_tokens", 0) / lookup if lookup else 0.0
+            st["prefix"] = pr
+        st["histograms"] = snap["histograms"]
         st["device"] = str(self.device)
         return st

@@ -1,8 +1,9 @@
 """Card-only tests of the port: each CUDA kernel against its plain version,
 the served tokens (dense, mamba2, the recurrentgemma hybrid and the moe
-family, paged and gather decode paths), the
-ConvNet logits and the reduced qwen2.5-3b train step on the card against
-the CPU.
+family, paged and gather decode paths), the host tier (the swap-out read in
+one ``paged_gather`` launch, a swap round trip, a restore staged on another
+thread), the ConvNet logits and the reduced qwen2.5-3b train step on the
+card against the CPU.
 
 Marked ``cuda``; they skip (from a fixture, so every pytest worker collects
 the same tests) when no card is present.  On a machine with a card:
@@ -949,3 +950,159 @@ def test_train_steps_on_card_match_cpu(card, opt, n_micro):
     np.testing.assert_allclose(gm, cm, rtol=1e-4)
     for (_, a), (_, b) in zip(tree_items(gp), tree_items(cp)):
         torch.testing.assert_close(a.cpu(), b, **F32)
+
+
+# ---------------------------------------------------------------------------
+# the host tier: swap-out read through paged_gather, round trips, restores
+# staged on another thread
+# ---------------------------------------------------------------------------
+
+
+def _random_cache(card, arch, dtype, n_pages=24, host_pages=24):
+    """A reduced ``arch`` paged cache on the card (2 lanes, 4-token pages)
+    whose every pool holds random values."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_items
+    from repro_torch.serve import PagedKVCache
+
+    model = build_model(dataclasses.replace(get_arch(arch).reduced(), dtype=dtype))
+    cache = PagedKVCache(model, lanes=2, n_pages=n_pages, page_size=4, max_len=32,
+                         device=card, host_pages=host_pages)
+    g = torch.Generator(device=card).manual_seed(0)
+    for _, x in tree_items(cache.pools):
+        x.copy_(torch.randn(x.shape, generator=g, device=card).to(x.dtype))
+    return cache
+
+
+@pytest.mark.parametrize("arch,dtype", [("qwen2.5-3b", "bfloat16"), ("qwen2.5-3b", "float32"),
+                                        ("recurrentgemma-9b", "bfloat16"),
+                                        ("deepseek-v3-671b", "bfloat16")])
+def test_swap_out_read_is_one_gather_launch(card, arch, dtype):
+    """Every seq leaf of the cache tree comes off the card in one
+    ``paged_gather_many`` launch, bit-equal to ``pool[:, idx]``, into pinned
+    host tensors."""
+    from repro_torch.models.common import tree_items
+    from repro_torch.serve.paged_cache import _is_seq
+
+    cache = _random_cache(card, arch, dtype)
+    seq = [(path, x) for path, x in tree_items(cache.pools) if _is_seq(path)]
+    assert len(seq) >= 2
+    pages = [5, 0, 17, 3, 3, 11]
+    before = ops.LAUNCHES["paged_gather"]
+    got = cache.host._read_pages(cache.pools, pages)
+    assert ops.LAUNCHES["paged_gather"] == before + 1
+    idx = torch.tensor(pages, device=card)
+    for path, x in seq:
+        assert got[path].is_pinned()
+        assert torch.equal(got[path], x[:, idx].cpu()), path
+
+
+def test_swap_out_read_splits_past_the_table_cache(card):
+    """A dirty list longer than the table a block keeps in shared memory goes
+    out in one launch per piece, each counted, the rows bit-equal."""
+    from repro_torch.serve.host_tier import HostPagePool
+
+    cap = ops.paged_gather_table_cache()
+    g = torch.Generator(device=card).manual_seed(1)
+    pools = [{"s0_attn": {"k": torch.randn(2, 64, 4, 2, 8, generator=g, device=card),
+                          "v": torch.randn(2, 64, 4, 2, 8, generator=g, device=card)}}]
+    host = HostPagePool(pools, 8, 4)
+    pages = torch.randint(0, 64, (cap + 5,), generator=g, device=card).tolist()
+    before = ops.LAUNCHES["paged_gather"]
+    got = host._read_pages(pools, pages)
+    assert ops.LAUNCHES["paged_gather"] == before + 2
+    idx = torch.tensor(pages, device=card)
+    for leaf in ("k", "v"):
+        assert torch.equal(got[(0, "s0_attn", leaf)], pools[0]["s0_attn"][leaf][:, idx].cpu())
+
+
+def _snapshot(cache):
+    from repro_torch.models.common import tree_items
+
+    return {path: x.clone() for path, x in tree_items(cache.pools)}
+
+
+def _assert_moved(cache, before, pages, new_pages, lane_from, lane_to):
+    from repro_torch.models.common import tree_items
+    from repro_torch.serve.paged_cache import _is_seq
+
+    for path, a in tree_items(cache.pools):
+        b = before[path]
+        if _is_seq(path):
+            for lp, pp in zip(pages, new_pages):
+                assert torch.equal(b[:, lp], a[:, pp]), path
+        else:
+            assert torch.equal(b[:, lane_from], a[:, lane_to]), path
+
+
+@pytest.mark.parametrize("arch,dtype", [("qwen2.5-3b", "bfloat16"),
+                                        ("recurrentgemma-9b", "bfloat16"),
+                                        ("recurrentgemma-9b", "float32"),
+                                        ("mamba2-130m", "float32")])
+def test_swap_roundtrip_on_card_bit_equal(card, arch, dtype):
+    """swap-out → scramble → swap-in leaves the pages and the lane state
+    bit-equal, in new pages and another lane."""
+    from repro_torch.models.common import tree_items
+
+    cache = _random_cache(card, arch, dtype)
+    pages = cache.allocator.acquire(5)
+    cache.assign_lane(0, pages)
+    before = _snapshot(cache)
+    handle = cache.swap_out(pages, lane=0, length=18)
+    assert handle.clean_pages == 4 and len(handle.host_pages) == 5
+    for _, x in tree_items(cache.pools):
+        x.add_(1)
+    cache.allocator.release(pages)
+    cache.clear_lane(0)
+    new_pages = cache.allocator.acquire(5)
+    state = cache.swap_in(handle, new_pages)
+    assert (state is None) == (not cache.has_state_leaves())
+    if state is not None:
+        cache.write_state(1, state)
+    torch.cuda.synchronize()
+    _assert_moved(cache, before, pages, new_pages, 0, 1)
+    assert cache.host.stats["device_gets"] == len(list(tree_items(cache.pools)))
+
+
+def test_restore_staged_on_another_thread(card):
+    """A restore staged on a worker thread and scattered by the caller's
+    thread gives the pools a synchronous restore gives, even when the host
+    pages are freed and overwritten by another swap-out in between (each
+    restore copies from a staging tensor of its own)."""
+    import threading
+
+    from repro_torch.models.common import tree_items
+
+    cache = _random_cache(card, "recurrentgemma-9b", "bfloat16")
+    pages = cache.allocator.acquire(5)
+    before = _snapshot(cache)
+    handle = cache.swap_out(pages, lane=0, length=18)
+    staged = {}
+    t = threading.Thread(target=lambda: staged.update(out=cache.stage_in(handle)))
+    t.start()
+    t.join(timeout=60)
+    assert not t.is_alive() and "out" in staged
+    host_pages = list(handle.host_pages)
+    cache.host_free(handle)
+    # another victim's swap-out takes the same host pages and overwrites them
+    for _, x in tree_items(cache.pools):
+        x.mul_(-1)
+    other = cache.swap_out(pages, lane=1, length=18)
+    assert sorted(other.host_pages) == sorted(host_pages)
+    rows, state = staged["out"]
+    new_pages = cache.allocator.acquire(5)
+    cache.commit_swap_in(rows, new_pages)
+    cache.write_state(0, state)
+    torch.cuda.synchronize()
+    _assert_moved(cache, before, pages, new_pages, 0, 0)
+    # the synchronous restore of the other victim: its own (negated) rows
+    sync_pages = cache.allocator.acquire(5)
+    cache.write_state(1, cache.swap_in(other, sync_pages))
+    torch.cuda.synchronize()
+    for path, a in tree_items(cache.pools):
+        if path[-1] in ("k", "v"):
+            for lp, pp in zip(pages, sync_pages):
+                assert torch.equal(-before[path][:, lp], a[:, pp]), path
+        else:
+            assert torch.equal(-before[path][:, 1], a[:, 1]), path

@@ -241,7 +241,8 @@ def test_gather_engine_matches_jax_gather_and_port_paged(models):
     got = {}
     for path in ("gather", "paged"):
         eng = tserve.ServeEngine(model, params, tserve.EngineConfig(
-            batch_slots=2, max_len=64, cache=tserve.CacheConfig(decode_path=path)),
+            batch_slots=2, max_len=64,
+            cache=tserve.CacheConfig(preempt_policy="recompute", decode_path=path)),
             device="cpu")
         got[path] = _serve(eng, tserve.Request, prompts, 4)
         assert eng.cache.allocator.n_free == eng.cache.n_pages

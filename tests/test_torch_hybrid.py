@@ -371,7 +371,8 @@ def test_engine_tokens_match_jax_engine(models, name):
         **top, cache=jserve.CacheConfig(preempt_policy="recompute", **cache),
         admission=jserve.AdmissionConfig(**adm)))
     teng = tserve.ServeEngine(model, params, tserve.EngineConfig(
-        **top, cache=tserve.CacheConfig(**cache), admission=tserve.AdmissionConfig(**adm)),
+        **top, cache=tserve.CacheConfig(preempt_policy="recompute", **cache),
+        admission=tserve.AdmissionConfig(**adm)),
         device="cpu")
     out = []
     for eng, cls in ((jeng, jserve.Request), (teng, tserve.Request)):

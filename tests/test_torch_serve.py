@@ -6,8 +6,9 @@ JAX ``model.init(jax.random.key(0))`` tree converted by
 identical greedy tokens in every setting: default paged path, ragged
 prompts, chunked prefill, shortest-prompt-first, sync and async admission,
 the per-step token budget, recompute preemption on a small pool, and the JAX Pallas paged-decode
-kernel (interpret mode) as a second reference.  The JAX engine runs with
-``preempt_policy="recompute"``, the only policy the port has.
+kernel (interpret mode) as a second reference.  Both engines run with
+``preempt_policy="recompute"`` (swap preemption, the default on both sides,
+is held to JAX in ``tests/test_torch_tiered_cache.py``).
 """
 import dataclasses
 import os
@@ -96,7 +97,7 @@ def test_port_engine_matches_jax_engine(models, name):
 
     treqs = _reqs(tserve.Request, vocab, **req_kw)
     teng = tserve.ServeEngine(model, params, tserve.EngineConfig(
-        **top, cache=tserve.CacheConfig(**cache),
+        **top, cache=tserve.CacheConfig(preempt_policy="recompute", **cache),
         admission=tserve.AdmissionConfig(**adm)), device="cpu")
     for r in treqs:
         teng.submit(r)

@@ -13,9 +13,10 @@ oracle ``repro.kernels.ref.ssd_scan``.
   ``ssm_decode`` and the reduced mamba2-130m model (``prefill``,
   ``extend_step``, ``decode_step_paged``) against JAX in float32 at
   atol = rtol = 1e-4 (the same algorithm, summed in another order);
-* engine tokens equal to the JAX engine's (``preempt_policy="recompute"``,
-  the port's only policy): whole-prompt, chunked prefill in sync and async
-  modes with idle lanes, and recompute preemption;
+* engine tokens equal to the JAX engine's (``preempt_policy="recompute"``
+  on both sides; swap is held in tests/test_torch_tiered_cache.py):
+  whole-prompt, chunked prefill in sync and async modes with idle lanes,
+  and recompute preemption;
 * the reference gap: a whole-prompt prefill of a ragged length above the
   chunk raises on both sides.
 """
@@ -435,7 +436,8 @@ def serve_both(models, knobs, lengths, max_new, seed=0):
         **top, cache=jserve.CacheConfig(preempt_policy="recompute", **cache),
         admission=jserve.AdmissionConfig(**adm)))
     teng = tserve.ServeEngine(model, params, tserve.EngineConfig(
-        **top, cache=tserve.CacheConfig(**cache), admission=tserve.AdmissionConfig(**adm)),
+        **top, cache=tserve.CacheConfig(preempt_policy="recompute", **cache),
+        admission=tserve.AdmissionConfig(**adm)),
         device="cpu")
     out = []
     for eng, cls in ((jeng, jserve.Request), (teng, tserve.Request)):
