@@ -11,8 +11,10 @@ of mamba2-130m, the gather decode path, training of qwen2.5-3b, ConvNet
 training (VGG16), training of mamba2-130m, serving of recurrentgemma-9b
 (its training runs reduced: full width does not fit one card) and serving
 and training of the moe family (deepseek-v3-671b and qwen3-moe-235b-a22b),
-and the serving engine's memory tiers (swap preemption through the host
-tier, prefix sharing with host retire).
+the serving engine's memory tiers (swap preemption through the host
+tier, prefix sharing with host retire), and its observability and request
+semantics (the ring-buffer tracer, the runtime sanitizer, sampling,
+``eos_id``, ``admission_inflight``).
 Every serving path runs at full width; all but the moe family's at full
 depth (``MOE_DEPTH``, ``MOE_TRAIN``: 671 B and 235 B parameters do not
 fit one card).  Phases, each fatal:
@@ -230,7 +232,26 @@ fit one card).  Phases, each fatal:
     with a partly filled tail page; tok/s and the mean time to first token
     of both; then every index page retired to the host tier (one
     ``paged_gather`` read) and 4 requests replayed: host-restored pages,
-    identical tokens.
+    identical tokens;
+27. (after phase 26) full-width qwen2.5-3b observability and request
+    semantics on phase 4's requests and tokens: a traced
+    (``ObsConfig(trace=True)``) and an untraced engine, 3 runs each in
+    turns, tokens identical to phase 4's, every traced lifecycle valid
+    (``validate_lifecycles``), nothing dropped, the traced / untraced tok/s
+    ratio printed beside the JAX package's 0.95 gate (not a gate here);
+    phase 25's swap run under the sanitizer (``sanitizer.enable()``): no
+    ``SanitizerError``, phase 25's tokens, both wall times;
+    ``trace_annotations=True`` under the profiler: one ``decode.batch``
+    range per decode step holding its 36 paged-decode kernels; temperature
+    0.8 with no generator and ``admission_inflight`` 1, and
+    ``admission_inflight`` 3: phase 4's tokens; two runs of 8 requests with
+    one seed of a card generator (inline admission) at temperature 0.8 and
+    at 1e4 (near uniform: the draws leave the greedy path): identical
+    sampled tokens, greedy prefill tokens; ``eos_id`` set to the token of
+    phase 4's that a request produced first at the latest step (this random
+    model repeats its first token): every request stops at its first such
+    token; and set to a hot sampled request's token at a step >= 3: the
+    same seed stops it there.
 
 ``--kernel-times`` runs only phase 2's timed
 rows (the served bf16 flash prefill shapes and the three paged-decode
@@ -244,8 +265,8 @@ one process each: parent, change, change, parent.
 A kernel's ``launches`` in the JSON line sums its counts over the paths
 that drive it (serving, VGG16 inference, the gather path, the three
 training paths, recurrentgemma-9b serving and reduced training, the moe
-family's serving and training, the memory tiers' runs of phases 24-26),
-each counted from 0 around its own run.
+family's serving and training, the memory tiers' runs of phases 24-26 and
+phase 27's runs), each counted from 0 around its own run.
 Then it prints one JSON line with each kernel's numbers, the card's name
 and power limit, and, last, ``{"ok": true, "device": {...}}``.  Without a
 card, or without the package beside it, it exits non-zero and prints no
@@ -1290,14 +1311,15 @@ def stream_gd_cases() -> dict:
 # ---------------------------------------------------------------------------
 
 
-def serve(model, params, ecfg, prompts, max_new, device):
+def serve(model, params, ecfg, prompts, max_new, device, generator=None, temperature=0.0):
     from repro_torch.serve import Request, ServeEngine
 
     eng = ServeEngine(model, params, ecfg, device=device)
-    reqs = [Request(uid=i, prompt=p, max_new_tokens=max_new) for i, p in enumerate(prompts)]
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=max_new, temperature=temperature)
+            for i, p in enumerate(prompts)]
     for r in reqs:
         eng.submit(r)
-    done = eng.run()
+    done = eng.run(generator)
     if device == "cuda":
         torch.cuda.synchronize()
     return reqs, done, eng
@@ -1945,12 +1967,13 @@ def probe_swaps(eng, ops) -> tuple[list, list]:
     return outs, ins
 
 
-def serve_under_pressure(model, params, prompts, calls, smi) -> dict[str, int]:
+def serve_under_pressure(model, params, prompts, calls, smi):
     """Phase 25: full-width qwen2.5-3b, 8 lanes, max_len 1,024, 16-token
     pages, 16 requests of 128-512 tokens + 64 new, inline admission, three
     ways: unpressured, on ``PRESSURE_PAGES`` pages with swap preemption
     (default cost model, host tier 2x), and with recompute.  ``calls``
-    counts ``decode_step_paged``.  Returns the three runs' launches."""
+    counts ``decode_step_paged``.  Returns the three runs' launches, and the
+    swap run's tokens and wall seconds (phase 27 sanitizes that run)."""
     from repro_torch.kernels import ops
     from repro_torch.serve import AdmissionConfig, CacheConfig, EngineConfig, Request, ServeEngine
 
@@ -1993,7 +2016,7 @@ def serve_under_pressure(model, params, prompts, calls, smi) -> dict[str, int]:
             raise SystemExit(f"chip_smoke: {label}: paged_decode_attention should launch once "
                              "per layer per decode step")
         if label == "swap":
-            swap_run = run
+            swap_run, swap_wall = run, wall
         pages_back(eng, label)
     prompt_tokens = sum(len(p) for p in prompts)
     sw = tel["swap"]
@@ -2052,7 +2075,7 @@ def serve_under_pressure(model, params, prompts, calls, smi) -> dict[str, int]:
         f"{step_ms:.3f} ms wall (mean of 5)")
     log_groups("step", step_ms, *device_groups(eng.step, 5))
     eng.pipeline.shutdown()
-    return launches
+    return launches, got["swap"], swap_wall
 
 
 def serve_shared_prefix(model, params, smi) -> dict[str, int]:
@@ -2144,6 +2167,213 @@ def serve_shared_prefix(model, params, smi) -> dict[str, int]:
         raise SystemExit("chip_smoke: the host-restored replay differs or restored nothing")
     pages_back(eng, "prefix on, after the replay")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 27: observability and request semantics
+# ---------------------------------------------------------------------------
+
+
+def served_tokens(model, params, prompts, max_new, generator=None, temperature=0.0, **knobs):
+    """Serve ``prompts`` on a fresh full-width engine (8 lanes, max_len
+    1,024, 16-token pages; ``knobs``: ``eos_id``, ``obs``, ``cache`` and
+    ``admission``); (tokens, wall s, engine)."""
+    from repro_torch.serve import CacheConfig, EngineConfig
+
+    knobs.setdefault("cache", CacheConfig(page_size=PS))
+    ecfg = EngineConfig(batch_slots=8, max_len=1024, **knobs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs, _, eng = serve(model, params, ecfg, prompts, max_new, "cuda", generator, temperature)
+    wall = time.perf_counter() - t0
+    if not all(r.done for r in reqs):
+        raise SystemExit("chip_smoke: a request did not finish")
+    return [r.out_tokens for r in reqs], wall, eng
+
+
+def ranged_kernels(prof, range_name: str, kernel: str) -> tuple[int, int]:
+    """(host ranges called ``range_name``, ``kernel`` launches whose device
+    start lies inside a range's device-side span) of one profile.  By time,
+    not by the profiler's op links: a kernel launched through ctypes has no
+    torch op to link to."""
+    host = [e for e in prof.events() if e.name == range_name
+            and not str(getattr(e, "device_type", "")).endswith("CUDA")]
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.name == range_name and str(getattr(e, "device_type", "")).endswith("CUDA")]
+    inside = sum(1 for e in prof.events()
+                 if kernel in e.name and str(getattr(e, "device_type", "")).endswith("CUDA")
+                 and any(a <= e.time_range.start <= b for a, b in spans))
+    return len(host), inside
+
+
+def obs_and_semantics(model, params, prompts, greedy, swap_tokens, swap_wall,
+                      smi) -> dict[str, int]:
+    """Phase 27 on phase 4's model, requests (32 new tokens) and tokens
+    (``greedy``): the tracer's cost, traced against untraced in turns; the
+    sanitizer over phase 25's swap run (``swap_tokens`` in ``swap_wall``
+    s); the ``decode.batch`` profiler ranges; sampling without and with a
+    seeded generator, ``eos_id`` and ``admission_inflight``.  Returns the
+    phase's launches."""
+    from repro_torch.analysis import sanitizer
+    from repro_torch.kernels import ops
+    from repro_torch.obs.export import validate_lifecycles
+    from repro_torch.serve import (
+        AdmissionConfig, CacheConfig, EngineConfig, ObsConfig, Request, ServeEngine)
+
+    t_phase = time.perf_counter()
+    layers = model.cfg.n_layers
+    ops.reset_launches()
+    # 1. the tracer's cost: a traced and an untraced engine, warmed, then 3
+    # runs each in turns (T U, U T, T U); per-mode medians, as the JAX
+    # package's bench_obs_overhead takes them
+    engines = {}
+    for traced in (True, False):
+        eng = ServeEngine(model, params, EngineConfig(
+            batch_slots=8, max_len=1024, cache=CacheConfig(page_size=PS),
+            obs=ObsConfig(trace=traced)), device="cuda")
+        eng.submit(Request(uid=-1, prompt=prompts[0], max_new_tokens=2))
+        eng.run()
+        engines[traced] = eng
+    tps = {True: [], False: []}
+    toks = {}
+    for rep, order in enumerate(((True, False), (False, True), (True, False))):
+        for traced in order:
+            eng = engines[traced]
+            reqs = [Request(uid=100 * rep + i, prompt=p, max_new_tokens=32)
+                    for i, p in enumerate(prompts)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for r in reqs:
+                eng.submit(r)
+            eng.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            tps[traced].append(sum(len(r.out_tokens) for r in reqs) / wall)
+            got = [r.out_tokens for r in reqs]
+            if got != greedy:
+                raise SystemExit(f"chip_smoke: {'traced' if traced else 'untraced'} run {rep} "
+                                 "gave other tokens than phase 4")
+            toks[traced, rep] = got
+    tracer = engines[True].tracer
+    path = ROOT / "build" / "phase27_trace.json"
+    path.parent.mkdir(exist_ok=True)
+    hist = validate_lifecycles(engines[True].save_trace(str(path)), require_done=True)
+    ratio = statistics.median(tps[True]) / statistics.median(tps[False])
+    log(f"  tracer: traced {', '.join(f'{x:.1f}' for x in tps[True])} tok/s, untraced "
+        f"{', '.join(f'{x:.1f}' for x in tps[False])} tok/s (in turns); traced / untraced "
+        f"(medians) {ratio:.4f} against the JAX package's gate of 0.95 (bench_gate.py; "
+        f"not a gate here) ({smi})")
+    log(f"  tracer: {tracer.total} events recorded, dropped {tracer.dropped}, "
+        f"{len(hist)} request lifecycles valid (the warm-up's and 3 x {len(prompts)}); "
+        f"tokens identical traced, untraced and phase 4's")
+    if tracer.dropped:
+        raise SystemExit("chip_smoke: the tracer's ring wrapped")
+    # 2. the sanitizer over phase 25's swap run (inline admission, 112 pages)
+    sanitizer.enable()
+    try:
+        got, wall, eng = served_tokens(
+            model, params, prompts, 64, cache=CacheConfig(page_size=PS, n_pages=PRESSURE_PAGES),
+            admission=AdmissionConfig(async_prefill=False))
+    finally:
+        sanitizer.disable()
+    tel = eng.telemetry()
+    log(f"  sanitizer over phase 25's swap run: {wall:.2f} s against {swap_wall:.2f} s "
+        f"unsanitized (phase 25), {tel['swap_preemptions']} swap preemptions, "
+        f"{tel['host_tier']['swap_ins']} swap-ins, no SanitizerError ({smi})")
+    if got != swap_tokens:
+        raise SystemExit("chip_smoke: the sanitized swap run's tokens differ from phase 25's")
+    if tel["swap_preemptions"] < 1:
+        raise SystemExit("chip_smoke: the sanitized run swapped nothing")
+    # 3. trace annotations under the profiler: decode.batch ranges around the
+    # paged-decode kernels of 3 decode steps of 8 lanes
+    eng = ServeEngine(model, params, EngineConfig(
+        batch_slots=8, max_len=1024, cache=CacheConfig(page_size=PS),
+        admission=AdmissionConfig(async_prefill=False),
+        obs=ObsConfig(trace_annotations=True)), device="cuda")
+    for i, p in enumerate(prompts[:8]):
+        eng.submit(Request(uid=i, prompt=p, max_new_tokens=16))
+    while len(eng.sched.running) < 8 or eng.sched.ready or eng.sched.admitting:
+        eng.step()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(3):                   # a profile may come back without device records
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(3):
+                eng.step()
+            torch.cuda.synchronize()
+        ranges, inside = ranged_kernels(prof, "decode.batch", "paged_decode_")
+        if inside:
+            break
+    eng.run()
+    log(f"  profiler: {ranges} decode.batch ranges over 3 decode steps holding {inside} "
+        f"paged-decode kernels by device time ({layers} per step)")
+    if ranges != 3 or inside != 3 * layers:
+        raise SystemExit("chip_smoke: the decode.batch ranges do not hold each step's "
+                         "paged-decode kernels")
+    # 4. request semantics
+    got, wall, _ = served_tokens(model, params, prompts, 32, temperature=0.8,
+                                 admission=AdmissionConfig(admission_inflight=1))
+    log(f"  temperature 0.8, no generator, admission_inflight 1: "
+        f"{sum(a == b for a, b in zip(got, greedy))}/{len(prompts)} requests gave phase 4's "
+        f"greedy tokens ({wall:.2f} s)")
+    if got != greedy:
+        raise SystemExit("chip_smoke: without a generator the engine did not decode greedily")
+    got, wall, _ = served_tokens(model, params, prompts, 32,
+                                 admission=AdmissionConfig(admission_inflight=3))
+    log(f"  admission_inflight 3: {sum(a == b for a, b in zip(got, greedy))}/{len(prompts)} "
+        f"requests gave phase 4's tokens ({wall:.2f} s)")
+    if got != greedy:
+        raise SystemExit("chip_smoke: admission_inflight 3 changed the tokens")
+    # a seeded card generator, two runs each (inline admission: the draws'
+    # order is fixed): at 0.8, and hot enough (T = 1e4, near uniform) that the
+    # draws leave the greedy path of this random-weight model
+    for temp in (0.8, 1e4):
+        sampled = [served_tokens(model, params, prompts[:8], 16,
+                                 torch.Generator(device="cuda").manual_seed(27), temp,
+                                 admission=AdmissionConfig(async_prefill=False))[0]
+                   for _ in range(2)]
+        moved = sum(a != b for r, g in zip(sampled[0], greedy) for a, b in zip(r, g))
+        log(f"  a seeded card generator at temperature {temp:g}, 8 requests: two runs "
+            f"{'identical' if sampled[0] == sampled[1] else 'DIFFERENT'}; {moved} of {8 * 16} "
+            "tokens differ from greedy; prefill tokens greedy: "
+            f"{all(r[0] == g[0] for r, g in zip(sampled[0], greedy))}")
+        if sampled[0] != sampled[1]:
+            raise SystemExit("chip_smoke: one seed gave two token streams")
+        if any(r[0] != g[0] for r, g in zip(sampled[0], greedy)):
+            raise SystemExit("chip_smoke: a prefill token was sampled (it stays greedy)")
+        if not all(0 <= t < model.cfg.padded_vocab for r in sampled[0] for t in r):
+            raise SystemExit("chip_smoke: a sampled token lies outside the vocabulary")
+    if moved == 0:
+        raise SystemExit("chip_smoke: at temperature 1e4 no draw left the greedy path")
+    # eos_id at prefill: of phase 4's tokens, the one a request produced first
+    # at the latest step (this random model repeats its first token)
+    k, i = max((k, i) for i, t in enumerate(greedy[:8]) for k in range(len(t))
+               if t[k] not in t[:k])
+    eos = greedy[i][k]
+    want = [t[:t.index(eos) + 1] if eos in t else t for t in greedy[:8]]
+    got, wall, _ = served_tokens(model, params, prompts[:8], 32, eos_id=eos)
+    log(f"  eos_id = request {i}'s token at step {k} ({eos}), 8 requests: request {i} stopped "
+        f"after {len(got[i])} tokens, {sum(len(t) < 32 for t in got)} stopped early; each "
+        f"stops at its first such token of phase 4's: {got == want}")
+    if got != want or len(got[i]) != k + 1:
+        raise SystemExit("chip_smoke: eos_id did not stop the requests at phase 4's token")
+    # eos_id mid-decode: one hot sampled request, then the same seed with its
+    # first token first seen at a step >= 3 (and before the last) as the end token
+    one = dict(admission=AdmissionConfig(async_prefill=False))
+    (t,), _, _ = served_tokens(model, params, prompts[:1], 16,
+                               torch.Generator(device="cuda").manual_seed(28), 1e4, **one)
+    k = next(k for k in range(3, len(t) - 1) if t[k] not in t[:k])
+    (got,), _, _ = served_tokens(model, params, prompts[:1], 16,
+                                 torch.Generator(device="cuda").manual_seed(28), 1e4,
+                                 eos_id=t[k], **one)
+    log(f"  eos_id mid-decode: a sampled request's token at step {k} ({t[k]}) as the end "
+        f"token: it stopped after {len(got)} tokens, the first {k + 1} of the free run's: "
+        f"{got == t[:k + 1]}")
+    if got != t[:k + 1]:
+        raise SystemExit("chip_smoke: eos_id did not stop a decoding request at its token")
+    run = dict(ops.LAUNCHES)
+    log(f"  phase 27: {time.perf_counter() - t_phase:.1f} s; kernel launches "
+        f"{ {n: v for n, v in run.items() if v} }")
+    return run
 
 
 # ---------------------------------------------------------------------------
@@ -3186,11 +3416,18 @@ def main() -> int:
     # -- phases 25 and 26 (on phase 4's model) ------------------------------------
     log(f"== phase 25: full-width qwen2.5-3b under page pressure ({PRESSURE_PAGES} pages of "
         f"{PS}), unpressured, swap and recompute")
-    for name, n in serve_under_pressure(model, params, qwen_prompts, calls, smi).items():
+    run, swap_tokens, swap_wall = serve_under_pressure(model, params, qwen_prompts, calls, smi)
+    for name, n in run.items():
         launches[name] = launches.get(name, 0) + n      # every kernel's key from here
     log("== phase 26: full-width qwen2.5-3b prefix sharing (a 512-token system prompt, "
         "256-token chunks, async admission)")
     for name, n in serve_shared_prefix(model, params, smi).items():
+        launches[name] += n
+    log("== phase 27: full-width qwen2.5-3b observability and request semantics (tracer "
+        "cost, the sanitizer under page pressure, profiler ranges, sampling, eos_id, "
+        "admission_inflight)")
+    for name, n in obs_and_semantics(model, params, qwen_prompts, paged_tokens, swap_tokens,
+                                     swap_wall, smi).items():
         launches[name] += n
     del model, params
     torch.cuda.empty_cache()

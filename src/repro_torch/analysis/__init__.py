@@ -1,1 +1,15 @@
-"""Ownership markers of the port's serving engine."""
+"""Ownership markers, the declared request state machine and the runtime
+sanitizer of the port's serving engine (``REPRO_SANITIZE=1`` turns the
+sanitizer on)."""
+from . import sanitizer
+from .ownership import admission_api, decode_loop_only, pool_mutator
+from .phases import PHASE_EDGES, PHASE_WRITERS
+
+__all__ = [
+    "admission_api",
+    "decode_loop_only",
+    "pool_mutator",
+    "sanitizer",
+    "PHASE_EDGES",
+    "PHASE_WRITERS",
+]

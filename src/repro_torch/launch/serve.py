@@ -3,7 +3,9 @@
 Serves seeded random requests with the reduced config of ``--arch`` and
 random weights from a seeded generator, on the card unless ``--device cpu``
 is given.  The flags are those of ``python -m repro.launch.serve`` that the
-port supports (no temperature, tracing or cubes yet).
+port supports (no cubes yet).  ``--temperature T`` samples every decode
+token from ``softmax(logits / T)`` under a generator on the device seeded
+with ``--seed``; ``--trace OUT.json`` writes the run's Perfetto trace.
 """
 import argparse
 import json
@@ -16,7 +18,8 @@ from repro_torch.configs import get_arch
 from repro_torch.device import resolve
 from repro_torch.kernels import build
 from repro_torch.models import build_model
-from repro_torch.serve import AdmissionConfig, CacheConfig, EngineConfig, Request, ServeEngine
+from repro_torch.serve import (
+    AdmissionConfig, CacheConfig, EngineConfig, ObsConfig, Request, ServeEngine)
 
 
 def main(argv=None):
@@ -28,6 +31,10 @@ def main(argv=None):
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--max-len", type=int, default=128)
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="> 0 samples decode tokens from softmax(logits / T); 0 is greedy")
+    ap.add_argument("--seed", type=int, default=1,
+                    help="seed of the sampling generator (on the device)")
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--pages", type=int, default=0,
                     help="page pool size (0 = dense-equivalent budget)")
@@ -37,6 +44,9 @@ def main(argv=None):
     ap.add_argument("--async-prefill", choices=["on", "off"], default="on",
                     help="run prefill on the admission pipeline thread (on, "
                          "default) or inline per step (off); identical tokens")
+    ap.add_argument("--admission-inflight", type=int, default=2,
+                    help="backpressure: admissions in flight (pages reserved, not yet "
+                         "decoding) before the pipeline stops admitting")
     ap.add_argument("--preempt-policy", choices=["swap", "recompute"], default="swap",
                     help="eviction: swap pages to the host tier and restore them on "
                          "resume (default), or free them and prefill again")
@@ -47,6 +57,9 @@ def main(argv=None):
                     help="cost of moving one token of KV relative to recomputing it")
     ap.add_argument("--prefix-sharing", action="store_true",
                     help="index resident prompt prefixes so repeats share pages")
+    ap.add_argument("--trace", metavar="OUT.json", default=None,
+                    help="record request lifecycles and engine events in the ring-buffer "
+                         "tracer and write a Perfetto/Chrome trace here after the run")
     args = ap.parse_args(argv)
 
     device = resolve(args.device)
@@ -63,7 +76,9 @@ def main(argv=None):
             policy=args.policy, prefill_chunk=args.prefill_chunk,
             max_step_tokens=args.max_step_tokens,
             async_prefill=args.async_prefill == "on",
+            admission_inflight=args.admission_inflight,
         ),
+        obs=ObsConfig(trace=args.trace is not None),
     )
     eng = ServeEngine(model, params, ecfg, device=device)
     if device.type == "cuda":
@@ -72,15 +87,18 @@ def main(argv=None):
     for i in range(args.requests):
         eng.submit(Request(
             uid=i, prompt=rng.integers(0, cfg.vocab_size, size=(8,)).astype(np.int32),
-            max_new_tokens=args.max_new,
+            max_new_tokens=args.max_new, temperature=args.temperature,
         ))
     t0 = time.time()
-    done = eng.run()
+    done = eng.run(torch.Generator(device=device).manual_seed(args.seed))
     dt = time.time() - t0
     toks = sum(len(r.out_tokens) for r in done)
     print(f"{cfg.name}: {len(done)} requests, {toks} tokens, {toks / dt:.1f} tok/s "
           f"on {device}")
     print(json.dumps(eng.telemetry(), indent=2, default=float))
+    if args.trace:
+        eng.save_trace(args.trace)
+        print(f"trace -> {args.trace}")
 
 
 if __name__ == "__main__":

@@ -30,6 +30,7 @@ import threading
 
 import torch
 
+from repro_torch.analysis import sanitizer
 from repro_torch.analysis.ownership import admission_api
 
 
@@ -62,7 +63,10 @@ class AdmissionPipeline:
         Touches the host buffers and fresh device tensors only, never the
         pools."""
         eng = self.engine
+        tr = eng.tracer
+        tr.begin(tr.EV_STAGE_IN, st.req.uid, len(st.swap_handle.host_pages))
         staged, state = eng.cache.stage_in(st.swap_handle)
+        tr.end(tr.EV_STAGE_IN, st.req.uid)
         with eng._lock:
             st.staged, st.state_cache = staged, state
             st.swapped = False
@@ -77,8 +81,11 @@ class AdmissionPipeline:
         """One prefill work unit (a chunk, or the whole prompt when chunking
         is off) into the request's private cache."""
         eng = self.engine
+        tr = eng.tracer
+        tr.begin(tr.EV_PREFILL_CHUNK, st.req.uid, chunk)
         done = eng.run_prefill(st, chunk)
         tok = eng.sample_prefill_token(st) if done else None
+        tr.end(tr.EV_PREFILL_CHUNK, st.req.uid)
         with eng._lock:
             self._c["chunks_run"].inc()
             eng._c_prefill.inc(chunk)
@@ -94,10 +101,13 @@ class AdmissionPipeline:
         snapshot onto the device, and hand the request straight to ready —
         no prefill compute at all."""
         eng = self.engine
+        tr = eng.tracer
         claim = st.prefix_claim
         staged = None
         if claim.restore:
+            tr.begin(tr.EV_STAGE_IN, st.req.uid, len(claim.restore))
             staged = eng.cache.host.get_pages([hp for _h, hp, _d in claim.restore])
+            tr.end(tr.EV_STAGE_IN, st.req.uid)
         state = ({path: s.to(eng.device) for path, s in claim.state.items()}
                  if claim.state is not None else None)
         with eng._lock:
@@ -184,6 +194,11 @@ class AdmissionPipeline:
     @admission_api
     def _worker(self) -> None:
         eng = self.engine
+        eng.tracer.ensure_thread_name("admission-pipeline")
+        # sanitizer mode: this thread may never write the pools or block
+        # tables, nor enter a @decode_loop_only method
+        if sanitizer.enabled():
+            sanitizer.register_admission_thread(eng)
         try:
             if eng.device.type == "cuda":
                 torch.cuda.set_device(eng.device)
@@ -211,9 +226,15 @@ class AdmissionPipeline:
             with eng._lock:
                 self.error = e
                 eng._cv.notify_all()
+        finally:
+            # the OS reuses thread idents: a dead worker's must not taint a
+            # later decode thread
+            if sanitizer.enabled():
+                sanitizer.unregister_admission_thread(eng)
 
 
 def prefill_logits_token(last_logits: torch.Tensor) -> int:
     """Greedy prefill token (argmax of the final-position logits row): the
-    one host-blocking read a prefill needs."""
+    one host-blocking read a prefill needs.  Greedy whatever the request's
+    temperature, as in the JAX package: only decode steps sample."""
     return int(torch.argmax(last_logits))

@@ -37,9 +37,25 @@ sharing the engine lock) lives under one engine lock; no tensor work runs
 inside it, except the batched swap-out and the fork copy, as in the JAX
 package.  Both pipeline modes give identical tokens.
 
+Sampling: a decode step draws the token of a lane whose request has
+``temperature > 0`` from ``softmax(logits / temperature)`` under the
+``torch.Generator`` that ``step``/``run`` are given (on the generator's
+device, in sorted lane order); with no generator every lane is greedy, and
+the prefill's token is greedy whatever the temperature, as in the JAX
+package.  ``EngineConfig.eos_id`` ends a request at that token, at prefill
+or in decode.
+
+Observability (``ObsConfig``): ``trace=True`` records engine steps, decode
+batches, prefill chunks, swaps, admissions, preemptions, prefix events and
+every request's phase edges into a ring-buffer tracer (``save_trace``
+writes Perfetto JSON); ``trace_annotations=True`` wraps each decode call in
+a ``torch.profiler.record_function("decode.batch")`` range.  With
+``REPRO_SANITIZE=1`` (or ``analysis.sanitizer.enable()``) the ownership
+markers check threads, the engine lock and page epochs at run time.
+
 The engine runs on the card unless ``device="cpu"`` is passed (then every
 kernel runs its plain PyTorch version); the parameters must already live on
-that device.  Not ported yet: tracing and inter-cube migration.  The
+that device.  Not ported yet: inter-cube migration.  The
 engine is generic over the model's cache tree: any mix of seq leaves (pages)
 and per-lane state leaves, over any number of segments.  A state-only model (ssm)
 still acquires pages per token, as in the JAX package, so page accounting,
@@ -47,17 +63,21 @@ preemption and step counts match it.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
-import time
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
+from repro_torch.analysis import sanitizer
 from repro_torch.analysis.ownership import admission_api, decode_loop_only, pool_mutator
 from repro_torch.device import resolve
 from repro_torch.models.common import tree_map
+from repro_torch.obs import clock as obs_clock
+from repro_torch.obs.export import write_chrome_trace
 from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.trace import NULL_TRACER, ServeTracer
 
 from .admission import AdmissionPipeline, prefill_logits_token
 from .paged_cache import PagedKVCache, absorb_decode, gather_views
@@ -69,6 +89,7 @@ class Request:
     uid: int
     prompt: np.ndarray               # (S,) int32
     max_new_tokens: int = 16
+    temperature: float = 0.0         # > 0: sampled in decode under a generator
     out_tokens: list = field(default_factory=list)
     done: bool = False
 
@@ -110,19 +131,38 @@ class AdmissionConfig:
     # True runs prefill and restores on a worker thread feeding the ready
     # queue; False runs the identical pipeline inline each step
     async_prefill: bool = True
+    # backpressure: admissions (pages reserved, private tensors held) not
+    # yet decoding; raise it to keep a deeper ready queue
+    admission_inflight: int = 2
+
+
+@dataclass
+class ObsConfig:
+    """Observability knobs."""
+
+    # record engine, admission, swap and phase events into a preallocated
+    # ring buffer (``ServeEngine.save_trace`` writes Perfetto JSON); off,
+    # every record call is one flag check through the shared NULL_TRACER
+    trace: bool = False
+    trace_capacity: int = 1 << 15   # ring slots; wraparound drops the oldest
+    # wrap each decode call in a torch.profiler.record_function range, so a
+    # device profile lines up with the host-side trace
+    trace_annotations: bool = False
 
 
 @dataclass
 class EngineConfig:
     batch_slots: int = 4            # decode lanes
     max_len: int = 256              # per-request context capacity
+    eos_id: int | None = None       # a request ends at this token
     cache: CacheConfig = field(default_factory=CacheConfig)
     admission: AdmissionConfig = field(default_factory=AdmissionConfig)
+    obs: ObsConfig = field(default_factory=ObsConfig)
 
 
 class ServeEngine:
-    """Greedy decoding over the DecoderLM serving API, backed by a paged KV
-    cache, a request scheduler and an admission pipeline."""
+    """Greedy and temperature sampling over the DecoderLM serving API, backed
+    by a paged KV cache, a request scheduler and an admission pipeline."""
 
     def __init__(self, model, params, ecfg: EngineConfig, device=None):
         cc, ac = ecfg.cache, ecfg.admission
@@ -146,6 +186,11 @@ class ServeEngine:
         self._lock = threading.RLock()
         self._cv = threading.Condition(self._lock)
         self.metrics = MetricsRegistry(lock=self._lock)
+        oc = ecfg.obs
+        self.tracer: ServeTracer = (ServeTracer(capacity=oc.trace_capacity) if oc.trace
+                                    else NULL_TRACER)
+        self._annot = ((lambda: torch.profiler.record_function("decode.batch"))
+                       if oc.trace_annotations else contextlib.nullcontext)
         n_pages = (cc.n_pages if cc.n_pages is not None
                    else ecfg.batch_slots * -(-ecfg.max_len // cc.page_size))
         host_pages = cc.host_pages
@@ -159,8 +204,10 @@ class ServeEngine:
                                   metrics=self.metrics, prefix_sharing=cc.prefix_sharing)
         chunk = ac.prefill_chunk if model.supports_chunked_prefill else 0
         self.sched = Scheduler(SchedulerConfig(
-            policy=ac.policy, prefill_chunk=chunk, preempt_policy=cc.preempt_policy,
-            swap_token_cost=cc.swap_token_cost))
+            policy=ac.policy, prefill_chunk=chunk,
+            max_inflight_prefills=ac.admission_inflight,
+            preempt_policy=cc.preempt_policy, swap_token_cost=cc.swap_token_cost),
+            tracer=self.tracer)
         self.completed: list[Request] = []
         # engine counters, made up front so hot paths inc without a registry
         # lookup; lane_step/lane_slot: active lanes against capacity, summed
@@ -175,6 +222,7 @@ class ServeEngine:
         self._g_occ = m.gauge("occupancy")
         self._h_step = m.histogram("step_latency_s")
         self._h_queue = m.histogram("queue_wait_s")
+        sanitizer.register_engine(self)
         self.pipeline = AdmissionPipeline(self, ac.async_prefill)
         self._idle_since: float | None = None
         self._idle_pipe_mark = -1
@@ -262,7 +310,7 @@ class ServeEngine:
             self.sched.to_ready(st)
             return False
         req.out_tokens.append(tok)
-        if len(req.out_tokens) >= req.max_new_tokens:
+        if len(req.out_tokens) >= req.max_new_tokens or tok == self.ecfg.eos_id:
             self.sched.admitting.remove(st)
             self._retire(st)
             return True
@@ -287,7 +335,7 @@ class ServeEngine:
         tok = int(st.prefix_claim.first_token)
         st.pending_token = tok
         req.out_tokens.append(tok)
-        if len(req.out_tokens) >= req.max_new_tokens:
+        if len(req.out_tokens) >= req.max_new_tokens or tok == self.ecfg.eos_id:
             self.sched.admitting.remove(st)
             self._retire(st)
             return True
@@ -305,6 +353,7 @@ class ServeEngine:
             # release, not free: pages shared with the prefix index (or
             # another lane) survive; only sole-owned pages hit the free list
             self.cache.allocator.release(st.pages)
+            sanitizer.note_release(st)
             st.pages = []
             if st.prefix_claim is not None:
                 self.cache.abort_match(st.prefix_claim)
@@ -339,7 +388,7 @@ class ServeEngine:
         pipeline's private results (prefill caches, staged restores, prefix
         pages) into the pools; the decode loop is the only pools writer."""
         s = self.sched
-        now = time.monotonic()
+        now = obs_clock.monotonic()
         with self._lock:
             free_lanes = [l for l in range(self.ecfg.batch_slots) if l not in s.running]
             take = []
@@ -355,6 +404,9 @@ class ServeEngine:
                 self._cv.notify_all()    # ready drained: backpressure lifts
         inserts: list = []
         for st in take:
+            # use-after-free / ABA check: every page id the request holds is
+            # live and still of the generation granted at admission
+            sanitizer.verify_grant(st, self.cache.allocator)
             self.cache.assign_lane(st.lane, st.pages)
             if st.prefix_staged is not None:
                 # host-retired prefix pages staged by the pipeline: scatter
@@ -433,7 +485,9 @@ class ServeEngine:
             # before evicting a live lane, reclaim cold prefix-index pages:
             # the prefix cache always yields to running requests
             if shortfall() > 0 and cache.prefix is not None:
-                cache.prefix_retire(shortfall())
+                reclaimed = cache.prefix_retire(shortfall())
+                if reclaimed:
+                    self.tracer.instant(self.tracer.EV_PREFIX_RETIRE, reclaimed)
             while shortfall() > 0:
                 cands = [st for st in s.running.values() if st not in victims]
                 # evicting the last running lane only helps when an admitted
@@ -455,6 +509,7 @@ class ServeEngine:
                     page = hold.pop() if hold else alloc.acquire(1)[0]
                     cache.extend_lane(lane, page, len(st.pages))
                     st.pages.append(page)
+                    sanitizer.note_grant(st, [page], alloc)
             if hold:
                 alloc.release(hold)
             # forks last, from the replenished pool: remap the lane to a
@@ -474,9 +529,11 @@ class ServeEngine:
                         "grow CacheConfig.n_pages")
                 st.pages[i] = new
                 cache.assign_lane(lane, st.pages)
+                sanitizer.note_grant(st, [new], alloc)
                 copies.append((old, new))
                 if cache.prefix is not None:
                     cache.prefix.note_fork()
+                self.tracer.instant(self.tracer.EV_PREFIX_FORK, st.req.uid, old)
             if copies:
                 # one batched copy of the forked rows under the lock, as the
                 # swap-out (the decode loop owns the pools: nothing races it)
@@ -484,7 +541,7 @@ class ServeEngine:
 
     @decode_loop_only
     @pool_mutator("pools")
-    def _decode_lanes(self):
+    def _decode_lanes(self, generator):
         s, b = self.sched, self.ecfg.batch_slots
         tokens = np.zeros((b, 1), np.int64)
         positions = np.zeros((b,), np.int64)
@@ -494,31 +551,49 @@ class ServeEngine:
             positions[lane] = st.length
             active[lane] = True
         n_active = int(active.sum())
+        lanes = sorted(s.running)
+        sampled = ([lane for lane in lanes if s.running[lane].req.temperature > 0]
+                   if generator is not None else [])
+        temps = [s.running[lane].req.temperature for lane in sampled]
         dev = self.device
-        bt = torch.from_numpy(self.cache.block_tables).to(dev)
-        tokens = torch.from_numpy(tokens).to(dev)
-        positions = torch.from_numpy(positions).to(dev)
-        active = torch.from_numpy(active).to(dev)
-        if self.ecfg.cache.decode_path == "gather":
-            views = gather_views(self.cache.pools, bt)
-            logits, new_views = self.model.decode_step(self.params, views, tokens, positions)
-            self.cache.pools = absorb_decode(self.cache.pools, new_views, bt, positions,
-                                             active, self.cache.page_size)
-        else:
-            logits, self.cache.pools = self.model.decode_step_paged(
-                self.params, self.cache.pools, bt, tokens, positions, active)
-        # greedy tokens come off the device as B ints, not B vocab rows
-        greedy = logits[:, 0].argmax(-1).cpu().numpy()
+        self.tracer.begin(self.tracer.EV_DECODE, n_active)
+        with self._annot():
+            bt = torch.from_numpy(self.cache.block_tables).to(dev)
+            tokens = torch.from_numpy(tokens).to(dev)
+            positions = torch.from_numpy(positions).to(dev)
+            active = torch.from_numpy(active).to(dev)
+            if self.ecfg.cache.decode_path == "gather":
+                views = gather_views(self.cache.pools, bt)
+                logits, new_views = self.model.decode_step(self.params, views, tokens,
+                                                           positions)
+                self.cache.pools = absorb_decode(self.cache.pools, new_views, bt, positions,
+                                                 active, self.cache.page_size)
+            else:
+                logits, self.cache.pools = self.model.decode_step_paged(
+                    self.params, self.cache.pools, bt, tokens, positions, active)
+            rows = logits[:, 0]
+            toks = rows.argmax(-1)
+            if sampled:
+                idx = torch.tensor(sampled, device=dev)
+                toks[idx] = sample_tokens(
+                    rows[idx], torch.tensor(temps, dtype=torch.float32, device=dev), generator)
+        # the step's one host read: B ints, never B vocab rows; the span ends
+        # after it, so it holds the device's work and not only the launches
+        toks = toks.cpu().numpy()
+        self.tracer.end(self.tracer.EV_DECODE, n_active)
         done = 0
-        for lane in sorted(s.running):
+        for lane in lanes:
             st = s.running[lane]
             req = st.req
-            tok = int(greedy[lane])
+            tok = int(toks[lane])
             req.out_tokens.append(tok)
             st.length += 1
             st.pending_token = tok
             done += 1
             if (len(req.out_tokens) >= req.max_new_tokens
+                    or tok == self.ecfg.eos_id
+                    # cap at max_len, not the page-rounded capacity, as the
+                    # JAX engine does
                     or st.length >= self.ecfg.max_len - 1):
                 self._retire_lane(st)
         with self._lock:
@@ -527,20 +602,30 @@ class ServeEngine:
 
     # -- step loop -------------------------------------------------------------
 
-    @decode_loop_only
-    def step(self) -> bool:
-        """One decode-loop round: (sync mode: pump the admission pipeline) →
-        drain ready into lanes → one batched decode step.  Returns False when
-        the engine is drained."""
-        t0 = time.monotonic()
-        try:
-            return self._step_inner()
-        finally:
-            with self._lock:
-                self._h_step.observe(time.monotonic() - t0)
+    def _check_generator(self, generator) -> None:
+        if generator is not None and generator.device.type != self.device.type:
+            raise ValueError(f"the generator lives on {generator.device}, the engine "
+                             f"samples on {self.device}")
 
     @decode_loop_only
-    def _step_inner(self) -> bool:
+    def step(self, generator: torch.Generator | None = None) -> bool:
+        """One decode-loop round: (sync mode: pump the admission pipeline) →
+        drain ready into lanes → one batched decode step, sampling the lanes
+        whose temperature is > 0 under ``generator`` (greedy without one).
+        Returns False when the engine is drained."""
+        self._check_generator(generator)
+        self.tracer.ensure_thread_name("decode-loop")
+        t0 = obs_clock.monotonic()
+        self.tracer.begin(self.tracer.EV_STEP)
+        try:
+            return self._step_inner(generator)
+        finally:
+            self.tracer.end(self.tracer.EV_STEP)
+            with self._lock:
+                self._h_step.observe(obs_clock.monotonic() - t0)
+
+    @decode_loop_only
+    def _step_inner(self, generator) -> bool:
         if self.pipeline.error is not None:
             err, self.pipeline.error = self.pipeline.error, None
             raise RuntimeError("admission pipeline died") from err
@@ -562,7 +647,7 @@ class ServeEngine:
         if s.running:
             self._ensure_pages()
             if s.running:        # _ensure_pages may have evicted every lane
-                self._decode_lanes()
+                self._decode_lanes(generator)
             progressed = True
         with self._lock:
             self._c_steps.inc()
@@ -570,6 +655,7 @@ class ServeEngine:
             occ = self.cache.occupancy()
             self._h_occ.observe(occ)     # mean = sum/count (count == steps)
             self._g_occ.set(occ)         # last value + high-water max
+            self.tracer.counter(self.tracer.EV_PAGES_FREE, self.cache.allocator.n_free)
         if progressed:
             self._idle_since = None
             return True
@@ -582,7 +668,7 @@ class ServeEngine:
         # async: the pipeline holds all in-flight work — wait for a hand-off
         # instead of spinning; the watchdog resets whenever the pipeline
         # progresses (one coherent cut of its counters)
-        now = time.monotonic()
+        now = obs_clock.monotonic()
         pipe_mark = self.metrics.total("pipeline.")
         if self._idle_since is None or pipe_mark != self._idle_pipe_mark:
             self._idle_since = now
@@ -597,11 +683,14 @@ class ServeEngine:
         return True
 
     @decode_loop_only
-    def run(self) -> list[Request]:
+    def run(self, generator: torch.Generator | None = None) -> list[Request]:
+        """Step until drained; ``generator`` (on the engine's device) draws
+        every sampled token, one generator for the whole run."""
+        self._check_generator(generator)
         done_mark = len(self.completed)
         while self.load:
-            self.step()
-        self.pipeline.shutdown()
+            self.step(generator)
+        self.pipeline.shutdown()         # park the worker until resubmit
         return self.completed[done_mark:]
 
     # -- telemetry -------------------------------------------------------------
@@ -640,6 +729,10 @@ class ServeEngine:
         """Zero every metric (engine + pipeline + host tier + prefix) in
         place."""
         self.metrics.reset()
+
+    def save_trace(self, path: str) -> dict:
+        """Export the engine's ring buffer as Perfetto-loadable JSON."""
+        return write_chrome_trace(path, {"engine": self.tracer})
 
     def telemetry(self) -> dict:
         """The JAX engine's ``telemetry()`` layout (without its migrations,
@@ -694,3 +787,13 @@ class ServeEngine:
         st["histograms"] = snap["histograms"]
         st["device"] = str(self.device)
         return st
+
+
+def sample_tokens(logits: torch.Tensor, temperature: torch.Tensor,
+                  generator: torch.Generator) -> torch.Tensor:
+    """One token per row of ``logits`` (n, V), drawn from ``softmax(row /
+    temperature[row])`` in float32 under ``generator``, on the rows' device
+    (the generator must live there).  Rows draw in order, so a seeded
+    generator gives the same tokens again."""
+    probs = torch.softmax(logits.float() / temperature[:, None], dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0]

@@ -39,21 +39,25 @@ at the front whatever the policy, and a swapped one is admitted first.
 """
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass, field
 
 import numpy as np
 
+from repro_torch.analysis import sanitizer
 from repro_torch.analysis.ownership import admission_api, decode_loop_only
-
-# backpressure: requests admitted or ready but not yet decoding
-MAX_INFLIGHT_PREFILLS = 2
+from repro_torch.analysis.phases import check_phase_edge
+from repro_torch.obs import clock as obs_clock
+from repro_torch.obs.trace import NULL_TRACER, ServeTracer
 
 
 @dataclass
 class SchedulerConfig:
     policy: str = "fcfs"            # fcfs | spf
     prefill_chunk: int = 0          # 0 = whole-prompt prefill
+    # backpressure: requests admitted (prefilling, restoring or matching) or
+    # ready but not yet decoding.  Bounds the admission pipeline's in-flight
+    # work and, with it, the pages and held prefill caches admissions pin
+    max_inflight_prefills: int = 2
     preempt_policy: str = "swap"    # swap | recompute
     # cost of moving one token of KV through the host tier relative to
     # recomputing it (the swap-vs-recompute cost model; 0 = always swap)
@@ -66,6 +70,10 @@ class RequestState:
 
     req: object                     # serve.engine.Request
     resume_tokens: np.ndarray       # tokens to (re)prefill: prompt [+generated]
+    # the tracer rides the state so phase writes record themselves; declared
+    # BEFORE ``phase``: the dataclass __init__ assigns in declaration order and
+    # the construction-time phase write already records through it
+    tracer: ServeTracer = NULL_TRACER
     submit_ts: float = 0.0          # queue-wait clock: (re)entered waiting
     phase: str = "waiting"          # waiting|match|prefill|restore|ready|running|done
     pages: list = field(default_factory=list)
@@ -94,17 +102,37 @@ class RequestState:
     def remaining_prefill(self) -> int:
         return len(self.resume_tokens) - self.prefilled
 
+    def __setattr__(self, name: str, value) -> None:
+        if name == "phase":
+            # sanitizer mode: every phase write is checked against the
+            # declared edges (analysis.phases), the runtime twin of the
+            # static phase-transitions lint rule
+            if sanitizer.enabled():
+                err = check_phase_edge(getattr(self, "phase", None), value)
+                if err is not None:
+                    uid = getattr(getattr(self, "req", None), "uid", "?")
+                    self.tracer.instant_named(
+                        f"sanitizer: illegal phase edge -> {value} uid={uid}")
+                    raise sanitizer.SanitizerError(f"request uid={uid}: {err}")
+            object.__setattr__(self, name, value)
+            # every phase edge lands in the trace as an instant on the
+            # request's lifecycle track (a no-op through NULL_TRACER)
+            self.tracer.phase(self.req.uid, value)
+            return
+        object.__setattr__(self, name, value)
+
 
 class Scheduler:
     """Admission / chunking / preemption policy over the queue state
     machine: waiting → admitting (prefill|restore|match) → ready → running."""
 
-    def __init__(self, cfg: SchedulerConfig):
+    def __init__(self, cfg: SchedulerConfig, tracer: ServeTracer = NULL_TRACER):
         if cfg.policy not in ("fcfs", "spf"):
             raise ValueError(f"unknown scheduler policy: {cfg.policy!r}")
         if cfg.preempt_policy not in ("swap", "recompute"):
             raise ValueError(f"unknown preempt policy: {cfg.preempt_policy!r}")
         self.cfg = cfg
+        self.tracer = tracer
         self.waiting: list[RequestState] = []
         self.admitting: list[RequestState] = []
         self.ready: list[RequestState] = []
@@ -126,7 +154,7 @@ class Scheduler:
     def add(self, req) -> None:
         self.waiting.append(RequestState(
             req=req, resume_tokens=np.asarray(req.prompt, np.int32),
-            submit_ts=time.monotonic()))
+            tracer=self.tracer, submit_ts=obs_clock.monotonic()))
 
     @property
     def load(self) -> int:
@@ -167,7 +195,7 @@ class Scheduler:
         the engine lock."""
         if not self.waiting:
             return None
-        if len(self.admitting) + len(self.ready) >= MAX_INFLIGHT_PREFILLS:
+        if len(self.admitting) + len(self.ready) >= self.cfg.max_inflight_prefills:
             return None
         i = self._next_waiting_index()
         nxt = self.waiting[i]
@@ -183,6 +211,7 @@ class Scheduler:
                 return None
             st = self.waiting.pop(i)
             st.pages = pages
+            sanitizer.note_grant(st, pages, cache.allocator)
             st.phase = "restore"
         else:
             claim = cache.claim_match(nxt.resume_tokens, self.cfg.prefill_chunk)
@@ -190,6 +219,7 @@ class Scheduler:
                 st = self.waiting.pop(i)
                 st.pages = claim.pages
                 st.prefix_claim = claim
+                sanitizer.note_grant(st, claim.pages, cache.allocator)
                 self._note_prefix_hit(st, claim.matched_tokens)
                 if claim.kind == "full":
                     st.prefilled = len(st.resume_tokens)
@@ -203,14 +233,17 @@ class Scheduler:
                     return None
                 st = self.waiting.pop(i)
                 st.pages = pages
+                sanitizer.note_grant(st, pages, cache.allocator)
                 st.prefilled = 0
                 st.phase = "prefill"
         self.admitting.append(st)
+        self.tracer.instant(self.tracer.EV_ADMIT, st.req.uid, len(st.pages))
         return st
 
     def _note_prefix_hit(self, st: RequestState, tokens: int) -> None:
         uid = st.req.uid
         self.prefix_hit_tokens_by_uid[uid] = self.prefix_hit_tokens_by_uid.get(uid, 0) + tokens
+        self.tracer.instant(self.tracer.EV_PREFIX_HIT, uid, tokens)
 
     def admissions(self, cache, budget: int) -> list[RequestState]:
         """Admit while pages, the token budget and the in-flight bound allow
@@ -284,13 +317,17 @@ class Scheduler:
                     mode = "swap"
             plan.append((st, mode))
         if swap_items:
+            self.tracer.begin(self.tracer.EV_SWAP_OUT, len(swap_items),
+                              sum(len(d) for _st, d in swap_items))
             cache.swap_out_batch(swap_items)
+            self.tracer.end(self.tracer.EV_SWAP_OUT)
         modes = []
         for st, mode in plan:
             cache.clear_lane(st.lane)
             # shared prefix pages survive the victim: release drops one owner
             # and only sole-owned pages return to the free list
             cache.allocator.release(st.pages)
+            sanitizer.note_release(st)
             del self.running[st.lane]
             st.pages = []
             st.lane = -1
@@ -309,7 +346,9 @@ class Scheduler:
                 st.length = 0
                 st.is_resume = True
                 self.n_recompute_preemptions += 1
-            st.submit_ts = time.monotonic()   # queue wait restarts
+            self.tracer.instant(self.tracer.EV_PREEMPT_SWAP if mode == "swap"
+                                else self.tracer.EV_PREEMPT_RECOMPUTE, st.req.uid)
+            st.submit_ts = obs_clock.monotonic()   # queue wait restarts
             st.phase = "waiting"
             st.preemptions += 1
             self.n_preemptions += 1

@@ -3,7 +3,8 @@ the served tokens (dense, mamba2, the recurrentgemma hybrid and the moe
 family, paged and gather decode paths), the host tier (the swap-out read in
 one ``paged_gather`` launch, a swap round trip, a restore staged on another
 thread), the ConvNet logits and the reduced qwen2.5-3b train step on the
-card against the CPU.
+card against the CPU; a traced engine's tokens against an untraced one's,
+the sampler's draws on its generator's device, and a sanitized reduced run.
 
 Marked ``cuda``; they skip (from a fixture, so every pytest worker collects
 the same tests) when no card is present.  On a machine with a card:
@@ -1106,3 +1107,88 @@ def test_restore_staged_on_another_thread(card):
                 assert torch.equal(-before[path][:, lp], a[:, pp]), path
         else:
             assert torch.equal(-before[path][:, 1], a[:, 1]), path
+
+
+def _reduced_qwen(card):
+    """Reduced qwen2.5-3b in float32 with seeded weights on the card."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_map
+
+    model = build_model(dataclasses.replace(get_arch("qwen2.5-3b").reduced(), dtype="float32"))
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    return model, tree_map(lambda t: t.to(card), params)
+
+
+def _serve_on_card(card, model, params, temps=(0.0,) * 6, generator=None, trace=False,
+                   async_prefill=True, n_pages=7, **cache):
+    """6 requests on 3 lanes of a 7-page pool of 4-token pages (the pool runs
+    dry mid-decode); (tokens, engine)."""
+    from repro_torch.serve import (
+        AdmissionConfig, CacheConfig, EngineConfig, ObsConfig, Request, ServeEngine)
+
+    eng = ServeEngine(model, params, EngineConfig(
+        batch_slots=3, max_len=32,
+        cache=CacheConfig(page_size=4, n_pages=n_pages, swap_token_cost=0.0, **cache),
+        admission=AdmissionConfig(async_prefill=async_prefill, prefill_chunk=3),
+        obs=ObsConfig(trace=trace)), device=card)
+    rng = np.random.default_rng(3)
+    reqs = [Request(uid=i, prompt=rng.integers(0, 512, size=(7 + i % 3,)).astype(np.int32),
+                    max_new_tokens=9, temperature=t) for i, t in enumerate(temps)]
+    for r in reqs:
+        eng.submit(r)
+    eng.run(generator)
+    torch.cuda.synchronize()
+    assert all(r.done for r in reqs)
+    return [r.out_tokens for r in reqs], eng
+
+
+def test_traced_engine_on_card_gives_untraced_tokens(card, tmp_path):
+    from repro_torch.obs.export import validate_lifecycles
+
+    model, params = _reduced_qwen(card)
+    plain, _ = _serve_on_card(card, model, params)
+    traced, eng = _serve_on_card(card, model, params, trace=True)
+    assert traced == plain
+    trace = eng.save_trace(str(tmp_path / "trace.json"))
+    assert set(validate_lifecycles(trace)) == set(range(6))
+    names = {e["name"] for e in trace["traceEvents"]}
+    assert {"engine.step", "decode.batch", "prefill.chunk", "pages.free"} <= names
+    assert eng.tracer.dropped == 0
+
+
+def test_sampler_draws_stay_on_the_generators_device(card):
+    from repro_torch.serve import sample_tokens
+
+    g = torch.Generator(device=card).manual_seed(0)
+    rows = torch.randn(5, 4096, generator=g, device=card)
+    temps = torch.tensor([0.5, 1.0, 2.0, 0.8, 1e-4], device=card)
+    draws = [sample_tokens(rows, temps, torch.Generator(device=card).manual_seed(9))
+             for _ in range(2)]
+    assert draws[0].device.type == "cuda" and draws[0].dtype == torch.long
+    assert torch.equal(draws[0], draws[1])                 # one seed, one draw
+    assert int(draws[0][4]) == int(rows[4].argmax())       # a cold row: its argmax
+    model, params = _reduced_qwen(card)
+    temps6 = (100.0, 0.0, 100.0, 0.8, 0.0, 2.0)
+    runs = [_serve_on_card(card, model, params, temps6, torch.Generator(device=card).manual_seed(4),
+                           async_prefill=False, n_pages=None)[0] for _ in range(2)]
+    greedy, eng = _serve_on_card(card, model, params, temps6, async_prefill=False, n_pages=None)
+    assert runs[0] == runs[1]
+    assert runs[0][1] == greedy[1] and runs[0][4] == greedy[4]
+    with pytest.raises(ValueError, match="generator"):
+        eng.run(torch.Generator())                         # a CPU generator on a card engine
+
+
+def test_sanitized_reduced_run_on_card_raises_nothing(card):
+    from repro_torch.analysis import sanitizer
+
+    model, params = _reduced_qwen(card)
+    want, _ = _serve_on_card(card, model, params)
+    sanitizer.enable()
+    try:
+        got, eng = _serve_on_card(card, model, params)
+        shared, _ = _serve_on_card(card, model, params, n_pages=None, prefix_sharing=True)
+    finally:
+        sanitizer.disable()
+    assert got == want and shared == want
+    assert eng.cache.allocator.n_free == eng.cache.n_pages
