@@ -14,12 +14,16 @@ and training of the moe family (deepseek-v3-671b and qwen3-moe-235b-a22b),
 the serving engine's memory tiers (swap preemption through the host
 tier, prefix sharing with host retire), and its observability and request
 semantics (the ring-buffer tracer, the runtime sanitizer, sampling,
-``eos_id``, ``admission_inflight``).
+``eos_id``, ``admission_inflight``), and its decode step captured as one
+CUDA graph per engine against the same step run eagerly.  Every serving
+engine replays its decode step as a graph (``EngineConfig.cuda_graph``, on
+by default): every per-step launch check multiplies by the engine's
+``decode_graph.runs``, its warm-up and one replay per step.
 Every serving path runs at full width; all but the moe family's at full
 depth (``MOE_DEPTH``, ``MOE_TRAIN``: 671 B and 235 B parameters do not
 fit one card).  Phases, each fatal:
 
-1. build the eight CUDA kernels from ``src/repro_torch/kernels/csrc``
+1. build the nine CUDA kernels from ``src/repro_torch/kernels/csrc``
    (``nvcc``, printing the ``-Xptxas -v`` register report) and name the card;
 2. hold each kernel against its plain PyTorch version on the card at its
    path's shapes, in bfloat16 and float32 (attention: qwen2.5-3b's 16 query
@@ -76,10 +80,16 @@ fit one card).  Phases, each fatal:
    ``torch.matmul``, ``index_select``, ``torch.add``; never used by the
    port; none computes ``ssd_scan``) and the bound; the fused momentum
    and the VGG16 tree are timed beside one launch per leaf and stage (and
-   the tree's sgd beside ``torch._foreach_add_``);
+   the tree's sgd beside ``torch._foreach_add_``); ``paged_write`` (the
+   decode step's drop-mode write, beyond the TPU set), one launch,
+   bit-equal to the plain version with an idle lane and a -1 page, on one
+   full-width qwen2.5-3b layer's k and v (the JSON line's case, timed
+   against the bytes its writing lanes move) and on all 36 layers';
 3. serve the same requests with the reduced qwen2.5-3b engine in float32 on
    the card and on the CPU (plain kernels), whole-prompt and chunked
-   prefill: the greedy tokens must be identical;
+   prefill: the greedy tokens must be identical, on the card with the
+   captured decode step (every step a replay) and with the eager one (so
+   too in phases 7, 15, 18 and 24);
 4. serve 16 requests at the full width of qwen2.5-3b (36 layers, bf16,
    seeded random weights) with 8 lanes, max_len 1024 and 16-token pages;
    every request must finish, both attention kernels must have launched,
@@ -206,7 +216,10 @@ fit one card).  Phases, each fatal:
 24. the memory tiers on reduced qwen2.5-3b, mamba2-130m, recurrentgemma-9b
     and deepseek-v3-671b in float32, card against CPU: the forced-preemption
     cell of tests/test_tiered_cache.py (3 lanes on 7 pages of 4 tokens)
-    with swap at swap_token_cost 0, recompute and the gather path, and the
+    with swap at swap_token_cost 0 (inline admission, and async admission
+    with the decode loop started once every request is ready, so the
+    admission thread stages each swap-in while the loop replays the step;
+    captured and eager step each), recompute and the gather path, and the
     prefix rounds of tests/test_prefix_cache.py with every index page
     retired to the host tier between rounds: the tokens equal the CPU's
     and one another, swaps, swap-ins, hits and (where the family has
@@ -251,7 +264,18 @@ fit one card).  Phases, each fatal:
     phase 4's that a request produced first at the latest step (this random
     model repeats its first token): every request stops at its first such
     token; and set to a hot sampled request's token at a step >= 3: the
-    same seed stops it there.
+    same seed stops it there;
+28. (after phase 27) full-width qwen2.5-3b, the captured decode step
+    against the eager one (``cuda_graph=False``): two traced engines, 3
+    runs each of phase 4's requests in turns, tokens equal to phase 4's
+    request for request, tok/s and the tracer's ``decode.batch`` spans;
+    the 8-lane decode step of each in turns (wall ms, and from one profiled
+    step the device-busy share and kernels per step; the profiled replay
+    holds one paged decode and one ``paged_write`` kernel per layer, as
+    the capture counted); 5 replays count 5 times the captured step's
+    launches.  Phases 4, 8, 16, 19 and 20 log
+    their captured step's wall ms and busy share beside the eager step's
+    figures measured before the step was captured (``EAGER_STEP``).
 
 ``--kernel-times`` runs only phase 2's timed
 rows (the served bf16 flash prefill shapes and the three paged-decode
@@ -266,7 +290,8 @@ A kernel's ``launches`` in the JSON line sums its counts over the paths
 that drive it (serving, VGG16 inference, the gather path, the three
 training paths, recurrentgemma-9b serving and reduced training, the moe
 family's serving and training, the memory tiers' runs of phases 24-26 and
-phase 27's runs), each counted from 0 around its own run.
+phases 27 and 28's runs), each counted from 0 around its own run; a graph
+replay counts the launches its capture made.
 Then it prints one JSON line with each kernel's numbers, the card's name
 and power limit, and, last, ``{"ok": true, "device": {...}}``.  Without a
 card, or without the package beside it, it exits non-zero and prints no
@@ -340,7 +365,16 @@ KERNELS = {
                      "src/repro/kernels/paged_attn.py:45", "index_select"),
     "stream_gd": ("src/repro_torch/kernels/csrc/stream_gd.cu",
                   "src/repro/kernels/stream_gd.py:28", "torch.add"),
+    # beyond the TPU set: the reference's drop-mode scatter, left to XLA
+    "paged_write": ("src/repro_torch/kernels/csrc/paged_write.cu",
+                    "src/repro/models/transformer.py:153", None),
 }
+# the eager decode steps of 8 lanes as this script measured them before the
+# step was captured (wall ms, device-busy share; NVIDIA H100 80GB HBM3 at
+# 700 W), beside which phases 4, 8, 16, 19 and 20 log the captured step
+EAGER_STEP = {"qwen2.5-3b": (31.71, 16.8), "mamba2-130m": (20.71, 13.5),
+              "recurrentgemma-9b": (56.00, 23.2), "deepseek-v3-671b": (25.91, 74.0),
+              "qwen3-moe-235b-a22b": (22.76, 82.0)}
 
 
 def log(msg: str) -> None:
@@ -367,7 +401,8 @@ def ptxas_report(text: str) -> list[str]:
         m = re.search(r"Compiling entry function '.*?(paged_decode_mma|paged_decode_fma|"
                       r"flash_attn_fwd|flash_attn_mma|flash_attn_wgmma|conv_igemm_wgmma|conv_igemm|"
                       r"maxpool_valid|matmul_tiled_stream|matmul_tiled|"
-                      r"ssd_scan_mma|ssd_scan_fma|paged_gather_bulk|stream_gd_update)"
+                      r"ssd_scan_mma|ssd_scan_fma|paged_gather_bulk|stream_gd_update|"
+                      r"paged_write_rows)"
                       r"(?:I(13__nv_bfloat16|5uint4|5uint2|f|j|t|h)?(?:L[ib](\d+)E)?"
                       r"(?:Li(\d+)E)?(?:Lb(\d+)E)?)?", line)
         if m:
@@ -1002,6 +1037,66 @@ def gather_case(dtype, timed: bool, label: str, specs, slots: int, lens):
             "shape": f"{label}, {lanes} lanes x {slots} slots ({filled} filled) {dtype}"}
 
 
+# the write positions of phase 2's paged_write cases: lane 0 idle, lane 3's
+# page a -1 slot (both write nothing)
+WRITE_POS = (0, 1, 17, 100, 1023, 513, 64, 999)
+# (label, layers, pools): one full-width qwen2.5-3b layer's k and v (the paged
+# path: one launch per layer and step) and all 36 layers' (the gather path:
+# one launch per step)
+WRITE_CASES = [("qwen2.5-3b layer's k + v", 1, 2), ("qwen2.5-3b k + v leaves, 36 layers", 36, 2)]
+
+
+def paged_write_case(dtype, timed: bool, label: str, layers: int, n_pools: int,
+                     slots: int = 1024 // PS):
+    """``paged_write`` of ``n_pools`` pools of (``layers``, 8 x ``slots``
+    pages, 16, 2 x 128) for 8 lanes at ``WRITE_POS``: bit-equal to the plain
+    version (idle and -1 lanes write nothing), one launch.  Timed, the
+    kernels-line entry: event times of the kernel and the plain version, the
+    bound by the bytes this call's writing lanes move (each written row read
+    and written once, each lane's position, flag and table entry read
+    once)."""
+    from repro_torch.kernels import ops, ref
+
+    lanes = len(WRITE_POS)
+    n_pages = lanes * slots
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    pools = [torch.randn(layers, n_pages, PS, HKV, D, generator=gen, device="cuda").to(dtype)
+             for _ in range(n_pools)]
+    rows = [torch.randn(layers, lanes, HKV, D, generator=gen, device="cuda").to(dtype)
+            for _ in range(n_pools)]
+    bt = torch.randperm(n_pages, generator=gen, device="cuda").reshape(lanes, slots).int()
+    pos = torch.tensor(WRITE_POS, dtype=torch.long, device="cuda")
+    active = torch.tensor([p > 0 for p in WRITE_POS], device="cuda")
+    bt[3, WRITE_POS[3] // PS] = -1
+    want = [p.clone() for p in pools]
+    ref.paged_write(want, rows, bt, pos, active)
+    before = ops.LAUNCHES["paged_write"]
+    ops.paged_write(pools, rows, bt, pos, active)
+    torch.cuda.synchronize()
+    launched = ops.LAUNCHES["paged_write"] - before
+    same = all(torch.equal(p, w) for p, w in zip(pools, want))
+    log(f"  paged_write {dtype} ({label}: {lanes} lanes, {n_pools} pools in {launched} "
+        f"launch): bit-equal to the plain version: {same}")
+    if not same or launched != 1:
+        raise SystemExit(f"chip_smoke: paged_write {dtype} {label} differs from its plain "
+                         f"version or took {launched} launches")
+    if not timed:
+        return None
+    writing = lanes - 2
+    nbytes = 2 * writing * layers * n_pools * HKV * D * pools[0].element_size() + lanes * 13
+    b_ms, b_by = bound(nbytes, 0.0, dtype)
+    log(f"  timing {label} {dtype} ({nbytes} bytes moved, bound {b_ms:.3g} ms):")
+    got = in_turns(lambda: ops.paged_write(pools, rows, bt, pos, active), None, "", 200)
+    source, replaces, _ = KERNELS["paged_write"]
+    return {"name": "paged_write", "route": "cuda", "source": source, "replaces": replaces,
+            "max_abs_err": 0.0, "ms": got["event"][0], "device_ms": got["device"][0],
+            "host_ms": got["host"][0], "library_device_ms": None, "library_host_ms": None,
+            "plain_ms": time_ms(lambda: ref.paged_write(want, rows, bt, pos, active)),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "shape": f"{label}, {lanes} lanes ({writing} writing), {n_pools} pools of "
+                     f"{layers} x {n_pages} x {PS} x {HKV} x {D} {dtype}"}
+
+
 # ---------------------------------------------------------------------------
 # phases 5 and 6: ConvNet inference
 # ---------------------------------------------------------------------------
@@ -1336,6 +1431,8 @@ def kernel_group(name: str) -> str:
         return "ssd_scan"
     if "paged_gather" in name:
         return "paged_gather"
+    if "paged_write" in name:
+        return "paged_write"
     if any(t in name for t in ("gemm", "gemv", "cutlass", "nvjet", "cublas", "matmul")):
         return "matmul (cuBLAS)"
     return "other (elementwise, norms, copies)"
@@ -1399,11 +1496,13 @@ def device_groups(fn, steps: int, ranges=()) -> tuple[dict, dict, list]:
     return groups, launches, sorted(top, reverse=True)[:8]
 
 
-def log_groups(what: str, wall_ms: float, groups, launches, top) -> None:
+def log_groups(what: str, wall_ms: float, groups, launches, top) -> float | None:
+    """Logs the profiled split; returns the device-busy share of ``wall_ms``
+    in percent (None: the profile recorded no device time)."""
     busy = sum(groups.values())
     if busy == 0:
         log("  profiler: no device time recorded (breakdown not measured)")
-        return
+        return None
     log(f"  profiler: device busy {busy:.3f} ms per {what} = {100 * busy / wall_ms:.1f} % of "
         f"the unprofiled {what}, idle {100 * (1 - busy / wall_ms):.1f} %")
     log(f"    {sum(launches.values()):g} kernel launches per {what}")
@@ -1411,20 +1510,25 @@ def log_groups(what: str, wall_ms: float, groups, launches, top) -> None:
         log(f"    {g}: {groups[g]:.3f} ms per {what} over {launches[g]:g} launches")
     for ms, n, name in top:
         log(f"      {ms:.3f} ms, {n:g} launches: {name}")
+    return 100 * busy / wall_ms
 
 
 def decode_breakdown(model, params, vocab, steps: int = 10, prefill_chunk: int = 0,
                      decode_path: str = "paged", profile: bool = True, prompt: int = 512,
-                     max_len: int = 1024, ranges=()) -> float:
+                     max_len: int = 1024, ranges=(), cuda_graph: bool = True,
+                     eager=None) -> float:
     """Decode-step time of 8 running lanes at ~``prompt + 8``-token contexts
     (sync admission, so nothing else runs), and device time per kernel
-    class from a torch.profiler window over as many more steps.  Returns
-    the step's wall ms."""
+    class from a torch.profiler window over as many more steps; the step is
+    a graph replay unless ``cuda_graph`` is False.  ``eager`` (wall ms,
+    busy %) is the eager step before capture, logged beside.  Returns the
+    step's wall ms."""
     from repro_torch.serve import (
         AdmissionConfig, CacheConfig, EngineConfig, Request, ServeEngine)
 
     eng = ServeEngine(model, params, EngineConfig(
-        batch_slots=8, max_len=max_len, cache=CacheConfig(page_size=PS, decode_path=decode_path),
+        batch_slots=8, max_len=max_len, cuda_graph=cuda_graph,
+        cache=CacheConfig(page_size=PS, decode_path=decode_path),
         admission=AdmissionConfig(async_prefill=False, prefill_chunk=prefill_chunk)),
         device="cuda")
     rng = np.random.default_rng(5)
@@ -1441,10 +1545,16 @@ def decode_breakdown(model, params, vocab, steps: int = 10, prefill_chunk: int =
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / steps * 1e3
     ctx = int(np.mean([st.length for st in s.running.values()]))
-    log(f"  decode step ({decode_path} path), 8 lanes at ~{ctx}-token contexts: {step_ms:.3f} "
-        f"ms wall (mean of {steps} synced steps, {8 / step_ms * 1e3:.1f} tok/s)")
+    how = "one graph replay" if cuda_graph else "eager"
+    log(f"  decode step ({decode_path} path, {how}), 8 lanes at ~{ctx}-token contexts: "
+        f"{step_ms:.3f} ms wall (mean of {steps} synced steps, {8 / step_ms * 1e3:.1f} tok/s)")
     if profile:
-        log_groups("step", step_ms, *device_groups(eng.step, steps, ranges))
+        busy = log_groups("step", step_ms, *device_groups(eng.step, steps, ranges))
+        if eager is not None:
+            shown = "not measured" if busy is None else f"{busy:.1f} %"
+            log(f"  captured step {step_ms:.3f} ms, device busy {shown}; the eager step "
+                f"before capture {eager[0]:.2f} ms, busy {eager[1]:.1f} % (NVIDIA H100 80GB "
+                "HBM3, 700 W)")
     eng.run()
     return step_ms
 
@@ -1454,7 +1564,7 @@ def serve_full_width(model, params, prompts, ecfg, kernels, smi, max_new: int = 
     """The measured full-width run: every request finishes with ``max_new``
     tokens inside the vocabulary, and each kernel in ``kernels`` launched.
     ``on_reset`` runs where the launch counts are set to 0.  Returns
-    (requests, launch counts of this run)."""
+    (requests, launch counts of this run, the engine)."""
     from repro_torch.kernels import ops
 
     serve(model, params, ecfg, prompts[:1], 2, "cuda")        # warm-up: first launches
@@ -1483,7 +1593,7 @@ def serve_full_width(model, params, prompts, ecfg, kernels, smi, max_new: int = 
     vocab = model.cfg.padded_vocab
     if not all(0 <= t < vocab for r in reqs for t in r.out_tokens):
         raise SystemExit("chip_smoke: a sampled token lies outside the vocabulary")
-    return reqs, launches
+    return reqs, launches, eng
 
 
 def card_vs_cpu_tokens(arch, cases, smi, **over) -> None:
@@ -1504,19 +1614,23 @@ def card_vs_cpu_tokens(arch, cases, smi, **over) -> None:
         prompts = [rng.integers(0, cfg.vocab_size, size=(n,)).astype(np.int32)
                    for n in lengths]
         got = {}
-        runs = [("cuda", params_gpu, ecfg), ("cpu", params_cpu, ecfg)]
+        runs = [("cuda", params_gpu, ecfg), ("cuda eager", params_gpu,
+                                            dataclasses.replace(ecfg, cuda_graph=False)),
+                ("cpu", params_cpu, ecfg)]
         if also:
             runs.append((f"cuda {also}", params_gpu, dataclasses.replace(
                 ecfg, cache=dataclasses.replace(ecfg.cache, decode_path=also))))
         for name, params, e in runs:
-            reqs, done, _ = serve(model, params, e, prompts, 12, name.split()[0])
+            reqs, done, eng = serve(model, params, e, prompts, 12, name.split()[0])
             if len(done) != len(prompts):
                 raise SystemExit(f"chip_smoke: {name} engine finished {len(done)} requests")
+            if name.startswith("cuda") and name != "cuda eager":
+                decode_runs(eng, f"{arch} {label} {name}")
             got[name] = [r.out_tokens for r in reqs]
         same = all(v == got["cpu"] for v in got.values())
-        log(f"  {label}: {len(prompts)} requests x 12 tokens, card tokens "
-            f"{'identical to' if same else 'DIFFER from'} CPU tokens"
-            + (f" and to the card's {also}-path tokens" if also else ""))
+        log(f"  {label}: {len(prompts)} requests x 12 tokens, card tokens (captured decode "
+            f"step, and eager) {'identical to' if same else 'DIFFER from'} CPU tokens"
+            + (f" and to the card's {also}-path tokens (captured)" if also else ""))
         if not same:
             for name, toks in got.items():
                 log(f"  {name}: {toks}")
@@ -1619,6 +1733,18 @@ def count_calls(model, names) -> dict[str, int]:
     return calls
 
 
+def decode_runs(eng, label: str) -> int:
+    """The runs of ``eng``'s decode step on the card: its warm-up and one
+    graph replay per engine step that decoded (the count every per-step
+    launch check multiplies).  Fails unless the step was captured and
+    replayed."""
+    dg = eng.decode_graph
+    if dg.graph is None or dg.runs < 2:
+        raise SystemExit(f"chip_smoke: {label}: the decode step was not captured and "
+                         f"replayed ({dg.runs} runs)")
+    return dg.runs
+
+
 def serve_recurrentgemma(smi) -> dict:
     """16 requests of 1,024-3,072 prompt tokens (half past the 2,048-token
     window) at the full width and depth of recurrentgemma-9b, bf16, seeded
@@ -1643,7 +1769,7 @@ def serve_recurrentgemma(smi) -> dict:
     log(f"  {cfg.n_layers} layers as {model.segments}, d_model {cfg.d_model}, lru_width "
         f"{cfg.rglru.lru_width}, attention H={RG['h']} Hkv={RG['hkv']} D={RG['d']} window "
         f"{RG['window']}; {n_params / 1e9:.3f} B parameters in {time.perf_counter() - t0:.1f} s")
-    calls = count_calls(model, ("extend_step", "decode_step_paged"))
+    calls = count_calls(model, ("extend_step",))
     ecfg = EngineConfig(batch_slots=8, max_len=4096, cache=CacheConfig(page_size=PS),
                         admission=AdmissionConfig(prefill_chunk=RG["chunk"]))
     rng = np.random.default_rng(16)
@@ -1653,19 +1779,21 @@ def serve_recurrentgemma(smi) -> dict:
     prompts = [rng.integers(0, cfg.vocab_size, size=(int(n),)).astype(np.int32)
                for n in lengths]
     log(f"  prompt lengths {sorted(int(n) for n in lengths)}")
-    reqs, run = serve_full_width(model, params, prompts, ecfg, ("flash_attention",
-                                                                "paged_gather"), smi,
-                                 max_new=64, on_reset=lambda: calls.update(
-                                     extend_step=0, decode_step_paged=0))
-    log(f"  {calls['extend_step']} prefill slices, {calls['decode_step_paged']} decode steps; "
-        f"flash_attention {run['flash_attention']} launches, paged_gather "
-        f"{run['paged_gather']}, paged_decode_attention {run['paged_decode_attention']}")
+    reqs, run, eng = serve_full_width(model, params, prompts, ecfg, ("flash_attention",
+                                                                     "paged_gather"), smi,
+                                      max_new=64, on_reset=lambda: calls.update(extend_step=0))
+    runs = decode_runs(eng, "recurrentgemma-9b")
+    log(f"  {calls['extend_step']} prefill slices, {runs - 1} decode steps (graph "
+        f"replays) + 1 warm-up; flash_attention {run['flash_attention']} launches, paged_gather "
+        f"{run['paged_gather']}, paged_write {run['paged_write']}, paged_decode_attention "
+        f"{run['paged_decode_attention']}")
     if run["flash_attention"] != n_attn * calls["extend_step"]:
         raise SystemExit(f"chip_smoke: {run['flash_attention']} flash launches, expected "
                          f"{n_attn} per prefill slice")
-    if run["paged_gather"] != n_attn * calls["decode_step_paged"]:
-        raise SystemExit(f"chip_smoke: {run['paged_gather']} paged_gather launches, "
-                         f"expected {n_attn} per decode step")
+    if run["paged_gather"] != n_attn * runs or run["paged_write"] != run["paged_gather"]:
+        raise SystemExit(f"chip_smoke: {run['paged_gather']} paged_gather and "
+                         f"{run['paged_write']} paged_write launches, expected {n_attn} each "
+                         "per decode step")
     if run["paged_decode_attention"]:
         raise SystemExit("chip_smoke: the windowed layers launched paged_decode_attention")
     # the engine's first token agrees with a direct chunked prefill
@@ -1688,7 +1816,7 @@ def serve_recurrentgemma(smi) -> dict:
         undo()
     log(f"  = {ms / 3:.3f} ms per {RG['chunk']}-token prefill slice ({smi})")
     decode_breakdown(model, params, cfg.vocab_size, prefill_chunk=RG["chunk"], prompt=2560,
-                     max_len=4096)
+                     max_len=4096, eager=EAGER_STEP["recurrentgemma-9b"])
     return run
 
 
@@ -1729,7 +1857,7 @@ def serve_moe(arch: str, smi) -> dict:
         f"(+{cfg.n_shared_experts} shared) of {cfg.moe_d_ff}; {n_params / 1e9:.3f} B "
         f"parameters ({torch.cuda.memory_allocated() / 1e9:.2f} GB) in "
         f"{time.perf_counter() - t0:.1f} s")
-    calls = count_calls(model, ("prefill", "decode_step_paged"))
+    calls = count_calls(model, ("prefill",))
     ecfg = EngineConfig(batch_slots=8, max_len=2048, cache=CacheConfig(page_size=PS),
                         admission=AdmissionConfig(prefill_chunk=0))
     rng = np.random.default_rng(19)
@@ -1739,19 +1867,23 @@ def serve_moe(arch: str, smi) -> dict:
     log(f"  prompt lengths {sorted(int(n) for n in lengths)}")
     mla = cfg.mla is not None
     kernels = ("flash_attention", "paged_gather" if mla else "paged_decode_attention")
-    reqs, run = serve_full_width(model, params, prompts, ecfg, kernels, smi,
-                                 on_reset=lambda: calls.update(prefill=0, decode_step_paged=0))
-    log(f"  {calls['prefill']} prefills, {calls['decode_step_paged']} decode steps; "
-        f"flash_attention {run['flash_attention']} launches, paged_gather "
-        f"{run['paged_gather']}, paged_decode_attention {run['paged_decode_attention']}")
+    reqs, run, eng = serve_full_width(model, params, prompts, ecfg, kernels, smi,
+                                      on_reset=lambda: calls.update(prefill=0))
+    runs = decode_runs(eng, arch)
+    log(f"  {calls['prefill']} prefills, {runs - 1} decode steps (graph replays) + 1 "
+        f"warm-up; flash_attention {run['flash_attention']} launches, paged_gather "
+        f"{run['paged_gather']}, paged_write {run['paged_write']}, paged_decode_attention "
+        f"{run['paged_decode_attention']}")
     if run["flash_attention"] != cfg.n_layers * calls["prefill"]:
         raise SystemExit(f"chip_smoke: {run['flash_attention']} flash launches, expected "
                          f"{cfg.n_layers} per prefill")
-    if mla and (run["paged_gather"] != cfg.n_layers * calls["decode_step_paged"]
-                or run["paged_decode_attention"]):
+    if run["paged_write"] != cfg.n_layers * runs:
+        raise SystemExit("chip_smoke: every layer's decode step should write its rows with "
+                         "one paged_write launch")
+    if mla and (run["paged_gather"] != cfg.n_layers * runs or run["paged_decode_attention"]):
         raise SystemExit("chip_smoke: MLA's paged decode should launch one paged_gather per "
                          "layer and step and no paged_decode_attention")
-    if not mla and run["paged_decode_attention"] != cfg.n_layers * calls["decode_step_paged"]:
+    if not mla and run["paged_decode_attention"] != cfg.n_layers * runs:
         raise SystemExit("chip_smoke: a GQA layer's decode step should launch the paged kernel "
                          "exactly once")
     logits, _ = model.prefill(params, torch.as_tensor(prompts[0], device="cuda")[None].long())
@@ -1770,7 +1902,10 @@ def serve_moe(arch: str, smi) -> dict:
         log(f"  = {whole:.3f} ms per 1,024-token whole prompt (the served path), "
             f"{chunked / 2:.3f} ms per 1,024-token chunked-prefill slice ({smi})")
         decode_breakdown(model, params, cfg.vocab_size, prompt=1024, max_len=2048,
-                         ranges=("moe_dispatch",))
+                         eager=EAGER_STEP[arch])
+        log("  the same step eager (cuda_graph=False), with the MoE dispatch as a range:")
+        decode_breakdown(model, params, cfg.vocab_size, prompt=1024, max_len=2048,
+                         ranges=("moe_dispatch",), cuda_graph=False)
     finally:
         undo()
     log(f"  peak device memory over the phase {torch.cuda.max_memory_allocated() / 2**30:.2f} "
@@ -1822,17 +1957,43 @@ def pages_back(eng, label: str) -> None:
                          f"{cache.allocator.n_free}/{cache.n_pages} free, {held} indexed)")
 
 
+def serve_staged(model, params, ecfg, prompts, max_new):
+    """``serve`` on the card under async admission, the decode loop started
+    only once the admission thread has every request ready: all lanes then
+    decode together from the first step, so a pool too small for them runs
+    dry for sure however fast a step is."""
+    from repro_torch.serve import Request, ServeEngine
+
+    eng = ServeEngine(model, params, ecfg, device="cuda")
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=max_new) for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    deadline = time.monotonic() + 60
+    while True:
+        with eng._lock:
+            ready = len(eng.sched.ready)
+        if ready == len(reqs):
+            break
+        if eng.pipeline.error is not None or time.monotonic() > deadline:
+            raise SystemExit(f"chip_smoke: the admission thread readied {ready} of "
+                             f"{len(reqs)} requests") from eng.pipeline.error
+        time.sleep(1e-3)
+    done = eng.run()
+    torch.cuda.synchronize()
+    return reqs, done, eng
+
+
 def tiers_card_vs_cpu(smi) -> dict[str, int]:
     """Phase 24: the reduced families in float32, card against CPU, on the
-    forced-preemption cell (swap at swap_token_cost 0, recompute, the gather
-    path) and on the prefix rounds of tests/test_prefix_cache.py with every
+    forced-preemption cell (swap at swap_token_cost 0, inline and under async
+    admission, recompute, the gather path) and on the prefix rounds of tests/test_prefix_cache.py with every
     index page retired to the host tier between rounds.  Returns the card
     runs' kernel launches."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
     from repro_torch.models import build_model
     from repro_torch.models.common import tree_map
-    from repro_torch.serve import CacheConfig, EngineConfig, Request, ServeEngine
+    from repro_torch.serve import AdmissionConfig, CacheConfig, EngineConfig, Request, ServeEngine
 
     launches = dict.fromkeys(KERNELS, 0)
     for arch in TIER_FAMILIES:
@@ -1846,6 +2007,9 @@ def tiers_card_vs_cpu(smi) -> dict[str, int]:
         top = dict(batch_slots=PRESSURE["batch_slots"], max_len=PRESSURE["max_len"])
         pool = dict(page_size=PRESSURE["page_size"], n_pages=PRESSURE["n_pages"])
         cases = [("card swap", "cuda", dict(swap_token_cost=0.0)),
+                 ("card swap, eager step", "cuda", dict(swap_token_cost=0.0)),
+                 ("card swap, async", "cuda", dict(swap_token_cost=0.0)),
+                 ("card swap, async, eager step", "cuda", dict(swap_token_cost=0.0)),
                  ("cpu swap", "cpu", dict(swap_token_cost=0.0)),
                  ("card recompute", "cuda", dict(preempt_policy="recompute")),
                  ("card swap, gather path", "cuda", dict(swap_token_cost=0.0,
@@ -1853,8 +2017,21 @@ def tiers_card_vs_cpu(smi) -> dict[str, int]:
         got, tel = {}, {}
         for label, dev, knobs in cases:
             ops.reset_launches()
-            reqs, done, eng = serve(model, params[dev], EngineConfig(
-                **top, cache=CacheConfig(**pool, **knobs)), prompts, 12, dev)
+            eager = label.endswith("eager step")
+            ecfg = EngineConfig(**top, cuda_graph=not eager, cache=CacheConfig(**pool, **knobs),
+                                admission=AdmissionConfig(async_prefill=False))
+            if "async" in label:
+                # the admission thread stages the swapped-out lane back onto
+                # the card while the decode loop steps (replays) the others
+                reqs, done, eng = serve_staged(model, params[dev], dataclasses.replace(
+                    ecfg, admission=AdmissionConfig(admission_inflight=len(prompts))),
+                    prompts, 12)
+            else:
+                # inline admission: how often the pool runs dry must not hang
+                # on how fast a decode step is against the admission thread
+                reqs, done, eng = serve(model, params[dev], ecfg, prompts, 12, dev)
+            if dev == "cuda" and not eager:
+                decode_runs(eng, f"{arch} {label}")
             for k in launches:
                 launches[k] += ops.LAUNCHES[k]
             if len(done) != len(prompts):
@@ -1863,17 +2040,20 @@ def tiers_card_vs_cpu(smi) -> dict[str, int]:
             pages_back(eng, f"{arch} {label}")
         sw, host = tel["card swap"], tel["card swap"]["host_tier"]
         same = all(v == got["cpu swap"] for v in got.values())
+        swap_ins = {k: tel[k]["host_tier"]["swap_ins"] for k in tel if "async" in k}
         log(f"  {arch}, 3 lanes on 7 pages of 4: card swap {sw['swap_preemptions']} swap "
             f"preemptions ({host['swap_ins']} swap-ins, {host['pages_out']} pages out, "
             f"{host['bytes_out']} B), recompute {tel['card recompute']['recompute_preemptions']}; "
-            f"tokens of card swap, recompute and gather "
-            f"{'identical to' if same else 'DIFFER from'} the CPU's")
+            f"async admission (swap-ins staged by its thread): captured "
+            f"{swap_ins['card swap, async']}, eager {swap_ins['card swap, async, eager step']} "
+            f"swap-ins; tokens of card swap (inline and async, captured step and eager), "
+            f"recompute and gather {'identical to' if same else 'DIFFER from'} the CPU's")
         if not same:
             for label, toks in got.items():
                 log(f"    {label}: {toks}")
             raise SystemExit("chip_smoke: swap, recompute and gather tokens differ")
         if (sw["swap_preemptions"] <= 0 or sw["recompute_preemptions"] != 0
-                or host["swap_ins"] <= 0
+                or host["swap_ins"] <= 0 or min(swap_ins.values()) <= 0
                 or tel["card recompute"]["recompute_preemptions"] <= 0):
             raise SystemExit(f"chip_smoke: {arch}: the pressure cell did not swap and recompute")
         # the prefix rounds: [a, b] twice, every index page retired to the
@@ -1967,12 +2147,12 @@ def probe_swaps(eng, ops) -> tuple[list, list]:
     return outs, ins
 
 
-def serve_under_pressure(model, params, prompts, calls, smi):
+def serve_under_pressure(model, params, prompts, smi):
     """Phase 25: full-width qwen2.5-3b, 8 lanes, max_len 1,024, 16-token
     pages, 16 requests of 128-512 tokens + 64 new, inline admission, three
     ways: unpressured, on ``PRESSURE_PAGES`` pages with swap preemption
-    (default cost model, host tier 2x), and with recompute.  ``calls``
-    counts ``decode_step_paged``.  Returns the three runs' launches, and the
+    (default cost model, host tier 2x), and with recompute.  Returns the
+    three runs' launches, and the
     swap run's tokens and wall seconds (phase 27 sanitizes that run)."""
     from repro_torch.kernels import ops
     from repro_torch.serve import AdmissionConfig, CacheConfig, EngineConfig, Request, ServeEngine
@@ -1991,7 +2171,7 @@ def serve_under_pressure(model, params, prompts, calls, smi):
             probes = probe_swaps(eng, ops)
         reqs = [Request(uid=i, prompt=p, max_new_tokens=max_new) for i, p in enumerate(prompts)]
         ops.reset_launches()
-        calls.update(decode_step_paged=0)
+        runs0 = eng.decode_graph.runs               # the warm-up, before the reset
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for r in reqs:
@@ -2012,9 +2192,10 @@ def serve_under_pressure(model, params, prompts, calls, smi):
             f"{t['decode_idle_fraction']:.3f} ({smi})")
         if len(done) != len(reqs) or not all(len(r.out_tokens) == max_new for r in reqs):
             raise SystemExit(f"chip_smoke: {label}: not every request finished")
-        if run["paged_decode_attention"] != cfg.n_layers * calls["decode_step_paged"]:
-            raise SystemExit(f"chip_smoke: {label}: paged_decode_attention should launch once "
-                             "per layer per decode step")
+        if run["paged_decode_attention"] != cfg.n_layers * (decode_runs(eng, label) - runs0) \
+                or run["paged_write"] != run["paged_decode_attention"]:
+            raise SystemExit(f"chip_smoke: {label}: paged_decode_attention and paged_write "
+                             "should launch once per layer per decode step")
         if label == "swap":
             swap_run, swap_wall = run, wall
         pages_back(eng, label)
@@ -2373,6 +2554,156 @@ def obs_and_semantics(model, params, prompts, greedy, swap_tokens, swap_wall,
     run = dict(ops.LAUNCHES)
     log(f"  phase 27: {time.perf_counter() - t_phase:.1f} s; kernel launches "
         f"{ {n: v for n, v in run.items() if v} }")
+    return run
+
+
+# ---------------------------------------------------------------------------
+# phase 28: the captured decode step against the eager one
+# ---------------------------------------------------------------------------
+
+
+def decode_spans_ms(tracer) -> list[float]:
+    """The ``decode.batch`` spans of a tracer's ring, in ms (each holds one
+    decode call and its host read)."""
+    from repro_torch.obs.trace import PH_BEGIN, PH_END
+
+    open_ts, spans = {}, []
+    for e in tracer.events():
+        if e["name"] != "decode.batch":
+            continue
+        if e["ph"] == PH_BEGIN:
+            open_ts[e["tid"]] = e["ts"]
+        elif e["ph"] == PH_END and e["tid"] in open_ts:
+            spans.append((e["ts"] - open_ts.pop(e["tid"])) * 1e3)
+    return spans
+
+
+def step_profile(model, params, prompts, cuda_graph: bool, steps: int = 10):
+    """A full-width engine (8 lanes, max_len 1,024, inline admission) with
+    its 8 lanes decoding: (mean wall ms of ``steps`` synced decode steps,
+    device-busy share in % and launches per step by kernel group from one
+    profiled step, the engine); the share is None and the launches empty
+    where three profiles recorded no device kernel."""
+    from repro_torch.serve import AdmissionConfig, CacheConfig, EngineConfig, Request, ServeEngine
+
+    eng = ServeEngine(model, params, EngineConfig(
+        batch_slots=8, max_len=1024, cuda_graph=cuda_graph, cache=CacheConfig(page_size=PS),
+        admission=AdmissionConfig(async_prefill=False)), device="cuda")
+    for i, p in enumerate(prompts[:8]):
+        eng.submit(Request(uid=i, prompt=p, max_new_tokens=64))
+    s = eng.sched
+    while len(s.running) < 8 or s.waiting or s.admitting or s.ready:
+        eng.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        eng.step()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    busy, launches = None, {}
+    for _ in range(3):                  # a profile may come back without device records
+        groups, launches, _ = device_groups(eng.step, 1)
+        if groups:
+            busy = 100 * sum(groups.values()) / ms
+            break
+    return ms, busy, launches, eng
+
+
+def captured_vs_eager(model, params, prompts, greedy, smi) -> dict[str, int]:
+    """Phase 28 on phase 4's model and requests (32 new tokens) and tokens
+    (``greedy``): a captured and an eager (``cuda_graph=False``) traced
+    engine, 3 runs each in turns (C E, E C, C E): tokens equal to phase 4's
+    request for request, tok/s medians and the tracer's ``decode.batch``
+    spans; then the decode step of 8 lanes of each, in turns (C E E C):
+    wall ms, and from one profiled step each the device-busy share and the
+    kernels per step, and ``ops.LAUNCHES`` of n replays against n times the
+    captured step's.  Returns the phase's launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import CacheConfig, EngineConfig, ObsConfig, Request, ServeEngine
+
+    t_phase = time.perf_counter()
+    ops.reset_launches()
+    engines = {}
+    for graph in (True, False):
+        eng = ServeEngine(model, params, EngineConfig(
+            batch_slots=8, max_len=1024, cuda_graph=graph, cache=CacheConfig(page_size=PS),
+            obs=ObsConfig(trace=True)), device="cuda")
+        eng.submit(Request(uid=-1, prompt=prompts[0], max_new_tokens=2))
+        eng.run()
+        engines[graph] = eng
+    decode_runs(engines[True], "phase 28")
+    if engines[False].decode_graph.graph is not None:
+        raise SystemExit("chip_smoke: the eager engine captured a graph")
+    tps = {True: [], False: []}
+    for rep, order in enumerate(((True, False), (False, True), (True, False))):
+        for graph in order:
+            eng = engines[graph]
+            reqs = [Request(uid=100 * rep + i, prompt=p, max_new_tokens=32)
+                    for i, p in enumerate(prompts)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for r in reqs:
+                eng.submit(r)
+            eng.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            tps[graph].append(sum(len(r.out_tokens) for r in reqs) / wall)
+            for i, (r, want) in enumerate(zip(reqs, greedy)):
+                if r.out_tokens != want:
+                    step = next(j for j, (x, y) in enumerate(zip(r.out_tokens, want)) if x != y)
+                    raise SystemExit(f"chip_smoke: {'captured' if graph else 'eager'} run {rep}: "
+                                     f"request {i} differs from phase 4's at token {step}")
+    spans = {g: decode_spans_ms(engines[g].tracer) for g in engines}
+    for g in (True, False):
+        sp = spans[g]
+        log(f"  {'captured' if g else 'eager   '}: {', '.join(f'{x:.1f}' for x in tps[g])} tok/s "
+            f"end to end (median {statistics.median(tps[g]):.1f}); decode.batch spans "
+            f"(tracer): {len(sp)}, median {statistics.median(sp):.3f} ms, p90 "
+            f"{np.percentile(sp, 90):.3f} ms ({smi})")
+    log(f"  tokens of all 6 runs identical to phase 4's, request for request; captured / "
+        f"eager tok/s (medians) "
+        f"{statistics.median(tps[True]) / statistics.median(tps[False]):.3f}")
+    del engines
+    gc.collect()
+    prof = {True: [], False: []}
+    for graph in (True, False, False, True):
+        ms, busy, launches, eng = step_profile(model, params, prompts, graph)
+        prof[graph].append((ms, busy, sum(launches.values())))
+        if graph:
+            # the profiled replay ran the port's kernels: one paged decode
+            # and one paged_write launch per layer, as the capture counted
+            want = {k: eng.decode_graph.launches.get(k, 0)
+                    for k in ("paged_decode_attention", "paged_write")}
+            got = {k: launches.get(k, 0) for k in want}
+            if got != want or want["paged_write"] != model.cfg.n_layers \
+                    or want["paged_decode_attention"] != model.cfg.n_layers:
+                raise SystemExit(f"chip_smoke: a profiled replay ran {got} kernels of the "
+                                 f"port, the capture counted {want} ({model.cfg.n_layers} "
+                                 "layers each wanted)")
+            log(f"  profiled replay: {got['paged_decode_attention']:g} paged_decode_attention "
+                f"and {got['paged_write']:g} paged_write kernel records, as the capture counted")
+            n = 5
+            before = dict(ops.LAUNCHES)
+            for _ in range(n):
+                eng.decode_graph(eng.cache.pools)
+            torch.cuda.synchronize()
+            want = {k: n * v for k, v in eng.decode_graph.launches.items() if v}
+            got = {k: v - before[k] for k, v in ops.LAUNCHES.items() if v != before[k]}
+            if got != want or want.get("paged_decode_attention") != n * model.cfg.n_layers:
+                raise SystemExit(f"chip_smoke: {n} replays counted {got}, expected {want}")
+        eng.run()
+    for g in (True, False):
+        (m1, b1, k1), (m2, b2, k2) = prof[g]
+        busy = ("not measured" if b1 is None or b2 is None
+                else f"{b1:.1f} % / {b2:.1f} %")
+        log(f"  decode step of 8 lanes, {'captured' if g else 'eager   '}: {m1:.3f} / {m2:.3f} ms "
+            f"wall (in turns), device busy {busy}, {k1:g} / {k2:g} kernels per step "
+            f"({smi})")
+    ratio = sum(p[0] for p in prof[True]) / sum(p[0] for p in prof[False])
+    log(f"  captured step / eager step (wall): {ratio:.3f}; {n} replays counted {n} x the "
+        "captured step's launches")
+    run = dict(ops.LAUNCHES)
+    log(f"  phase 28: {time.perf_counter() - t_phase:.1f} s")
     return run
 
 
@@ -3367,6 +3698,14 @@ def main() -> int:
             if row:
                 log_row(row)
                 rows.setdefault("paged_gather", row)      # the JSON line keeps the leaf
+    log("  paged_write, one launch per call (the decode step's drop-mode write, beyond the "
+        "TPU set), full-width qwen2.5-3b pools, 8 lanes:")
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, layers, n_pools in WRITE_CASES:
+            row = paged_write_case(dtype, dtype == torch.bfloat16, label, layers, n_pools)
+            if row:
+                log_row(row)
+                rows.setdefault("paged_write", row)      # the JSON line keeps one layer's
     log("  stream_gd on full-width qwen2.5-3b's largest leaf (seg0 mlp.w_up):")
     rows["stream_gd"] = stream_gd_cases()
     log_row(rows["stream_gd"])
@@ -3393,15 +3732,17 @@ def main() -> int:
     rng = np.random.default_rng(4)
     qwen_prompts = [rng.integers(0, cfg.vocab_size, size=(int(n),)).astype(np.int32)
                     for n in rng.integers(128, 513, size=16)]
-    calls = count_calls(model, ("decode_step_paged",))
-    reqs, run = serve_full_width(model, params, qwen_prompts, ecfg, SERVE_KERNELS, smi,
-                                 on_reset=lambda: calls.update(decode_step_paged=0))
-    launches = {k: run[k] for k in SERVE_KERNELS}
-    log(f"  {calls['decode_step_paged']} decode steps, paged_decode_attention "
-        f"{run['paged_decode_attention']} launches ({cfg.n_layers} layers)")
-    if run["paged_decode_attention"] != cfg.n_layers * calls["decode_step_paged"]:
-        raise SystemExit("chip_smoke: paged_decode_attention should launch once per layer "
-                         "per decode step")
+    reqs, run, eng = serve_full_width(model, params, qwen_prompts, ecfg,
+                                      SERVE_KERNELS + ("paged_write",), smi)
+    launches = {k: run[k] for k in SERVE_KERNELS + ("paged_write",)}
+    runs = decode_runs(eng, "phase 4")
+    log(f"  {runs - 1} decode steps (graph replays) + 1 warm-up, paged_decode_attention "
+        f"{run['paged_decode_attention']} launches, paged_write {run['paged_write']} "
+        f"({cfg.n_layers} layers)")
+    if run["paged_decode_attention"] != cfg.n_layers * runs \
+            or run["paged_write"] != run["paged_decode_attention"]:
+        raise SystemExit("chip_smoke: paged_decode_attention and paged_write should launch "
+                         "once per layer per decode step")
     paged_tokens = [r.out_tokens for r in reqs]
     # the engine's first token agrees with a direct prefill, whose logits are finite
     logits, _ = model.prefill(params, torch.as_tensor(qwen_prompts[0],
@@ -3411,12 +3752,12 @@ def main() -> int:
     if int(logits[0, -1].argmax()) != reqs[0].out_tokens[0]:
         raise SystemExit("chip_smoke: engine's first token differs from a direct prefill")
     log("  prefill logits finite, shape (1, 1, V); first token matches the engine")
-    decode_breakdown(model, params, cfg.vocab_size)
+    decode_breakdown(model, params, cfg.vocab_size, eager=EAGER_STEP["qwen2.5-3b"])
 
     # -- phases 25 and 26 (on phase 4's model) ------------------------------------
     log(f"== phase 25: full-width qwen2.5-3b under page pressure ({PRESSURE_PAGES} pages of "
         f"{PS}), unpressured, swap and recompute")
-    run, swap_tokens, swap_wall = serve_under_pressure(model, params, qwen_prompts, calls, smi)
+    run, swap_tokens, swap_wall = serve_under_pressure(model, params, qwen_prompts, smi)
     for name, n in run.items():
         launches[name] = launches.get(name, 0) + n      # every kernel's key from here
     log("== phase 26: full-width qwen2.5-3b prefix sharing (a 512-token system prompt, "
@@ -3428,6 +3769,10 @@ def main() -> int:
         "admission_inflight)")
     for name, n in obs_and_semantics(model, params, qwen_prompts, paged_tokens, swap_tokens,
                                      swap_wall, smi).items():
+        launches[name] += n
+    log("== phase 28: full-width qwen2.5-3b, the captured decode step against the eager one "
+        "(cuda_graph=False)")
+    for name, n in captured_vs_eager(model, params, qwen_prompts, paged_tokens, smi).items():
         launches[name] += n
     del model, params
     torch.cuda.empty_cache()
@@ -3467,8 +3812,9 @@ def main() -> int:
     rng = np.random.default_rng(12)
     prompts = [rng.integers(0, cfg.vocab_size, size=(int(n),)).astype(np.int32)
                for n in rng.integers(128, 513, size=16)]
-    reqs, run = serve_full_width(model, params, prompts, ecfg, ("ssd_scan",), smi)
+    reqs, run, eng = serve_full_width(model, params, prompts, ecfg, ("ssd_scan",), smi)
     launches["ssd_scan"] += run["ssd_scan"]
+    log(f"  {decode_runs(eng, 'mamba2-130m') - 1} decode steps (graph replays) + 1 warm-up")
     cache = tree_map(lambda sp: torch.zeros(sp.shape, dtype=sp.dtype, device="cuda"),
                      model.cache_specs(1, len(prompts[0])))
     toks = torch.as_tensor(prompts[0], device="cuda")[None].long()
@@ -3481,9 +3827,10 @@ def main() -> int:
                          "chunked prefill")
     log("  chunked-prefill logits finite; first token matches the engine")
     prefill_ms(model, params, cfg.vocab_size, 512, SSM["chunk"], group="ssd_scan")
-    decode_breakdown(model, params, cfg.vocab_size, prefill_chunk=SSM["chunk"])
+    decode_breakdown(model, params, cfg.vocab_size, prefill_chunk=SSM["chunk"],
+                     eager=EAGER_STEP["mamba2-130m"])
     log("  (the decode step runs no port kernel: ssm_decode is plain torch, as the "
-        "JAX package leaves it to XLA)")
+        "JAX package leaves it to XLA; it is one graph replay)")
     del model, params
     torch.cuda.empty_cache()
 
@@ -3500,14 +3847,16 @@ def main() -> int:
     log("  full-width qwen2.5-3b (bf16, phase 4's weights and requests), decode_path=gather:")
     ecfg = EngineConfig(batch_slots=8, max_len=1024,
                         cache=CacheConfig(page_size=PS, decode_path="gather"))
-    calls = count_calls(model, ("decode_step",))
-    reqs, run = serve_full_width(model, params, qwen_prompts, ecfg, ("paged_gather",), smi,
-                                 on_reset=lambda: calls.update(decode_step=0))
-    launches["paged_gather"] += run["paged_gather"]      # phases 25 and 26 counted before
-    log(f"  {calls['decode_step']} decode steps, paged_gather {run['paged_gather']} launches")
-    if run["paged_gather"] != calls["decode_step"]:
-        raise SystemExit("chip_smoke: the gather path should launch one paged_gather per "
-                         "decode step (every seq leaf in one launch)")
+    reqs, run, eng = serve_full_width(model, params, qwen_prompts, ecfg,
+                                      ("paged_gather", "paged_write"), smi)
+    runs = decode_runs(eng, "gather path")
+    for name in ("paged_gather", "paged_write"):    # phases 25 and 26 counted before
+        launches[name] += run[name]
+    log(f"  {runs - 1} decode steps (graph replays) + 1 warm-up, paged_gather "
+        f"{run['paged_gather']} launches, paged_write {run['paged_write']}")
+    if run["paged_gather"] != runs or run["paged_write"] != runs:
+        raise SystemExit("chip_smoke: the gather path should launch one paged_gather and one "
+                         "paged_write per decode step (every seq leaf in one launch)")
     same = sum(r.out_tokens == t for r, t in zip(reqs, paged_tokens))
     log(f"  {same}/{len(reqs)} requests gave the paged path's tokens (bf16: the plain "
         "decode attention rounds otherwise than the paged kernel)")
@@ -3567,7 +3916,7 @@ def main() -> int:
     # -- phase 16 ---------------------------------------------------------------
     log("== phase 16: full-width recurrentgemma-9b (bf16, random weights) on the card")
     run = serve_recurrentgemma(smi)
-    for name in ("flash_attention", "paged_gather"):
+    for name in ("flash_attention", "paged_gather", "paged_write"):
         launches[name] += run[name]
     gc.collect()
     torch.cuda.empty_cache()
@@ -3593,7 +3942,8 @@ def main() -> int:
             "random weights) on the card")
         torch.cuda.reset_peak_memory_stats()
         run = serve_moe(arch, smi)
-        for name in ("flash_attention", "paged_gather", "paged_decode_attention"):
+        for name in ("flash_attention", "paged_gather", "paged_decode_attention",
+                     "paged_write"):
             launches[name] += run[name]
         gc.collect()
         torch.cuda.empty_cache()

@@ -13,7 +13,8 @@ through one table in one launch, and ``stream_gd_foreach`` is the optimizer's fo
 of ``stream_gd``: a list of leaves in one launch, each with separate
 streams of their own types written in place, and an optional second stage
 that reads the first's output; ``stream_gd_into`` is its one-leaf,
-one-stage call).
+one-stage call).  ``paged_write`` is the decode step's drop-mode scatter of
+new cache rows into page pools, which the JAX package leaves to XLA.
 A CPU tensor runs the plain version in ``kernels.ref``.  A CUDA tensor
 launches the hand-written kernel from ``csrc/`` (built on first use by
 ``kernels.build``) or raises: there is no fallback from the card to the
@@ -23,7 +24,12 @@ CPU tests see what the card would do): its output would carry no
 gradient and training would go silently wrong.
 
 Each wrapper counts the kernels it launches in ``LAUNCHES`` (on the card
-only), so a run can show that its main path went through the kernels.
+only), so a run can show that its main path went through the kernels.  A
+launch into a CUDA graph being captured runs nothing: inside
+``captured_launches`` the thread's counts go to a dict of their own, which
+``add_launches`` adds once per replay of the graph.  Every launch goes out
+on the current stream (``_raw_stream``), which capture replaces with its
+own.
 ``stream_mac_conv`` and ``tiled_matmul`` choose between two designs by
 shape, ``flash_attention`` among three by dtype and head dim
 (``flash_path``), and ``paged_attention`` and ``ssd_scan`` by dtype and
@@ -34,6 +40,7 @@ one launch's table launches one grid per table.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 import threading
@@ -47,8 +54,9 @@ from . import build, ref
 
 LAUNCHES = {"paged_decode_attention": 0, "flash_attention": 0, "stream_mac_conv": 0,
             "stream_maxpool": 0, "tiled_matmul": 0, "ssd_scan": 0, "paged_gather": 0,
-            "stream_gd": 0}
+            "stream_gd": 0, "paged_write": 0}
 _count_lock = threading.Lock()
+_recorders = threading.local()     # .counts: the open ``captured_launches`` dict, if any
 # the design the last card call of a kernel that has several took, by name
 PATHS: dict[str, str] = {}
 CONV_PATHS = ("mma.sync 128x64", "wgmma+TMA 128x64", "wgmma+TMA 128x128", "wgmma+TMA 128x256")
@@ -83,11 +91,16 @@ _SIGNATURES = {
     "stream_gd_launch": ("stream_gd", [_I, _I, _I, ctypes.POINTER(_F), _I, _P, _P, _P, _P,
                                        ctypes.POINTER(_I)]),
     "stream_gd_capacity": ("stream_gd", [_I, _I]),
+    "paged_write_launch": ("paged_write", [_I, _P]),
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128, 256)     # the head sizes the paged-decode kernel is built for
 # flash attention's, with MLA's query-key heads (reduced 48, published 192)
 FLASH_HEAD_DIMS = (32, 48, 64, 128, 192, 256)
+# the pools one paged_write launch takes (csrc/paged_write.cu's kCap): 2 per
+# layer on the paged path, the cache tree's seq leaves (at most 4) on the
+# gather path
+PAGED_WRITE_POOLS = 8
 MAX_REP = 16                       # query heads per KV head in paged decode
 MAX_CLUSTER = 16                   # blocks a paged-decode cluster may hold (8 is portable)
 SSD_MAX_CHUNK = 512                # ssd_scan: 8 blocks of at most 64 chunk rows
@@ -151,8 +164,34 @@ def reset_launches() -> None:
 
 
 def _count(name: str, n: int) -> None:
+    rec = getattr(_recorders, "counts", None)
+    if rec is not None:
+        rec[name] = rec.get(name, 0) + n
+        return
     with _count_lock:
         LAUNCHES[name] += n
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """Inside the block, the launches this thread's wrappers make (into a
+    CUDA graph being captured, where they run nothing) go into the yielded
+    dict instead of ``LAUNCHES``; ``add_launches`` adds them once per
+    replay.  Other threads count as before."""
+    prev = getattr(_recorders, "counts", None)
+    _recorders.counts = counts = {}
+    try:
+        yield counts
+    finally:
+        _recorders.counts = prev
+
+
+def add_launches(counts: dict) -> None:
+    """Add ``counts`` (a ``captured_launches`` dict) to ``LAUNCHES``: one
+    replay of the graph they were captured into."""
+    with _count_lock:
+        for name, n in counts.items():
+            LAUNCHES[name] += n
 
 
 _entries: dict[str, tuple] = {}
@@ -376,8 +415,7 @@ def stream_mac_conv(
     path = ctypes.c_int(-1)
     err = fn(code, x.data_ptr(), w.data_ptr(), None if bias is None else bias.data_ptr(),
              out.data_ptr(), n, h, wd, ci + pad_ci, kh, kw, co, co + pad_co, sy, sx, py, px,
-             int(relu), _sm_count(x.device), ctypes.byref(path),
-             torch.cuda.current_stream(x.device).cuda_stream)
+             int(relu), _sm_count(x.device), ctypes.byref(path), _raw_stream(x.device))
     _launched(lib, "stream_mac_conv", err)
     PATHS["stream_mac_conv"] = CONV_PATHS[path.value]
     return out
@@ -405,7 +443,7 @@ def stream_maxpool(
                       device=x.device)
     lib, fn = _entry("stream_maxpool_launch")
     err = fn(code, int(vec), x.data_ptr(), out.data_ptr(), n, h, wd, c, kh, kw, sy, sx,
-             torch.cuda.current_stream(x.device).cuda_stream)
+             _raw_stream(x.device))
     _launched(lib, "stream_maxpool", err)
     return out
 
@@ -414,12 +452,13 @@ _counters: dict[tuple, torch.Tensor] = {}
 _plans: dict[tuple, tuple[int, int, str]] = {}  # (splits, tiles, design) of a matmul shape
 
 
-def _split_counters(device: torch.device, stream, tiles: int) -> torch.Tensor:
-    """One zeroed int per output tile for split-K calls on ``stream``.  The
-    kernel's last block of each tile sets its counter back to zero, so the
-    buffer is zeroed once, when it is made or grown, and not per call."""
+def _split_counters(device: torch.device, stream: int, tiles: int) -> torch.Tensor:
+    """One zeroed int per output tile for split-K calls on ``stream`` (a
+    raw handle).  The kernel's last block of each tile sets its counter back
+    to zero, so the buffer is zeroed once, when it is made or grown, and not
+    per call."""
     idx = device.index if device.index is not None else torch.cuda.current_device()
-    key = (idx, stream.cuda_stream)
+    key = (idx, stream)
     buf = _counters.get(key)
     if buf is None or buf.numel() < tiles:
         buf = _counters[key] = torch.zeros(max(tiles, 256), dtype=torch.int32,
@@ -451,7 +490,7 @@ def tiled_matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         _plans[key] = splits, tiles.value, design
     splits, tiles, PATHS["tiled_matmul"] = _plans[key]
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    stream = torch.cuda.current_stream(x.device)
+    stream = _raw_stream(x.device)
     ws = counters = None
     if splits > 1:
         ws = torch.empty(splits * m * n, dtype=torch.float32, device=x.device)
@@ -459,8 +498,7 @@ def tiled_matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     lib, fn = _entry("tiled_matmul_launch")
     err = fn(code, aligned, x.data_ptr(), y.data_ptr(), out.data_ptr(),
              None if ws is None else ws.data_ptr(),
-             None if counters is None else counters.data_ptr(), m, n, k, splits,
-             stream.cuda_stream)
+             None if counters is None else counters.data_ptr(), m, n, k, splits, stream)
     _launched(lib, "tiled_matmul", err)
     return out
 
@@ -645,6 +683,63 @@ def paged_gather_smem(table_entries: int) -> int:
     return _entry("paged_gather_smem")[1](table_entries)
 
 
+def paged_write(pools, rows, block_table: torch.Tensor, positions: torch.Tensor,
+                active: torch.Tensor) -> None:
+    """Drop-mode scatter of one decode step's new cache rows into page
+    pools, in place, every pool in one launch on the card (at most
+    ``PAGED_WRITE_POOLS``: a longer list is refused on either device).
+    Each pool is (L, n_pages, PS, *t) with its rows (L, B, *t) of its type
+    (PS shared); the table is (B, P) int32, ``positions`` (B,) int64 and
+    ``active`` (B,) bool.  Lane b writes ``pool[:, page, positions[b] %
+    PS] = row[:, b]`` where ``active[b]`` and ``page = table[b, positions[b]
+    // PS]`` names a page of the pool; nothing else is written (the JAX
+    package's ``.at[page, off].set(..., mode="drop")``).  The card path
+    reads nothing back, so a CUDA graph can hold it."""
+    _no_grad("paged_write", *pools, *rows)
+    if len(pools) != len(rows) or len(pools) > PAGED_WRITE_POOLS or block_table.ndim != 2:
+        raise ValueError(f"paged_write: {len(pools)} pools (at most {PAGED_WRITE_POOLS}), "
+                         f"{len(rows)} row sets, table {tuple(block_table.shape)}")
+    lanes, slots = block_table.shape
+    ps = pools[0].shape[2] if pools else 1
+    for pool, row in zip(pools, rows):
+        if pool.ndim < 3 or pool.shape[2] != ps or row.dtype != pool.dtype or \
+                tuple(row.shape) != (pool.shape[0], lanes) + tuple(pool.shape[3:]):
+            raise ValueError(f"paged_write: pool {tuple(pool.shape)} {pool.dtype} and rows "
+                             f"{tuple(row.shape)} {row.dtype} for {lanes} lanes")
+    if tuple(positions.shape) != (lanes,) or tuple(active.shape) != (lanes,) \
+            or active.dtype != torch.bool:
+        raise ValueError(f"paged_write: positions {tuple(positions.shape)} and active "
+                         f"{tuple(active.shape)} {active.dtype} for {lanes} lanes")
+    if not pools:
+        return
+    device = pools[0].device
+    if device.type != "cuda":
+        tensors = (*pools, *rows, block_table, positions, active)
+        if any(t.device.type != "cpu" for t in tensors):
+            raise ValueError(f"paged_write: tensors must be on the CPU or a CUDA device, all "
+                             f"on one, got {sorted({str(t.device) for t in tensors})}")
+        ref.paged_write(pools, rows, block_table, positions, active)
+        return
+    _check_index("paged_write", block_table, device, (lanes, slots))
+    if positions.device != device or positions.dtype != torch.int64 \
+            or not positions.is_contiguous() or active.device != device \
+            or not active.is_contiguous():
+        raise ValueError(f"paged_write: positions must be contiguous int64 and active "
+                         f"contiguous bool on {device}")
+    # table, positions, active, lanes, slots, PS, stream, then per pool:
+    # pool, rows, layers, n_pages, row bytes
+    args = array("q", (block_table.data_ptr(), positions.data_ptr(), active.data_ptr(),
+                       lanes, slots, ps, _raw_stream(device)))
+    for pool, row in zip(pools, rows):
+        if pool.device != device or row.device != device or not pool.is_contiguous() \
+                or not row.is_contiguous():
+            raise ValueError(f"paged_write: pools and rows must be contiguous on {device}")
+        args.extend((pool.data_ptr(), row.data_ptr(), pool.shape[0], pool.shape[1],
+                     math.prod(pool.shape[3:]) * pool.element_size()))
+    lib, fn = _entry("paged_write_launch")
+    _launched(lib, "paged_write", fn(len(pools), args.buffer_info()[0]))
+
+
 MAX_STREAMS = 8                    # streams of a one-stage stream_gd launch
 MAX_STAGE_STREAMS = 4              # streams of each stage of a two-stage launch
 STAGE1 = ref.STAGE1                # a stage-2 stream: stage 1's output of its leaf
@@ -774,8 +869,7 @@ def stream_gd_foreach(leaves, stage_coeffs) -> None:
         ref.stream_gd_foreach([c.stages for c in checked], coeffs)
         return
     marker = marks.index(True) if True in marks else -1
-    _count("stream_gd", _gd_launch(checked, coeffs, marker,
-                                   torch.cuda.current_stream(device).cuda_stream))
+    _count("stream_gd", _gd_launch(checked, coeffs, marker, _raw_stream(device)))
 
 
 def _gd_launch(checked: list[_GdLeaf], coeffs, marker: int, stream: int) -> int:

@@ -8,6 +8,9 @@ convolution or pooling library (a float32 cuDNN convolution would run TF32).
 ``stream_gd`` takes the optimizer's separate streams (JAX's oracle takes
 one stacked array; ``ops.stream_gd`` unstacks it), and
 ``stream_gd_foreach`` runs it over a list of leaves, stage by stage.
+``paged_write`` is the drop-mode scatter that the JAX package leaves to
+XLA (``.at[page, off].set(..., mode="drop")``), with the writing lanes
+picked by ``nonzero``.
 ``ssd_scan`` is the chunked, factorized form of ``repro/models/ssm.py``'s
 ``ssd_chunked`` (the JAX oracle of the TPU kernel is the sequential
 recurrence, which it equals up to rounding).
@@ -144,6 +147,25 @@ def paged_gather(pool: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
 def paged_gather_many(pools, block_table: torch.Tensor) -> list[torch.Tensor]:
     """``paged_gather`` of each pool through the one table."""
     return [paged_gather(pool, block_table) for pool in pools]
+
+
+def paged_write(pools, rows, block_table: torch.Tensor, positions: torch.Tensor,
+                active: torch.Tensor) -> None:
+    """Drop-mode scatter of one decode step's rows, in place: for each lane
+    b with ``active[b]`` whose position's table slot exists and names a page
+    of the pool, ``pool[:, page, positions[b] % PS] = row[:, b]`` for every
+    (pool (L, n_pages, PS, *t), row (L, B, *t)) pair; nothing else is
+    written.  The writing lanes are picked with ``nonzero`` (a host read)."""
+    ps = pools[0].shape[2]
+    slots = block_table.shape[1]
+    positions = positions.long()
+    slot = positions // ps
+    ok = active & (positions >= 0) & (slot < slots)
+    page = block_table.long().gather(1, slot.clamp(0, slots - 1)[:, None])[:, 0]
+    off = positions % ps
+    for pool, row in zip(pools, rows):
+        lanes = torch.nonzero(ok & (page >= 0) & (page < pool.shape[1])).squeeze(1)
+        pool[:, page[lanes], off[lanes]] = row[:, lanes]
 
 
 def ssd_scan(

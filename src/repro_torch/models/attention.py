@@ -167,16 +167,17 @@ def paged_lane_view(pool: torch.Tensor, block_table: torch.Tensor) -> torch.Tens
     return paged_lane_views([pool], block_table)[0]
 
 
-def paged_write_slots(block_table: torch.Tensor, positions: torch.Tensor,
-                      active: torch.Tensor, page_size: int):
-    """Where one decode step writes its new cache rows: (lanes, pages,
-    offsets) of the active lanes whose position's page is allocated.  torch
-    has no ``mode="drop"`` scatter, so the writing lanes are picked up front
-    (one host sync per step, shared by every layer)."""
-    positions = positions.long()
-    page = block_table.gather(1, (positions // page_size)[:, None])[:, 0]
-    lanes = torch.nonzero(active & (page >= 0)).squeeze(1)
-    return lanes, page[lanes].long(), (positions % page_size)[lanes]
+def paged_write_step(pools, new, block_table: torch.Tensor, positions: torch.Tensor,
+                     active: torch.Tensor) -> None:
+    """Write one decode step's new rows into one layer's page pools, in
+    place: each pool (n_pages, PS, *t) takes its rows (B, 1, *t) at each
+    lane's position, every pool in one ``paged_write`` launch; idle lanes
+    and lanes whose page is unallocated write nothing (the reference's
+    drop-mode scatter), and nothing is read back to the host."""
+    kops.paged_write([pool[None] for pool in pools],
+                     [row[:, 0].to(pool.dtype).contiguous()[None]
+                      for pool, row in zip(pools, new)],
+                     block_table, positions, active)
 
 
 def paged_decode_windowed(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,

@@ -16,7 +16,8 @@ at ``qk_rope_head_dim`` (``mla_rope_tables``), not at ``cfg.hd``.
 * Decode and chunked prefill use the published weight-absorption form
   (``_absorbed_attend``): queries are absorbed into latent space so the
   cache is never decompressed.  ``mla_decode`` reads dense per-lane views
-  (the gather path), ``mla_decode_paged`` gathers the lanes' pages through
+  (the gather path), ``mla_decode_paged`` writes its new latents with one
+  ``paged_write`` launch and gathers the lanes' pages through
   ``paged_lane_views`` (one ``paged_gather`` launch per layer) and then
   runs the same contraction, so the two are bit-equal.  The contraction is
   plain torch, as the reference leaves it to XLA.
@@ -28,7 +29,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .attention import NEG_INF, attend, paged_lane_views
+from .attention import NEG_INF, attend, paged_lane_views, paged_write_step
 from .common import PSpec, TensorSpec, apply_rope, rms_norm, rope_tables
 
 
@@ -161,22 +162,20 @@ def mla_decode(cfg, p, x, cache: dict, position, tables):
     return _out(cfg, p, out, x), cache
 
 
-def mla_decode_paged(cfg, p, x, pools: dict, block_table, positions, write, tables):
+def mla_decode_paged(cfg, p, x, pools: dict, block_table, positions, active, tables):
     """Absorbed decode straight over one layer's page pools
-    {"latent": (n_pages, PS, rank), "k_rope": (n_pages, PS, qr)}.
-    ``write`` = (lanes, pages, offsets) names the lanes that write their new
-    latents and where (``attention.paged_write_slots``: idle lanes and
-    lanes whose page is unallocated write nothing); the pools are updated
-    in place.  Each lane's pages are then gathered into a transient view
+    {"latent": (n_pages, PS, rank), "k_rope": (n_pages, PS, qr)}.  The
+    active lanes write their new latents at their positions in place
+    (``attention.paged_write_step``, one ``paged_write`` launch for both:
+    idle lanes and lanes whose page is unallocated write nothing).  Each
+    lane's pages are then gathered into a transient view
     (``paged_lane_views``: one ``paged_gather`` launch for both) and
     attended as ``mla_decode`` attends its views, bit-equal to it.
     → (y (B, 1, D), pools)."""
     q_nope, q_rope = _project_q_at(cfg, p, x, tables)
     new_latent, new_krope = _latent_kv_at(cfg, p, x, tables)
-    lanes, w_page, w_off = write
     lp, kp = pools["latent"], pools["k_rope"]
-    lp[w_page, w_off] = new_latent[lanes, 0].to(lp.dtype)
-    kp[w_page, w_off] = new_krope[lanes, 0].to(kp.dtype)
+    paged_write_step([lp, kp], [new_latent, new_krope], block_table, positions, active)
     latent, k_rope = paged_lane_views([lp, kp], block_table)  # (B, cap, rank), (B, cap, qr)
     kpos = torch.arange(latent.shape[1], device=x.device)
     mask = (kpos[None, :] <= positions.long()[:, None])[:, None, None, :]

@@ -61,7 +61,8 @@ def _dispatch_masks(gates: torch.Tensor, k: int, capacity: int, trim: bool = Fal
     topw, topi = torch.topk(gates, k, dim=-1)                       # (G, T, k)
     # renormalise the kept weights (deepseek-v3 / switch convention)
     topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
-    onehot = torch.nn.functional.one_hot(topi, e).float()           # (G, T, k, E)
+    # one_hot by comparison: F.one_hot reads the indices back on the CPU
+    onehot = (topi[..., None] == torch.arange(e, device=gates.device)).float()  # (G, T, k, E)
     flat = onehot.reshape(g, t * k, e)
     pos = (torch.cumsum(flat, dim=1) - flat).reshape(g, t, k, e)
     slot = pos.gather(-1, topi[..., None])[..., 0]                  # (G, T, k)

@@ -69,7 +69,7 @@ from .attention import (
     decode_attention,
     paged_decode,
     paged_decode_windowed,
-    paged_write_slots,
+    paged_write_step,
 )
 from .common import (
     SEQ_CACHE_KEYS,
@@ -546,7 +546,9 @@ class DecoderLM:
         bool → (logits (B, 1, V), pools).
 
         Attention layers write the new k/v into the lane's current page
-        (idle lanes and lanes whose page is unallocated write nothing).  A
+        through one ``paged_write`` launch (idle lanes and lanes whose page
+        is unallocated write nothing; no host read, so the step can be
+        captured in a CUDA graph).  A
         dense layer then runs the paged-decode kernel over the pages the
         block table names, reading ``positions + 1`` tokens per active lane
         and none for an idle one; a local-attention layer (which that kernel
@@ -564,10 +566,6 @@ class DecoderLM:
         positions = positions.long()
         tables = self._rope(positions[:, None])
         if self._has_attn:
-            ps = next(t.shape[2] for seg in pools for leaves in seg.values()
-                      for n, t in leaves.items() if n in SEQ_CACHE_KEYS)
-            write = paged_write_slots(block_tables, positions, active, ps)
-            lanes, w_page, w_off = write
             lengths = torch.where(active, positions + 1, 0).to(torch.int32)
             block_tables = block_tables.to(torch.int32).contiguous()
         for si, r, key, kind, p in self._layers(params):
@@ -581,14 +579,13 @@ class DecoderLM:
                 continue
             if cfg.mla:
                 y, _ = _mla.mla_decode_paged(cfg, p["attn"], self._norm(p["ln1"], x),
-                                             _at(leaves, r), block_tables, positions, write,
+                                             _at(leaves, r), block_tables, positions, active,
                                              tables)
                 x, _ = self._ffn_block(kind, p, x + y, "decode")
                 continue
             q, k, v = self._qkv_rope(p, x, tables)
             kp, vp = leaves["k"][r], leaves["v"][r]
-            kp[w_page, w_off] = k[lanes, 0].to(kp.dtype)
-            vp[w_page, w_off] = v[lanes, 0].to(vp.dtype)
+            paged_write_step([kp, vp], [k, v], block_tables, positions, active)
             if kind == "attn":
                 out = paged_decode_windowed(q, kp, vp, block_tables, positions,
                                             self._window(kind))

@@ -53,6 +53,14 @@ a ``torch.profiler.record_function("decode.batch")`` range.  With
 ``REPRO_SANITIZE=1`` (or ``analysis.sanitizer.enable()``) the ownership
 markers check threads, the engine lock and page epochs at run time.
 
+The decode step (``_decode_impl``, the reference's jitted function) runs
+on static buffers (``serve.captured.CapturedDecode``): on the card it is
+captured once per engine, at construction, as one CUDA graph and replayed
+each step (``EngineConfig.cuda_graph=False`` runs the same buffers
+eagerly); the step reads nothing back (idle lanes' cache writes are dropped
+on the card by ``paged_write``), and sampling runs after it on its logits
+rows.
+
 The engine runs on the card unless ``device="cpu"`` is passed (then every
 kernel runs its plain PyTorch version); the parameters must already live on
 that device.  Not ported yet: inter-cube migration.  The
@@ -80,6 +88,7 @@ from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.trace import NULL_TRACER, ServeTracer
 
 from .admission import AdmissionPipeline, prefill_logits_token
+from .captured import CapturedDecode
 from .paged_cache import PagedKVCache, absorb_decode, gather_views
 from .scheduler import Scheduler, SchedulerConfig
 
@@ -155,6 +164,11 @@ class EngineConfig:
     batch_slots: int = 4            # decode lanes
     max_len: int = 256              # per-request context capacity
     eos_id: int | None = None       # a request ends at this token
+    # a card engine replays its decode step as one CUDA graph captured at
+    # construction (the reference jits it); False runs the same static-
+    # buffer step eagerly (an A/B baseline, or a profile that wants
+    # record_function ranges inside the step).  A CPU engine ignores it
+    cuda_graph: bool = True
     cache: CacheConfig = field(default_factory=CacheConfig)
     admission: AdmissionConfig = field(default_factory=AdmissionConfig)
     obs: ObsConfig = field(default_factory=ObsConfig)
@@ -203,6 +217,13 @@ class ServeEngine:
                                   device=self.device, host_pages=host_pages,
                                   metrics=self.metrics, prefix_sharing=cc.prefix_sharing)
         chunk = ac.prefill_chunk if model.supports_chunked_prefill else 0
+        # the decode step on static buffers, captured before the admission
+        # pipeline's thread exists (nothing else runs on the card meanwhile)
+        self.decode_graph = CapturedDecode(
+            lambda *inputs: self._decode_impl(self.params, self.cache.pools, *inputs)[0],
+            self.cache.pools, ecfg.batch_slots, self.cache.pages_per_lane,
+            model.cfg.padded_vocab, model.cfg.torch_dtype, self.device,
+            capture=self.device.type == "cuda" and ecfg.cuda_graph)
         self.sched = Scheduler(SchedulerConfig(
             policy=ac.policy, prefill_chunk=chunk,
             max_inflight_prefills=ac.admission_inflight,
@@ -539,17 +560,36 @@ class ServeEngine:
                 # swap-out (the decode loop owns the pools: nothing races it)
                 cache.fork_pages(copies)
 
+    def _decode_impl(self, params, pools, bt, tokens, positions, active):
+        """One decode token per lane over the pools, in place → (logits
+        (B, 1, V), pools): the reference's ``_decode_impl``, which the card
+        engine captures and replays (``CapturedDecode``).  No host read and
+        no allocation that outlives the step."""
+        if self.ecfg.cache.decode_path == "gather":
+            # the oracle: materialize the dense per-lane views, decode,
+            # scatter the written column back into the pools
+            views = gather_views(pools, bt)
+            logits, new_views = self.model.decode_step(params, views, tokens, positions)
+            return logits, absorb_decode(pools, new_views, bt, positions, active,
+                                         self.cache.page_size)
+        # the model reads and writes the page pools through the block table
+        return self.model.decode_step_paged(params, pools, bt, tokens, positions, active)
+
     @decode_loop_only
     @pool_mutator("pools")
     def _decode_lanes(self, generator):
-        s, b = self.sched, self.ecfg.batch_slots
-        tokens = np.zeros((b, 1), np.int64)
-        positions = np.zeros((b,), np.int64)
-        active = np.zeros((b,), bool)
+        s, g = self.sched, self.decode_graph
+        # the previous step's host read synchronised the stream, so its
+        # staging copies are done: the views are free to rewrite
+        tokens, positions, active = g.np_tokens, g.np_positions, g.np_active
+        tokens.fill(0)
+        positions.fill(0)
+        active.fill(False)
         for lane, st in s.running.items():
             tokens[lane, 0] = st.pending_token
             positions[lane] = st.length
             active[lane] = True
+        g.np_bt[...] = self.cache.block_tables
         n_active = int(active.sum())
         lanes = sorted(s.running)
         sampled = ([lane for lane in lanes if s.running[lane].req.temperature > 0]
@@ -558,22 +598,10 @@ class ServeEngine:
         dev = self.device
         self.tracer.begin(self.tracer.EV_DECODE, n_active)
         with self._annot():
-            bt = torch.from_numpy(self.cache.block_tables).to(dev)
-            tokens = torch.from_numpy(tokens).to(dev)
-            positions = torch.from_numpy(positions).to(dev)
-            active = torch.from_numpy(active).to(dev)
-            if self.ecfg.cache.decode_path == "gather":
-                views = gather_views(self.cache.pools, bt)
-                logits, new_views = self.model.decode_step(self.params, views, tokens,
-                                                           positions)
-                self.cache.pools = absorb_decode(self.cache.pools, new_views, bt, positions,
-                                                 active, self.cache.page_size)
-            else:
-                logits, self.cache.pools = self.model.decode_step_paged(
-                    self.params, self.cache.pools, bt, tokens, positions, active)
-            rows = logits[:, 0]
-            toks = rows.argmax(-1)
+            toks, rows = g(self.cache.pools)
             if sampled:
+                # drawn from the step's logits rows after it; the greedy
+                # buffer is the step's output, rewritten by the next step
                 idx = torch.tensor(sampled, device=dev)
                 toks[idx] = sample_tokens(
                     rows[idx], torch.tensor(temps, dtype=torch.float32, device=dev), generator)

@@ -57,22 +57,25 @@ def absorb_decode(pools, new_views, block_tables: torch.Tensor, positions: torch
                   active: torch.Tensor, page_size: int):
     """Fold one decode step's cache updates back into the pools, in place
     (returns ``pools``).  Seq leaves: the column each active lane wrote at
-    its position goes into that position's page (idle lanes and lanes whose
-    page is unallocated write nothing).  State leaves: the new state is kept
-    for active lanes only."""
+    its position goes into that position's page, every seq leaf in one
+    ``paged_write`` launch (idle lanes and lanes whose page is unallocated
+    write nothing).  State leaves: the new state is kept for active lanes
+    only.  Nothing is read back to the host.  ``page_size`` is the pools'
+    own (the reference's signature); the write reads it from their shape."""
     positions = positions.long()
-    page = block_tables.long().gather(1, (positions // page_size)[:, None])[:, 0]
-    lanes = torch.nonzero(active & (page >= 0)).squeeze(1)
-    w_page, w_off = page[lanes], (positions % page_size)[lanes]
-    w_pos = positions[lanes]
-    keep = torch.nonzero(active).squeeze(1)
+    lanes = torch.arange(positions.shape[0], device=positions.device)
+    bt = block_tables.to(torch.int32).contiguous()
     views = dict(tree_items(new_views))
+    seq_pools, seq_rows = [], []
     for path, pool in tree_items(pools):
         view = views[path]
         if _is_seq(path):
-            pool[:, w_page, w_off] = view[:, lanes, w_pos].to(pool.dtype)
+            seq_pools.append(pool)
+            seq_rows.append(view[:, lanes, positions].to(pool.dtype).contiguous())
         else:
-            pool[:, keep] = view[:, keep].to(pool.dtype)
+            keep = active.view((1, -1) + (1,) * (pool.ndim - 2))
+            pool.copy_(torch.where(keep, view.to(pool.dtype), pool))
+    kops.paged_write(seq_pools, seq_rows, bt, positions, active)
     return pools
 
 

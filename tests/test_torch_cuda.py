@@ -13,7 +13,9 @@ the same tests) when no card is present.  On a machine with a card:
 
 This file imports no JAX.
 """
+import ctypes
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -404,18 +406,6 @@ def test_served_tokens_on_card_match_cpu(card, arch, lengths, chunk, path):
     ecfg = EngineConfig(batch_slots=2, max_len=128 if hybrid else 64,
                         cache=CacheConfig(decode_path=path),
                         admission=AdmissionConfig(prefill_chunk=chunk))
-    steps = {"decode_step_paged": 0, "decode_step": 0}
-
-    def counted(name):
-        fn = getattr(model, name)
-
-        def call(*a, **k):
-            steps[name] += 1
-            return fn(*a, **k)
-        setattr(model, name, call)
-
-    for name in steps:
-        counted(name)
     out = {}
     for dev, p in (("cpu", params), (card, tree_map(lambda t: t.to(card), params))):
         eng = ServeEngine(model, p, ecfg, device=dev)
@@ -423,9 +413,13 @@ def test_served_tokens_on_card_match_cpu(card, arch, lengths, chunk, path):
         for r in reqs:
             eng.submit(r)
         ops.reset_launches()
-        steps.update(decode_step_paged=0, decode_step=0)
+        runs = eng.decode_graph.runs
         eng.run()
+        # decode steps of the run: on the card each is one replay of the
+        # engine's captured step
+        steps = eng.decode_graph.runs - runs
         out[str(dev)] = [r.out_tokens for r in reqs]
+    assert eng.decode_graph.graph is not None
     assert out["cpu"] == out["cuda"]
     kernel = "ssd_scan" if arch.startswith("mamba2") else "flash_attention"
     # MLA's chunked prefill is the absorbed contraction (plain torch), its
@@ -438,17 +432,59 @@ def test_served_tokens_on_card_match_cpu(card, arch, lengths, chunk, path):
     # leaf together; mamba2 has none)
     gathers = hybrid or arch == "deepseek-v3-671b"
     if path == "gather":
-        want = steps["decode_step"] * (kernel != "ssd_scan")
+        want = steps * (kernel != "ssd_scan")
     else:
         per_step = {"recurrentgemma-9b": sum(reps * pattern.count("attn")
                                              for pattern, reps in model.segments),
                     "deepseek-v3-671b": model.cfg.n_layers}.get(arch, 0)
-        want = steps["decode_step_paged"] * per_step
-    assert steps["decode_step" if path == "gather" else "decode_step_paged"] > 0
+        want = steps * per_step
+    assert steps > 0
     assert ops.LAUNCHES["paged_gather"] == want
     assert (want > 0) == (gathers or (path == "gather" and kernel != "ssd_scan"))
     if gathers:
         assert ops.LAUNCHES["paged_decode_attention"] == 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("lens", [(3, 17, 0, 40), (64, 1, 5, 200)], ids=["short", "long"])
+def test_paged_write_kernel_bit_equal_to_plain(card, dtype, lens):
+    """Every pool of a layer's k and v, an MLA latent and k_rope, a 36-layer
+    leaf and 8 pools (the most one launch takes) in one launch each: idle
+    lanes, -1 pages and a page past the pool write nothing, the rest
+    bit-equal to the plain version.  9 pools are refused, by the wrapper and
+    by the launch entry."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=card).manual_seed(3)
+    lanes, ps, slots = len(lens) + 2, 16, 16
+    n_pages = lanes * slots
+    bt = torch.randperm(n_pages, generator=g, device=card).reshape(lanes, slots).int()
+    pos = torch.tensor(list(lens) + [30, 31], dtype=torch.long, device=card)
+    active = torch.tensor([True, True, False, True, True, True], device=card)
+    bt[1, 17 // ps] = -1                                  # lane 1 writes into a -1 slot
+    bt[4, 30 // ps] = n_pages + 5                         # lane 4's page lies past the pool
+    for rows in ([(1, (2, 128)), (1, (2, 128))], [(1, (512,)), (1, (64,))], [(36, (2, 128))],
+                 [(2, (3, 5))] * ops.PAGED_WRITE_POOLS):
+        pools = [torch.randn((l, n_pages, ps) + t, generator=g, device=card).to(dt)
+                 for l, t in rows]
+        new = [torch.randn((l, lanes) + t, generator=g, device=card).to(dt) for l, t in rows]
+        want = [p.clone() for p in pools]
+        ref.paged_write(want, new, bt, pos, active)
+        ops.reset_launches()
+        ops.paged_write(pools, new, bt, pos, active)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["paged_write"] == 1
+        for p, w in zip(pools, want):
+            assert torch.equal(p, w)
+    pools, new = pools + pools[:1], new + new[:1]
+    with pytest.raises(ValueError):
+        ops.paged_write(pools, new, bt, pos, active)
+    _, launch = ops._entry("paged_write_launch")
+    args = [bt.data_ptr(), pos.data_ptr(), active.data_ptr(), lanes, slots, ps,
+            torch.cuda.current_stream().cuda_stream]
+    for p, r in zip(pools, new):
+        args += [p.data_ptr(), r.data_ptr(), p.shape[0], p.shape[1], 15 * p.element_size()]
+    assert launch(len(pools), (ctypes.c_longlong * len(args))(*args)) != 0   # refused
+    assert ops.LAUNCHES["paged_write"] == 1
 
 
 def _ssd_design(dtype: str) -> tuple[str, str]:
@@ -1192,3 +1228,206 @@ def test_sanitized_reduced_run_on_card_raises_nothing(card):
         sanitizer.disable()
     assert got == want and shared == want
     assert eng.cache.allocator.n_free == eng.cache.n_pages
+
+
+def _graph_family(arch, dtype):
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+
+    over = dict(n_layers=5) if arch == "recurrentgemma-9b" else {}
+    model = build_model(dataclasses.replace(get_arch(arch).reduced(), dtype=dtype, **over))
+    return model, model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+
+
+# the reduced four families (the moe one with MLA and with GQA) on the
+# forced-preemption cell: 3 lanes on 7 pages of 4 tokens, so lanes retire,
+# admit and swap back in while the steps are compared
+GRAPH_ARCHS = ["qwen2.5-3b", "mamba2-130m", "recurrentgemma-9b", "deepseek-v3-671b",
+               "qwen3-moe-235b-a22b"]
+
+
+def _captured_step_bit_equal_to_eager(arch, path, dtype):
+    """A captured engine and an eager one (``cuda_graph=False``) stepped in
+    lockstep on the same requests: after every step the replayed logits
+    rows, the greedy tokens and every pool leaf equal the eager step's bit
+    for bit, through lane retirements, admissions and swap-ins (the table,
+    positions and flags rewritten in place).  Then n replays count n times
+    one step's launches."""
+    from repro_torch.models.common import tree_items
+    from repro_torch.serve import (
+        AdmissionConfig, CacheConfig, EngineConfig, Request, ServeEngine)
+
+    model, params = _graph_family(arch, dtype)
+    engines = []
+    for graph in (True, False):
+        eng = ServeEngine(model, params, EngineConfig(
+            batch_slots=3, max_len=32, cuda_graph=graph,
+            cache=CacheConfig(page_size=4, n_pages=7, decode_path=path, swap_token_cost=0.0),
+            admission=AdmissionConfig(async_prefill=False)), device="cuda")
+        rng = np.random.default_rng(7)
+        for i in range(5):
+            eng.submit(Request(uid=i, max_new_tokens=12, prompt=rng.integers(
+                0, model.cfg.vocab_size, size=(7,)).astype(np.int32)))
+        engines.append(eng)
+    cap, eager = engines
+    assert cap.decode_graph.graph is not None and eager.decode_graph.graph is None
+    steps = 0
+    while cap.load or eager.load:
+        more = [cap.step(), eager.step()]
+        assert more[0] == more[1]
+        assert cap.decode_graph.runs - 1 == eager.decode_graph.runs     # 1: the warm-up
+        torch.cuda.synchronize()
+        assert torch.equal(cap.decode_graph.rows, eager.decode_graph.rows)
+        assert torch.equal(cap.decode_graph.greedy, eager.decode_graph.greedy)
+        for (name, a), (_, b) in zip(tree_items(cap.cache.pools), tree_items(eager.cache.pools)):
+            assert torch.equal(a, b), (steps, name)
+        steps += 1
+    assert eager.decode_graph.runs > 0
+    assert cap.sched.n_swap_preemptions > 0
+    assert [r.out_tokens for r in cap.completed] == [r.out_tokens for r in eager.completed]
+    # replays count the captured launches
+    per_step = cap.decode_graph.launches
+    n_attn = sum(reps * sum(k != "ssm" and k != "rec" for k in pattern)
+                 for pattern, reps in model.segments)
+    # one write per attention layer on the paged path (k and v, or latent
+    # and k_rope, together), one per step on the gather path; mamba2 none
+    assert per_step.get("paged_write", 0) == (min(n_attn, 1) if path == "gather" else n_attn)
+    ops.reset_launches()
+    for _ in range(4):
+        cap.decode_graph(cap.cache.pools)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in ops.LAUNCHES.items() if v} == {
+        k: 4 * v for k, v in per_step.items() if v}
+
+
+def _capture_waits_for_no_collection():
+    """A collection due while an engine captures its step, with another
+    captured engine garbage by then (engines are reference cycles), runs
+    only after the capture: a graph destroyed while a stream captures
+    invalidates the capture.  The new engine then serves the eager
+    engine's tokens."""
+    import gc
+
+    from repro_torch.serve import (
+        AdmissionConfig, CacheConfig, EngineConfig, Request, ServeEngine, captured)
+
+    model, params = _graph_family("qwen2.5-3b", "float32")
+    ecfg = EngineConfig(batch_slots=3, max_len=32, cache=CacheConfig(page_size=4, n_pages=7),
+                        admission=AdmissionConfig(async_prefill=False))
+    held = [ServeEngine(model, params, ecfg, device="cuda")]
+    run, thresholds = captured.CapturedDecode._run, gc.get_threshold()
+
+    def run_dropping_the_old_engine(self):
+        if torch.cuda.is_current_stream_capturing() and held:
+            held.clear()                    # garbage now, freed by the next collection
+            gc.set_threshold(1)             # which the next allocation would run
+        run(self)
+
+    captured.CapturedDecode._run = run_dropping_the_old_engine
+    try:
+        engines = [ServeEngine(model, params, ecfg, device="cuda"),
+                   ServeEngine(model, params, dataclasses.replace(ecfg, cuda_graph=False),
+                               device="cuda")]
+    finally:
+        captured.CapturedDecode._run = run
+        gc.set_threshold(*thresholds)
+    assert not held and engines[0].decode_graph.graph is not None
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, model.cfg.vocab_size, size=(7,)).astype(np.int32)
+               for _ in range(3)]
+    got = []
+    for eng in engines:
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=6) for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        got.append([r.out_tokens for r in reqs])
+    assert got[0] == got[1]
+
+
+# The tests that capture engines' decode steps run in a process of their
+# own: once they had run, the profiles of later tests in the same process
+# (H100, torch 2.11) held no device kernel, or only some, where the
+# profiled kernel tests check names and counts.
+_CHILD = """
+import json, sys, traceback
+sys.path.insert(0, sys.argv[1])
+import test_torch_cuda as t
+out = {}
+for name, args in json.loads(sys.argv[2]):
+    try:
+        getattr(t, name)(*args)
+        out[name + repr(tuple(args))] = "ok"
+    except Exception:
+        out[name + repr(tuple(args))] = traceback.format_exc()
+print("CHILD " + json.dumps(out))
+"""
+_CHILD_CASES = ([("_captured_step_bit_equal_to_eager", [a, p, d]) for a in GRAPH_ARCHS
+                 for p in ("paged", "gather") for d in ("float32", "bfloat16")]
+                + [("_capture_waits_for_no_collection", [])])
+
+
+@pytest.fixture(scope="module")
+def _captured_in_child():
+    """Every case of ``_CHILD_CASES`` run in one child process: name and
+    arguments -> "ok" or the traceback."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    here = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, [str(here.parent / "src"), os.environ.get("PYTHONPATH")])))
+    proc = subprocess.run([sys.executable, "-c", _CHILD, str(here), json.dumps(_CHILD_CASES)],
+                          env=env, capture_output=True, text=True, timeout=900)
+    line = [x for x in proc.stdout.splitlines() if x.startswith("CHILD ")]
+    assert proc.returncode == 0 and line, proc.stderr[-4000:]
+    return json.loads(line[-1].split(" ", 1)[1])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("path", ["paged", "gather"])
+@pytest.mark.parametrize("arch", GRAPH_ARCHS)
+def test_captured_step_bit_equal_to_eager(card, _captured_in_child, arch, path, dtype):
+    """``_captured_step_bit_equal_to_eager`` (run in the child process)."""
+    got = _captured_in_child[f"_captured_step_bit_equal_to_eager{(arch, path, dtype)!r}"]
+    assert got == "ok", got
+
+
+def test_capture_waits_for_no_collection(card, _captured_in_child):
+    """``_capture_waits_for_no_collection`` (run in the child process)."""
+    got = _captured_in_child["_capture_waits_for_no_collection()"]
+    assert got == "ok", got
+
+
+@pytest.mark.parametrize("path", ["paged", "gather"])
+@pytest.mark.parametrize("arch", GRAPH_ARCHS)
+def test_eager_step_reads_nothing_back(card, arch, path):
+    """The decode step run eagerly (``cuda_graph=False``) with lanes
+    decoding raises nothing under ``set_sync_debug_mode("error")``: no host
+    read, so capture has nothing to break on."""
+    from repro_torch.serve import (
+        AdmissionConfig, CacheConfig, EngineConfig, Request, ServeEngine)
+
+    model, params = _graph_family(arch, "bfloat16")
+    eng = ServeEngine(model, params, EngineConfig(
+        batch_slots=3, max_len=32, cuda_graph=False,
+        cache=CacheConfig(page_size=4, decode_path=path),
+        admission=AdmissionConfig(async_prefill=False)), device=card)
+    rng = np.random.default_rng(7)
+    for i in range(2):
+        eng.submit(Request(uid=i, max_new_tokens=8, prompt=rng.integers(
+            0, model.cfg.vocab_size, size=(7,)).astype(np.int32)))
+    while len(eng.sched.running) < 2:
+        eng.step()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.decode_graph(eng.cache.pools)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    eng.run()

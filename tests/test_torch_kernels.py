@@ -22,7 +22,7 @@ from repro_torch.kernels import ref as tref  # noqa: E402
 TOL = dict(atol=1e-5, rtol=1e-5)
 # every kernel the port counts launches of
 KERNELS = ("paged_decode_attention", "flash_attention", "stream_mac_conv", "stream_maxpool",
-           "tiled_matmul", "ssd_scan", "paged_gather", "stream_gd")
+           "tiled_matmul", "ssd_scan", "paged_gather", "stream_gd", "paged_write")
 
 # id, b, h, hkv, sq, sk, d, causal, window, q_offset, kv_len
 FLASH_CASES = [
@@ -171,6 +171,9 @@ def test_cpu_calls_launch_nothing_and_other_devices_raise():
                   torch.zeros(1, 8, 2), torch.zeros(2), 4)
     tops.paged_gather(kp.flatten(1), bt)
     tops.stream_gd(torch.zeros(2, 8), [1.0, -0.1])
+    pos, act = torch.zeros(bt.shape[0], dtype=torch.long), torch.ones(bt.shape[0], dtype=bool)
+    rows = torch.zeros((1, bt.shape[0]) + tuple(kp.shape[2:]), dtype=kp.dtype)
+    tops.paged_write([kp[None]], [rows], bt, pos, act)
     assert tops.LAUNCHES == dict.fromkeys(KERNELS, 0)
     # a tensor on neither the CPU nor a card is refused, never run plain
     with pytest.raises(ValueError, match="CPU or a CUDA device"):
@@ -181,4 +184,6 @@ def test_cpu_calls_launch_nothing_and_other_devices_raise():
         tops.paged_gather(kp.flatten(1).to("meta"), bt)
     with pytest.raises(ValueError, match="CPU or a CUDA device"):
         tops.stream_gd(torch.zeros(2, 8, device="meta"), [1.0, -0.1])
+    with pytest.raises(ValueError, match="CPU or a CUDA device"):
+        tops.paged_write([kp[None].to("meta")], [rows.to("meta")], bt, pos, act)
     assert tops.LAUNCHES == dict.fromkeys(KERNELS, 0)

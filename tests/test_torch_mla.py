@@ -35,7 +35,6 @@ from repro_torch import convert  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.models import mla as tmla  # noqa: E402
-from repro_torch.models.attention import paged_write_slots  # noqa: E402
 from repro_torch.serve.paged_cache import absorb_decode, gather_views  # noqa: E402
 
 ARCH = "deepseek-v3-671b"
@@ -159,10 +158,8 @@ def test_mla_decode_paged_bit_equal_to_gather_and_matches_jax(layer):
     btt, pos, act = (torch.from_numpy(bt), torch.from_numpy(positions).long(),
                      torch.from_numpy(active))
     tables = tmla.mla_rope_tables(cfg, pos[:, None])
-    write = paged_write_slots(btt, pos, act, PS)
-    assert write[0].tolist() == [0, 1]
     paged = _t(pools)
-    y, got = tmla.mla_decode_paged(cfg, p, x, paged, btt, pos, write, tables)
+    y, got = tmla.mla_decode_paged(cfg, p, x, paged, btt, pos, act, tables)
     assert got is paged
     stacked = {n: t[None] for n, t in _t(pools).items()}            # one layer
     views = gather_views([{"l": stacked}], btt)
@@ -185,10 +182,8 @@ def test_mla_decode_paged_unallocated_and_idle_lanes_write_nothing(layer):
     pools, bt, _, active = _paged_inputs(cfg, 8)
     pos = torch.tensor([29, 17, 3])                     # lane 1's third page is -1
     btt, act = torch.from_numpy(bt), torch.from_numpy(active)
-    write = paged_write_slots(btt, pos, act, PS)
-    assert write[0].tolist() == [0]
     got = _t(pools)
-    tmla.mla_decode_paged(cfg, p, torch.from_numpy(_x(3, 1, cfg, 9)), got, btt, pos, write,
+    tmla.mla_decode_paged(cfg, p, torch.from_numpy(_x(3, 1, cfg, 9)), got, btt, pos, act,
                           tmla.mla_rope_tables(cfg, pos[:, None]))
     changed = {(pg, off) for n in got for pg, off in
                torch.nonzero((got[n] != torch.from_numpy(pools[n])).any(-1)).tolist()}
