@@ -14,8 +14,10 @@ and training of the moe family (deepseek-v3-671b and qwen3-moe-235b-a22b),
 the serving engine's memory tiers (swap preemption through the host
 tier, prefix sharing with host retire), and its observability and request
 semantics (the ring-buffer tracer, the runtime sanitizer, sampling,
-``eos_id``, ``admission_inflight``), and its decode step captured as one
-CUDA graph per engine against the same step run eagerly.  Every serving
+``eos_id``, ``admission_inflight``), its decode step captured as one
+CUDA graph per engine against the same step run eagerly, and routing over
+cubes (in-process engines and worker processes) with migration between
+engines.  Every serving
 engine replays its decode step as a graph (``EngineConfig.cuda_graph``, on
 by default): every per-step launch check multiplies by the engine's
 ``decode_graph.runs``, its warm-up and one replay per step.
@@ -275,7 +277,31 @@ fit one card).  Phases, each fatal:
     the capture counted); 5 replays count 5 times the captured step's
     launches.  Phases 4, 8, 16, 19 and 20 log
     their captured step's wall ms and busy share beside the eager step's
-    figures measured before the step was captured (``EAGER_STEP``).
+    figures measured before the step was captured (``EAGER_STEP``);
+29. (after phase 28, on phase 4's model) routing: two in-process cubes
+    (``CubeRouter``) on the card over one parameter set, each with its own
+    pools and captured step: phase 4's 16 requests under ``hash`` and
+    ``least_loaded`` against a single engine in turns, tokens equal to phase
+    4's request for request, routed counts, tok/s and the merged trace (one
+    process per cube); phase 26's shared-prompt requests under
+    ``prefix_affinity`` (the first alone, then 15 that follow it to its
+    cube), phase 26's tokens; ``DenseSlotEngine`` on phase 4's requests (the
+    share of phase 4's tokens it gives), and reduced float32, card against
+    CPU: dense tokens = paged tokens;
+30. (after phase 29) migration at full width: engine A takes phase 4's
+    requests; after 6 steps every running one is ``export_request``ed,
+    packed, pickled and landed on engine B by ``migrate_put`` /
+    ``migrate_signal``; then every in-flight one is ``checkpoint_request``ed
+    into a shadow on B, A dropped and the shadows adopted: tokens equal to
+    phase 4's, payload bytes and the export, wire, put and restore ms, one
+    ``paged_gather`` read per running request, B's pools kept;
+31. (last) ``CubeProcRouter`` with 2 worker processes on the card, reduced
+    qwen2.5-3b as the JAX package's worker builds it: tokens equal to a card
+    engine built the same way here, a ``drain_cube`` and a worker SIGKILLed
+    mid-drive (``recovery_s``), tokens unchanged; each worker ships its own
+    launch counts up with its telemetry, every worker must have launched
+    paged_decode_attention, flash_attention and paged_write, and the kernels
+    line counts the workers' launches for this phase.
 
 ``--kernel-times`` runs only phase 2's timed
 rows (the served bf16 flash prefill shapes and the three paged-decode
@@ -289,9 +315,11 @@ one process each: parent, change, change, parent.
 A kernel's ``launches`` in the JSON line sums its counts over the paths
 that drive it (serving, VGG16 inference, the gather path, the three
 training paths, recurrentgemma-9b serving and reduced training, the moe
-family's serving and training, the memory tiers' runs of phases 24-26 and
-phases 27 and 28's runs), each counted from 0 around its own run; a graph
-replay counts the launches its capture made.
+family's serving and training, the memory tiers' runs of phases 24-26,
+phases 27 and 28's runs, the routed, dense and migrated runs of phases 29
+and 30 and phase 31's engine in this process; the workers' launches are
+theirs), each counted from 0 around its own run; a graph replay counts the
+launches its capture made.
 Then it prints one JSON line with each kernel's numbers, the card's name
 and power limit, and, last, ``{"ok": true, "device": {...}}``.  Without a
 card, or without the package beside it, it exits non-zero and prints no
@@ -303,11 +331,13 @@ import gc
 import importlib.util
 import json
 import math
+import pickle
 import re
 import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -2259,12 +2289,13 @@ def serve_under_pressure(model, params, prompts, smi):
     return launches, got["swap"], swap_wall
 
 
-def serve_shared_prefix(model, params, smi) -> dict[str, int]:
+def serve_shared_prefix(model, params, smi) -> tuple[dict[str, int], list, list]:
     """Phase 26: full-width qwen2.5-3b, an unpressured pool, 256-token
     prefill chunks, async admission; 16 requests of one 512-token system
     prompt + 64-256 own tokens, 32 new each, with ``prefix_sharing`` off
     and on; then every index page retired to the host tier and 4 of the
-    requests replayed.  Returns the runs' launches."""
+    requests replayed.  Returns the runs' launches, the prompts and the
+    single engine's tokens (phase 29 routes them)."""
     from repro_torch.kernels import ops
     from repro_torch.serve import AdmissionConfig, CacheConfig, EngineConfig, Request, ServeEngine
 
@@ -2347,7 +2378,7 @@ def serve_shared_prefix(model, params, smi) -> dict[str, int]:
     if replay != got[True][:4] or pr2["restored_pages"] <= 0:
         raise SystemExit("chip_smoke: the host-restored replay differs or restored nothing")
     pages_back(eng, "prefix on, after the replay")
-    return launches
+    return launches, prompts, got[True]
 
 
 # ---------------------------------------------------------------------------
@@ -2705,6 +2736,414 @@ def captured_vs_eager(model, params, prompts, greedy, smi) -> dict[str, int]:
     run = dict(ops.LAUNCHES)
     log(f"  phase 28: {time.perf_counter() - t_phase:.1f} s")
     return run
+
+
+# ---------------------------------------------------------------------------
+# phases 29-31: routing, migration and cube processes
+# ---------------------------------------------------------------------------
+
+
+def routed_run(router, prompts, max_new: int = 32, waves=None) -> tuple[list, list, float]:
+    """Submit ``prompts`` (uids 0..n-1; ``waves``: the index splits at which
+    the router runs dry before the next submissions) and run: (cube of each
+    request, its tokens, wall seconds)."""
+    from repro_torch.serve import Request
+
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=max_new) for i, p in enumerate(prompts)]
+    cubes = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lo = 0
+    for hi in list(waves or ()) + [len(reqs)]:
+        cubes += [router.submit(r) for r in reqs[lo:hi]]
+        router.run()
+        lo = hi
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not all(r.done and len(r.out_tokens) == max_new for r in reqs):
+        raise SystemExit("chip_smoke: a routed request did not finish")
+    return cubes, [r.out_tokens for r in reqs], wall
+
+
+def first_diff(got, want, label: str) -> None:
+    """Fail with the first request and token where ``got`` leaves ``want``."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            step = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+            raise SystemExit(f"chip_smoke: {label}: request {i} differs from the single "
+                             f"engine's at token {step}")
+    if len(got) != len(want):
+        raise SystemExit(f"chip_smoke: {label}: {len(got)} requests, {len(want)} wanted")
+
+
+def route_full_width(model, params, prompts, greedy, shared, shared_tokens,
+                     smi) -> dict[str, int]:
+    """Phase 29 on phase 4's model: two in-process cubes (``CubeRouter``) on
+    the one card over one parameter set, each engine with its own pools and
+    captured step.  Phase 4's 16 requests under ``hash`` and
+    ``least_loaded``, against a single engine in turns (S H L L H S): tokens
+    equal to phase 4's, request for request, routed counts and tok/s; the
+    merged trace of the traced ``least_loaded`` router.  Phase 26's
+    shared-prompt requests under ``prefix_affinity`` with prefix sharing (the
+    first request alone, then the other 15): phase 26's tokens, and the 15
+    land on the cube that holds the prompt.  ``DenseSlotEngine`` on phase 4's
+    requests (the share of phase 4's tokens it gives: its shared-position
+    step is exact only for prompts of one length), and reduced float32, card
+    against CPU, on prompts of one length: dense tokens = paged tokens.
+    Returns the phase's launches."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_map
+    from repro_torch.serve import (
+        AdmissionConfig, CacheConfig, CubeRouter, DenseSlotEngine, EngineConfig, ObsConfig,
+        Request, ServeEngine)
+
+    t_phase = time.perf_counter()
+    launches = dict.fromkeys(KERNELS, 0)
+    ecfg = EngineConfig(batch_slots=8, max_len=1024, cache=CacheConfig(page_size=PS))
+    single = ServeEngine(model, params, ecfg, device="cuda")
+    routers = {"hash": CubeRouter(model, params, ecfg, n_cubes=2, policy="hash", device="cuda"),
+               "least_loaded": CubeRouter(model, params, dataclasses.replace(
+                   ecfg, obs=ObsConfig(trace=True)), n_cubes=2, device="cuda")}
+    for name, r in routers.items():
+        e0, e1 = r.engines
+        if not (e0.params is e1.params is params) or e0.decode_graph.graph is None \
+                or e1.decode_graph.graph is None:
+            raise SystemExit(f"chip_smoke: {name}: the cubes do not share the parameters or "
+                             "did not capture their steps")
+    tps = {k: [] for k in ("single", *routers)}
+    for order in (("single", "hash", "least_loaded"), ("least_loaded", "hash", "single")):
+        for name in order:
+            ops.reset_launches()
+            if name == "single":
+                sreqs = [Request(uid=i, prompt=p, max_new_tokens=32) for i, p in enumerate(prompts)]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for r in sreqs:
+                    single.submit(r)
+                single.run()
+                torch.cuda.synchronize()
+                wall, toks, cubes = time.perf_counter() - t0, [r.out_tokens for r in sreqs], None
+            else:
+                cubes, toks, wall = routed_run(routers[name], prompts)
+            for k in launches:
+                launches[k] += ops.LAUNCHES[k]
+            first_diff(toks, greedy, f"{name} routing")
+            tps[name].append(sum(len(t) for t in toks) / wall)
+            if cubes is not None:
+                routers[name].last_cubes = cubes
+    for name in routers:
+        r = routers[name]
+        log(f"  {name}: routed {r.routed} over two cubes (last run's cubes "
+            f"{''.join(map(str, r.last_cubes))}); {', '.join(f'{x:.1f}' for x in tps[name])} "
+            f"tok/s against the single engine's {', '.join(f'{x:.1f}' for x in tps['single'])} "
+            f"in turns ({smi})")
+        if sorted(set(r.last_cubes)) != [0, 1]:
+            raise SystemExit(f"chip_smoke: {name} left a cube without work")
+    log("  tokens of both policies' runs identical to phase 4's, request for request")
+    path = ROOT / "build" / "router_trace.json"
+    path.parent.mkdir(exist_ok=True)
+    trace = routers["least_loaded"].save_trace(str(path))
+    procs = sorted(e["args"]["name"] for e in trace["traceEvents"]
+                   if e["ph"] == "M" and e["name"] == "process_name")
+    n_dispatch = sum(1 for e in trace["traceEvents"] if e["name"] == "router.dispatch")
+    log(f"  least_loaded merged trace: {len(trace['traceEvents'])} events over processes "
+        f"{procs}, {n_dispatch} router.dispatch instants")
+    if procs != ["pod0", "pod1"] or n_dispatch != sum(routers["least_loaded"].routed):
+        raise SystemExit("chip_smoke: the merged trace lacks a cube or a dispatch")
+    del routers, single
+    gc.collect()
+
+    # prefix_affinity on phase 26's requests (256-token chunks, async admission)
+    pcfg = EngineConfig(batch_slots=8, max_len=1024,
+                        cache=CacheConfig(page_size=PS, prefix_sharing=True),
+                        admission=AdmissionConfig(prefill_chunk=256))
+    router = CubeRouter(model, params, pcfg, n_cubes=2, policy="prefix_affinity", device="cuda")
+    ops.reset_launches()
+    cubes, toks, wall = routed_run(router, shared, waves=[1])
+    for k in launches:
+        launches[k] += ops.LAUNCHES[k]
+    first_diff(toks, shared_tokens, "prefix_affinity routing")
+    tel = router.telemetry()
+    home = f"pod{cubes[0]}"
+    log(f"  prefix_affinity on phase 26's 16 shared-prompt requests (the first alone, then "
+        f"15): cubes {''.join(map(str, cubes))}, {home} prefix hits {tel[home]['prefix']['hits']}"
+        f", {sum(len(t) for t in toks) / wall:.1f} tok/s; tokens identical to phase 26's")
+    if cubes[1:] != [cubes[0]] * 15 or tel[home]["prefix"]["hits"] < 15:
+        raise SystemExit("chip_smoke: prefix_affinity did not send the shared prompt's "
+                         "requests to the cube that holds it")
+    del router
+    gc.collect()
+
+    # the dense reference engine at full width, then reduced card against CPU
+    dense = DenseSlotEngine(model, params, ecfg, device="cuda")
+    dreqs = [Request(uid=i, prompt=p, max_new_tokens=32) for i, p in enumerate(prompts)]
+    for r in dreqs:
+        dense.submit(r)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    dense.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for k in launches:
+        launches[k] += ops.LAUNCHES[k]
+    same = sum(a == b for r, g in zip(dreqs, greedy) for a, b in zip(r.out_tokens, g))
+    log(f"  DenseSlotEngine on phase 4's requests (bf16, 8 slots x 1,024): "
+        f"{sum(len(r.out_tokens) for r in dreqs) / wall:.1f} tok/s; {same}/{32 * len(dreqs)} "
+        f"tokens equal to phase 4's, {sum(r.out_tokens == g for r, g in zip(dreqs, greedy))}/"
+        f"{len(dreqs)} requests whole (ragged prompts step at the shared maximum position)")
+    if not all(r.done and len(r.out_tokens) == 32 for r in dreqs):
+        raise SystemExit("chip_smoke: a dense-engine request did not finish")
+    del dense
+    rmodel = build_model(dataclasses.replace(get_arch("qwen2.5-3b").reduced(), dtype="float32"))
+    rparams = rmodel.init(torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(29)
+    rprompts = [rng.integers(0, rmodel.cfg.vocab_size, size=(8,)).astype(np.int32)
+                for _ in range(5)]
+    rcfg = EngineConfig(batch_slots=2, max_len=64)
+    got = {}
+    for dev, p in (("cpu", rparams), ("cuda", tree_map(lambda t: t.cuda(), rparams))):
+        for cls in (DenseSlotEngine, ServeEngine):
+            eng = cls(rmodel, p, rcfg, device=dev)
+            rq = [Request(uid=i, prompt=x, max_new_tokens=10) for i, x in enumerate(rprompts)]
+            for r in rq:
+                eng.submit(r)
+            eng.run()
+            got[dev, cls.__name__] = [r.out_tokens for r in rq]
+    if len({json.dumps(v) for v in got.values()}) != 1:
+        raise SystemExit(f"chip_smoke: reduced dense/paged tokens differ: {got}")
+    log("  reduced qwen2.5-3b, float32, 5 prompts of 8 tokens: dense = paged tokens, card = CPU")
+    log(f"  phase 29: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def migrate_full_width(model, params, prompts, greedy, smi) -> dict[str, int]:
+    """Phase 30 on phase 4's model and requests (32 new tokens, inline
+    admission, ``swap_token_cost=0``): engine A takes the 16 requests, and
+    after 6 steps every running request is ``export_request``ed, packed
+    (``pack_payload``), pickled, unpacked and landed on engine B by
+    ``migrate_put``/``migrate_signal``; then the same through
+    ``checkpoint_request`` → ``shadow_put``/``shadow_signal`` of every
+    in-flight request, A dropped, ``adopt_shadow`` on B.  Tokens equal phase
+    4's, request for request; payload bytes and the export, wire, put and
+    restore ms per request; B's pools keep their storage.  Returns the
+    phase's launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.common import tree_items
+    from repro_torch.serve import AdmissionConfig, CacheConfig, EngineConfig, Request, ServeEngine
+    from repro_torch.serve.cube_proc import pack_payload, unpack_payload
+
+    t_phase = time.perf_counter()
+    launches = dict.fromkeys(KERNELS, 0)
+    cap = ops.paged_gather_table_cache()          # table entries one gather launch takes
+    ecfg = EngineConfig(batch_slots=8, max_len=1024,
+                        cache=CacheConfig(page_size=PS, swap_token_cost=0.0),
+                        admission=AdmissionConfig(async_prefill=False))
+
+    def ptrs(eng):
+        return [t.data_ptr() for _, t in tree_items(eng.cache.pools)]
+
+    def drain(eng):
+        while eng.load or eng.pending_migrations():
+            eng.step()
+        return {r.uid: r.out_tokens for r in eng.completed}
+
+    def started():
+        eng = ServeEngine(model, params, ecfg, device="cuda")
+        for i, p in enumerate(prompts):
+            eng.submit(Request(uid=i, prompt=p, max_new_tokens=32))
+        for _ in range(6):
+            eng.step()
+        return eng
+
+    def wire(payload) -> tuple[dict, int, float]:
+        t0 = time.perf_counter()
+        blob = pickle.dumps(pack_payload(payload), protocol=pickle.HIGHEST_PROTOCOL)
+        back = unpack_payload(pickle.loads(blob))
+        return back, len(blob), (time.perf_counter() - t0) * 1e3
+
+    for mode in ("migrate", "shadow"):
+        ops.reset_launches()
+        a, b = started(), ServeEngine(model, params, ecfg, device="cuda")
+        before = ptrs(b)
+        running = sorted(st.req.uid for st in a.sched.running.values())
+        ms = {"read": [], "wire": [], "put": []}
+        nbytes, moved, unread, want_gathers = [], [], [], 0
+        gathers = ops.LAUNCHES["paged_gather"]
+        for uid in (running if mode == "migrate" else a.inflight_uids()):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            payload = (a.export_request(uid) if mode == "migrate"
+                       else a.checkpoint_request(uid))
+            ms["read"].append((time.perf_counter() - t0) * 1e3)
+            if payload is None:          # mid-admission: no checkpoint to take
+                unread.append(uid)
+                continue
+            moved.append(uid)
+            if payload["kind"] == "pages":
+                want_gathers += -(-payload["n_pages"] // cap)
+            payload, n, wire_ms = wire(payload)
+            nbytes.append(n)
+            ms["wire"].append(wire_ms)
+            t0 = time.perf_counter()
+            if mode == "migrate":
+                kind = b.migrate_put(uid, payload)
+                b.migrate_signal(uid)
+            else:
+                kind = b.shadow_put(uid, payload)
+                b.shadow_signal(uid)
+            ms["put"].append((time.perf_counter() - t0) * 1e3)
+            if kind != ("pages" if uid in running else "fresh"):
+                raise SystemExit(f"chip_smoke: {mode}: request {uid} landed as {kind}")
+        gathers = ops.LAUNCHES["paged_gather"] - gathers
+        got = {}
+        if mode == "shadow":
+            del a                        # the cube dies: its shadows are adopted on B, and
+            gc.collect()                 # requests without one resubmitted, as the router does
+            for uid in moved:
+                if not b.adopt_shadow(uid):
+                    raise SystemExit(f"chip_smoke: shadow of request {uid} not adopted")
+            for uid in unread:
+                b.submit(Request(uid=uid, prompt=prompts[uid], max_new_tokens=32))
+        else:
+            got = drain(a)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b.step()                         # polls, restores every landed request, one decode
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        got.update(drain(b))
+        for k in launches:
+            launches[k] += ops.LAUNCHES[k]
+        first_diff([got[i] for i in range(len(prompts))], greedy, f"{mode} run")
+        if ptrs(b) != before:
+            raise SystemExit(f"chip_smoke: {mode}: B's pools were reallocated")
+        tel = b.telemetry()
+        pages = [n for n, uid in zip(nbytes, moved) if uid in running]
+        log(f"  {mode}: {len(moved)} requests ({len(running)} running, pages; "
+            f"{len(unread)} mid-admission resubmitted), payloads "
+            f"{min(pages) / 1e6:.2f}-{max(pages) / 1e6:.2f} MB pickled; per request "
+            f"{'export' if mode == 'migrate' else 'checkpoint'} "
+            f"{statistics.median(ms['read']):.2f} ms, wire (pack + pickle + unpack) "
+            f"{statistics.median(ms['wire']):.2f} ms, put + signal "
+            f"{statistics.median(ms['put']):.2f} ms (medians); paged_gather {gathers} launches "
+            f"for the reads; B's first step after them (polls, restores "
+            f"{tel['host_tier']['swap_ins']} requests, decodes) {first_ms:.1f} ms ({smi})")
+        log(f"    B: migrate {tel['migrations']}; tokens identical to phase 4's, pools kept")
+        if gathers != want_gathers:
+            raise SystemExit(f"chip_smoke: {mode}: {gathers} paged_gather launches for the "
+                             f"reads of {len(running)} running requests ({want_gathers} wanted)")
+        del b
+        gc.collect()
+    log(f"  phase 30: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def cube_processes_on_card(smi) -> dict[str, int]:
+    """Phase 31: ``CubeProcRouter`` with 2 worker processes on the card, each
+    building reduced qwen2.5-3b as the JAX package's worker does (the
+    reduced config, seed 0), every one on the same card.  Against a card
+    engine built the same way in this process: 6 requests served; 6 more with
+    ``drain_cube(0)`` right after their submission; 6 more with worker 0
+    SIGKILLed after 3 more step reports (recovery_s, adopted and
+    resubmitted uids logged).  Each worker counts its own launches from
+    after its engine's build and ships them up with its telemetry; every
+    worker must have launched paged_decode_attention, flash_attention and
+    paged_write, and the workers together paged_gather (their checkpoints
+    and the drain's export).  Returns the workers' launches: worker 0's up
+    to its last telemetry before the kill, worker 1's to the end (the
+    comparison engine in this process counts nothing)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.serve import AdmissionConfig, CacheConfig, CubeProcRouter, EngineConfig, Request
+    from repro_torch.serve.cube_proc import build_cube_engine
+
+    t_phase = time.perf_counter()
+    ecfg = EngineConfig(batch_slots=2, max_len=64,
+                        cache=CacheConfig(page_size=4, n_pages=32, swap_token_cost=0.0),
+                        admission=AdmissionConfig(async_prefill=False))
+    cfg = get_arch("qwen2.5-3b").reduced()
+    rng = np.random.default_rng(31)
+    prompts = [rng.integers(0, cfg.vocab_size, size=(int(n),)).astype(np.int32)
+               for n in rng.integers(5, 20, size=18)]
+    eng = build_cube_engine("qwen2.5-3b", ecfg, "cuda")
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=24) for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    eng.run()
+    want = {r.uid: r.out_tokens for r in reqs}
+    del eng
+    gc.collect()
+    t0 = time.perf_counter()
+    with CubeProcRouter("qwen2.5-3b", ecfg, n_cubes=2, checkpoint_every=2, device="cuda",
+                        startup_timeout=240.0) as router:
+        log(f"  2 workers up in {time.perf_counter() - t0:.1f} s (each its own CUDA context "
+            "and captured step)")
+
+        def batch(lo, during=None):
+            for r in [Request(uid=i, prompt=prompts[i], max_new_tokens=24)
+                      for i in range(lo, lo + 6)]:
+                router.submit(r)
+            extra = during() if during is not None else None
+            t1 = time.perf_counter()
+            done = router.run(timeout=120.0)
+            got = {r.uid: r.out_tokens for r in done}
+            if got != {u: want[u] for u in range(lo, lo + 6)}:
+                raise SystemExit(f"chip_smoke: cube processes, requests {lo}-{lo + 5}: tokens "
+                                 "differ from the single card engine's")
+            return extra, time.perf_counter() - t1
+
+        _, wall = batch(0)
+        log(f"  6 requests over 2 workers: routed {router.routed}, tokens identical to the "
+            f"single card engine's ({wall:.2f} s)")
+        moved, wall = batch(6, lambda: router.drain_cube(0))
+        log(f"  drain_cube(0) right after 6 more submissions moved {moved} to cube 1; tokens "
+            f"identical ({wall:.2f} s)")
+        worker = {c: tel["launches"] for c, tel in
+                  ((c, router.telemetry()[f"pod{c}"]) for c in (0, 1))}
+        for c, got in worker.items():
+            log(f"  worker {c}'s launches so far: " + ", ".join(
+                f"{k} {got[k]}" for k in KERNELS if got[k]))
+            missing = [k for k in ("paged_decode_attention", "flash_attention", "paged_write")
+                       if not got[k]]
+            if missing:
+                raise SystemExit(f"chip_smoke: cube worker {c} launched no {missing}")
+        if not worker[0]["paged_gather"] + worker[1]["paged_gather"]:
+            raise SystemExit("chip_smoke: no cube worker launched paged_gather (checkpoints, "
+                             "drain export)")
+        victim, base = 0, router.detector._count.get(0, 0)
+
+        def chaos():
+            deadline = time.monotonic() + 60.0
+            while time.monotonic() < deadline:
+                if router.detector._count.get(victim, 0) >= base + 3:
+                    router.kill_cube(victim)
+                    return
+                time.sleep(0.002)
+
+        killer = threading.Thread(target=chaos, daemon=True)
+        _, wall = batch(12, killer.start)
+        killer.join(timeout=10.0)
+        deaths = [e for e in router.recovery_log if e["event"] == "cube_dead"]
+        if len(deaths) != 1 or router.procs[victim].alive():
+            raise SystemExit("chip_smoke: the killed worker was not recovered from")
+        ev = deaths[0]
+        if set(ev["adopted"]) | set(ev["resubmitted"]) != set(ev["stranded"]):
+            raise SystemExit("chip_smoke: a stranded request was neither adopted nor resubmitted")
+        tel = router.telemetry()
+        log(f"  worker 0 SIGKILLed after 3 more step reports: stranded {ev['stranded']}, adopted "
+            f"{ev['adopted']} (shadow checkpoints), resubmitted {ev['resubmitted']}, recovery_s "
+            f"{ev['recovery_s']:.4f}; tokens identical ({wall:.2f} s); survivor's migrations "
+            f"{tel['pod1']['migrations']} ({smi})")
+        survivor = tel["pod1"]["launches"]
+        if not all(survivor[k] > worker[1][k] for k in ("paged_decode_attention",
+                                                         "flash_attention", "paged_write")):
+            raise SystemExit("chip_smoke: the surviving worker launched no kernel while it "
+                             "recovered the killed worker's requests")
+        log("  worker 1's launches at the end: " + ", ".join(
+            f"{k} {survivor[k]}" for k in KERNELS if survivor[k]))
+    log(f"  phase 31: {time.perf_counter() - t_phase:.1f} s")
+    return {k: worker[0][k] + survivor[k] for k in KERNELS}
 
 
 # ---------------------------------------------------------------------------
@@ -3762,7 +4201,8 @@ def main() -> int:
         launches[name] = launches.get(name, 0) + n      # every kernel's key from here
     log("== phase 26: full-width qwen2.5-3b prefix sharing (a 512-token system prompt, "
         "256-token chunks, async admission)")
-    for name, n in serve_shared_prefix(model, params, smi).items():
+    run, shared_prompts, shared_tokens = serve_shared_prefix(model, params, smi)
+    for name, n in run.items():
         launches[name] += n
     log("== phase 27: full-width qwen2.5-3b observability and request semantics (tracer "
         "cost, the sanitizer under page pressure, profiler ranges, sampling, eos_id, "
@@ -3774,7 +4214,17 @@ def main() -> int:
         "(cuda_graph=False)")
     for name, n in captured_vs_eager(model, params, qwen_prompts, paged_tokens, smi).items():
         launches[name] += n
+    log("== phase 29: full-width qwen2.5-3b routed over two in-process cubes (CubeRouter: "
+        "hash, least_loaded, prefix_affinity) and the dense reference engine")
+    for name, n in route_full_width(model, params, qwen_prompts, paged_tokens, shared_prompts,
+                                    shared_tokens, smi).items():
+        launches[name] += n
+    log("== phase 30: full-width qwen2.5-3b migration between engines (export_request -> "
+        "migrate_put/signal; checkpoint_request -> shadow_put/signal -> adopt_shadow)")
+    for name, n in migrate_full_width(model, params, qwen_prompts, paged_tokens, smi).items():
+        launches[name] += n
     del model, params
+    gc.collect()
     torch.cuda.empty_cache()
 
     # -- phase 5 ----------------------------------------------------------------
@@ -3967,6 +4417,12 @@ def main() -> int:
     log("== phase 24: the memory tiers, reduced qwen2.5-3b, mamba2-130m, recurrentgemma-9b "
         "and deepseek-v3-671b in float32, card against CPU")
     for name, n in tiers_card_vs_cpu(smi).items():
+        launches[name] += n
+
+    # -- phase 31 -------------------------------------------------------------------
+    log("== phase 31: cube worker processes on the card (CubeProcRouter, 2 workers, reduced "
+        "qwen2.5-3b), a drain and a killed worker")
+    for name, n in cube_processes_on_card(smi).items():
         launches[name] += n
 
     for name in KERNELS:

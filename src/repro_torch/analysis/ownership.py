@@ -11,7 +11,13 @@ rule, which matches them by name, checks the port's ``serve`` modules too:
 * ``@decode_loop_only`` — runs on the decode-loop thread only;
 * ``@admission_api`` — in the admission pipeline's call graph: may reserve
   and free pages under the lock and compute into private buffers, never
-  write the pools.
+  write the pools;
+* ``@cube_transport`` — on the inter-cube wire path (``serve/cube_proc.py``):
+  it frames and ships messages between processes and never touches
+  engine-owned device state (no pools mutation, no ``@decode_loop_only``
+  entry).  Landing a migration in the host tier (``migrate_put``, under the
+  lock) is engine work, not transport: the wire moves bytes, the engine
+  moves pages.
 
 The runtime sanitizer (``REPRO_SANITIZE=1``, ``repro_torch.analysis.
 sanitizer``) enforces them with thread, lock and page-epoch tracking.  When
@@ -26,7 +32,8 @@ from typing import Any, TypeVar
 
 from . import sanitizer
 
-__all__ = ["pool_mutator", "decode_loop_only", "admission_api", "MUTATOR_KINDS"]
+__all__ = ["pool_mutator", "decode_loop_only", "admission_api", "cube_transport",
+           "MUTATOR_KINDS"]
 
 F = TypeVar("F", bound=Callable[..., Any])
 
@@ -98,3 +105,23 @@ def admission_api(fn: F) -> F:
     as a taint root; runtime enforcement rides the pool_mutator hooks."""
     fn._repro_admission_api = True                  # type: ignore[attr-defined]
     return fn
+
+
+def cube_transport(fn: F) -> F:
+    """Declare a function on the inter-cube wire path: while it runs (on this
+    thread), a pools mutation or a ``@decode_loop_only`` entry is a
+    cross-process ownership violation, which the sanitizer records.  The
+    scope is tracked per thread."""
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        if not sanitizer.enabled():
+            return fn(*args, **kwargs)
+        sanitizer.on_transport_entry(fn.__name__)
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            sanitizer.on_transport_exit()
+
+    wrapper._repro_cube_transport = True            # type: ignore[attr-defined]
+    return wrapper                                  # type: ignore[return-value]

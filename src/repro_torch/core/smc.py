@@ -16,9 +16,10 @@ Plain Python with the JAX package's numbers and arithmetic, kept as the
 port's own copy.  One addition: ``SMCModel`` remembers each layer's optimal
 tile by the layer's shape (every field but its name), since the search is a
 pure function of it and the zoo's ResNets repeat a few dozen shapes over
-hundreds of layers.  ``make_cube_mesh`` and ``cube_rules`` (a JAX device
-mesh of cubes and its sharding rules) are not ported: they come with the
-port's routing and cube processes.
+hundreds of layers.  ``make_cube_mesh`` is a plain record of the cube
+slots and the device each one runs on (the JAX package's is a device mesh),
+and ``cube_rules`` the JAX package's rule table as a dict; the serving
+router (``serve.router.CubeRouter``) places its cubes by them.
 """
 from __future__ import annotations
 
@@ -264,6 +265,60 @@ class SMCNetworkReport:
 # LM stack's logical→mesh rule table ("batch" → (pod, data)) routes batch
 # parallelism over cubes with no special-casing.
 CUBE_AXIS = "pod"
+
+# the logical axes of the JAX package's rule table (``repro/models/common.py:
+# DEFAULT_RULES``, plus ``pages``), which ``cube_rules`` names
+LOGICAL_AXES = ("batch", "seq", "embed", "heads", "kv_heads", "ffn", "experts", "vocab",
+                "cache_seq", "lru", "ssm_heads", "layers", "pages")
+
+
+@dataclass(frozen=True)
+class CubeMesh:
+    """The cube layout: ``shape[0]`` cube slots along ``CUBE_AXIS`` times
+    ``shape[1]`` along ``"data"``, and the device of each cube slot (the
+    first device of its row)."""
+
+    shape: tuple[int, int]
+    axis_names: tuple[str, str]
+    devices: tuple
+
+    @property
+    def n_cubes(self) -> int:
+        return self.shape[0]
+
+
+def make_cube_mesh(n_cubes: int | None = None, device=None) -> CubeMesh:
+    """The cube layout over the visible devices (§VI-C): the largest cube
+    count <= ``n_cubes`` that divides the device count, as the JAX package's
+    ``make_cube_mesh`` picks it.  The devices are the cards (``device`` a
+    CUDA device or None, which raises when there is none) or the CPU
+    (``device="cpu"``, one device: a single cube)."""
+    import torch
+
+    from repro_torch.device import resolve
+
+    dev = resolve(device)
+    if dev.type == "cuda":
+        devs = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    else:
+        devs = [dev]
+    n_dev = len(devs)
+    n = min(n_cubes or n_dev, n_dev)
+    while n_dev % n:
+        n -= 1
+    per = n_dev // n
+    return CubeMesh(shape=(n, per), axis_names=(CUBE_AXIS, "data"),
+                    devices=tuple(devs[i * per] for i in range(n)))
+
+
+def cube_rules(mesh: CubeMesh) -> dict:
+    """The cube-serving rule table of the JAX package
+    (``repro.dist.sharding.cube_rules(mesh).rules``): batch over (cube,
+    data), everything else, page pools included, replicated per cube (each
+    SMC holds its own coefficients and KV pages)."""
+    rules = dict.fromkeys(LOGICAL_AXES)
+    rules["batch"] = tuple(a for a in (CUBE_AXIS, "data") if a in mesh.axis_names) or None
+    return rules
 
 
 def simulate_smc_network(

@@ -2,8 +2,12 @@
 
 Serves seeded random requests with the reduced config of ``--arch`` and
 random weights from a seeded generator, on the card unless ``--device cpu``
-is given.  The flags are those of ``python -m repro.launch.serve`` that the
-port supports (no cubes yet).  ``--temperature T`` samples every decode
+is given.  The flags are those of ``python -m repro.launch.serve``.
+``--cubes N`` routes the requests over N engines (``serve.router.CubeRouter``,
+every engine on the one card with one parameter set), and with
+``--multiproc`` over N worker processes (``serve.cube_proc.CubeProcRouter``,
+each building the reduced model from the same seed, with shadow checkpoints
+every ``--checkpoint-every`` steps).  ``--temperature T`` samples every decode
 token from ``softmax(logits / T)`` under a generator on the device seeded
 with ``--seed``; ``--trace OUT.json`` writes the run's Perfetto trace.
 """
@@ -19,7 +23,8 @@ from repro_torch.device import resolve
 from repro_torch.kernels import build
 from repro_torch.models import build_model
 from repro_torch.serve import (
-    AdmissionConfig, CacheConfig, EngineConfig, ObsConfig, Request, ServeEngine)
+    AdmissionConfig, CacheConfig, CubeProcRouter, CubeRouter, EngineConfig, ObsConfig, Request,
+    ServeEngine)
 
 
 def main(argv=None):
@@ -57,6 +62,15 @@ def main(argv=None):
                     help="cost of moving one token of KV relative to recomputing it")
     ap.add_argument("--prefix-sharing", action="store_true",
                     help="index resident prompt prefixes so repeats share pages")
+    ap.add_argument("--cubes", type=int, default=1, help="route over N cube engines")
+    ap.add_argument("--route", choices=["hash", "least_loaded", "prefix_affinity"],
+                    default="least_loaded")
+    ap.add_argument("--multiproc", action="store_true",
+                    help="with --cubes N: one worker PROCESS per cube (CubeProcRouter) with "
+                         "live straggler and dead-cube policy, instead of in-process engines")
+    ap.add_argument("--checkpoint-every", type=int, default=4,
+                    help="multiproc: steps between shadow checkpoints forwarded to the "
+                         "backup cube (0 = off)")
     ap.add_argument("--trace", metavar="OUT.json", default=None,
                     help="record request lifecycles and engine events in the ring-buffer "
                          "tracer and write a Perfetto/Chrome trace here after the run")
@@ -80,9 +94,17 @@ def main(argv=None):
         ),
         obs=ObsConfig(trace=args.trace is not None),
     )
-    eng = ServeEngine(model, params, ecfg, device=device)
     if device.type == "cuda":
-        build.build()             # compile the kernels before the clock starts
+        build.build()             # compile the kernels before any engine or worker runs
+    multiproc = args.cubes > 1 and args.multiproc
+    if multiproc:
+        eng = CubeProcRouter(args.arch, ecfg, n_cubes=args.cubes, policy=args.route,
+                             checkpoint_every=args.checkpoint_every, device=device.type)
+    elif args.cubes > 1:
+        eng = CubeRouter(model, params, ecfg, n_cubes=args.cubes, policy=args.route,
+                         device=device)
+    else:
+        eng = ServeEngine(model, params, ecfg, device=device)
     rng = np.random.default_rng(0)
     for i in range(args.requests):
         eng.submit(Request(
@@ -90,15 +112,23 @@ def main(argv=None):
             max_new_tokens=args.max_new, temperature=args.temperature,
         ))
     t0 = time.time()
-    done = eng.run(torch.Generator(device=device).manual_seed(args.seed))
+    if multiproc:
+        done = eng.run()          # the workers decode greedily, on their own clocks
+    else:
+        done = eng.run(torch.Generator(device=device).manual_seed(args.seed))
     dt = time.time() - t0
     toks = sum(len(r.out_tokens) for r in done)
     print(f"{cfg.name}: {len(done)} requests, {toks} tokens, {toks / dt:.1f} tok/s "
           f"on {device}")
     print(json.dumps(eng.telemetry(), indent=2, default=float))
-    if args.trace:
+    if args.trace and not multiproc:
         eng.save_trace(args.trace)
         print(f"trace -> {args.trace}")
+    elif args.trace:
+        print("trace: not supported with --multiproc (workers own their ring buffers); "
+              "recovery events land in telemetry instead")
+    if multiproc:
+        eng.shutdown()
 
 
 if __name__ == "__main__":

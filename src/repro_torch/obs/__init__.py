@@ -1,5 +1,5 @@
 """repro_torch.obs — tracing and metrics for the serve engine (the port's
-copy of ``repro/obs``, without ``wire``, which rides the collectives).
+copy of ``repro/obs``).
 
 Three layers, strictly ordered by cost:
 
@@ -11,7 +11,9 @@ Three layers, strictly ordered by cost:
   behind a single (shareable) lock, snapshot-consistent.
 
 None of them imports torch, so the tracer and metrics stay cheap
-everywhere, including under the engine lock.
+everywhere, including under the engine lock.  :mod:`repro_torch.obs.wire`
+lowers a telemetry snapshot to float32 tensors for the cube processes'
+wire format.
 """
 from .clock import ManualClock, monotonic, reset_source, set_source
 from .metrics import (

@@ -63,7 +63,14 @@ rows.
 
 The engine runs on the card unless ``device="cpu"`` is passed (then every
 kernel runs its plain PyTorch version); the parameters must already live on
-that device.  Not ported yet: inter-cube migration.  The
+that device.  Inter-cube migration is put-then-signal, as in the JAX
+package: ``export_request`` (withdraw) or ``checkpoint_request`` (a
+non-destructive read, the running lane's pages through one ``paged_gather``
+launch) gives a payload; ``migrate_put``/``migrate_signal`` land it in
+another engine's host tier and commit it, and ``poll_migrations`` (top of
+every step) schedules it as a swapped request, whose restore writes the
+pools in place; ``shadow_put``/``shadow_signal``/``adopt_shadow`` keep and
+promote standby checkpoints.  The
 engine is generic over the model's cache tree: any mix of seq leaves (pages)
 and per-lane state leaves, over any number of segments.  A state-only model (ssm)
 still acquires pages per token, as in the JAX package, so page accounting,
@@ -90,7 +97,7 @@ from repro_torch.obs.trace import NULL_TRACER, ServeTracer
 from .admission import AdmissionPipeline, prefill_logits_token
 from .captured import CapturedDecode
 from .paged_cache import PagedKVCache, absorb_decode, gather_views
-from .scheduler import Scheduler, SchedulerConfig
+from .scheduler import RequestState, Scheduler, SchedulerConfig
 
 
 @dataclass
@@ -247,6 +254,19 @@ class ServeEngine:
         self.pipeline = AdmissionPipeline(self, ac.async_prefill)
         self._idle_since: float | None = None
         self._idle_pipe_mark = -1
+        # inter-cube migration landing zones (serve/cube_proc.py), both
+        # put-then-signal: the put (migrate_put / shadow_put) lands page
+        # payloads in the host tier while the decode loop keeps stepping, the
+        # signal (migrate_signal / shadow_signal) flips ``committed``, and
+        # only committed entries are acted on (poll_migrations /
+        # adopt_shadow), so a sender killed mid-transfer leaves nothing half
+        # adopted.  _shadows are standby checkpoints of requests running on
+        # ANOTHER cube, adopted only if that cube dies
+        self._migrations: dict[object, dict] = {}
+        self._shadows: dict[int, dict] = {}
+        self._c_migr_in = m.counter("migrate.landed")
+        self._c_migr_resumed = m.counter("migrate.resumed")
+        self._c_migr_fresh = m.counter("migrate.fresh_fallbacks")
 
     def __del__(self):
         pipeline = getattr(self, "pipeline", None)
@@ -267,6 +287,209 @@ class ServeEngine:
             self.sched.add(req)
             self._cv.notify_all()
         self.pipeline.kick()
+
+    # -- inter-cube migration (put-then-signal; see serve/cube_proc.py) -------
+
+    def _land_payload(self, payload: dict) -> dict:
+        """Land a migration payload's data half in the host tier and return
+        the internal entry.  A ``kind='pages'`` payload degrades to ``fresh``
+        (prompt resubmission, token-identical under greedy decoding) when the
+        host tier is absent or exhausted."""
+        entry = {
+            "uid": int(payload["uid"]),
+            "prompt": np.asarray(payload["prompt"], np.int32),
+            "max_new_tokens": int(payload["max_new_tokens"]),
+            "temperature": float(payload["temperature"]),
+            "out_tokens": [int(t) for t in payload["out_tokens"]],
+            "handle": None,
+            "committed": False,
+        }
+        if payload["kind"] == "pages":
+            handle = self.cache.host_import(payload["seq"], payload["state"],
+                                            int(payload["length"]), int(payload["n_pages"]))
+            if handle is not None:
+                entry["handle"] = handle
+                entry["pending_token"] = int(payload["pending_token"])
+            else:
+                self._c_migr_fresh.inc()
+        self._c_migr_in.inc()
+        return entry
+
+    def migrate_put(self, token, payload: dict) -> str:
+        """The *put* half of an inter-cube request migration: land the
+        payload (page rows → host tier) under ``token``, invisible to the
+        scheduler until :meth:`migrate_signal` commits it.  Returns the
+        landed kind (``'pages'``, or ``'fresh'`` after a degrade)."""
+        with self._lock:
+            old = self._migrations.pop(token, None)
+            if old is not None and old["handle"] is not None:
+                self.cache.host_free(old["handle"])
+            entry = self._land_payload(payload)
+            self._migrations[token] = entry
+        return "pages" if entry["handle"] is not None else "fresh"
+
+    def migrate_signal(self, token) -> None:
+        """The *signal* half: commit a landed migration; the decode loop's
+        :meth:`poll_migrations` (top of every step) schedules it."""
+        with self._lock:
+            entry = self._migrations.get(token)
+            if entry is None:
+                raise KeyError(f"migrate_signal({token!r}): no landed put")
+            entry["committed"] = True
+            self._cv.notify_all()
+
+    def pending_migrations(self) -> int:
+        """Committed but unscheduled migrations (a cube worker's cheap
+        should-I-step signal)."""
+        with self._lock:
+            return sum(1 for m in self._migrations.values() if m["committed"])
+
+    def _schedule_entry(self, entry: dict) -> None:
+        """Turn a committed migration entry into a scheduled request at the
+        FRONT of the waiting queue (it already holds progress, as a
+        preemption requeue does).  Under the lock."""
+        req = Request(uid=entry["uid"], prompt=entry["prompt"],
+                      max_new_tokens=entry["max_new_tokens"],
+                      temperature=entry["temperature"], out_tokens=list(entry["out_tokens"]))
+        state = RequestState(req=req, resume_tokens=np.asarray(req.prompt, np.int32),
+                             tracer=self.tracer, submit_ts=obs_clock.monotonic())
+        if entry["handle"] is not None:
+            # the page path: a local swap-preempted request to the scheduler,
+            # so the ordinary swapped restore (stage_in, then commit_swap_in
+            # into the existing pool storage) takes over
+            state.swapped = True
+            state.swap_handle = entry["handle"]
+            state.length = entry["handle"].length
+            state.pending_token = entry["pending_token"]
+            self._c_migr_resumed.inc()
+        elif req.out_tokens:
+            # fresh fallback with progress: the recompute restart (prefill
+            # prompt + generated again, keep the sampled tokens)
+            state.resume_tokens = np.concatenate([
+                np.asarray(req.prompt, np.int32), np.asarray(req.out_tokens[:-1], np.int32)])
+            state.is_resume = True
+        self.sched.waiting.insert(0, state)
+
+    @decode_loop_only
+    def poll_migrations(self) -> int:
+        """Schedule every committed migration (the top of each decode step,
+        and a cube worker's loop).  Returns the number scheduled."""
+        with self._lock:
+            ready = [t for t, m in self._migrations.items() if m["committed"]]
+            for t in ready:
+                self._schedule_entry(self._migrations.pop(t))
+            if ready:
+                self._cv.notify_all()
+        if ready:
+            self.pipeline.kick()
+        return len(ready)
+
+    # shadow checkpoints: standby copies of requests running elsewhere ------
+
+    def shadow_put(self, uid: int, payload: dict) -> str:
+        """Land a standby checkpoint for ``uid`` (a request running on another
+        cube), replacing any earlier shadow of the uid and freeing its host
+        pages."""
+        uid = int(uid)
+        with self._lock:
+            old = self._shadows.pop(uid, None)
+            if old is not None and old["handle"] is not None:
+                self.cache.host_free(old["handle"])
+            entry = self._land_payload(payload)
+            self._shadows[uid] = entry
+        return "pages" if entry["handle"] is not None else "fresh"
+
+    def shadow_signal(self, uid: int) -> None:
+        with self._lock:
+            entry = self._shadows.get(int(uid))
+            if entry is None:
+                raise KeyError(f"shadow_signal({uid}): no landed put")
+            entry["committed"] = True
+
+    @decode_loop_only
+    def adopt_shadow(self, uid: int) -> bool:
+        """Schedule a COMMITTED shadow (its cube died).  False when no
+        committed shadow exists: the caller resubmits the prompt instead."""
+        with self._lock:
+            entry = self._shadows.get(int(uid))
+            if entry is None or not entry["committed"]:
+                return False
+            self._shadows.pop(int(uid))
+            self._schedule_entry(entry)
+            self._cv.notify_all()
+        self.pipeline.kick()
+        return True
+
+    def drop_shadow(self, uid: int) -> None:
+        """Discard a shadow (its request completed) and free its pages."""
+        with self._lock:
+            entry = self._shadows.pop(int(uid), None)
+            if entry is not None and entry["handle"] is not None:
+                self.cache.host_free(entry["handle"])
+
+    @staticmethod
+    def _fresh_payload(req) -> dict:
+        return {"kind": "fresh", "uid": req.uid, "prompt": np.asarray(req.prompt, np.int32),
+                "max_new_tokens": req.max_new_tokens, "temperature": req.temperature,
+                "out_tokens": [int(t) for t in req.out_tokens]}
+
+    def _pages_payload(self, st, seq, state, length: int, n_pages: int) -> dict:
+        return {**self._fresh_payload(st.req), "kind": "pages", "length": length,
+                "n_pages": n_pages, "pending_token": int(st.pending_token),
+                "seq": seq, "state": state}
+
+    def _handle_payload(self, st) -> dict:
+        seq, state, length, n_pages = self.cache.host_export(st.swap_handle)
+        return self._pages_payload(st, seq, state, length, n_pages)
+
+    @decode_loop_only
+    def checkpoint_request(self, uid: int) -> dict | None:
+        """Non-destructive migration payload of an in-flight request (the
+        shadow-checkpoint read): a running request's pages and lane state
+        are read off the device (no preemption, no state change), a swapped
+        one's off its host pages, a queued one travels as a fresh prompt.
+        None when ``uid`` is not in flight."""
+        with self._lock:
+            for st in self.sched.running.values():
+                if st.req.uid == uid:
+                    rows, state = self.cache.export_pages(st.pages, st.lane, st.length)
+                    return self._pages_payload(st, rows, state, st.length, len(st.pages))
+            for st in self.sched.waiting:
+                if st.req.uid == uid:
+                    return self._handle_payload(st) if st.swapped else self._fresh_payload(st.req)
+        return None
+
+    @decode_loop_only
+    def export_request(self, uid: int) -> dict | None:
+        """WITHDRAW an in-flight request and return its migration payload (a
+        router draining a straggler).  A running request is swap-preempted
+        first, so its pages land in the host tier; a request mid-admission
+        (the pipeline computing into its private tensors) is left alone and
+        None returned: it finishes where it is."""
+        with self._lock:
+            st = None
+            for cand in self.sched.running.values():
+                if cand.req.uid == uid:
+                    st = cand
+                    break
+            if st is not None:
+                self.sched.preempt(st, self.cache)
+            for cand in self.sched.waiting:
+                if cand.req.uid == uid:
+                    st = cand
+                    break
+            else:
+                return None
+            if st.swapped:
+                payload = self._handle_payload(st)
+                self.cache.host_free(st.swap_handle)
+                st.swap_handle = None
+                st.swapped = False
+            else:
+                payload = self._fresh_payload(st.req)
+            self.sched.waiting.remove(st)
+            self.sched.retire_uid(uid)
+            return payload
 
     # -- prefill (called by the admission pipeline, OUTSIDE the lock) ---------
 
@@ -657,6 +880,9 @@ class ServeEngine:
         if self.pipeline.error is not None:
             err, self.pipeline.error = self.pipeline.error, None
             raise RuntimeError("admission pipeline died") from err
+        # committed migrations enter the scheduler BEFORE the idle check: a
+        # drained engine that just received one schedules it this step
+        self.poll_migrations()
         s, ac = self.sched, self.ecfg.admission
         with self._lock:
             idle = s.load == 0
@@ -728,6 +954,15 @@ class ServeEngine:
         with self._lock:
             return self.sched.load
 
+    def inflight_uids(self) -> list[int]:
+        """Uids of every request in the engine (waiting, admitting, ready or
+        running): a cube worker's checkpoint set."""
+        with self._lock:
+            s = self.sched
+            return sorted({st.req.uid for st in s.waiting} | {st.req.uid for st in s.admitting}
+                          | {st.req.uid for st in s.ready}
+                          | {st.req.uid for st in s.running.values()})
+
     def prefix_match_tokens(self, prompt) -> int:
         """Resident-prefix coverage of a prompt in tokens (a router's
         prefix-affinity signal); 0 when prefix sharing is off."""
@@ -763,8 +998,8 @@ class ServeEngine:
         return write_chrome_trace(path, {"engine": self.tracer})
 
     def telemetry(self) -> dict:
-        """The JAX engine's ``telemetry()`` layout (without its migrations,
-        which belong to cube processes), from one lock cut; a deep copy."""
+        """The JAX engine's ``telemetry()`` layout, from one lock cut; a deep
+        copy.  Adds ``device``."""
         with self._lock:
             snap = self.metrics.snapshot()
             sched = {
@@ -786,6 +1021,7 @@ class ServeEngine:
             host_occ = self.cache.host_occupancy()
             has_host = self.cache.host is not None
             has_prefix = self.cache.prefix is not None
+            migr = {"pending": len(self._migrations), "shadows": len(self._shadows)}
         c = snap["counters"]
         st: dict = {
             "steps": c["steps"],
@@ -804,6 +1040,8 @@ class ServeEngine:
                           if k.startswith("pipeline.")}
         st["page_occupancy"] = page_occ
         st["host_page_occupancy"] = host_occ
+        migr.update({k[len("migrate."):]: v for k, v in c.items() if k.startswith("migrate.")})
+        st["migrations"] = migr
         if has_host:
             st["host_tier"] = {k[len("host."):]: v for k, v in c.items()
                                if k.startswith("host.")}

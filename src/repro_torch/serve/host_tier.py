@@ -34,6 +34,11 @@ Each direction is split into a bookkeeping half and a copy half:
   untouched, so it runs on the admission thread), then
   ``PagedKVCache.commit_swap_in`` (the scatter into the pools, decode loop).
 
+Inter-cube migration (``serve/cube_proc.py``) lands on the same handles:
+``export_handle`` reads a swapped request's host pages as a payload and
+``import_pages`` writes a landed payload into fresh host pages, returning a
+``SwapHandle`` that the ordinary swapped restore consumes.
+
 Ordering on the card: both threads issue on the device's default stream,
 so the decode loop's scatter runs after the staging copy.  Each restore
 copies from a staging tensor of its own (the caching host allocator keeps
@@ -50,11 +55,10 @@ from dataclasses import dataclass, field
 import torch
 
 from repro_torch.analysis.ownership import admission_api, pool_mutator
-from repro_torch.kernels import ops as kops
 from repro_torch.models.common import tree_items
 from repro_torch.obs.metrics import BYTES_EDGES, MetricsRegistry
 
-from .paged_cache import PageAllocator, _is_seq
+from .paged_cache import PageAllocator, _is_seq, read_pages
 
 
 @dataclass
@@ -84,7 +88,8 @@ class HostPagePool:
         "device_gets",                      # device→host reads (one per leaf)
         "dirty_pages_skipped",              # clean-prefix reuse
         "exhausted_fallbacks",              # host pool couldn't cover a swap
-        # inter-cube page migration (not ported: these stay 0)
+        # inter-cube page migration (serve/cube_proc.py put-then-signal):
+        # payloads exported from and landed into this tier
         "migrations_out", "migrations_in",
         "migration_pages_out", "migration_pages_in",
     )
@@ -141,30 +146,6 @@ class HostPagePool:
 
     # -- the copies ----------------------------------------------------------
 
-    def _read_pages(self, device_pools, device_pages: list[int]) -> dict:
-        """Device pages of every seq leaf → ``{path: host tensor (layers, n,
-        PS, *row)}``, pinned on the card.  One ``paged_gather_many`` launch
-        through a ``(1, n)`` table reads every leaf (a table longer than a
-        block keeps in shared memory is cut into several launches), then one
-        device→host copy per leaf; returns once the copies have landed."""
-        seq = [(path, pool) for path, pool in tree_items(device_pools) if _is_seq(path)]
-        n = len(device_pages)
-        table = torch.tensor([device_pages], dtype=torch.int32).to(self.device)
-        flat = [pool.reshape(pool.shape[0], pool.shape[1], -1) for _, pool in seq]
-        out = {path: torch.empty((pool.shape[0], n) + tuple(pool.shape[2:]), dtype=pool.dtype,
-                                 pin_memory=self._pin)
-               for path, pool in seq}
-        step = kops.paged_gather_table_cache() if self._pin else n
-        for lo in range(0, n, step):
-            rows = kops.paged_gather_many(flat, table[:, lo:lo + step])   # (layers, 1, m, F)
-            for (path, pool), r in zip(seq, rows):
-                m = r.shape[2]
-                out[path][:, lo:lo + m].copy_(
-                    r.reshape((pool.shape[0], m) + tuple(pool.shape[2:])), non_blocking=True)
-        if self._pin:
-            torch.cuda.current_stream(self.device).synchronize()
-        return out
-
     def _stage(self, buf: torch.Tensor, host_idx: torch.Tensor) -> torch.Tensor:
         """Host pages ``host_idx`` of ``buf`` on the device: gathered into a
         staging tensor of their own (pinned on the card), then copied
@@ -213,7 +194,7 @@ class HostPagePool:
         if dev_flat and self._specs:
             host_idx = torch.tensor(host_flat, dtype=torch.long)
             bufs = self.buffers
-            for path, chunk in self._read_pages(device_pools, dev_flat).items():
+            for path, chunk in read_pages(device_pools, dev_flat).items():
                 self._bump(device_gets=1, bytes_out=chunk.nbytes)
                 self._observe_bytes(chunk.nbytes)
                 bufs[path].index_copy_(1, host_idx, chunk)
@@ -263,7 +244,7 @@ class HostPagePool:
         host_idx = torch.tensor(got, dtype=torch.long)
         if self._specs:
             bufs = self.buffers
-            for path, chunk in self._read_pages(device_pools, device_pages).items():
+            for path, chunk in read_pages(device_pools, device_pages).items():
                 self._bump(device_gets=1, bytes_out=chunk.nbytes)
                 self._observe_bytes(chunk.nbytes)
                 bufs[path].index_copy_(1, host_idx, chunk)
@@ -317,6 +298,42 @@ class HostPagePool:
         for path, chunk in staged.items():
             pools[path][:, idx] = chunk
         return state
+
+    # -- inter-cube migration (the data half of put-then-signal) -----------
+
+    def export_handle(self, handle: SwapHandle):
+        """Read of a request's host-resident pages for inter-cube migration:
+        ``(seq_rows, state, length, n_pages)``, ``seq_rows`` ``{path: CPU
+        tensor (layers, n_pages, PS, *row)}`` in logical page order (empty
+        when the handle holds no page).  A copy: the handle stays valid
+        until the caller frees it; no allocator state changes."""
+        rows = {}
+        if handle.host_pages and self._specs:
+            idx = torch.tensor(handle.host_pages, dtype=torch.long)
+            rows = {path: buf.index_select(1, idx) for path, buf in self.buffers.items()}
+        self._bump(migrations_out=1, migration_pages_out=len(handle.host_pages))
+        return rows, handle.state, handle.length, len(handle.host_pages)
+
+    @pool_mutator("free_list")
+    def import_pages(self, seq_rows, state, length: int, n_pages: int):
+        """Allocation half of a migration landing (the "put"): ``n_pages``
+        host pages take the payload's rows, and the returned ``SwapHandle``
+        is indistinguishable from a local swap-out's, so the ordinary
+        swapped restore takes it from here.  None (nothing held) when the
+        pool cannot cover it: the caller degrades to prompt resubmission."""
+        got = self.allocator.acquire(n_pages) if n_pages else []
+        if got is None:
+            self._bump(exhausted_fallbacks=1)
+            return None
+        if got and seq_rows:
+            idx = torch.tensor(got, dtype=torch.long)
+            bufs = self.buffers
+            for path, rows in seq_rows.items():
+                bufs[path].index_copy_(1, idx, rows.to(bufs[path].dtype))
+                self._bump(bytes_in=rows.nbytes)
+        self._bump(migrations_in=1, migration_pages_in=n_pages)
+        return SwapHandle(host_pages=list(got), clean_pages=min(length // self.page_size, n_pages),
+                          length=length, state=state)
 
     @pool_mutator("free_list")
     def free(self, handle: SwapHandle | None) -> None:

@@ -18,7 +18,8 @@ The allocator is refcounted (``fork_for_write`` is copy-on-write's
 bookkeeping), a :class:`PrefixIndex` (a radix trie over page-sized prompt
 chunks) lets admissions share resident prefix pages, and a host tier
 (``host_tier.HostPagePool``) takes swapped-out pages and retired prefix
-pages.
+pages; ``host_import``/``host_export``/``export_pages`` carry a request's
+pages from one engine to another (inter-cube migration).
 """
 from __future__ import annotations
 
@@ -36,6 +37,37 @@ from repro_torch.obs.metrics import MetricsRegistry
 
 def _is_seq(path) -> bool:
     return path[-1] in SEQ_CACHE_KEYS
+
+
+def read_pages(device_pools, device_pages: list[int]) -> dict:
+    """Device pages of every seq leaf → ``{path: host tensor (layers, n, PS,
+    *row)}``, pinned when the pools live on the card.  One
+    ``paged_gather_many`` launch through a ``(1, n)`` table reads every leaf
+    (a table longer than a block keeps in shared memory is cut into several
+    launches), then one device→host copy per leaf; returns once the copies
+    have landed.  The decode loop's only device→host page path: swap-out,
+    prefix retire and a migration checkpoint's read."""
+    seq = [(path, pool) for path, pool in tree_items(device_pools) if _is_seq(path)]
+    if not seq:
+        return {}
+    device = seq[0][1].device
+    pin = device.type == "cuda"
+    n = len(device_pages)
+    table = torch.tensor([device_pages], dtype=torch.int32).to(device)
+    flat = [pool.reshape(pool.shape[0], pool.shape[1], -1) for _, pool in seq]
+    out = {path: torch.empty((pool.shape[0], n) + tuple(pool.shape[2:]), dtype=pool.dtype,
+                             pin_memory=pin)
+           for path, pool in seq}
+    step = kops.paged_gather_table_cache() if pin else n
+    for lo in range(0, n, max(step, 1)):
+        rows = kops.paged_gather_many(flat, table[:, lo:lo + step])   # (layers, 1, m, F)
+        for (path, pool), r in zip(seq, rows):
+            m = r.shape[2]
+            out[path][:, lo:lo + m].copy_(
+                r.reshape((pool.shape[0], m) + tuple(pool.shape[2:])), non_blocking=True)
+    if pin:
+        torch.cuda.current_stream(device).synchronize()
+    return out
 
 
 def gather_views(pools, block_tables: torch.Tensor):
@@ -741,6 +773,37 @@ class PagedKVCache:
     def host_free(self, handle) -> None:
         if self.host is not None:
             self.host.free(handle)
+
+    # -- inter-cube migration (serve/cube_proc.py) -------------------------
+
+    def host_import(self, seq_rows, state, length: int, n_pages: int):
+        """Land a migration payload in the host tier: a ``SwapHandle`` the
+        ordinary swapped restore consumes, or None (host tier absent or
+        exhausted: the caller degrades to prompt resubmission)."""
+        if self.host is None:
+            return None
+        return self.host.import_pages(seq_rows, state, length, n_pages)
+
+    def host_export(self, handle):
+        """A swapped request's host pages as a migration payload ``(seq_rows,
+        state, length, n_pages)``; a read, the handle stays valid until
+        freed."""
+        return self.host.export_handle(handle)
+
+    def export_pages(self, pages: list[int], lane, length: int):
+        """Non-destructive device→host read of a request's pages (and its
+        lane's recurrent state when ``lane`` is given) as a migration or
+        shadow payload ``(seq_rows, state)``: ``{path: CPU tensor (layers,
+        n, PS, *row)}`` through one ``paged_gather_many`` launch, as the
+        swap-out reads, and ``{path: CPU tensor (layers, 1, *tail)}`` or
+        None.  Decode loop only: it reads the pools after the loop's last
+        step on the same stream."""
+        rows = read_pages(self.pools, list(pages))
+        state = None
+        if lane is not None and self.has_state_leaves():
+            state = {path: pool[:, lane:lane + 1].cpu() for path, pool in tree_items(self.pools)
+                     if not _is_seq(path)}
+        return rows, state
 
     def host_occupancy(self) -> float:
         return self.host.occupancy() if self.host is not None else 0.0

@@ -1020,6 +1020,7 @@ def test_swap_out_read_is_one_gather_launch(card, arch, dtype):
     ``paged_gather_many`` launch, bit-equal to ``pool[:, idx]``, into pinned
     host tensors."""
     from repro_torch.models.common import tree_items
+    from repro_torch.serve.paged_cache import read_pages
     from repro_torch.serve.paged_cache import _is_seq
 
     cache = _random_cache(card, arch, dtype)
@@ -1027,7 +1028,7 @@ def test_swap_out_read_is_one_gather_launch(card, arch, dtype):
     assert len(seq) >= 2
     pages = [5, 0, 17, 3, 3, 11]
     before = ops.LAUNCHES["paged_gather"]
-    got = cache.host._read_pages(cache.pools, pages)
+    got = read_pages(cache.pools, pages)
     assert ops.LAUNCHES["paged_gather"] == before + 1
     idx = torch.tensor(pages, device=card)
     for path, x in seq:
@@ -1038,16 +1039,15 @@ def test_swap_out_read_is_one_gather_launch(card, arch, dtype):
 def test_swap_out_read_splits_past_the_table_cache(card):
     """A dirty list longer than the table a block keeps in shared memory goes
     out in one launch per piece, each counted, the rows bit-equal."""
-    from repro_torch.serve.host_tier import HostPagePool
+    from repro_torch.serve.paged_cache import read_pages
 
     cap = ops.paged_gather_table_cache()
     g = torch.Generator(device=card).manual_seed(1)
     pools = [{"s0_attn": {"k": torch.randn(2, 64, 4, 2, 8, generator=g, device=card),
                           "v": torch.randn(2, 64, 4, 2, 8, generator=g, device=card)}}]
-    host = HostPagePool(pools, 8, 4)
     pages = torch.randint(0, 64, (cap + 5,), generator=g, device=card).tolist()
     before = ops.LAUNCHES["paged_gather"]
-    got = host._read_pages(pools, pages)
+    got = read_pages(pools, pages)
     assert ops.LAUNCHES["paged_gather"] == before + 2
     idx = torch.tensor(pages, device=card)
     for leaf in ("k", "v"):
@@ -1345,6 +1345,121 @@ def _capture_waits_for_no_collection():
     assert got[0] == got[1]
 
 
+def _router_on_card_matches_cpu(policy):
+    """Reduced qwen2.5-3b in float32 routed over two cubes (``CubeRouter``)
+    on the card and on the CPU, the same weights and waves of requests (for
+    ``prefix_affinity``: a shared prompt made resident on one cube, then
+    four extensions of it and one other prompt): the same cube choices and
+    tokens, each card engine its own captured step and pools over the one
+    parameter set."""
+    from repro_torch.models.common import tree_map
+    from repro_torch.serve import (
+        AdmissionConfig, CacheConfig, CubeRouter, EngineConfig, Request)
+
+    model, params = _graph_family("qwen2.5-3b", "float32")
+    prefix = policy == "prefix_affinity"
+    ecfg = EngineConfig(batch_slots=2, max_len=48,
+                        cache=CacheConfig(page_size=4, n_pages=24, prefix_sharing=prefix),
+                        admission=AdmissionConfig(async_prefill=False,
+                                                  prefill_chunk=4 if prefix else 0))
+    rng = np.random.default_rng(11)
+    draw = lambda n: rng.integers(0, model.cfg.vocab_size, size=(n,)).astype(np.int32)  # noqa: E731
+    if prefix:
+        shared = draw(12)
+        waves = [[shared], [np.concatenate([shared, draw(3 + i)]) for i in range(4)] + [draw(9)]]
+    else:
+        waves = [[draw(int(n)) for n in rng.integers(5, 12, size=6)]]
+    out = {}
+    for dev, p in (("cpu", tree_map(lambda t: t.cpu(), params)), ("cuda", params)):
+        router = CubeRouter(model, p, ecfg, n_cubes=2, policy=policy, device=dev)
+        cubes, toks, uid = [], [], 0
+        for wave in waves:
+            reqs = [Request(uid=uid + i, prompt=pr, max_new_tokens=6) for i, pr in enumerate(wave)]
+            uid += len(wave)
+            cubes += [router.submit(r) for r in reqs]
+            router.run()
+            toks += [r.out_tokens for r in reqs]
+        out[dev] = (cubes, toks)
+        if dev == "cuda":
+            e0, e1 = router.engines
+            assert e0.decode_graph.graph is not None and e1.decode_graph.graph is not None
+            assert e0.params is e1.params is p
+    assert out["cpu"] == out["cuda"]
+
+
+def _migration_on_card_matches_cpu(arch):
+    """A request exported mid-decode (through the wire format and a pickle)
+    and landed on a second engine by put-then-signal, and one checkpointed
+    and adopted as a shadow, on the card and on the CPU (reduced, float32):
+    the same tokens, equal to the uninterrupted run's; on the card the
+    receiving engines' pools keep their storage and their captured steps
+    replay after the landing."""
+    import pickle
+
+    from repro_torch.models.common import tree_items, tree_map
+    from repro_torch.serve import (
+        AdmissionConfig, CacheConfig, EngineConfig, Request, ServeEngine)
+    from repro_torch.serve.cube_proc import pack_payload, unpack_payload
+
+    model, params = _graph_family(arch, "float32")
+    ecfg = EngineConfig(batch_slots=2, max_len=32,
+                        cache=CacheConfig(page_size=4, n_pages=16, swap_token_cost=0.0),
+                        admission=AdmissionConfig(async_prefill=False))
+
+    def reqs():
+        rng = np.random.default_rng(7)
+        return [Request(uid=i, max_new_tokens=10, prompt=rng.integers(
+            0, model.cfg.vocab_size, size=(7,)).astype(np.int32)) for i in range(3)]
+
+    def drain(eng):
+        while eng.load or eng.pending_migrations():
+            eng.step()
+        return {r.uid: r.out_tokens for r in eng.completed}
+
+    def started(dev, p):
+        eng = ServeEngine(model, p, ecfg, device=dev)
+        for r in reqs():
+            eng.submit(r)
+        for _ in range(6):
+            eng.step()
+        uid = next(u for u in eng.inflight_uids()
+                   if any(s.req.uid == u for s in eng.sched.running.values()))
+        return eng, uid
+
+    def ptrs(eng):
+        return {path: t.data_ptr() for path, t in tree_items(eng.cache.pools)}
+
+    out = {}
+    for dev, p in (("cpu", tree_map(lambda t: t.cpu(), params)), ("cuda", params)):
+        base = ServeEngine(model, p, ecfg, device=dev)
+        for r in reqs():
+            base.submit(r)
+        want = drain(base)
+        a, uid = started(dev, p)
+        b = ServeEngine(model, p, ecfg, device=dev)
+        before, runs = ptrs(b), b.decode_graph.runs
+        payload = unpack_payload(pickle.loads(pickle.dumps(pack_payload(a.export_request(uid)))))
+        assert payload["kind"] == "pages"
+        assert b.migrate_put("m0", payload) == "pages"
+        b.migrate_signal("m0")
+        migrated = {**drain(a), **drain(b)}
+        assert migrated == want and ptrs(b) == before
+        assert b.telemetry()["migrations"]["resumed"] == 1
+        a, uid = started(dev, p)
+        c = ServeEngine(model, p, ecfg, device=dev)
+        c.shadow_put(uid, unpack_payload(pack_payload(a.checkpoint_request(uid))))
+        c.shadow_signal(uid)
+        assert drain(a) == want
+        before_c = ptrs(c)
+        assert c.adopt_shadow(uid)
+        adopted = drain(c)
+        assert adopted == {uid: want[uid]} and ptrs(c) == before_c
+        out[dev] = (want, migrated, adopted)
+        if dev == "cuda":
+            assert b.decode_graph.graph is not None and b.decode_graph.runs > runs
+    assert out["cpu"] == out["cuda"]
+
+
 # The tests that capture engines' decode steps run in a process of their
 # own: once they had run, the profiles of later tests in the same process
 # (H100, torch 2.11) held no device kernel, or only some, where the
@@ -1362,9 +1477,13 @@ for name, args in json.loads(sys.argv[2]):
         out[name + repr(tuple(args))] = traceback.format_exc()
 print("CHILD " + json.dumps(out))
 """
+ROUTER_POLICIES = ["hash", "least_loaded", "prefix_affinity"]
+MIGRATION_ARCHS = ["qwen2.5-3b", "mamba2-130m", "recurrentgemma-9b", "deepseek-v3-671b"]
 _CHILD_CASES = ([("_captured_step_bit_equal_to_eager", [a, p, d]) for a in GRAPH_ARCHS
                  for p in ("paged", "gather") for d in ("float32", "bfloat16")]
-                + [("_capture_waits_for_no_collection", [])])
+                + [("_capture_waits_for_no_collection", [])]
+                + [("_router_on_card_matches_cpu", [p]) for p in ROUTER_POLICIES]
+                + [("_migration_on_card_matches_cpu", [a]) for a in MIGRATION_ARCHS])
 
 
 @pytest.fixture(scope="module")
@@ -1431,3 +1550,17 @@ def test_eager_step_reads_nothing_back(card, arch, path):
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     eng.run()
+
+
+@pytest.mark.parametrize("policy", ROUTER_POLICIES)
+def test_router_on_card_matches_cpu(card, _captured_in_child, policy):
+    """``_router_on_card_matches_cpu`` (run in the child process)."""
+    got = _captured_in_child[f"_router_on_card_matches_cpu{(policy,)!r}"]
+    assert got == "ok", got
+
+
+@pytest.mark.parametrize("arch", MIGRATION_ARCHS)
+def test_migration_on_card_matches_cpu(card, _captured_in_child, arch):
+    """``_migration_on_card_matches_cpu`` (run in the child process)."""
+    got = _captured_in_child[f"_migration_on_card_matches_cpu{(arch,)!r}"]
+    assert got == "ok", got
