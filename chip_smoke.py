@@ -17,13 +17,16 @@ semantics (the ring-buffer tracer, the runtime sanitizer, sampling,
 ``eos_id``, ``admission_inflight``), its decode step captured as one
 CUDA graph per engine against the same step run eagerly, and routing over
 cubes (in-process engines and worker processes) with migration between
-engines.  Every serving
+engines, and the vlm (llava-next-mistral-7b: the dense backbone with its
+patch projector) and the audio family (whisper-large-v3: the encoder /
+decoder).  Every serving
 engine replays its decode step as a graph (``EngineConfig.cuda_graph``, on
 by default): every per-step launch check multiplies by the engine's
 ``decode_graph.runs``, its warm-up and one replay per step.
 Every serving path runs at full width; all but the moe family's at full
 depth (``MOE_DEPTH``, ``MOE_TRAIN``: 671 B and 235 B parameters do not
-fit one card).  Phases, each fatal:
+fit one card).  Phases, each fatal (phases 32 and 33 run after phase 24,
+before phase 31):
 
 1. build the nine CUDA kernels from ``src/repro_torch/kernels/csrc``
    (``nvcc``, printing the ``-Xptxas -v`` register report) and name the card;
@@ -46,6 +49,13 @@ fit one card).  Phases, each fatal:
    shapes besides (16 query heads over 1 KV head, head_dim 256, window
    2,048: ``flash_attention`` on a 3,072-token prompt and on a 1,024-token
    chunk at offset 2,048 against a 4,096-row cache holding 3,072), and the
+   the vlm and audio families' (``flash_attention`` at whisper-large-v3's
+   non-causal encoder, 8 requests x 20 heads = KV heads of 64 over 1,500 x
+   1,500 frames, and its cross-attention, 4 queries over the 1,500 frames,
+   both on the mma.sync design; at llava-next-mistral-7b's image + text
+   prefill, 2,944 causal tokens, 32 over 8 heads of 128;
+   ``paged_decode_attention`` at llava's rep 4 and served contexts, each
+   timed in bf16 against SDPA), the
    moe family's (``flash_attention`` at deepseek-v3's MLA prefill, 128
    heads = KV heads of head_dim 192, on a 1,024-token prompt and a chunk,
    at qwen3-moe's 64 query heads over 4 KV heads of 128 on a 1,024-token
@@ -59,10 +69,12 @@ fit one card).  Phases, each fatal:
    batch 2, two of them with k and v one slice expanded over the batch;
    the served flash shapes (qwen2.5-3b's 512-token
    prefill, recurrentgemma's prompt and chunk, the MLA and qwen3-moe
-   prompts) and the three paged-decode shapes are timed by CUDA events, by the
+   prompts, whisper's encoder and cross-attention, llava's prefill) and the
+   four paged-decode shapes are timed by CUDA events, by the
    profiler's device time and by the host's issue time per call against
-   SDPA in turns, each paged row beside the device time of an empty
-   kernel's launch (the floor under any launch) and its own device time
+   SDPA in turns (SDPA given no mask where every key is seen and
+   ``is_causal`` where the mask is the plain causal one, else the mask),
+   each paged row beside the device time of an empty kernel's launch (the floor under any launch) and its own device time
    with every lane empty, ``ssd_scan``'s prompt and served slice by the
    same three alone, beside the design's bound and the float32 one;
    ``paged_gather``, one launch per call,
@@ -301,10 +313,29 @@ fit one card).  Phases, each fatal:
     mid-drive (``recovery_s``), tokens unchanged; each worker ships its own
     launch counts up with its telemetry, every worker must have launched
     paged_decode_attention, flash_attention and paged_write, and the kernels
-    line counts the workers' launches for this phase.
+    line counts the workers' launches for this phase;
+32. (after phase 24) reduced llava-next-mistral-7b and whisper-large-v3 in
+    float32, card against CPU: llava's text requests through the engine
+    (paged and gather, whole and chunked prefill), its prefill over 16
+    image + 9 text tokens and 12 greedy ``decode_step``s; whisper's
+    ``prefill(frames)`` and 16 greedy ``decode_step``s for 2 lanes: card
+    tokens equal the CPU's, logits within 2e-4 x max(1, |logits|);
+33. (after phase 32) both at published widths (bf16, seeded random
+    weights), each freed before the next: llava-next-mistral-7b (32
+    layers, 7.26 B parameters) serves phase 4's mix of 16 text requests
+    through the engine (tok/s, one flash launch per layer per prefill, one
+    ``paged_decode_attention`` and one ``paged_write`` per layer per decode
+    step, the captured step's ms and busy share), then 4 image requests of
+    2,880 patches + 64 text tokens through ``VLM.prefill`` (one flash launch
+    per layer; time to first token, the prefill's device split) and 32
+    greedy ``decode_step``s of the 4 together; whisper-large-v3 (32 + 32
+    layers) takes 8 requests of 1,500 frames and a 4-token prompt through
+    ``EncDecLM.prefill`` (96 flash launches: 32 in the encoder, 2 per
+    decoder layer) and 64 greedy ``decode_step``s: encoder, prefill and
+    decode-step ms, busy shares, tok/s.
 
 ``--kernel-times`` runs only phase 2's timed
-rows (the served bf16 flash prefill shapes and the three paged-decode
+rows (the served bf16 flash prefill shapes and the four paged-decode
 shapes, each held to its plain version and timed against SDPA in turns, and
 ``ssd_scan``'s prompt and served slice in bf16 and float32, timed alone)
 and prints one JSON line of their times; ``--src`` names the
@@ -317,9 +348,9 @@ that drive it (serving, VGG16 inference, the gather path, the three
 training paths, recurrentgemma-9b serving and reduced training, the moe
 family's serving and training, the memory tiers' runs of phases 24-26,
 phases 27 and 28's runs, the routed, dense and migrated runs of phases 29
-and 30 and phase 31's engine in this process; the workers' launches are
-theirs), each counted from 0 around its own run; a graph replay counts the
-launches its capture made.
+and 30, phase 33's llava and whisper runs and phase 31's workers), each
+counted from 0 around its own run; a graph replay counts the launches its
+capture made.
 Then it prints one JSON line with each kernel's numbers, the card's name
 and power limit, and, last, ``{"ok": true, "device": {...}}``.  Without a
 card, or without the package beside it, it exits non-zero and prints no
@@ -359,6 +390,12 @@ RG = dict(h=16, hkv=1, d=256, window=2048, chunk=1024)   # recurrentgemma-9b's a
 # deepseek-v3's MLA: heads, qk_nope + qk_rope, latent, qk_rope
 MLA = dict(h=128, d=192, rank=512, rope=64)
 QM = dict(h=64, hkv=4)                         # qwen3-moe's attention heads (head_dim 128)
+# llava-next-mistral-7b: 32 query heads over 8 KV heads of 128, and its image
+# requests (2,880 patch embeddings + 64 text tokens, 32 new); whisper-large-v3:
+# 20 heads of 64 (MHA) over 1,500 encoder frames, 8 requests of a 4-token
+# prompt and 64 new tokens
+LLAVA = dict(h=32, hkv=8, image=2880, text=64, requests=4, new=32)
+WHISPER = dict(h=20, d=64, n_ctx=1500, batch=8, prompt=4, new=64)
 # the served flash prefill shapes that phase 2 times in bf16 against SDPA
 FLASH_SERVED = {
     "prefill": dict(sq=512, sk=512, q_offset=0, kv_len=512, window=None),   # qwen2.5-3b
@@ -370,6 +407,18 @@ FLASH_SERVED = {
                        hkv=MLA["h"], d=MLA["d"]),
     "qwen3-moe prompt": dict(sq=1024, sk=1024, q_offset=0, kv_len=1024, window=None,
                              h=QM["h"], hkv=QM["hkv"]),
+    # whisper-large-v3's non-causal encoder and its cross-attention (the
+    # 4-token prompt over the 1,500 frames), 8 requests; llava's image + text
+    # prefill
+    "whisper encoder": dict(sq=WHISPER["n_ctx"], sk=WHISPER["n_ctx"], q_offset=0,
+                            kv_len=WHISPER["n_ctx"], window=None, h=WHISPER["h"],
+                            hkv=WHISPER["h"], d=WHISPER["d"], b=WHISPER["batch"], causal=False),
+    "whisper cross": dict(sq=WHISPER["prompt"], sk=WHISPER["n_ctx"], q_offset=0,
+                          kv_len=WHISPER["n_ctx"], window=None, h=WHISPER["h"],
+                          hkv=WHISPER["h"], d=WHISPER["d"], b=WHISPER["batch"], causal=False),
+    "llava prefill": dict(sq=LLAVA["image"] + LLAVA["text"], sk=LLAVA["image"] + LLAVA["text"],
+                          q_offset=0, kv_len=LLAVA["image"] + LLAVA["text"], window=None,
+                          h=LLAVA["h"], hkv=LLAVA["hkv"]),
 }
 # the full-width moe models served on one card, cut in depth only (their
 # published depths, 61 and 94 layers, take 1.3 TB and 470 GB in bf16):
@@ -407,7 +456,14 @@ EAGER_STEP = {"qwen2.5-3b": (31.71, 16.8), "mamba2-130m": (20.71, 13.5),
               "qwen3-moe-235b-a22b": (22.76, 82.0)}
 
 
+T_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    """Print a line; a phase's header ("== ...") carries the seconds since
+    the script started."""
+    if msg.startswith("== "):
+        msg = f"{msg} [{time.perf_counter() - T_START:.1f} s]"
     print(msg, flush=True)
 
 
@@ -570,6 +626,9 @@ def log_row(row) -> None:
 # 8 lanes at ~1,036 tokens, max_len 2,048 = 128 slots, no holes)
 PAGED_RAGGED = [0, 1, 17, 100, 1024, 513, 64, 999]
 PAGED_SERVED_MOE = [1036, 1029, 1041, 1033, 1038, 1031, 1044, 1036]
+# llava's served decode (phase 33: 8 lanes of 128-512-token prompts partway
+# through their 32 new tokens, max_len 1,024 = 64 slots, no holes)
+PAGED_SERVED_LLAVA = [151, 538, 302, 417, 229, 486, 355, 263]
 
 
 def empty_launch_ms() -> float | None:
@@ -681,12 +740,13 @@ def flash_kernel_name(dtype, d) -> str:
 
 
 def flash_case(dtype, label, sq, sk, q_offset, kv_len, window, timed, h=H, hkv=HKV, d=D,
-               turns=False, b=1, expand=False, design=True):
+               turns=False, b=1, expand=False, design=True, causal=True):
     """One flash case at batch ``b`` against its plain version, logging the
     design it took and (``design``) holding the profiled kernel to
     ``flash_kernel_name``; ``expand``: k and v one slice expanded over the
     batch (stride 0).  Timed, its row (``turns``: by ``in_turns`` against
-    SDPA)."""
+    SDPA, given no mask where every key is seen and ``is_causal`` where the
+    mask is the plain causal one, else the mask)."""
     from repro_torch.kernels import ops, ref
 
     F = torch.nn.functional
@@ -695,7 +755,7 @@ def flash_case(dtype, label, sq, sk, q_offset, kv_len, window, timed, h=H, hkv=H
     q = torch.randn(b, sq, h, d, generator=gen, device="cuda").to(dtype).transpose(1, 2)
     k, v = (torch.randn(1 if expand else b, sk, hkv, d, generator=gen, device="cuda")
             .to(dtype).expand(b, sk, hkv, d).transpose(1, 2) for _ in range(2))
-    kw = dict(causal=True, window=window, q_offset=q_offset, kv_len=kv_len)
+    kw = dict(causal=causal, window=window, q_offset=q_offset, kv_len=kv_len)
 
     def kernel():
         return ops.flash_attention(q, k, v, **kw)
@@ -716,7 +776,9 @@ def flash_case(dtype, label, sq, sk, q_offset, kv_len, window, timed, h=H, hkv=H
         return None
     qpos = torch.arange(sq, device="cuda")[:, None] + q_offset
     kpos = torch.arange(sk, device="cuda")[None, :]
-    mask = (kpos < kv_len) & (qpos >= kpos)
+    mask = (kpos < kv_len).expand(sq, sk).clone()
+    if causal:
+        mask &= qpos >= kpos
     if window is not None:
         mask &= (qpos - kpos) < window
     # the keys some query sees: the window's span, not the whole cache
@@ -726,12 +788,17 @@ def flash_case(dtype, label, sq, sk, q_offset, kv_len, window, timed, h=H, hkv=H
     nbytes = b * 2 * sq * h * d * item + (1 if expand else b) * keys * hkv * d * 2 * item
     flops = 4.0 * b * pairs * h * d
 
+    plain_causal = causal and sq == sk == kv_len and q_offset == 0 and window is None
+    sdpa = (dict(is_causal=True) if plain_causal else
+            {} if bool(mask.all()) else dict(attn_mask=mask))
+
     def library():
-        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
+        return F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **sdpa)
 
     return timed_row("flash_attention", err, kernel, plain, library, nbytes, flops, dtype,
-                     f"{label}: Sq={sq} Sk={sk} q_offset={q_offset} kv_len={kv_len} "
-                     f"window={window} H={h} Hkv={hkv} D={d} {dtype}", turns=turns)
+                     f"{label}: B={b} Sq={sq} Sk={sk} q_offset={q_offset} kv_len={kv_len} "
+                     f"window={window} causal={causal} H={h} Hkv={hkv} D={d} {dtype}",
+                     turns=turns)
 
 
 def conv_case(dtype, l, label, timed):
@@ -1940,6 +2007,272 @@ def serve_moe(arch: str, smi) -> dict:
         undo()
     log(f"  peak device memory over the phase {torch.cuda.max_memory_allocated() / 2**30:.2f} "
         "GiB")
+    return run
+
+
+# ---------------------------------------------------------------------------
+# phases 32 and 33: the vlm (llava-next-mistral-7b) and the audio family
+# (whisper-large-v3)
+# ---------------------------------------------------------------------------
+
+
+def logits_close(label: str, got, want) -> float:
+    """float32 logits of the card against the CPU's: within 2e-4 x max(1,
+    |logits|) and the same argmax; returns the max abs error."""
+    got, want = got.float().cpu(), want.float().cpu()
+    err = float((got - want).abs().max())
+    bound_err = 2e-4 * max(1.0, float(want.abs().max()))
+    if err > bound_err or not torch.equal(got.argmax(-1), want.argmax(-1)):
+        raise SystemExit(f"chip_smoke: {label}: card logits {err:.3e} from the CPU's "
+                         f"(bound {bound_err:.3e}) or another argmax")
+    return err
+
+
+def grown_cache(model, cache, batch: int, rows: int, device):
+    """``model.cache_specs(batch, rows)`` zeros with ``cache``'s rows copied
+    into the first of them: a prefill's cache, room for decode steps."""
+    from repro_torch.models.common import tree_map
+
+    full = tree_map(lambda sp: torch.zeros(sp.shape, dtype=sp.dtype, device=device),
+                    model.cache_specs(batch, rows))
+    tree_map(lambda f, c: f[:, :, :c.shape[2]].copy_(c), full, cache)
+    return full
+
+
+def multimodal_card_vs_cpu(smi) -> None:
+    """Reduced llava-next-mistral-7b and whisper-large-v3 in float32, the
+    same weights on the card and on the CPU: llava's text requests through
+    the engine (paged and gather, whole and chunked prefill), its prefill
+    over 16 image + 9 text tokens and 12 greedy ``decode_step``s; whisper's
+    ``prefill(frames)`` and 16 greedy ``decode_step``s for 2 lanes.  Every
+    logits within 2e-4 x max(1, |logits|) of the CPU's, every token equal."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.models.api import VISION_DIM
+    from repro_torch.models.common import tree_map
+    from repro_torch.serve import AdmissionConfig, CacheConfig, EngineConfig
+
+    card_vs_cpu_tokens("llava-next-mistral-7b", [
+        (f"text requests, prefill_chunk={chunk}, paged and gather", (5, 40, 17, 33, 9, 26),
+         EngineConfig(batch_slots=3, max_len=96, cache=CacheConfig(page_size=PS),
+                      admission=AdmissionConfig(prefill_chunk=chunk)), "gather")
+        for chunk in (0, 16)], smi)
+    rng = np.random.default_rng(32)
+    for arch, b, s, new in (("llava-next-mistral-7b", 2, 9, 12), ("whisper-large-v3", 2, 4, 16)):
+        cfg = dataclasses.replace(get_arch(arch).reduced(), dtype="float32")
+        model = build_model(cfg)
+        cpu = model.init(torch.Generator().manual_seed(0), "cpu")
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(b, s))).long()
+        audio = cfg.family == "audio"
+        extra = torch.from_numpy(rng.standard_normal(
+            (b, cfg.encoder.n_ctx, cfg.d_model) if audio else
+            (b, cfg.vision.n_image_tokens, VISION_DIM)).astype(np.float32))
+        n = s if audio else cfg.vision.n_image_tokens + s
+        got = {}
+        for dev, params in (("cuda", tree_map(lambda t: t.to("cuda"), cpu)), ("cpu", cpu)):
+            if audio:
+                logits, cache = model.prefill(params, toks.to(dev), frames=extra.to(dev))
+            else:
+                logits, cache = model.prefill(params, toks.to(dev), extra_embeds=extra.to(dev))
+            cache = grown_cache(model, cache, b, n + new, dev)
+            steps, out = [logits], []
+            for i in range(new):
+                tok = steps[-1][:, -1].argmax(-1)[:, None]
+                out.append(tok[:, 0].tolist())
+                pos = n + i if audio else torch.full((b,), n + i, device=dev)
+                logits, cache = model.decode_step(params, cache, tok, pos)
+                steps.append(logits)
+            got[dev] = (steps, out)
+        err = max(logits_close(f"{arch} step {i}", c, p)
+                  for i, (c, p) in enumerate(zip(got["cuda"][0], got["cpu"][0])))
+        if got["cuda"][1] != got["cpu"][1]:
+            raise SystemExit(f"chip_smoke: {arch}: card tokens {got['cuda'][1]} differ from "
+                             f"the CPU's {got['cpu'][1]}")
+        what = "frames, prefill" if audio else f"{cfg.vision.n_image_tokens} patches, prefill"
+        log(f"  {arch} ({what} of {s} tokens + {new} greedy decode_steps, {b} lanes): card "
+            f"tokens identical to CPU tokens; logits max abs err {err:.3e}")
+
+
+def serve_llava(smi) -> dict:
+    """llava-next-mistral-7b at published widths (32 layers, bf16, seeded
+    random weights): (a) phase 4's mix of 16 text requests (128-512 prompt
+    tokens, 32 new) through the engine, 8 lanes, max_len 1,024: every request
+    finishes, one ``flash_attention`` launch per layer per prefill, one
+    ``paged_decode_attention`` and one ``paged_write`` per layer per decode
+    step; the decode step's ms and busy share; (b) 4 image requests, each
+    2,880 patch embeddings + 64 text tokens through ``VLM.prefill`` (one
+    flash launch per layer), then 32 greedy ``decode_step``s of the 4
+    together: prefill ms with its device split, time to first token, ms per
+    decode step.  Returns the launch counts of (a) and (b)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.models.api import VISION_DIM
+    from repro_torch.models.common import tree_items, tree_map
+    from repro_torch.serve import CacheConfig, EngineConfig
+
+    cfg = get_arch("llava-next-mistral-7b")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for _, t in tree_items(params))
+    log(f"  {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads "
+        f"of {cfg.hd}, d_ff {cfg.d_ff}, projector {VISION_DIM} -> {cfg.d_model}; "
+        f"{n_params / 1e9:.3f} B parameters ({torch.cuda.memory_allocated() / 1e9:.2f} GB) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    log("  (a) 16 text requests through the engine:")
+    calls = count_calls(model, ("prefill",))
+    ecfg = EngineConfig(batch_slots=8, max_len=1024, cache=CacheConfig(page_size=PS))
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, size=(int(n),)).astype(np.int32)
+               for n in rng.integers(128, 513, size=16)]
+    reqs, run, eng = serve_full_width(model, params, prompts, ecfg,
+                                      SERVE_KERNELS + ("paged_write",), smi,
+                                      on_reset=lambda: calls.update(prefill=0))
+    runs = decode_runs(eng, "llava-next-mistral-7b")
+    log(f"  {calls['prefill']} prefills, {runs - 1} decode steps (graph replays) + 1 warm-up; "
+        f"flash_attention {run['flash_attention']} launches, paged_decode_attention "
+        f"{run['paged_decode_attention']}, paged_write {run['paged_write']}")
+    if run["flash_attention"] != cfg.n_layers * calls["prefill"]:
+        raise SystemExit("chip_smoke: llava's prefill should launch flash once per layer")
+    if run["paged_decode_attention"] != cfg.n_layers * runs \
+            or run["paged_write"] != run["paged_decode_attention"]:
+        raise SystemExit("chip_smoke: llava's decode step should launch paged_decode_attention "
+                         "and paged_write once per layer")
+    del eng
+    decode_breakdown(model, params, cfg.vocab_size)
+
+    k = LLAVA["requests"]
+    n, new = LLAVA["image"] + LLAVA["text"], LLAVA["new"]
+    log(f"  (b) {k} image requests ({LLAVA['image']} patches + {LLAVA['text']} text tokens) "
+        f"through VLM.prefill, then {new} greedy decode_steps of the {k} together:")
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    patches = torch.randn(k, LLAVA["image"], VISION_DIM, generator=gen,
+                          device="cuda").to(torch.bfloat16)
+    toks = torch.randint(0, cfg.vocab_size, (k, LLAVA["text"]), generator=gen, device="cuda")
+    model.prefill(params, toks[:1], extra_embeds=patches[:1])        # first launches
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    cache = tree_map(lambda sp: torch.zeros(sp.shape, dtype=sp.dtype, device="cuda"),
+                     model.cache_specs(k, n + new))
+    first, ttft = [], []
+    t_all = time.perf_counter()
+    for i in range(k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, c = model.prefill(params, toks[i:i + 1], extra_embeds=patches[i:i + 1])
+        first.append(int(logits[0, -1].argmax()))                # the host reads the token
+        ttft.append((time.perf_counter() - t0) * 1e3)
+        if logits.shape != (1, 1, cfg.padded_vocab) or not torch.isfinite(logits).all():
+            raise SystemExit(f"chip_smoke: bad llava image prefill logits {tuple(logits.shape)}")
+        tree_map(lambda f, x: f[:, i:i + 1, :n].copy_(x), cache, c)
+    tok = torch.tensor(first, device="cuda")[:, None]
+    out = [first]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for j in range(new):
+        logits, cache = model.decode_step(params, cache, tok,
+                                          torch.full((k,), n + j, device="cuda"))
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        out.append(tok[:, 0].tolist())
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / new * 1e3
+    image = dict(ops.LAUNCHES)
+    wall = time.perf_counter() - t_all
+    log(f"  time to first token per image request (prefill + the token's read) "
+        f"{', '.join(f'{t:.2f}' for t in ttft)} ms; decode step of {k} lanes at "
+        f"~{n + new // 2}-token contexts {step_ms:.3f} ms; {k * (new + 1)} tokens in "
+        f"{wall:.2f} s ({smi})")
+    log(f"  launches: flash_attention {image['flash_attention']} ({cfg.n_layers} per prefill), "
+        f"paged_decode_attention {image['paged_decode_attention']} (decode_step reads its "
+        "dense cache with the plain decode_attention, as the reference's XLA does)")
+    if image["flash_attention"] != cfg.n_layers * k:
+        raise SystemExit("chip_smoke: an image prefill should launch flash once per layer")
+    if not all(0 <= t < cfg.vocab_size for row in out for t in row) \
+            or not torch.isfinite(logits).all():
+        raise SystemExit("chip_smoke: llava image decode gave a bad token or logits")
+    pre = statistics.median(ttft)
+    log_groups("image prefill", pre, *device_groups(
+        lambda: model.prefill(params, toks[:1], extra_embeds=patches[:1]), 2))
+    last = torch.full((k,), n + new - 1, device="cuda")
+    log_groups("decode step", step_ms, *device_groups(
+        lambda: model.decode_step(params, cache, tok, last), 3))
+    for name, c in image.items():
+        run[name] = run.get(name, 0) + c
+    return run
+
+
+def serve_whisper(smi) -> dict:
+    """whisper-large-v3 at published widths (32 + 32 layers, bf16, seeded
+    random weights): 8 requests at once, 1,500 frames and a 4-token prompt
+    each, ``EncDecLM.prefill`` (the encoder's 32 flash launches, then the
+    decoder's self- and cross-attention, 2 per layer) and 64 greedy
+    ``decode_step``s: encoder ms, prefill ms, decode ms per step with its
+    busy share, tok/s.  Returns this run's launch counts."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_items
+
+    cfg = get_arch("whisper-large-v3")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for _, t in tree_items(params))
+    log(f"  {cfg.encoder.n_layers} + {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads of {cfg.hd}, d_ff {cfg.d_ff}, {cfg.encoder.n_ctx} frames; "
+        f"{n_params / 1e9:.3f} B parameters ({torch.cuda.memory_allocated() / 1e9:.2f} GB) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    b, p, new = WHISPER["batch"], WHISPER["prompt"], WHISPER["new"]
+    gen = torch.Generator(device="cuda").manual_seed(34)
+    frames = torch.randn(b, cfg.encoder.n_ctx, cfg.d_model, generator=gen,
+                         device="cuda").to(torch.bfloat16)
+    toks = torch.randint(0, cfg.vocab_size, (b, p), generator=gen, device="cuda")
+    model.prefill(params, toks, frames=frames)                     # first launches
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, toks, frames=frames)
+    cache = grown_cache(model, cache, b, p + new, "cuda")
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    out = [tok[:, 0].tolist()]                                     # the host reads the tokens
+    t_pre = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    for j in range(new):
+        logits, cache = model.decode_step(params, cache, tok, p + j)
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        out.append(tok[:, 0].tolist())
+    t_dec = time.perf_counter() - t1
+    run = dict(ops.LAUNCHES)
+    gen_tokens = b * (new + 1)
+    log(f"  {b} requests: prefill (encoder + decoder over the prompt, cache grown for "
+        f"decode) {t_pre * 1e3:.2f} ms, {new} decode steps {t_dec / new * 1e3:.3f} ms each; {gen_tokens} tokens in "
+        f"{t_pre + t_dec:.2f} s = {gen_tokens / (t_pre + t_dec):.1f} tok/s end to end ({smi})")
+    log(f"  launches: flash_attention {run['flash_attention']} (encoder {cfg.encoder.n_layers} "
+        f"+ decoder self and cross {2 * cfg.n_layers})")
+    if run["flash_attention"] != cfg.encoder.n_layers + 2 * cfg.n_layers:
+        raise SystemExit("chip_smoke: whisper's prefill should launch flash once per encoder "
+                         "layer and twice per decoder layer")
+    if not all(0 <= t < cfg.vocab_size for row in out for t in row) \
+            or not torch.isfinite(logits).all():
+        raise SystemExit("chip_smoke: whisper decode gave a bad token or logits")
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            model.encode(params, frames)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    enc = statistics.median(times)
+    log(f"  encoder alone ({b} x {cfg.encoder.n_ctx} frames): {enc:.2f} ms (median of 3)")
+    with torch.no_grad():
+        log_groups("encoder pass", enc, *device_groups(lambda: model.encode(params, frames), 2))
+    last = p + new - 1
+    log_groups("decode step", t_dec / new * 1e3, *device_groups(
+        lambda: model.decode_step(params, cache, tok, last), 3))
     return run
 
 
@@ -3945,7 +4278,8 @@ def eval_kernel_vs_xla(tr, state, kernel: str) -> int:
 # the paged-decode rows --kernel-times takes: (label, heads, KV heads, lens, slots, holes)
 PAGED_TIMED = [("qwen2.5-3b", H, HKV, PAGED_RAGGED, 1024 // PS, True),
                ("qwen3-moe", QM["h"], QM["hkv"], PAGED_RAGGED, 1024 // PS, True),
-               ("qwen3-moe served", QM["h"], QM["hkv"], PAGED_SERVED_MOE, 2048 // PS, False)]
+               ("qwen3-moe served", QM["h"], QM["hkv"], PAGED_SERVED_MOE, 2048 // PS, False),
+               ("llava served", LLAVA["h"], LLAVA["hkv"], PAGED_SERVED_LLAVA, 1024 // PS, False)]
 
 
 def kernel_times(src: Path) -> int:
@@ -4112,6 +4446,22 @@ def main() -> int:
         for r in (row, row_q, row_p, row_s):       # logged, not in the JSON line
             if r:
                 log_row(r)
+    log(f"  the vlm and audio families: whisper-large-v3's non-causal encoder ({WHISPER['n_ctx']} "
+        f"x {WHISPER['n_ctx']}) and cross-attention ({WHISPER['prompt']} queries over the "
+        f"frames), H = Hkv = {WHISPER['h']}, D = {WHISPER['d']}, {WHISPER['batch']} requests; "
+        f"llava-next-mistral-7b's image + text prefill ({LLAVA['image'] + LLAVA['text']} causal "
+        f"tokens, H {LLAVA['h']} over Hkv {LLAVA['hkv']}, D = {D}) and its paged decode (rep "
+        f"{LLAVA['h'] // LLAVA['hkv']}) at its served contexts:")
+    for dtype in (torch.float32, torch.bfloat16):
+        timed = dtype == torch.bfloat16
+        for label in ("whisper encoder", "whisper cross", "llava prefill"):
+            row = flash_case(dtype, label, timed=timed, turns=True, **FLASH_SERVED[label])
+            if row:                 # logged, not in the JSON line
+                log_row(row)
+        row = paged_case(dtype, timed, LLAVA["h"], LLAVA["hkv"], "llava served",
+                         lens=PAGED_SERVED_LLAVA, slots=1024 // PS, holes=False, floor=floor)
+        if row:
+            log_row(row)
     log("  flash_attention at batch 2 (a batched prefill, as make_eval_step gives it) at "
         "each served head dim; 'k/v expanded': one slice over the batch (stride 0):")
     for dtype in (torch.float32, torch.bfloat16):
@@ -4418,6 +4768,22 @@ def main() -> int:
         "and deepseek-v3-671b in float32, card against CPU")
     for name, n in tiers_card_vs_cpu(smi).items():
         launches[name] += n
+
+    # -- phases 32 and 33 -------------------------------------------------------------
+    log("== phase 32: reduced llava-next-mistral-7b and whisper-large-v3 in float32, card "
+        "against CPU")
+    multimodal_card_vs_cpu(smi)
+    log("== phase 33: llava-next-mistral-7b at published widths (bf16, random weights) on the "
+        "card")
+    for name, n in serve_llava(smi).items():
+        launches[name] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("== phase 33: whisper-large-v3 at published widths (bf16, random weights) on the card")
+    for name, n in serve_whisper(smi).items():
+        launches[name] += n
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # -- phase 31 -------------------------------------------------------------------
     log("== phase 31: cube worker processes on the card (CubeProcRouter, 2 workers, reduced "

@@ -1,9 +1,10 @@
 """Parameter conversion between the JAX package's tree and the port.
 
-The JAX model's parameters (``repro.models.DecoderLM.init``), turned into
-numpy arrays, have the same nested-dict structure and leaf names as the
-port's (``repro_torch.models.DecoderLM.param_specs``), so conversion is leaf
-for leaf.  bfloat16 leaves arrive as ``ml_dtypes.bfloat16`` numpy arrays,
+The JAX model's parameters (``repro.models.DecoderLM.init``, and the vlm's
+and the audio family's ``VLM`` and ``EncDecLM``), turned into numpy arrays,
+have the same nested-dict structure and leaf names as the port's
+(``repro_torch.models.DecoderLM.param_specs``, ``VLM``'s, ``EncDecLM``'s), so
+conversion is leaf for leaf.  bfloat16 leaves arrive as ``ml_dtypes.bfloat16`` numpy arrays,
 which ``torch.from_numpy`` does not take; they pass through float32, which
 holds every bfloat16 value exactly.  A serving engine's migration payload
 crosses over the same way (``payload_from_numpy``).

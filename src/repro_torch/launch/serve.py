@@ -2,7 +2,10 @@
 
 Serves seeded random requests with the reduced config of ``--arch`` and
 random weights from a seeded generator, on the card unless ``--device cpu``
-is given.  The flags are those of ``python -m repro.launch.serve``.
+is given.  The flags are those of ``python -m repro.launch.serve``.  Every
+registered ``--arch`` builds; the audio family (``whisper-large-v3``) has
+no paged decode, so its engine raises the reference's ``TypeError``, as the
+JAX launcher does (serve it through ``EncDecLM.prefill``/``decode_step``).
 ``--cubes N`` routes the requests over N engines (``serve.router.CubeRouter``,
 every engine on the one card with one parameter set), and with
 ``--multiproc`` over N worker processes (``serve.cube_proc.CubeProcRouter``,

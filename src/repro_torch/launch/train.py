@@ -6,14 +6,15 @@ weights on synthetic data, on the card unless ``--device cpu`` is given.
 The flags are those of ``python -m repro.launch.train`` that one card
 needs (no mesh, no overlap flags) plus ``--device``; ``--ckpt`` names a
 checkpoint directory to save into and resume from (none by default).
-The dense, moe (deepseek-v3-671b, qwen3-moe-235b-a22b), ssm and hybrid
-families train; the others raise.  ``--full`` refuses a configuration
+Every registered family trains (the vlm's batches carry stub patch
+embeddings, the audio family's stub frames, as the JAX package's data
+makes them).  ``--full`` refuses a configuration
 whose weights, float32 gradient sums, one microbatch's gradients and
 float32 optimizer moments alone exceed one 80 GB card (full-width
-recurrentgemma-9b: about 9.5 B parameters; the moe models: 671 B and
-235 B).  There is no depth cut, as in the JAX launcher: ``chip_smoke.py``
-trains the moe models at published widths cut in depth through
-``Trainer`` directly.
+recurrentgemma-9b: about 9.5 B parameters; llava-next-mistral-7b, 7.3 B,
+under momentum or adamw; the moe models: 671 B and 235 B).  There is no
+depth cut, as in the JAX launcher: ``chip_smoke.py`` trains the moe models
+at published widths cut in depth through ``Trainer`` directly.
 """
 import argparse
 import math

@@ -1,3 +1,5 @@
-"""Model layer of the port (dense, moe, ssm and hybrid decoder families)."""
-from .api import build_model  # noqa: F401
+"""Model layer of the port: the decoder-only families (dense, moe, ssm,
+hybrid), the vlm (``VLM``) and the audio encoder/decoder (``EncDecLM``)."""
+from .api import VLM, build_model  # noqa: F401
+from .encdec import EncDecLM  # noqa: F401
 from .transformer import DecoderLM  # noqa: F401

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -115,6 +116,24 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,
     """RMSNorm in float32 (weight ``1 + w`` with ``plus_one``), cast back."""
     w = w.float()
     return F.rms_norm(x.float(), w.shape, (1.0 + w) if plus_one else w, eps).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm with a bias in float32 (population variance), cast back."""
+    return F.layer_norm(x.float(), w.shape, w.float(), b.float(), eps).to(x.dtype)
+
+
+def sinusoidal_positions(n: int, d: int) -> torch.Tensor:
+    """Whisper-style sinusoidal embeddings (n, d) in float32: computed in
+    numpy float64 and cast, as the JAX package computes its table, so the
+    two tables are equal bit for bit."""
+    half = d // 2
+    log_timescale = np.log(10000.0) / max(half - 1, 1)
+    inv = np.exp(-log_timescale * np.arange(half))
+    scaled = np.arange(n)[:, None] * inv[None, :]
+    table = np.concatenate([np.sin(scaled), np.cos(scaled)], axis=1)
+    return torch.from_numpy(table.astype(np.float32))
 
 
 def rope_tables(positions: torch.Tensor, head_dim: int, theta: float = 10000.0):

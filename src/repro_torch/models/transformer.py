@@ -1,10 +1,10 @@
-"""Decoder-only LM, dense, moe, ssm and hybrid families: the port of
+"""Decoder-only LM, dense, vlm, moe, ssm and hybrid families: the port of
 ``repro/models/transformer.py``.
 
 A model is a list of *segments*, each a repeating *pattern* of layer kinds
 (``segments_for``, as in the JAX package):
 
-    dense  : [("dense",) × L]
+    dense  : [("dense",) × L]                    (vlm: the same backbone)
     moe    : [("dense",) × first_dense] + [("moe",) × (L - first_dense)]
                                                  deepseek-v3, qwen3-moe
     ssm    : [("ssm",) × L]                      mamba2
@@ -83,8 +83,9 @@ from .common import (
     tree_map_with_path,
 )
 
-# the ported families, and the layer kinds that attend or carry a state
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+# the decoder-only families (audio is models.encdec.EncDecLM), and the
+# layer kinds that attend or carry a state
+FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
 ATTN_KINDS = ("dense", "attn", "moe")
 STATE_KINDS = ("ssm", "rec")
 # moe_ffn's dispatch on each path, as the reference calls it: capacity
@@ -97,7 +98,7 @@ MOE_DISPATCH = {"prefill": {}, "extend": dict(n_groups=1, drop=False, trim=True)
 
 def segments_for(cfg) -> list[tuple[tuple[str, ...], int]]:
     """(pattern of layer kinds, repeats) per segment."""
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         return [(("dense",), cfg.n_layers)]
     if cfg.family == "moe":
         segs = []
@@ -223,20 +224,21 @@ def mlp_apply(cfg, p, x):
 
 
 class DecoderLM:
-    """Decoder-only LM over the JAX package's parameter layout: the dense,
-    moe (deepseek-v3 with MLA, qwen3-moe), ssm (mamba2) and hybrid
-    (recurrentgemma) families."""
+    """Decoder-only LM over the JAX package's parameter layout: the dense
+    (and the vlm's backbone, ``api.VLM``), moe (deepseek-v3 with MLA,
+    qwen3-moe), ssm (mamba2) and hybrid (recurrentgemma) families."""
 
     supports_chunked_prefill = True
 
     def __init__(self, cfg):
         if cfg.family not in FAMILIES:
             raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet (dense, moe, ssm and hybrid "
-                "are; vlm and audio come next)")
+                f"family {cfg.family!r} is not a DecoderLM family ({', '.join(FAMILIES)}); "
+                "build_model gives the audio family an EncDecLM")
         if cfg.sliding_window is not None or cfg.learned_positions:
             raise NotImplementedError(
-                "sliding-window and learned-position attention are not ported")
+                "sliding-window and learned-position attention are not ported to "
+                "DecoderLM (learned positions are EncDecLM's)")
         if cfg.family == "ssm" and not cfg.ssm.factorized:
             raise NotImplementedError("only the factorized SSD decay is ported")
         self.cfg = cfg
@@ -270,11 +272,15 @@ class DecoderLM:
     def _norm(self, w, x):
         return rms_norm(x, w, self.cfg.norm_eps, plus_one=self.cfg.rms_plus_one)
 
-    def _embed(self, params, tokens):
+    def _embed(self, params, tokens, extra_embeds=None):
+        """The token embeddings, with ``extra_embeds`` (B, P, D), when given,
+        put before them (the vlm's image tokens): (B, P + S, D)."""
         x = params["embed"][tokens]
         if self.cfg.embed_scale:
             x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=x.dtype)
-        return x
+        if extra_embeds is None:
+            return x
+        return torch.cat([extra_embeds.to(x.dtype), x], dim=1)
 
     def _head(self, params, x):
         x = self._norm(params["final_norm"], x)
@@ -361,7 +367,7 @@ class DecoderLM:
                 aux = aux + a
         return x, aux
 
-    def forward(self, params, tokens, impl: str = "xla"):
+    def forward(self, params, tokens, impl: str = "xla", extra_embeds=None):
         """tokens (B, S) → (logits (B, S, V) in the model's type, aux loss:
         the moe layers' router losses summed in float32, each already
         weighted by ``router_aux_weight``; a float32 zero for a model
@@ -375,11 +381,13 @@ class DecoderLM:
         JAX's train step does; ``"kernel"`` runs the flash or ``ssd_scan``
         kernel, which has no backward and refuses grad-requiring inputs.
         The RG-LRU always runs its plain doubling scan.  Recurrent layers
-        start from a zero state and a zero conv context."""
+        start from a zero state and a zero conv context.  ``extra_embeds``
+        (B, P, D) go before the tokens, positions run over all P + S, and
+        the logits cover them all (B, P + S, V)."""
         cfg = self.cfg
         if cfg.remat not in ("none", "full"):
             raise NotImplementedError(f"remat={cfg.remat!r} is not ported ('none' or 'full')")
-        x = self._embed(params, tokens.long())
+        x = self._embed(params, tokens.long(), extra_embeds)
         tables = self._rope(torch.arange(x.shape[1], device=x.device)[None])
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for si, (pattern, reps) in enumerate(self.segments):
@@ -393,12 +401,15 @@ class DecoderLM:
 
     def loss(self, params, batch, impl: str = "xla"):
         """Mean next-token cross-entropy + aux.  batch: {"tokens",
-        "targets"[, "loss_mask"]}; the padded vocabulary is masked with -1e30
-        and the log-softmax taken in float32, as in JAX."""
+        "targets"[, "loss_mask", "extra_embeds"]}; with extra embeddings
+        only the text positions (the last S) are scored; the padded
+        vocabulary is masked with -1e30 and the log-softmax taken in
+        float32, as in JAX."""
         cfg = self.cfg
-        logits, aux = self.forward(params, batch["tokens"], impl)
+        logits, aux = self.forward(params, batch["tokens"], impl,
+                                   extra_embeds=batch.get("extra_embeds"))
         targets = batch["targets"].long()
-        logits = logits.float()
+        logits = logits[:, -targets.shape[1]:].float()
         if cfg.padded_vocab != cfg.vocab_size:
             col = torch.arange(logits.shape[-1], device=logits.device) >= cfg.vocab_size
             logits = torch.where(col, -1e30, logits)
@@ -431,8 +442,10 @@ class DecoderLM:
         return self._attn_out(kind, p, out, x)[0], {"k": k, "v": v}
 
     @torch.no_grad()
-    def prefill(self, params, tokens):
-        """tokens (B, S) → (logits (B, 1, V) at the last position, cache).
+    def prefill(self, params, tokens, extra_embeds=None):
+        """tokens (B, S) → (logits (B, 1, V) at the last position, cache);
+        ``extra_embeds`` (B, P, D) go before the tokens, and the cache then
+        holds P + S positions.
         The cache has the ``cache_specs(B, S)`` layout: per segment, per
         layer of its pattern, k/v leaves (repeats, B, S, Hkv, hd), MLA's
         latent/k_rope leaves (repeats, B, S, rank or qr), or the
@@ -440,7 +453,7 @@ class DecoderLM:
         (repeats, B, K-1, conv_dim); rec: (repeats, B, W) and
         (repeats, B, K-1, W)).  An ssm prompt longer than the chunk must be
         a multiple of it (``ssd_chunked``)."""
-        x = self._embed(params, tokens)
+        x = self._embed(params, tokens, extra_embeds)
         tables = self._rope(torch.arange(x.shape[1], device=x.device)[None])
         per = [{f"s{i}_{k}": [] for i, k in enumerate(pattern)} for pattern, _ in self.segments]
         for si, _, key, kind, p in self._layers(params):

@@ -13,7 +13,11 @@
   for the ssm and RG-LRU layers), ``"gather"`` gathers the
   pools into dense per-lane views (the ``paged_gather`` kernel), runs the
   dense ``DecoderLM.decode_step`` and folds its updates back
-  (``absorb_decode``): the oracle the paged path is held against.
+  (``absorb_decode``): the oracle the paged path is held against.  A
+  ``VLM`` serves text requests as the dense family does (the engine takes
+  no image input, as the reference's takes none); a model without
+  ``decode_step_paged`` (the audio family's ``EncDecLM``) is refused on
+  the paged path with the reference's ``TypeError``.
 * The **admission pipeline** (``serve.admission.AdmissionPipeline``) runs
   prefill (whole prompt, or chunks through ``extend_step``; both run the
   flash kernel, the ``ssd_scan`` kernel for ssm layers and the plain
@@ -191,6 +195,9 @@ class ServeEngine:
             raise ValueError(f"unknown decode_path: {cc.decode_path!r}")
         if cc.preempt_policy not in ("swap", "recompute"):
             raise ValueError(f"unknown preempt_policy: {cc.preempt_policy!r}")
+        if cc.decode_path == "paged" and not hasattr(model, "decode_step_paged"):
+            raise TypeError(f"{type(model).__name__} has no decode_step_paged; serve it "
+                            "with decode_path='gather'")
         self.device = resolve(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"parameters live on {params['embed'].device}, "

@@ -4,7 +4,11 @@ family, paged and gather decode paths), the host tier (the swap-out read in
 one ``paged_gather`` launch, a swap round trip, a restore staged on another
 thread), the ConvNet logits and the reduced qwen2.5-3b train step on the
 card against the CPU; a traced engine's tokens against an untraced one's,
-the sampler's draws on its generator's device, and a sanitized reduced run.
+the sampler's draws on its generator's device, and a sanitized reduced run;
+``flash_attention`` at whisper-large-v3's non-causal encoder and
+cross-attention shapes and at llava-next-mistral-7b's image prefill, and
+the reduced ``VLM`` and ``EncDecLM`` (prefill and greedy decode) on the
+card against the CPU.
 
 Marked ``cuda``; they skip (from a fixture, so every pytest worker collects
 the same tests) when no card is present.  On a machine with a card:
@@ -143,6 +147,32 @@ def test_flash_kernel_matches_plain(card, dtype, d, h, hkv, sq, sk, q_offset, kv
     if window is not None:
         seen &= qpos - kpos < window
     assert torch.all(got[:, :, ~seen.any(1)] == 0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,hkv,d,sq,sk,causal", [
+    # whisper-large-v3: 20 heads = KV heads of 64, non-causal over the 1,500
+    # encoder frames (a multiple of no tile): the encoder and the
+    # cross-attention of a 4-token prompt, 2 requests
+    (2, 20, 20, 64, 1500, 1500, False),
+    (2, 20, 20, 64, 4, 1500, False),
+    # llava-next-mistral-7b's image + text prefill: 2,944 causal tokens,
+    # 32 query heads over 8 KV heads of 128
+    (1, 32, 8, 128, 2944, 2944, True),
+], ids=["whisper_encoder", "whisper_cross", "llava_prefill"])
+def test_flash_kernel_at_the_served_multimodal_shapes(card, dtype, b, h, hkv, d, sq, sk, causal):
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=card).manual_seed(1)
+    q = torch.randn(b, sq, h, d, generator=g, device=card).to(dt).transpose(1, 2)
+    k = torch.randn(b, sk, hkv, d, generator=g, device=card).to(dt).transpose(1, 2)
+    v = torch.randn(b, sk, hkv, d, generator=g, device=card).to(dt).transpose(1, 2)
+    got, names, launched = _profiled(lambda: ops.flash_attention(q, k, v, causal=causal),
+                                     "flash_attention")
+    assert launched == 1
+    kernel, design = _flash_design(dtype, d)
+    assert names == {kernel} and ops.PATHS["flash_attention"] == design
+    want = ref.flash_attention(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), **(F32 if dtype == "float32" else BF16))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -386,6 +416,9 @@ SERVE_CASES = [
     ("deepseek-v3-671b", (21, 5, 40), 16, "gather"),
     ("qwen3-moe-235b-a22b", (21, 5, 40), 0, "paged"),
     ("qwen3-moe-235b-a22b", (21, 5, 40), 16, "gather"),
+    # the vlm's text requests: the dense backbone's paths
+    ("llava-next-mistral-7b", (21, 5, 40), 0, "paged"),
+    ("llava-next-mistral-7b", (21, 5, 40), 16, "gather"),
 ]
 
 
@@ -443,6 +476,55 @@ def test_served_tokens_on_card_match_cpu(card, arch, lengths, chunk, path):
     assert (want > 0) == (gathers or (path == "gather" and kernel != "ssd_scan"))
     if gathers:
         assert ops.LAUNCHES["paged_decode_attention"] == 0
+
+
+@pytest.mark.parametrize("arch", ["llava-next-mistral-7b", "whisper-large-v3"])
+def test_multimodal_prefill_and_decode_on_card_match_cpu(card, arch):
+    """Reduced llava (16 image tokens) and whisper (64 frames) in float32:
+    prefill with patches or frames, then 10 greedy ``decode_step``s; the
+    card's logits within 2e-4 x max(1, |logits|) of the CPU's and its
+    tokens equal.  The prefill's attention is the flash kernel: once per
+    layer for llava, once per encoder layer and twice per decoder layer for
+    whisper."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.models.api import VISION_DIM
+    from repro_torch.models.common import tree_map
+
+    cfg = dataclasses.replace(get_arch(arch).reduced(), dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    audio = cfg.family == "audio"
+    rng = np.random.default_rng(2)
+    b, s, new = 2, 5, 10
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(b, s))).long()
+    extra = torch.from_numpy(rng.standard_normal(
+        (b, cfg.encoder.n_ctx, cfg.d_model) if audio else
+        (b, cfg.vision.n_image_tokens, VISION_DIM)).astype(np.float32))
+    n = s if audio else cfg.vision.n_image_tokens + s
+    out = {}
+    for dev, p in (("cpu", params), ("cuda", tree_map(lambda t: t.to(card), params))):
+        ops.reset_launches()
+        if audio:
+            logits, prompt_cache = model.prefill(p, toks.to(dev), frames=extra.to(dev))
+        else:
+            logits, prompt_cache = model.prefill(p, toks.to(dev), extra_embeds=extra.to(dev))
+        cache = tree_map(lambda sp: torch.zeros(sp.shape, dtype=sp.dtype, device=dev),
+                         model.cache_specs(b, n + new))
+        tree_map(lambda f, c: f[:, :, :c.shape[2]].copy_(c), cache, prompt_cache)
+        flash = ops.LAUNCHES["flash_attention"]
+        steps = [logits.cpu()]
+        for i in range(new):
+            tok = steps[-1][:, -1].argmax(-1)[:, None].to(dev)
+            pos = n + i if audio else torch.full((b,), n + i, device=dev)
+            logits, cache = model.decode_step(p, cache, tok, pos)
+            steps.append(logits.cpu())
+        out[dev] = steps
+    assert flash == (cfg.encoder.n_layers + 2 * cfg.n_layers if audio else cfg.n_layers)
+    for got, want in zip(out["cuda"], out["cpu"]):
+        scale = max(1.0, float(want.abs().max()))
+        torch.testing.assert_close(got, want, rtol=0, atol=2e-4 * scale)
+        assert torch.equal(got.argmax(-1), want.argmax(-1))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

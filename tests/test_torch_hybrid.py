@@ -55,7 +55,7 @@ from repro_torch import convert  # noqa: E402
 from repro_torch import serve as tserve  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
-from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import DecoderLM, build_model  # noqa: E402
 from repro_torch.models.common import tree_items  # noqa: E402
 from repro_torch.optim import optimizer as topt  # noqa: E402
 from repro_torch.serve.paged_cache import absorb_decode, gather_views  # noqa: E402
@@ -167,11 +167,13 @@ def test_param_specs_equal_jax_abstract(width):
 
 
 def test_unported_families_name_mla_and_moe():
-    """The moe family (MLA and MoE) serves now; the message names what is
-    still refused."""
+    """The moe family (MLA and MoE) serves now, and every family builds
+    through ``build_model``; a DecoderLM still refuses the audio family,
+    and its message names the model that takes it."""
     build_model(get_arch("qwen3-moe-235b-a22b").reduced())
-    with pytest.raises(NotImplementedError, match="vlm and audio come next"):
-        build_model(get_arch("llava-next-mistral-7b").reduced())
+    build_model(get_arch("llava-next-mistral-7b").reduced())
+    with pytest.raises(NotImplementedError, match="gives the audio family an EncDecLM"):
+        DecoderLM(get_arch("whisper-large-v3").reduced())
 
 
 # ---------------------------------------------------------------------------

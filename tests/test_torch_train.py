@@ -43,7 +43,7 @@ from repro_torch.data import pipeline as tpipe  # noqa: E402
 from repro_torch.dist.fault import FaultInjector  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
-from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import DecoderLM, build_model  # noqa: E402
 from repro_torch.models.common import tree_items  # noqa: E402
 from repro_torch.optim import optimizer as topt  # noqa: E402
 from repro_torch.train import checkpoint as tck  # noqa: E402
@@ -310,8 +310,8 @@ def test_training_forward_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="factorized"):
         build_model(dataclasses.replace(
             ssm_cfg, ssm=dataclasses.replace(ssm_cfg.ssm, factorized=False)))
-    with pytest.raises(NotImplementedError, match="family 'vlm' is not ported"):
-        build_model(get_arch("llava-next-mistral-7b").reduced())
+    with pytest.raises(NotImplementedError, match="family 'audio' is not a DecoderLM family"):
+        DecoderLM(get_arch("whisper-large-v3").reduced())
 
 
 # ---------------------------------------------------------------------------
