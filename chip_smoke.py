@@ -15,18 +15,23 @@ the serving engine's memory tiers (swap preemption through the host
 tier, prefix sharing with host retire), and its observability and request
 semantics (the ring-buffer tracer, the runtime sanitizer, sampling,
 ``eos_id``, ``admission_inflight``), its decode step captured as one
-CUDA graph per engine against the same step run eagerly, and routing over
+CUDA graph per engine and its chunked-prefill step as one per prefill slot,
+each against the same step run eagerly, and routing over
 cubes (in-process engines and worker processes) with migration between
 engines, and the vlm (llava-next-mistral-7b: the dense backbone with its
 patch projector) and the audio family (whisper-large-v3: the encoder /
 decoder).  Every serving
 engine replays its decode step as a graph (``EngineConfig.cuda_graph``, on
 by default): every per-step launch check multiplies by the engine's
-``decode_graph.runs``, its warm-up and one replay per step.
+``decode_graph.runs``, its warm-up and one replay per step; and every
+chunked prefill replays its full chunks as graphs (its tails and the moe
+family's chunks run eagerly), so a per-chunk check multiplies by the
+slots' ``runs`` (the warm-up and one replay per full chunk) plus their
+``eager_runs``.
 Every serving path runs at full width; all but the moe family's at full
 depth (``MOE_DEPTH``, ``MOE_TRAIN``: 671 B and 235 B parameters do not
-fit one card).  Phases, each fatal (phases 32 and 33 run after phase 24,
-before phase 31):
+fit one card).  Phases, each fatal (phase 34 runs after phase 30, phases 32
+and 33 after phase 24, before phase 31):
 
 1. build the nine CUDA kernels from ``src/repro_torch/kernels/csrc``
    (``nvcc``, printing the ``-Xptxas -v`` register report) and name the card;
@@ -48,7 +53,14 @@ before phase 31):
    ``ssd_scan_fma`` in float32) with ``ops.PATHS`` logged; recurrentgemma-9b's
    shapes besides (16 query heads over 1 KV head, head_dim 256, window
    2,048: ``flash_attention`` on a 3,072-token prompt and on a 1,024-token
-   chunk at offset 2,048 against a 4,096-row cache holding 3,072), and the
+   chunk at offset 2,048 against a 4,096-row cache holding 3,072), the
+   captured chunked prefill's flash calls in their device-offset form
+   (q_offset and kv_len read from an int32 pair on the card, K/V over the
+   whole slot, whose rows past kv_len hold garbage): qwen2.5-3b's 256-token
+   chunk at offset 256 in a 1,024-row slot and recurrentgemma's 1,024-token
+   chunk at offset 2,048 in a 4,096-row slot with window 2,048, bit-equal
+   to the host-offset form, event and device ms of both forms and of SDPA
+   in turns beside the bound, and the
    the vlm and audio families' (``flash_attention`` at whisper-large-v3's
    non-causal encoder, 8 requests x 20 heads = KV heads of 64 over 1,500 x
    1,500 frames, and its cross-attention, 4 queries over the 1,500 frames,
@@ -103,7 +115,9 @@ before phase 31):
    the card and on the CPU (plain kernels), whole-prompt and chunked
    prefill: the greedy tokens must be identical, on the card with the
    captured decode step (every step a replay) and with the eager one (so
-   too in phases 7, 15, 18 and 24);
+   too in phases 7, 15, 18 and 24); with chunked prefill the captured
+   engines replay their extend graphs (phases 7, 9 and 15 too; phase 18's
+   moe family runs its chunks eagerly on the slots);
 4. serve 16 requests at the full width of qwen2.5-3b (36 layers, bf16,
    seeded random weights) with 8 lanes, max_len 1024 and 16-token pages;
    every request must finish, both attention kernels must have launched,
@@ -123,10 +137,12 @@ before phase 31):
 8. serve 16 requests of 128-512 prompt tokens at the full width of
    mamba2-130m (24 layers, bf16, seeded random weights) with 8 lanes,
    256-token prefill chunks and 32 new tokens each: every request finishes,
-   ``ssd_scan`` launches; tok/s, prefill ms (with ``ssd_scan``'s device
-   group and launches, 24 per slice), decode-step ms and the device-busy
-   share (the decode step runs no port kernel: it is the plain
-   ``ssm_decode``);
+   ``ssd_scan`` launches once per layer per chunk (a full chunk one replay
+   of its slot's graph); tok/s, prefill ms (with ``ssd_scan``'s device
+   group and launches, 24 per slice), then one 256-token chunk at offset
+   256 captured against the same static-buffer step eager (wall ms, busy
+   share, kernels), decode-step ms and the device-busy share (the decode
+   step runs no port kernel: it is the plain ``ssm_decode``);
 9. the gather decode path: reduced qwen2.5-3b in float32 with
    ``decode_path="gather"`` gives the CPU's tokens and the card's paged
    tokens; full-width qwen2.5-3b with it serves 16 requests through
@@ -185,12 +201,15 @@ before phase 31):
     (38 layers, bf16, seeded random weights) with 8 lanes, max_len 4,096,
     16-token pages, 1,024-token prefill chunks and 64 new tokens each:
     every request finishes, ``flash_attention`` launches 12 times per
-    prefill slice and ``paged_gather`` 12 times per decode step (the local
+    prefill slice (a full slice one replay, each tail eager) and
+    ``paged_gather`` 12 times per decode step (the local
     attention layers' windowed paged decode, k and v in one launch),
     ``paged_decode_attention``
     never; tok/s, peak memory, the prefill ms per 1,024-token slice with its
-    profiled split (flash, the RG-LRU scan, matmuls, the rest) and the
-    decode-step ms with its busy share and launches per step;
+    profiled split (flash, the RG-LRU scan, matmuls, the rest), one
+    1,024-token slice at offset 2,048 captured against eager (wall ms, busy
+    share, kernels) and the decode-step ms with its busy share and launches
+    per step;
 17. train reduced recurrentgemma-9b (5 layers, 96 tokens) as phase 10 does
     qwen2.5-3b, card against CPU;
 18. serve the same requests with reduced deepseek-v3-671b (MLA, head_dim
@@ -307,6 +326,14 @@ before phase 31):
     into a shadow on B, A dropped and the shadows adopted: tokens equal to
     phase 4's, payload bytes and the export, wire, put and restore ms, one
     ``paged_gather`` read per running request, B's pools kept;
+34. (after phase 30, on phase 4's model) chunked prefill at full width:
+    phase 4's 16 requests with 256-token chunks and async admission
+    through a captured engine and an eager one (``cuda_graph=False``), 3
+    runs each in turns: tokens equal between the two and across runs,
+    request for request; per run one replay per full chunk, one eager
+    tail per prompt that has one, and one ``flash_attention`` launch per
+    layer per chunk; tok/s of each; one 256-token chunk at offset 256 of
+    each in turns (wall ms, device-busy share, kernels);
 31. (last) ``CubeProcRouter`` with 2 worker processes on the card, reduced
     qwen2.5-3b as the JAX package's worker builds it: tokens equal to a card
     engine built the same way here, a ``drain_cube`` and a worker SIGKILLed
@@ -348,7 +375,8 @@ that drive it (serving, VGG16 inference, the gather path, the three
 training paths, recurrentgemma-9b serving and reduced training, the moe
 family's serving and training, the memory tiers' runs of phases 24-26,
 phases 27 and 28's runs, the routed, dense and migrated runs of phases 29
-and 30, phase 33's llava and whisper runs and phase 31's workers), each
+and 30, phase 34's runs, phase 33's llava and whisper runs and phase 31's
+workers), each
 counted from 0 around its own run; a graph replay counts the launches its
 capture made.
 Then it prints one JSON line with each kernel's numbers, the card's name
@@ -739,6 +767,19 @@ def flash_kernel_name(dtype, d) -> str:
     return f"flash_attn_mma<{d}>" if d <= 64 else f"flash_attn_wgmma<{d}>"
 
 
+def flash_mask(sq, sk, q_offset, kv_len, window, causal):
+    """(the (Sq, Sk) mask of visible keys, the keys some query sees: the
+    window's span, not the whole cache, and the visible (q, k) pairs)."""
+    qpos = torch.arange(sq, device="cuda")[:, None] + q_offset
+    kpos = torch.arange(sk, device="cuda")[None, :]
+    mask = (kpos < kv_len).expand(sq, sk).clone()
+    if causal:
+        mask &= qpos >= kpos
+    if window is not None:
+        mask &= (qpos - kpos) < window
+    return mask, int(mask.any(0).sum()), int(mask.sum())
+
+
 def flash_case(dtype, label, sq, sk, q_offset, kv_len, window, timed, h=H, hkv=HKV, d=D,
                turns=False, b=1, expand=False, design=True, causal=True):
     """One flash case at batch ``b`` against its plain version, logging the
@@ -774,16 +815,7 @@ def flash_case(dtype, label, sq, sk, q_offset, kv_len, window, timed, h=H, hkv=H
                          f"{flash_kernel_name(dtype, d)}")
     if not timed:
         return None
-    qpos = torch.arange(sq, device="cuda")[:, None] + q_offset
-    kpos = torch.arange(sk, device="cuda")[None, :]
-    mask = (kpos < kv_len).expand(sq, sk).clone()
-    if causal:
-        mask &= qpos >= kpos
-    if window is not None:
-        mask &= (qpos - kpos) < window
-    # the keys some query sees: the window's span, not the whole cache
-    keys = int(mask.any(0).sum())
-    pairs = int(mask.sum())
+    mask, keys, pairs = flash_mask(sq, sk, q_offset, kv_len, window, causal)
     item = q.element_size()
     nbytes = b * 2 * sq * h * d * item + (1 if expand else b) * keys * hkv * d * 2 * item
     flops = 4.0 * b * pairs * h * d
@@ -799,6 +831,81 @@ def flash_case(dtype, label, sq, sk, q_offset, kv_len, window, timed, h=H, hkv=H
                      f"{label}: B={b} Sq={sq} Sk={sk} q_offset={q_offset} kv_len={kv_len} "
                      f"window={window} causal={causal} H={h} Hkv={hkv} D={d} {dtype}",
                      turns=turns)
+
+
+# the chunked-prefill step's flash shapes in its device-offset form (the
+# captured extend reads q_offset and kv_len on the card, and K/V over the
+# whole slot): qwen2.5-3b's 256-token chunk at offset 256 in a 1,024-row
+# slot, recurrentgemma-9b's 1,024-token chunk at offset 2,048 in a 4,096-row
+# slot, window 2,048
+FLASH_OFFSET = {
+    "qwen2.5-3b chunk": dict(sq=256, sk=1024, q_offset=256, window=None),
+    "rg chunk": dict(sq=RG["chunk"], sk=4096, q_offset=2048, window=RG["window"], h=RG["h"],
+                     hkv=RG["hkv"], d=RG["d"]),
+}
+
+
+def flash_offset_case(label, sq, sk, q_offset, window, h=H, hkv=HKV, d=D) -> dict:
+    """A bf16 chunk of ``sq`` queries at ``q_offset`` against an ``sk``-row
+    slot whose rows past kv_len = q_offset + sq hold finite garbage:
+    (q_offset, kv_len) read from an int32 pair on the card must give the
+    host-offset call's bits in one launch of the same kernel; then event
+    and cold device ms of the device-offset form, the host-offset form and
+    SDPA (given the mask) in turns (D H S S H D).  Returns the row."""
+    from repro_torch.kernels import ops, ref
+
+    F = torch.nn.functional
+    dtype = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q = torch.randn(1, sq, h, d, generator=gen, device="cuda").to(dtype).transpose(1, 2)
+    k, v = (torch.randn(1, sk, hkv, d, generator=gen, device="cuda").to(dtype).transpose(1, 2)
+            for _ in range(2))
+    kv_len = q_offset + sq
+    pair = torch.tensor([q_offset, kv_len], dtype=torch.int32, device="cuda")
+
+    def device_form():
+        return ops.flash_attention(q, k, v, window=window, q_offset=pair[0], kv_len=pair[1])
+
+    def host_form():
+        return ops.flash_attention(q, k, v, window=window, q_offset=q_offset, kv_len=kv_len)
+
+    got, want = device_form(), host_form()
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise SystemExit(f"chip_smoke: flash_attention[{label}]: the device-offset form differs "
+                         "from the host-offset form")
+    def plain():
+        return ref.flash_attention(q, k, v, window=window, q_offset=pair[0], kv_len=pair[1])
+
+    err = check_close(f"flash_attention[{label}, device offsets]", got, plain(), dtype)
+    names = profiled_kernels(device_form)
+    if names != [flash_kernel_name(dtype, d)]:
+        raise SystemExit(f"chip_smoke: flash_attention[{label}, device offsets] launched {names}")
+    mask, keys, pairs = flash_mask(sq, sk, q_offset, kv_len, window, True)
+    item = q.element_size()
+    b_ms, b_by = bound(2 * sq * h * d * item + keys * hkv * d * 2 * item,
+                       4.0 * pairs * h * d, dtype)
+
+    def library():
+        return F.scaled_dot_product_attention(q, k, v, enable_gqa=True, attn_mask=mask)
+
+    times = {"device": [], "host": [], "sdpa": []}
+    fns = {"device": device_form, "host": host_form, "sdpa": library}
+    for name in ("device", "host", "sdpa", "sdpa", "host", "device"):
+        times[name].append((time_ms(fns[name]), device_ms(fns[name], 20, cold=True)))
+    row = {name: tuple(statistics.mean(x[i] for x in t) for i in (0, 1))
+           for name, t in times.items()}
+    plain_ms = time_ms(plain, 10)
+    log(f"  flash_attention[{label}] B=1 Sq={sq} Sk={sk} q_offset={q_offset} kv_len={kv_len} "
+        f"window={window} H={h} Hkv={hkv} D={d} bf16: device offsets bit-equal to host "
+        f"offsets (max_abs_err vs plain {err:.3e}); {names[0]}")
+    for name, what in (("device", "device-offset form"), ("host", "host-offset form  "),
+                       ("sdpa", "SDPA (the mask)   ")):
+        log(f"    {what}: event {row[name][0]:.4f} ms, device {row[name][1]:.4f} ms")
+    log(f"    plain version (the same device pair) {plain_ms:.4f} ms; bound {b_ms:.4f} ms "
+        f"({b_by}); device-offset device time at {100 * b_ms / row['device'][1]:.0f} % of it")
+    return {"shape": label, "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
+            "plain_ms": plain_ms, **row}
 
 
 def conv_case(dtype, l, label, timed):
@@ -1723,10 +1830,20 @@ def card_vs_cpu_tokens(arch, cases, smi, **over) -> None:
                 raise SystemExit(f"chip_smoke: {name} engine finished {len(done)} requests")
             if name.startswith("cuda") and name != "cuda eager":
                 decode_runs(eng, f"{arch} {label} {name}")
+                if e.admission.prefill_chunk:
+                    extend_runs(eng, f"{arch} {label} {name}")
+            if name == "cuda eager" and eng.prefill_slots is not None \
+                    and any(g is not None for g in eng.prefill_slots.graphs):
+                raise SystemExit("chip_smoke: the eager engine captured its extend")
             got[name] = [r.out_tokens for r in reqs]
         same = all(v == got["cpu"] for v in got.values())
+        # the moe family's chunks run eagerly on the slots
+        chunked = ecfg.admission.prefill_chunk > 0 and cfg.family != "moe"
+        moe_chunks = ecfg.admission.prefill_chunk > 0 and cfg.family == "moe"
         log(f"  {label}: {len(prompts)} requests x 12 tokens, card tokens (captured decode "
-            f"step, and eager) {'identical to' if same else 'DIFFER from'} CPU tokens"
+            f"step{' and extend' if chunked else ''}"
+            f"{', the moe extend eager on the slots' if moe_chunks else ''}, and eager) "
+            f"{'identical to' if same else 'DIFFER from'} CPU tokens"
             + (f" and to the card's {also}-path tokens (captured)" if also else ""))
         if not same:
             for name, toks in got.items():
@@ -1739,8 +1856,8 @@ def prefill_ms(model, params, vocab, seq: int, chunk: int, ranges=(),
     """One ``seq``-token prompt prefilled in ``chunk``-token slices (as the
     engine's chunked prefill runs it), or with ``whole`` in one
     ``DecoderLM.prefill``: wall ms and the device split (``group``: that
-    kernel group's line once more, with its launches).  Returns the wall
-    ms."""
+    kernel group's line once more, with its launches).  Returns (the wall
+    ms, the device-busy % or None)."""
     from repro_torch.models.common import tree_map
 
     toks = torch.as_tensor(np.random.default_rng(6).integers(0, vocab, size=(1, seq)),
@@ -1768,11 +1885,11 @@ def prefill_ms(model, params, vocab, seq: int, chunk: int, ranges=(),
     log(f"  prefill of one {seq}-token prompt {how}: {ms:.3f} ms wall "
         f"(median of 5) = {seq / ms * 1e3:.0f} prompt tokens/s")
     groups, launches, top = device_groups(run, 3, ranges)
-    log_groups("prefill", ms, groups, launches, top)
+    busy = log_groups("prefill", ms, groups, launches, top)
     if group is not None:
         log(f"  {group} in the prefill: {groups.get(group, 0.0):.3f} ms of device time over "
             f"{launches.get(group, 0):g} launches")
-    return ms
+    return ms, busy
 
 
 # ---------------------------------------------------------------------------
@@ -1842,6 +1959,100 @@ def decode_runs(eng, label: str) -> int:
     return dg.runs
 
 
+def extend_runs(eng, label: str) -> tuple[int, int]:
+    """(runs of the static-buffer extend: the warm-up and one graph replay per
+    full chunk; chunks run eagerly: prompt tails) of ``eng``'s prefill
+    slots, the counts a per-chunk launch check multiplies.  Fails unless
+    every slot's extend was captured and replayed, or, for the moe family
+    (whose extend reads the device back), unless nothing was captured and
+    every chunk ran eagerly."""
+    sl = eng.prefill_slots
+    if sl is None:
+        raise SystemExit(f"chip_smoke: {label}: the engine has no prefill slots")
+    if eng.model.cfg.family == "moe":
+        if sl.static or any(g is not None for g in sl.graphs) or sl.eager_runs < 1:
+            raise SystemExit(f"chip_smoke: {label}: the moe extend should run eagerly on the "
+                             "slots")
+    elif any(g is None for g in sl.graphs) or sl.runs < 2:
+        raise SystemExit(f"chip_smoke: {label}: the extend was not captured and replayed "
+                         f"({sl.runs} runs)")
+    return sl.runs, sl.eager_runs
+
+
+def chunk_profile(eng, vocab: int, position: int, reps: int = 5):
+    """One full prefill chunk through ``eng``'s slots at ``position`` (the
+    slot first filled up to it): (median wall ms of ``reps`` synced chunks,
+    device-busy %, device ms and launches per kernel group from one profiled
+    chunk; the share None and the groups empty where three profiles
+    recorded no device kernel).  On a captured engine the chunk is one graph
+    replay."""
+    sl = eng.prefill_slots
+    c = sl.chunk
+    toks = np.random.default_rng(8).integers(0, vocab, size=(position + c,)).astype(np.int32)
+    slot = sl.take()
+    sl.zero(slot)
+    try:
+        tree = sl.trees[slot]
+        for p in range(0, position, c):
+            sl(slot, tree, eng.params, toks[p:p + c], p)
+
+        def run():
+            return sl(slot, tree, eng.params, toks[position:], position)
+
+        run()
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        ms = statistics.median(times) * 1e3
+        busy, groups, launches = None, {}, {}
+        for _ in range(3):
+            groups, launches, _ = device_groups(run, 1)
+            if groups:
+                busy = 100 * sum(groups.values()) / ms
+                break
+    finally:
+        sl.release(slot)
+    return ms, busy, groups, launches
+
+
+def chunk_vs_eager(model, params, vocab: int, chunk: int, position: int, max_len: int,
+                   smi: str, engines=None) -> dict:
+    """One ``chunk``-token prefill chunk at ``position``, captured (one graph
+    replay) and eager (``cuda_graph=False``: the same static-buffer step),
+    in turns (C E E C): wall ms, device-busy share and kernel launches per
+    chunk; ``engines`` ({True: captured, False: eager}) or two inline
+    engines of 8 lanes built here.  Returns {captured: [(ms, busy, groups,
+    launches)] * 2}."""
+    from repro_torch.serve import AdmissionConfig, CacheConfig, EngineConfig, ServeEngine
+
+    if engines is None:
+        engines = {g: ServeEngine(model, params, EngineConfig(
+            batch_slots=8, max_len=max_len, cuda_graph=g, cache=CacheConfig(page_size=PS),
+            admission=AdmissionConfig(prefill_chunk=chunk, async_prefill=False)),
+            device="cuda") for g in (True, False)}
+    got = {True: [], False: []}
+    for g in (True, False, False, True):
+        got[g].append(chunk_profile(engines[g], vocab, position))
+    for g in (True, False):
+        (m1, b1, _, k1), (m2, b2, _, k2) = got[g]
+        busy = ("not measured" if b1 is None or b2 is None else f"{b1:.1f} % / {b2:.1f} %")
+        log(f"  one {chunk}-token prefill chunk at offset {position}, "
+            f"{'captured (one replay)' if g else 'eager (cuda_graph=False)'}: {m1:.3f} / "
+            f"{m2:.3f} ms wall (in turns), device busy {busy}, "
+            f"{sum(k1.values()):g} / {sum(k2.values()):g} kernels ({smi})")
+    ratio = sum(x[0] for x in got[True]) / sum(x[0] for x in got[False])
+    log(f"  captured chunk / eager chunk (wall): {ratio:.3f}")
+    groups, launches = got[True][0][2:]
+    log("  the captured chunk's device split: " + ", ".join(
+        f"{k} {groups[k]:.3f} ms over {launches[k]:g}"
+        for k in sorted(groups, key=groups.get, reverse=True)))
+    return got
+
+
 def serve_recurrentgemma(smi) -> dict:
     """16 requests of 1,024-3,072 prompt tokens (half past the 2,048-token
     window) at the full width and depth of recurrentgemma-9b, bf16, seeded
@@ -1866,7 +2077,6 @@ def serve_recurrentgemma(smi) -> dict:
     log(f"  {cfg.n_layers} layers as {model.segments}, d_model {cfg.d_model}, lru_width "
         f"{cfg.rglru.lru_width}, attention H={RG['h']} Hkv={RG['hkv']} D={RG['d']} window "
         f"{RG['window']}; {n_params / 1e9:.3f} B parameters in {time.perf_counter() - t0:.1f} s")
-    calls = count_calls(model, ("extend_step",))
     ecfg = EngineConfig(batch_slots=8, max_len=4096, cache=CacheConfig(page_size=PS),
                         admission=AdmissionConfig(prefill_chunk=RG["chunk"]))
     rng = np.random.default_rng(16)
@@ -1878,15 +2088,20 @@ def serve_recurrentgemma(smi) -> dict:
     log(f"  prompt lengths {sorted(int(n) for n in lengths)}")
     reqs, run, eng = serve_full_width(model, params, prompts, ecfg, ("flash_attention",
                                                                      "paged_gather"), smi,
-                                      max_new=64, on_reset=lambda: calls.update(extend_step=0))
+                                      max_new=64)
     runs = decode_runs(eng, "recurrentgemma-9b")
-    log(f"  {calls['extend_step']} prefill slices, {runs - 1} decode steps (graph "
-        f"replays) + 1 warm-up; flash_attention {run['flash_attention']} launches, paged_gather "
-        f"{run['paged_gather']}, paged_write {run['paged_write']}, paged_decode_attention "
-        f"{run['paged_decode_attention']}")
-    if run["flash_attention"] != n_attn * calls["extend_step"]:
+    slices, tails = extend_runs(eng, "recurrentgemma-9b")
+    full = sum(len(p) // RG["chunk"] for p in prompts)
+    log(f"  {slices - 1} full prefill slices (graph replays) + 1 warm-up, {tails} tail slices "
+        f"(eager), {runs - 1} decode steps (graph replays) + 1 warm-up; flash_attention "
+        f"{run['flash_attention']} launches, paged_gather {run['paged_gather']}, paged_write "
+        f"{run['paged_write']}, paged_decode_attention {run['paged_decode_attention']}")
+    if slices - 1 != full or tails != sum(1 for p in prompts if len(p) % RG["chunk"]):
+        raise SystemExit(f"chip_smoke: {slices - 1} replays and {tails} eager slices, expected "
+                         f"{full} full slices and a tail per prompt")
+    if run["flash_attention"] != n_attn * (slices + tails):
         raise SystemExit(f"chip_smoke: {run['flash_attention']} flash launches, expected "
-                         f"{n_attn} per prefill slice")
+                         f"{n_attn} per prefill slice (a replay counts its captured launches)")
     if run["paged_gather"] != n_attn * runs or run["paged_write"] != run["paged_gather"]:
         raise SystemExit(f"chip_smoke: {run['paged_gather']} paged_gather and "
                          f"{run['paged_write']} paged_write launches, expected {n_attn} each "
@@ -1898,8 +2113,9 @@ def serve_recurrentgemma(smi) -> dict:
                      model.cache_specs(1, len(prompts[0])))
     toks = torch.as_tensor(prompts[0], device="cuda")[None].long()
     for i in range(0, toks.shape[1], RG["chunk"]):
-        logits, cache = model.extend_step(params, cache, toks[:, i:i + RG["chunk"]], i)
-    if logits.shape[-1] != cfg.padded_vocab or not torch.isfinite(logits).all():
+        logits, cache = model.extend_step(params, cache, toks[:, i:i + RG["chunk"]], i,
+                                          last_only=True)
+    if logits.shape != (1, 1, cfg.padded_vocab) or not torch.isfinite(logits).all():
         raise SystemExit(f"chip_smoke: bad recurrentgemma prefill logits {tuple(logits.shape)}")
     if int(logits[0, -1].argmax()) != reqs[0].out_tokens[0]:
         raise SystemExit("chip_smoke: recurrentgemma engine's first token differs from a "
@@ -1907,11 +2123,13 @@ def serve_recurrentgemma(smi) -> dict:
     log("  chunked-prefill logits finite; first token matches the engine")
     undo = scan_range()
     try:
-        ms = prefill_ms(model, params, cfg.vocab_size, 3 * RG["chunk"], RG["chunk"],
-                        ranges=("rglru_scan",))
+        ms, _ = prefill_ms(model, params, cfg.vocab_size, 3 * RG["chunk"], RG["chunk"],
+                           ranges=("rglru_scan",))
     finally:
         undo()
-    log(f"  = {ms / 3:.3f} ms per {RG['chunk']}-token prefill slice ({smi})")
+    log(f"  = {ms / 3:.3f} ms per {RG['chunk']}-token prefill slice, eager, every slice's "
+        f"logits ({smi})")
+    chunk_vs_eager(model, params, cfg.vocab_size, RG["chunk"], 2 * RG["chunk"], 4096, smi)
     decode_breakdown(model, params, cfg.vocab_size, prefill_chunk=RG["chunk"], prompt=2560,
                      max_len=4096, eager=EAGER_STEP["recurrentgemma-9b"])
     return run
@@ -1992,10 +2210,10 @@ def serve_moe(arch: str, smi) -> dict:
     log("  prefill logits finite, shape (1, 1, V); first token matches the engine")
     undo = dispatch_range()
     try:
-        whole = prefill_ms(model, params, cfg.vocab_size, 1024, 1024,
-                           ranges=("moe_dispatch",), whole=True)
-        chunked = prefill_ms(model, params, cfg.vocab_size, 2048, 1024,
-                             ranges=("moe_dispatch",))
+        whole, _ = prefill_ms(model, params, cfg.vocab_size, 1024, 1024,
+                              ranges=("moe_dispatch",), whole=True)
+        chunked, _ = prefill_ms(model, params, cfg.vocab_size, 2048, 1024,
+                                ranges=("moe_dispatch",))
         log(f"  = {whole:.3f} ms per 1,024-token whole prompt (the served path), "
             f"{chunked / 2:.3f} ms per 1,024-token chunked-prefill slice ({smi})")
         decode_breakdown(model, params, cfg.vocab_size, prompt=1024, max_len=2048,
@@ -3071,6 +3289,91 @@ def captured_vs_eager(model, params, prompts, greedy, smi) -> dict[str, int]:
     return run
 
 
+def chunked_captured_vs_eager(model, params, prompts, smi) -> dict[str, int]:
+    """Phase 34 on phase 4's model and requests (32 new tokens), 256-token
+    prefill chunks, async admission: a captured engine (each full chunk one
+    replay of its slot's graph, each tail eager) and an eager one
+    (``cuda_graph=False``), 3 runs each in turns (C E, E C, C E): tokens equal
+    between the two and across runs, request for request; per run, the
+    replays and eager tails the prompts' lengths call for and one
+    flash_attention launch per layer per chunk (a replay counted as its
+    captured launches); tok/s; then one 256-token chunk at offset 256 of each
+    (``chunk_vs_eager``).  Returns the phase's launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import AdmissionConfig, CacheConfig, EngineConfig, Request, ServeEngine
+
+    t_phase = time.perf_counter()
+    chunk, n_layers = 256, model.cfg.n_layers
+    engines = {}
+    for graph in (True, False):
+        eng = ServeEngine(model, params, EngineConfig(
+            batch_slots=8, max_len=1024, cuda_graph=graph, cache=CacheConfig(page_size=PS),
+            admission=AdmissionConfig(prefill_chunk=chunk)), device="cuda")
+        # warm-up: the longest prompt, so a full chunk replays too
+        eng.submit(Request(uid=-1, prompt=max(prompts, key=len), max_new_tokens=2))
+        eng.run()
+        engines[graph] = eng
+    extend_runs(engines[True], "phase 34")
+    if any(g is not None for g in engines[False].prefill_slots.graphs):
+        raise SystemExit("chip_smoke: the eager engine captured its extend")
+    full = sum(len(p) // chunk for p in prompts)
+    tails = sum(1 for p in prompts if len(p) % chunk)
+    if engines[True].prefill_slots.launches.get("flash_attention") != n_layers:
+        raise SystemExit("chip_smoke: the captured extend holds "
+                         f"{engines[True].prefill_slots.launches} launches, expected "
+                         f"{n_layers} flash_attention")
+    run = dict.fromkeys(ops.LAUNCHES, 0)
+    tps, toks = {True: [], False: []}, {}
+    for rep, order in enumerate(((True, False), (False, True), (True, False))):
+        for graph in order:
+            eng = engines[graph]
+            sl = eng.prefill_slots
+            runs0, eager0 = sl.runs, sl.eager_runs
+            reqs = [Request(uid=100 * rep + i, prompt=p, max_new_tokens=32)
+                    for i, p in enumerate(prompts)]
+            ops.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for r in reqs:
+                eng.submit(r)
+            eng.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            for k, n in ops.LAUNCHES.items():
+                run[k] += n
+            tps[graph].append(sum(len(r.out_tokens) for r in reqs) / wall)
+            what = "captured" if graph else "eager"
+            static, eager = sl.runs - runs0, sl.eager_runs - eager0
+            if (static, eager) != (full, tails):
+                raise SystemExit(f"chip_smoke: {what} run {rep}: {static} static chunks and "
+                                 f"{eager} eager ones, expected {full} and {tails}")
+            if ops.LAUNCHES["flash_attention"] != n_layers * (full + tails):
+                raise SystemExit(f"chip_smoke: {what} run {rep}: "
+                                 f"{ops.LAUNCHES['flash_attention']} flash_attention launches, "
+                                 f"expected {n_layers} per chunk of {full + tails}")
+            got = [r.out_tokens for r in reqs]
+            if not all(len(t) == 32 for t in got):
+                raise SystemExit(f"chip_smoke: {what} run {rep}: a request did not finish")
+            first_diff(got, toks.setdefault(graph, got), f"phase 34 {what} run {rep}")
+    first_diff(toks[True], toks[False], "phase 34 captured against eager")
+    for g in (True, False):
+        log(f"  {'captured' if g else 'eager   '}: {', '.join(f'{x:.1f}' for x in tps[g])} tok/s "
+            f"end to end (median {statistics.median(tps[g]):.1f}) ({smi})")
+    log(f"  {len(prompts)} requests, {full} full chunks (one replay each, captured) and {tails} "
+        f"tails (eager) per run; flash_attention {n_layers} launches per chunk in every run; "
+        f"tokens of all 6 runs identical, request for request; captured / eager tok/s "
+        f"(medians) {statistics.median(tps[True]) / statistics.median(tps[False]):.3f}")
+    chunk_vs_eager(model, params, model.cfg.vocab_size, chunk, chunk, 1024, smi,
+                   engines=engines)
+    for eng in engines.values():
+        if eng.prefill_slots.in_use:
+            raise SystemExit("chip_smoke: a prefill slot was not given back")
+    del engines
+    gc.collect()
+    log(f"  phase 34: {time.perf_counter() - t_phase:.1f} s")
+    return run
+
+
 # ---------------------------------------------------------------------------
 # phases 29-31: routing, migration and cube processes
 # ---------------------------------------------------------------------------
@@ -3103,8 +3406,7 @@ def first_diff(got, want, label: str) -> None:
     for i, (a, b) in enumerate(zip(got, want)):
         if a != b:
             step = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
-            raise SystemExit(f"chip_smoke: {label}: request {i} differs from the single "
-                             f"engine's at token {step}")
+            raise SystemExit(f"chip_smoke: {label}: request {i} differs at token {step}")
     if len(got) != len(want):
         raise SystemExit(f"chip_smoke: {label}: {len(got)} requests, {len(want)} wanted")
 
@@ -4385,6 +4687,10 @@ def main() -> int:
                 log_row(row)
                 rows.setdefault("flash_attention", row)
     log_row(rows["paged_decode_attention"])
+    log("  the captured chunked prefill's flash calls, q_offset and kv_len read on the card "
+        "(K/V over the whole slot) against the host-offset form and SDPA:")
+    for label, shape in FLASH_OFFSET.items():
+        flash_offset_case(label, **shape)
     log(f"  recurrentgemma-9b attention (H={RG['h']}, Hkv={RG['hkv']}, D={RG['d']}, "
         f"window {RG['window']}; bf16 runs wgmma + TMA, float32 the CUDA cores):")
     for dtype in (torch.float32, torch.bfloat16):
@@ -4573,6 +4879,10 @@ def main() -> int:
         "migrate_put/signal; checkpoint_request -> shadow_put/signal -> adopt_shadow)")
     for name, n in migrate_full_width(model, params, qwen_prompts, paged_tokens, smi).items():
         launches[name] += n
+    log("== phase 34: full-width qwen2.5-3b chunked prefill (256-token chunks, async "
+        "admission), the captured extend against the eager one (cuda_graph=False)")
+    for name, n in chunked_captured_vs_eager(model, params, qwen_prompts, smi).items():
+        launches[name] += n
     del model, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -4614,19 +4924,28 @@ def main() -> int:
                for n in rng.integers(128, 513, size=16)]
     reqs, run, eng = serve_full_width(model, params, prompts, ecfg, ("ssd_scan",), smi)
     launches["ssd_scan"] += run["ssd_scan"]
-    log(f"  {decode_runs(eng, 'mamba2-130m') - 1} decode steps (graph replays) + 1 warm-up")
+    slices, tails = extend_runs(eng, "mamba2-130m")
+    log(f"  {decode_runs(eng, 'mamba2-130m') - 1} decode steps (graph replays) + 1 warm-up; "
+        f"{slices - 1} full prefill chunks (graph replays) + 1 warm-up, {tails} tails (eager)")
+    if run["ssd_scan"] != cfg.n_layers * (slices + tails):
+        raise SystemExit(f"chip_smoke: {run['ssd_scan']} ssd_scan launches, expected one per "
+                         "layer per prefill chunk (a replay counts its captured launches)")
     cache = tree_map(lambda sp: torch.zeros(sp.shape, dtype=sp.dtype, device="cuda"),
                      model.cache_specs(1, len(prompts[0])))
     toks = torch.as_tensor(prompts[0], device="cuda")[None].long()
     for i in range(0, toks.shape[1], SSM["chunk"]):
-        logits, cache = model.extend_step(params, cache, toks[:, i:i + SSM["chunk"]], i)
-    if logits.shape[-1] != cfg.padded_vocab or not torch.isfinite(logits).all():
+        logits, cache = model.extend_step(params, cache, toks[:, i:i + SSM["chunk"]], i,
+                                          last_only=True)
+    if logits.shape != (1, 1, cfg.padded_vocab) or not torch.isfinite(logits).all():
         raise SystemExit(f"chip_smoke: bad mamba2 prefill logits {tuple(logits.shape)}")
     if int(logits[0, -1].argmax()) != reqs[0].out_tokens[0]:
         raise SystemExit("chip_smoke: mamba2 engine's first token differs from a direct "
                          "chunked prefill")
     log("  chunked-prefill logits finite; first token matches the engine")
     prefill_ms(model, params, cfg.vocab_size, 512, SSM["chunk"], group="ssd_scan")
+    log("  (eager, every slice's logits); the engine's chunk, captured against the same "
+        "static-buffer step run eagerly:")
+    chunk_vs_eager(model, params, cfg.vocab_size, SSM["chunk"], SSM["chunk"], 1024, smi)
     decode_breakdown(model, params, cfg.vocab_size, prefill_chunk=SSM["chunk"],
                      eager=EAGER_STEP["mamba2-130m"])
     log("  (the decode step runs no port kernel: ssm_decode is plain torch, as the "

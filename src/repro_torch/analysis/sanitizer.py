@@ -169,6 +169,9 @@ def register_engine(engine: Any) -> None:
         if host is not None:
             _records[host] = rec
             _records[host.allocator] = rec
+        slots = getattr(engine, "prefill_slots", None)
+        if slots is not None:
+            _records[slots] = rec
 
 
 def register_admission_thread(engine: Any) -> None:

@@ -11,7 +11,10 @@
 // qpos - kpos < window, where qpos = i + q_offset.  Softmax is online with
 // float accumulation; a row with no visible key writes zeros.  causal,
 // window, q_offset and kv_len are run-time arguments, so chunked prefill
-// (a nonzero offset against a capacity-length cache) runs the same binary.
+// (a nonzero offset against a capacity-length cache) runs the same binary;
+// q_offset and kv_len may instead come from an int32 pair on the device,
+// read at kernel entry, so that one launch captured in a CUDA graph serves
+// every chunk offset.
 // q, k and v are read through strides (the model's (B, S, H, D)
 // projections go in as (B, H, S, D) views) and the output is written
 // through strides into the (B, Sq, H, D) storage the wrapper allocates.
@@ -44,7 +47,9 @@
 // swizzle, into a ring of 2-3 stages with a full barrier each for K and for
 // V and an empty barrier the consumers release; the map's position extent
 // is min(Sk, kv_len), so rows past kv_len, Sk or Sq come back zero-filled
-// (no copy pads them) and only the mask sees them.  Two consumer
+// (no copy pads them) and only the mask sees them.  With the device pair the
+// extent is Sk: rows between kv_len and Sk are read as they lie, and the
+// mask gives them P = 0 exactly, so finite values there change nothing.  Two consumer
 // warpgroups own 64 query rows each: S = Q K^T is one warpgroup product
 // (wgmma m64nBNk16, Q and K both from swizzled shared memory, K read
 // K-major), the online softmax runs on S in registers (exp2, the scale
@@ -98,7 +103,21 @@ struct FlashArgs {
   long long o_sb, o_sh, o_ss;
   int causal, window, q_offset, kv_len;  // window <= 0: no window
   float scale;
+  // when set, an int32 pair on the device {q_offset, kv_len} read at kernel
+  // entry in place of the two arguments (a captured chunked prefill replays
+  // the same launch at every offset)
+  const int* offsets;
 };
+
+// (q_offset, kv_len) of this launch: the arguments, or the device pair
+struct Offsets {
+  int q_offset, kv_len;
+};
+
+__device__ __forceinline__ Offsets offsets_of(const FlashArgs& a) {
+  if (a.offsets == nullptr) return {a.q_offset, a.kv_len};
+  return {a.offsets[0], max(0, a.offsets[1])};
+}
 
 template <int D>
 __host__ __device__ constexpr int q_tile() { return D <= 128 ? 64 : 32; }
@@ -142,7 +161,8 @@ __global__ void __launch_bounds__(rt::kThreads) flash_attn_fwd(const FlashArgs a
   const T* kb = static_cast<const T*>(a.k) + b * a.k_sb + g * a.k_sh;
   const T* vb = static_cast<const T*>(a.v) + b * a.v_sb + g * a.v_sh;
   const int q_rows = min(BQ, a.sq - q0);
-  const int kv_end = min(a.sk, a.kv_len);
+  const Offsets off = offsets_of(a);
+  const int kv_end = min(a.sk, off.kv_len);
 
   stage_rows<T, D, BQ, DP>(
       q_s, [&](int t) -> const T* { return t < q_rows ? qb + (q0 + t) * a.q_ss : nullptr; },
@@ -150,9 +170,9 @@ __global__ void __launch_bounds__(rt::kThreads) flash_attn_fwd(const FlashArgs a
 
   // k tiles wholly hidden by the causal or window mask are skipped
   int k_hi = kv_end;
-  if (a.causal) k_hi = min(k_hi, q0 + q_rows + a.q_offset);
+  if (a.causal) k_hi = min(k_hi, q0 + q_rows + off.q_offset);
   int k_lo = 0;
-  if (a.window > 0) k_lo = max(0, q0 + a.q_offset - a.window + 1) / kKeys * kKeys;
+  if (a.window > 0) k_lo = max(0, q0 + off.q_offset - a.window + 1) / kKeys * kKeys;
 
   float m[RPW], l[RPW], acc[PV_ROWS][COLS];
 #pragma unroll
@@ -193,7 +213,7 @@ __global__ void __launch_bounds__(rt::kThreads) flash_attn_fwd(const FlashArgs a
 #pragma unroll
     for (int n = 0; n < RPW; ++n) {
       const int i = warp + kWarps * n;
-      const int qpos = q0 + i + a.q_offset;
+      const int qpos = q0 + i + off.q_offset;
       bool ok = kpos < kv_end && i < q_rows;
       if (a.causal) ok = ok && qpos >= kpos;
       if (a.window > 0) ok = ok && qpos - kpos < a.window;
@@ -323,7 +343,8 @@ __global__ void __launch_bounds__(rt::kThreads) flash_attn_mma(const FlashArgs a
   const bf16* kb = static_cast<const bf16*>(a.k) + b * a.k_sb + hg * a.k_sh;
   const bf16* vb = static_cast<const bf16*>(a.v) + b * a.v_sb + hg * a.v_sh;
   const int q_rows = min(kMmaRows, a.sq - q0);
-  const int kv_end = min(a.sk, a.kv_len);
+  const Offsets off = offsets_of(a);
+  const int kv_end = min(a.sk, off.kv_len);
 
   stage_bf16<D, kMmaRows, PITCH>(
       q_s, [&](int r) -> const bf16* { return r < q_rows ? qb + (q0 + r) * a.q_ss : nullptr; });
@@ -341,16 +362,16 @@ __global__ void __launch_bounds__(rt::kThreads) flash_attn_mma(const FlashArgs a
   }
 
   int k_hi = kv_end;
-  if (a.causal) k_hi = min(k_hi, q0 + q_rows + a.q_offset);
+  if (a.causal) k_hi = min(k_hi, q0 + q_rows + off.q_offset);
   int k_lo = 0;
-  if (a.window > 0) k_lo = max(0, q0 + a.q_offset - a.window + 1) / kMmaKeys * kMmaKeys;
+  if (a.window > 0) k_lo = max(0, q0 + off.q_offset - a.window + 1) / kMmaKeys * kMmaKeys;
 
   float o[ND][4];
 #pragma unroll
   for (int n = 0; n < ND; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   const bool row_ok[2] = {r0 < q_rows, r0 + 8 < q_rows};
-  const int qpos[2] = {q0 + r0 + a.q_offset, q0 + r0 + 8 + a.q_offset};
+  const int qpos[2] = {q0 + r0 + off.q_offset, q0 + r0 + 8 + off.q_offset};
 
   for (int k0 = k_lo; k0 < k_hi; k0 += kMmaKeys) {
     __syncthreads();                           // the previous tile's reads are done
@@ -692,12 +713,14 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
   const int h = blockIdx.x, b = blockIdx.y, hg = h / a.rep;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * wg::BM;
   const int rows = min(wg::BM, a.sq - q0);
-  const int kv_end = min(a.sk, a.kv_len);
+  const Offsets off = offsets_of(a);
+  const int q_offset = off.q_offset;
+  const int kv_end = min(a.sk, off.kv_len);
   // k tiles the causal mask or the window hides from every row of the block
   int k_hi = kv_end;
-  if (a.causal) k_hi = min(k_hi, q0 + rows + a.q_offset);
+  if (a.causal) k_hi = min(k_hi, q0 + rows + q_offset);
   int k_lo = 0;
-  if (a.window > 0) k_lo = max(0, q0 + a.q_offset - a.window + 1) / BN * BN;
+  if (a.window > 0) k_lo = max(0, q0 + q_offset - a.window + 1) / BN * BN;
   const int n_tiles = k_hi > k_lo ? (k_hi - k_lo + BN - 1) / BN : 0;
 
   if (tid == 0) {
@@ -749,9 +772,9 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
   const int qw = q0 + 64 * w, rows_w = min(64, a.sq - qw);
   // the keys this warpgroup's rows can see, within the block's range
   int hi_w = rows_w > 0 ? kv_end : 0;
-  if (a.causal) hi_w = min(hi_w, qw + rows_w + a.q_offset);
-  const int lo_w = a.window > 0 ? qw + a.q_offset - a.window + 1 : 0;
-  const int qpos0 = qw + warp * 16 + g + a.q_offset;      // rows qpos0 and qpos0 + 8
+  if (a.causal) hi_w = min(hi_w, qw + rows_w + q_offset);
+  const int lo_w = a.window > 0 ? qw + q_offset - a.window + 1 : 0;
+  const int qpos0 = qw + warp * 16 + g + q_offset;        // rows qpos0 and qpos0 + 8
   const float sl2 = a.scale * 1.4426950408889634f;        // scores in log2 units
   const uint32_t qs = base + w * L::Q_WG;
 
@@ -783,7 +806,7 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
       hop::fence_regs(sc);
 
       // mask only the tiles on the diagonal, past kv_len or on the window's edge
-      const bool edge = k0 + BN > kv_end || (a.causal && k0 + BN - 1 > qw + a.q_offset) ||
+      const bool edge = k0 + BN > kv_end || (a.causal && k0 + BN - 1 > qw + q_offset) ||
                         (a.window > 0 && k0 < lo_w + rows_w - 1);
       if (edge) {
 #pragma unroll
@@ -962,7 +985,10 @@ int encode_rows(CUtensorMap* map, int* hm, int* bm, const void* base, int d, int
 template <int D>
 cudaError_t launch_wgmma(const FlashArgs& a, int batch, int heads, cudaStream_t stream) {
   using L = wg::Lay<D>;
-  const int kv_end = a.sk < a.kv_len ? a.sk : a.kv_len;
+  // the K/V maps span the rows a key may come from: min(Sk, kv_len), or with
+  // the device pair all Sk rows (the slot's capacity), whose rows past the
+  // device kv_len the kernel masks inside the boundary tile
+  const int kv_end = a.offsets != nullptr ? a.sk : (a.sk < a.kv_len ? a.sk : a.kv_len);
   CUtensorMap qmap, kmap, vmap;
   std::memset(&kmap, 0, sizeof kmap);
   std::memset(&vmap, 0, sizeof vmap);
@@ -1022,21 +1048,25 @@ cudaError_t dispatch(int dtype, int design, int head_dim, const FlashArgs& a, in
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; design as `dispatch` reads it.  Returns
-// cudaGetLastError() after the launch (0 = launched).  Launches on
-// `stream`, allocates nothing and does not synchronise.
+// dtype: 0 = float32, 1 = bfloat16; design as `dispatch` reads it.
+// `offsets`: nullptr, or an int32 pair {q_offset, kv_len} on the device that
+// the kernel reads in place of the two ints (the K/V maps then span all Sk
+// rows, so rows past kv_len must hold finite values: they are read and
+// weighted by exactly 0).  Returns cudaGetLastError() after the launch (0 =
+// launched).  Launches on `stream`, allocates nothing and does not
+// synchronise.
 extern "C" int flash_attention_launch(
     int dtype, int design, int head_dim, const void* q, const void* k, const void* v,
     void* out, int batch, int heads, int rep, int sq, int sk,
     long long q_sb, long long q_sh, long long q_ss, long long k_sb, long long k_sh,
     long long k_ss, long long v_sb, long long v_sh, long long v_ss, long long o_sb,
     long long o_sh, long long o_ss, int causal, int window, int q_offset, int kv_len,
-    float scale, void* stream) {
+    float scale, const int* offsets, void* stream) {
   if (batch <= 0 || heads <= 0 || rep <= 0 || heads % rep != 0 || sq <= 0 || sk <= 0)
     return cudaErrorInvalidValue;
   const FlashArgs a{q, k, v, out, rep, sq, sk,
                     q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,
-                    causal, window, q_offset, kv_len, scale};
+                    causal, window, q_offset, kv_len, scale, offsets};
   return static_cast<int>(
       dispatch(dtype, design, head_dim, a, batch, heads, static_cast<cudaStream_t>(stream)));
 }

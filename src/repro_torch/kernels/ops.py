@@ -75,7 +75,7 @@ _SIGNATURES = {
     "flash_attention_launch": (
         "flash_attention",
         [_I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-         _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _I, _I, _I, _I, _F, _P],
+         _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _I, _I, _I, _I, _F, _P, _P],
     ),
     "stream_mac_conv_launch": (
         "stream_mac_conv", [_I, _P, _P, _P, _P] + [_I] * 14 + [ctypes.POINTER(_I), _P]),
@@ -280,6 +280,33 @@ def flash_path(dtype: torch.dtype, head_dim: int) -> str:
     return "wgmma+TMA 128x128" if head_dim == 128 else "wgmma+TMA 128x64"
 
 
+def _on_device(q_offset, kv_len, device) -> bool:
+    """Whether flash attention's ``q_offset`` / ``kv_len`` take the device
+    form (either is a tensor); each tensor must be a 0-d integer tensor on
+    ``device``."""
+    tensors = [x for x in (q_offset, kv_len) if isinstance(x, torch.Tensor)]
+    for x in tensors:
+        if x.dim() != 0 or x.device != device or x.dtype.is_floating_point \
+                or x.dtype.is_complex or x.dtype == torch.bool:
+            raise ValueError(f"flash_attention: q_offset and kv_len must be ints or 0-d integer "
+                             f"tensors on {device}, got {x.dtype} of shape {tuple(x.shape)} on "
+                             f"{x.device}")
+    return bool(tensors)
+
+
+def _offset_pair(q_offset, kv_len, sk: int, device) -> torch.Tensor:
+    """(q_offset, kv_len) as the int32 pair on the device that the kernel
+    reads: the storage itself where the two are consecutive int32 elements
+    of one tensor (``DecoderLM.extend_step`` passes the halves of one pair,
+    so no launch builds it), else a pair built from them."""
+    if isinstance(q_offset, torch.Tensor) and isinstance(kv_len, torch.Tensor) \
+            and q_offset.dtype == kv_len.dtype == torch.int32 \
+            and kv_len.data_ptr() == q_offset.data_ptr() + 4:
+        return q_offset
+    return torch.stack([torch.as_tensor(x, device=device).reshape(()).long()
+                        for x in (q_offset, sk if kv_len is None else kv_len)]).to(torch.int32)
+
+
 def flash_attention(
     q: torch.Tensor,              # (B, H, Sq, D)
     k: torch.Tensor,              # (B, Hkv, Sk, D)
@@ -287,12 +314,19 @@ def flash_attention(
     causal: bool = True,
     window: int | None = None,
     scale: float | None = None,
-    q_offset: int = 0,
-    kv_len: int | None = None,
+    q_offset: int | torch.Tensor = 0,
+    kv_len: int | torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Blocked GQA attention; masks keys at or past ``kv_len``, and (as
     asked) keys after each query (causal, query positions shifted by
-    ``q_offset``) or ``window`` or more positions behind it."""
+    ``q_offset``) or ``window`` or more positions behind it.
+
+    ``q_offset`` and ``kv_len`` are ints, or 0-d integer tensors on the
+    operands' device: the card then reads them there at the kernel's entry
+    (nothing is read back, so a CUDA graph replays the call at any offset),
+    and k and v are read over all Sk rows, so their rows past ``kv_len`` must
+    hold finite values (they are weighted by exactly 0).  Both forms give
+    the same bits."""
     _no_grad("flash_attention", q, k, v)
     b, h, sq, d = q.shape
     _, hkv, sk, _ = k.shape
@@ -301,6 +335,7 @@ def flash_attention(
     if window is not None and window <= 0:
         raise ValueError(f"flash_attention: window must be positive, got {window}")
     scale = float(scale) if scale is not None else float(d) ** -0.5
+    on_device = _on_device(q_offset, kv_len, q.device)
     if q.device.type == "cpu":
         return ref.flash_attention(q, k, v, causal=causal, window=window,
                                    scale=scale, q_offset=q_offset, kv_len=kv_len)
@@ -310,6 +345,10 @@ def flash_attention(
         raise ValueError(f"flash_attention: unsupported shapes q {tuple(q.shape)}"
                          f" k {tuple(k.shape)} v {tuple(v.shape)}")
     path = flash_path(q.dtype, d)
+    pair = None
+    if on_device:
+        pair = _offset_pair(q_offset, kv_len, sk, q.device)
+        q_offset, kv_len = 0, sk
     # (B, Sq, H, D) storage: the model's next step merges heads for free
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
     lib, fn = _entry("flash_attention_launch")
@@ -317,7 +356,8 @@ def flash_attention(
              out.data_ptr(), b, h, h // hkv, sq, sk, *q.stride()[:3], *k.stride()[:3],
              *v.stride()[:3], *out.stride()[:3], int(causal),
              0 if window is None else int(window), int(q_offset),
-             sk if kv_len is None else max(0, int(kv_len)), scale, _raw_stream(q.device))
+             sk if kv_len is None else max(0, int(kv_len)), scale,
+             None if pair is None else pair.data_ptr(), _raw_stream(q.device))
     _launched(lib, "flash_attention", err)
     PATHS["flash_attention"] = path
     return out

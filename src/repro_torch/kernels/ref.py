@@ -28,10 +28,12 @@ def flash_attention(
     causal: bool = True,
     window: int | None = None,
     scale: float | None = None,
-    q_offset: int = 0,            # absolute position of q[:, :, 0]
-    kv_len: int | None = None,    # keys at or past kv_len are masked
+    q_offset: int | torch.Tensor = 0,          # absolute position of q[:, :, 0]
+    kv_len: int | torch.Tensor | None = None,  # keys at or past kv_len are masked
 ) -> torch.Tensor:
-    """Materialized-logits GQA attention; fully masked rows give zeros."""
+    """Materialized-logits GQA attention; fully masked rows give zeros.
+    ``q_offset`` and ``kv_len`` may be 0-d integer tensors on q's device
+    (the kernel's device-offset form): the same mask, the same bits."""
     b, h, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     if hkv != h:

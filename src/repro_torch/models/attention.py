@@ -94,16 +94,18 @@ def flash_attention_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
-           window: int | None = None, scale: float | None = None, q_offset: int = 0,
-           kv_len: int | None = None, impl: str = "kernel",
-           chunk: int = 1024) -> torch.Tensor:
+           window: int | None = None, scale: float | None = None,
+           q_offset: int | torch.Tensor = 0, kv_len: int | torch.Tensor | None = None,
+           impl: str = "kernel", chunk: int = 1024) -> torch.Tensor:
     """Blocked GQA attention → (B, Sq, H, D).  ``q_offset`` is the absolute
     position of q[:, 0] and ``kv_len`` the number of valid cache rows, both
     run-time values (chunked prefill attends a chunk at an offset against a
     capacity-length cache).  ``impl="kernel"`` (serving) runs the flash
-    kernel, which has no backward; ``impl="xla"`` (training, as JAX's train
-    step attends) the differentiable ``flash_attention_xla`` in blocks of
-    ``chunk``."""
+    kernel, which has no backward, and takes both as ints or as 0-d integer
+    tensors on the device (read there by the kernel: the captured chunked
+    prefill); ``impl="xla"`` (training, as JAX's train step attends) the
+    differentiable ``flash_attention_xla`` in blocks of ``chunk``, with
+    ints."""
     if impl == "xla":
         return flash_attention_xla(q, k, v, causal=causal, window=window, scale=scale,
                                    q_offset=q_offset, kv_len=kv_len, chunk=chunk)

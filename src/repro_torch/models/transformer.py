@@ -464,18 +464,41 @@ class DecoderLM:
         return self._head(params, x[:, -1:]), cache
 
     @torch.no_grad()
-    def extend_step(self, params, cache, tokens, position: int):
+    def extend_step(self, params, cache, tokens, position: int | torch.Tensor,
+                    last_only: bool = False):
         """Chunked prefill: tokens (B, C) at absolute positions
-        [position, position + C) → (logits (B, C, V), cache), every leaf
-        updated in place.  Attention layers write the chunk's k/v into
-        ``cache`` (the ``cache_specs(B, capacity)`` layout) and attend
-        against rows [0, position + C) of it (within the window for local
-        attention); recurrent layers step their state through the chunk
-        (ssm in slices of at most ``chunk`` tokens, so any length runs)."""
+        [position, position + C) → (logits (B, C, V), or (B, 1, V) of the
+        last position with ``last_only``, cache), every leaf updated in
+        place.  Attention layers write the chunk's k/v into ``cache`` (the
+        ``cache_specs(B, capacity)`` layout) and attend against rows
+        [0, position + C) of it (within the window for local attention);
+        recurrent layers step their state through the chunk (ssm in slices
+        of at most ``chunk`` tokens, so any length runs).
+
+        The k/v writes are an ``index_copy_`` at ``position + arange(C)``
+        (the reference's ``dynamic_update_slice``).  ``position`` is an int,
+        or a 0-d int64 tensor on the model's device: then the rotary tables,
+        those writes and the flash kernel's offsets are all computed on the
+        device and nothing is read back, so the step can be captured once in
+        a CUDA graph and replayed at every offset (``serve.captured.CapturedExtend``);
+        the kernel then reads the cache's rows past ``position + C`` too,
+        weighted by 0, so they must be finite (the engine zeroes its slots).
+        Both forms give the same bits.  MLA's extend takes an int only (the
+        moe family's extend dispatches with a host read, so it runs
+        eagerly)."""
         cfg = self.cfg
         x = self._embed(params, tokens)
         c = x.shape[1]
-        tables = self._rope(position + torch.arange(c, device=x.device)[None])
+        at = position + torch.arange(c, device=x.device)
+        tables = self._rope(at[None])
+        if isinstance(position, torch.Tensor):
+            if cfg.mla:
+                raise TypeError("extend_step: MLA's extend takes an int position")
+            # the kernel's (q_offset, kv_len), one int32 pair for every layer
+            offs = torch.stack((position, position + c)).to(torch.int32)
+            q_offset, kv_len = offs[0], offs[1]
+        else:
+            q_offset, kv_len = position, position + c
         for si, r, key, kind, p in self._layers(params):
             leaves = cache[si][key]
             if kind == "ssm":
@@ -497,12 +520,12 @@ class DecoderLM:
             else:
                 q, k, v = self._qkv_rope(p, x, tables)
                 kc, vc = leaves["k"][r], leaves["v"][r]
-                kc[:, position:position + c] = k
-                vc[:, position:position + c] = v
+                kc.index_copy_(1, at, k)
+                vc.index_copy_(1, at, v)
                 out = attend(q, kc, vc, causal=True, window=self._window(kind),
-                             q_offset=position, kv_len=position + c)
+                             q_offset=q_offset, kv_len=kv_len)
                 x, _ = self._attn_out(kind, p, out, x, "extend")
-        return self._head(params, x), cache
+        return self._head(params, x[:, -1:] if last_only else x), cache
 
     def _decode_state(self, kind, p, x, state):
         """One recurrent layer's decode step → (x, its new state leaves)."""

@@ -63,7 +63,11 @@ captured once per engine, at construction, as one CUDA graph and replayed
 each step (``EngineConfig.cuda_graph=False`` runs the same buffers
 eagerly); the step reads nothing back (idle lanes' cache writes are dropped
 on the card by ``paged_write``), and sampling runs after it on its logits
-rows.
+rows.  Chunked prefill (the reference's jitted ``_extend``) computes into
+one of ``admission_inflight`` prefill slots, private cache trees allocated
+once (``serve.captured.CapturedExtend``): each full chunk is a replay of the
+slot's CUDA graph, captured at construction too, the tail chunk of a prompt
+runs eagerly on the slot, and the moe family runs every chunk eagerly.
 
 The engine runs on the card unless ``device="cpu"`` is passed (then every
 kernel runs its plain PyTorch version); the parameters must already live on
@@ -83,7 +87,9 @@ preemption and step counts match it.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import threading
+import warnings
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -92,14 +98,13 @@ import torch
 from repro_torch.analysis import sanitizer
 from repro_torch.analysis.ownership import admission_api, decode_loop_only, pool_mutator
 from repro_torch.device import resolve
-from repro_torch.models.common import tree_map
 from repro_torch.obs import clock as obs_clock
 from repro_torch.obs.export import write_chrome_trace
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.trace import NULL_TRACER, ServeTracer
 
 from .admission import AdmissionPipeline, prefill_logits_token
-from .captured import CapturedDecode
+from .captured import CapturedDecode, CapturedExtend
 from .paged_cache import PagedKVCache, absorb_decode, gather_views
 from .scheduler import RequestState, Scheduler, SchedulerConfig
 
@@ -170,19 +175,80 @@ class ObsConfig:
     trace_annotations: bool = False
 
 
-@dataclass
+def _flat_map() -> dict[str, str]:
+    return {
+        **{f.name: "cache" for f in dataclasses.fields(CacheConfig)},
+        **{f.name: "admission" for f in dataclasses.fields(AdmissionConfig)},
+        **{f.name: "obs" for f in dataclasses.fields(ObsConfig)},
+    }
+
+
+_FLAT_MAP = _flat_map()
+_warned_flat: set[str] = set()
+
+
+@dataclass(init=False)
 class EngineConfig:
+    """Engine configuration: four top-level knobs and the three groups.
+    Flat keywords (``EngineConfig(page_size=4)``) are still taken, as the
+    reference takes them: each is routed onto its group with a
+    ``DeprecationWarning`` once per knob, and every flat name is a property
+    that reads and writes the group, so ``dataclasses.replace(ecfg,
+    n_pages=8)`` works.  An unknown keyword raises ``TypeError``."""
+
     batch_slots: int = 4            # decode lanes
     max_len: int = 256              # per-request context capacity
     eos_id: int | None = None       # a request ends at this token
-    # a card engine replays its decode step as one CUDA graph captured at
-    # construction (the reference jits it); False runs the same static-
-    # buffer step eagerly (an A/B baseline, or a profile that wants
-    # record_function ranges inside the step).  A CPU engine ignores it
+    # a card engine replays its decode step and its full prefill chunks as
+    # CUDA graphs captured at construction (the reference jits them); False
+    # runs the same static-buffer steps eagerly (an A/B baseline, or a
+    # profile that wants record_function ranges inside a step).  A CPU
+    # engine ignores it
     cuda_graph: bool = True
     cache: CacheConfig = field(default_factory=CacheConfig)
     admission: AdmissionConfig = field(default_factory=AdmissionConfig)
     obs: ObsConfig = field(default_factory=ObsConfig)
+
+    def __init__(self, batch_slots: int = 4, max_len: int = 256, eos_id: int | None = None,
+                 cuda_graph: bool = True, cache: CacheConfig | None = None,
+                 admission: AdmissionConfig | None = None, obs: ObsConfig | None = None,
+                 **flat):
+        self.batch_slots = batch_slots
+        self.max_len = max_len
+        self.eos_id = eos_id
+        self.cuda_graph = cuda_graph
+        self.cache = cache if cache is not None else CacheConfig()
+        self.admission = admission if admission is not None else AdmissionConfig()
+        self.obs = obs if obs is not None else ObsConfig()
+        groups: dict[str, dict] = {"cache": {}, "admission": {}, "obs": {}}
+        for k, v in flat.items():
+            g = _FLAT_MAP.get(k)
+            if g is None:
+                raise TypeError(f"EngineConfig got an unexpected keyword argument {k!r}")
+            if k not in _warned_flat:
+                _warned_flat.add(k)
+                warnings.warn(f"EngineConfig({k}=...) is deprecated; use "
+                              f"EngineConfig({g}={g.capitalize()}Config({k}=...))",
+                              DeprecationWarning, stacklevel=2)
+            groups[g][k] = v
+        for g, knobs in groups.items():
+            if knobs:
+                setattr(self, g, dataclasses.replace(getattr(self, g), **knobs))
+
+
+def _flat_property(group: str, name: str):
+    def get(self):
+        return getattr(getattr(self, group), name)
+
+    def set_(self, value):
+        setattr(getattr(self, group), name, value)
+
+    return property(get, set_)
+
+
+for _name, _group in _FLAT_MAP.items():
+    setattr(EngineConfig, _name, _flat_property(_group, _name))
+del _name, _group
 
 
 class ServeEngine:
@@ -231,13 +297,27 @@ class ServeEngine:
                                   device=self.device, host_pages=host_pages,
                                   metrics=self.metrics, prefix_sharing=cc.prefix_sharing)
         chunk = ac.prefill_chunk if model.supports_chunked_prefill else 0
-        # the decode step on static buffers, captured before the admission
-        # pipeline's thread exists (nothing else runs on the card meanwhile)
+        # the decode step and the prefill slots' extend on static buffers,
+        # captured before the admission pipeline's thread exists (nothing
+        # else runs on the card meanwhile)
+        capture = self.device.type == "cuda" and ecfg.cuda_graph
         self.decode_graph = CapturedDecode(
             lambda *inputs: self._decode_impl(self.params, self.cache.pools, *inputs)[0],
             self.cache.pools, ecfg.batch_slots, self.cache.pages_per_lane,
-            model.cfg.padded_vocab, model.cfg.torch_dtype, self.device,
-            capture=self.device.type == "cuda" and ecfg.cuda_graph)
+            model.cfg.padded_vocab, model.cfg.torch_dtype, self.device, capture=capture)
+        self.prefill_slots: CapturedExtend | None = None
+        if chunk > 0:
+            # the moe family's extend sizes its dispatch slab by a host read
+            # (MOE_DISPATCH["extend"]'s trim; untrimmed, every expert would
+            # run a chunk-long slab), which a graph cannot hold: its chunks
+            # run eagerly on the same slots
+            static = model.cfg.family != "moe"
+            self.prefill_slots = CapturedExtend(
+                lambda params, tree, tokens, position: model.extend_step(
+                    params, tree, tokens, position, last_only=True)[0],
+                params, model.cache_specs(1, self.cache.capacity), ac.admission_inflight,
+                chunk, model.cfg.padded_vocab, model.cfg.torch_dtype, self.device,
+                static=static, capture=capture and static)
         self.sched = Scheduler(SchedulerConfig(
             policy=ac.policy, prefill_chunk=chunk,
             max_inflight_prefills=ac.admission_inflight,
@@ -501,13 +581,33 @@ class ServeEngine:
     # -- prefill (called by the admission pipeline, OUTSIDE the lock) ---------
 
     @admission_api
-    def _fresh_prefill_tree(self):
-        """Private single-request cache a chunked prefill computes into (seq
-        leaves at full per-lane capacity); written into the reserved pages
-        by the decode loop at lane assignment."""
-        return tree_map(
-            lambda s: torch.zeros(s.shape, dtype=s.dtype, device=self.device),
-            self.model.cache_specs(1, self.cache.capacity))
+    def _take_prefill_slot(self, st) -> None:
+        """Give ``st`` a prefill slot, zeroed: the private single-request
+        cache its chunked prefill computes into (seq leaves at full per-lane
+        capacity), written into its reserved pages by the decode loop at
+        lane assignment."""
+        with self._lock:
+            # the scheduler's bound counts admitting + ready requests, and a
+            # request leaves ready before the decode loop has written its
+            # slot into the pages: in async mode wait for that write (sync
+            # mode writes before it admits again)
+            while self.pipeline.async_mode and not self.prefill_slots.n_free:
+                self._cv.wait()
+            st.prefill_slot = self.prefill_slots.take()
+        st.prefill_cache = self.prefill_slots.trees[st.prefill_slot]
+        self.prefill_slots.zero(st.prefill_slot)
+
+    @admission_api
+    def _drop_prefill_cache(self, st) -> None:
+        """Let go of ``st``'s prefill tree, and of its slot: after the
+        decode loop has written it into the pages, or when the request
+        retires."""
+        st.prefill_cache = None
+        if st.prefill_slot >= 0:
+            with self._lock:
+                self.prefill_slots.release(st.prefill_slot)
+                self._cv.notify_all()
+            st.prefill_slot = -1
 
     @admission_api
     def run_prefill(self, st, chunk: int) -> bool:
@@ -522,21 +622,18 @@ class ServeEngine:
             st.last_logits = logits[0, -1]
             return True
         if st.prefill_cache is None:
-            st.prefill_cache = self._fresh_prefill_tree()
+            self._take_prefill_slot(st)
             claim = st.prefix_claim
             if claim is not None and claim.seed_pages:
                 # partial prefix hit: the shared pages' rows go into the
-                # private tree, so the extend resumes at the matched offset
+                # slot's tree, so the extend resumes at the matched offset
                 # (st.prefilled was set to it at admission)
-                st.prefill_cache = self.cache.seed_prefix(
-                    st.prefill_cache, st.pages[: claim.seed_pages])
+                self.cache.seed_prefix(st.prefill_cache, st.pages[: claim.seed_pages])
         toks = st.resume_tokens[st.prefilled: st.prefilled + chunk]
-        logits, st.prefill_cache = self.model.extend_step(
-            self.params, st.prefill_cache,
-            torch.as_tensor(toks, dtype=torch.long, device=self.device)[None],
-            st.prefilled)
+        # a full chunk replays the slot's graph; a shorter one runs eagerly
+        st.last_logits = self.prefill_slots(st.prefill_slot, st.prefill_cache, self.params,
+                                            toks, st.prefilled)
         st.prefilled += len(toks)
-        st.last_logits = logits[0, -1]
         return st.remaining_prefill == 0
 
     @admission_api
@@ -616,7 +713,8 @@ class ServeEngine:
             # a retired request pins no device memory (prefill caches,
             # staged restores, logits rows), and its per-uid counters fold
             # into their high-water marks
-            st.prefill_cache = st.state_cache = st.staged = None
+            self._drop_prefill_cache(st)
+            st.state_cache = st.staged = None
             st.last_logits = None
             self.sched.retire_uid(st.req.uid)
             st.phase = "done"
@@ -678,7 +776,7 @@ class ServeEngine:
                     inserts.append((st, self.cache.snapshot_state(st.prefill_cache)))
                 self.cache.write_prefill(st.pages, st.prefill_cache, lane=st.lane,
                                          skip_pages=skip)
-                st.prefill_cache = None
+                self._drop_prefill_cache(st)
             if st.state_cache is not None:            # restored lane state
                 self.cache.write_state(st.lane, st.state_cache)
                 st.state_cache = None

@@ -87,6 +87,8 @@ class RequestState:
     prefill_cache: object = None    # private prefill cache tree, held until a
     #                                 lane is assigned (only the decode loop
     #                                 writes pools)
+    prefill_slot: int = -1          # the engine's prefill slot holding that
+    #                                 tree (chunked prefill), or -1
     state_cache: object = None      # restored recurrent state awaiting a lane
     staged: object = None           # host→device staged page rows awaiting
     #                                 the decode loop's scatter (swap-in)

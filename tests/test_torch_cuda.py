@@ -223,6 +223,45 @@ def test_flash_kernel_batch_of_two(card, dtype, d, h, hkv, window, expand):
     torch.testing.assert_close(got.float(), want.float(), **(F32 if dtype == "float32" else BF16))
 
 
+# every design: bf16 at the served head dims on wgmma + TMA, bf16 D 64 on
+# mma.sync, float32 on the CUDA cores; a window on the recurrentgemma shape
+DEVICE_OFFSET_CASES = [("bfloat16", 128, 16, 2, None), ("bfloat16", 192, 8, 8, None),
+                       ("bfloat16", 256, 16, 1, 64), ("bfloat16", 64, 8, 2, None),
+                       ("float32", 128, 16, 2, None)]
+
+
+@pytest.mark.parametrize("q_offset", [0, 64, 48], ids=["0", "chunk", "page_not_chunk"])
+@pytest.mark.parametrize("dtype,d,h,hkv,window", DEVICE_OFFSET_CASES)
+def test_flash_device_offsets_bit_equal_to_host_offsets(card, dtype, d, h, hkv, window,
+                                                        q_offset):
+    """A 64-token chunk at ``q_offset`` (0, one chunk, or 48: a multiple of
+    the 16-token page but not of the chunk) against a 256-row slot whose
+    rows past ``kv_len`` hold finite garbage: (q_offset, kv_len) read from an
+    int32 pair on the card (the K/V maps over all 256 rows) gives the
+    host-offset call's bits, in one launch of the same kernel."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=card).manual_seed(q_offset)
+    sq, sk = 64, 256
+    kv_len = q_offset + sq
+    q = torch.randn(1, sq, h, d, generator=g, device=card).to(dt).transpose(1, 2)
+    k, v = (torch.randn(1, sk, hkv, d, generator=g, device=card).to(dt).transpose(1, 2)
+            for _ in range(2))
+    pair = torch.tensor([q_offset, kv_len], dtype=torch.int32, device=card)
+    want = ops.flash_attention(q, k, v, window=window, q_offset=q_offset, kv_len=kv_len)
+    got, names, launched = _profiled(
+        lambda: ops.flash_attention(q, k, v, window=window, q_offset=pair[0], kv_len=pair[1]),
+        "flash_attention")
+    assert launched == 1 and names == {_flash_design(dtype, d)[0]}
+    assert torch.equal(got, want)
+    # the pair built from int64 scalars (one stack and cast) gives them too
+    pos = torch.tensor(q_offset, device=card)
+    assert torch.equal(ops.flash_attention(q, k, v, window=window, q_offset=pos,
+                                           kv_len=pos + sq), want)
+    torch.testing.assert_close(got.float(), ref.flash_attention(
+        q, k, v, window=window, q_offset=q_offset, kv_len=kv_len).float(),
+        **(F32 if dtype == "float32" else BF16))
+
+
 def _paged_design(dtype: str, d: int) -> tuple[str, str]:
     """(compiled kernel, the ``ops.PATHS`` entry's design) of a paged-decode
     call: bf16 on mma.sync, float32 on the CUDA cores, either one launch
@@ -1427,6 +1466,100 @@ def _capture_waits_for_no_collection():
     assert got[0] == got[1]
 
 
+EXTEND_ARCHS = ["qwen2.5-3b", "mamba2-130m", "recurrentgemma-9b"]
+
+
+def _captured_extend_bit_equal_to_eager(arch, dtype):
+    """A captured engine and an eager one (``cuda_graph=False``) with 8-token
+    prefill chunks, stepped in lockstep (inline admission) on prompts of
+    full chunks and a tail: after every step each prefill slot's logits row
+    and tree, the pools and the tokens equal the eager engine's bit for bit;
+    a full chunk is one replay (flash: one launch per attention layer, as
+    captured)."""
+    from repro_torch.models.common import tree_items
+    from repro_torch.serve import (
+        AdmissionConfig, CacheConfig, EngineConfig, Request, ServeEngine)
+
+    model, params = _graph_family(arch, dtype)
+    engines = []
+    for graph in (True, False):
+        eng = ServeEngine(model, params, EngineConfig(
+            batch_slots=2, max_len=48, cuda_graph=graph, cache=CacheConfig(page_size=4),
+            admission=AdmissionConfig(prefill_chunk=8, async_prefill=False)), device="cuda")
+        rng = np.random.default_rng(7)
+        for i, n in enumerate((21, 5, 16, 13)):
+            eng.submit(Request(uid=i, max_new_tokens=6, prompt=rng.integers(
+                0, model.cfg.vocab_size, size=(n,)).astype(np.int32)))
+        engines.append(eng)
+    cap, eager = engines
+    cs, es = cap.prefill_slots, eager.prefill_slots
+    assert all(g is not None for g in cs.graphs) and es.graphs == [None, None]
+    while cap.load or eager.load:
+        assert cap.step() == eager.step()
+        assert cs.runs - 1 == es.runs and cs.eager_runs == es.eager_runs   # 1: the warm-up
+        torch.cuda.synchronize()
+        for a, b, ta, tb in zip(cs.rows, es.rows, cs.trees, es.trees):
+            assert torch.equal(a, b)
+            for (name, x), (_, y) in zip(tree_items(ta), tree_items(tb)):
+                assert torch.equal(x, y), name
+        for (name, a), (_, b) in zip(tree_items(cap.cache.pools), tree_items(eager.cache.pools)):
+            assert torch.equal(a, b), name
+    assert es.runs == 5 and es.eager_runs == 3 and cs.in_use == 0
+    assert [r.out_tokens for r in cap.completed] == [r.out_tokens for r in eager.completed]
+    n_attn = sum(reps * sum(k in ("dense", "attn") for k in pattern)
+                 for pattern, reps in model.segments)
+    assert cs.launches.get("flash_attention", 0) == n_attn
+    assert cs.launches.get("ssd_scan", 0) == (model.cfg.n_layers if arch == "mamba2-130m" else 0)
+    ops.reset_launches()
+    slot = cs.take()
+    cs.zero(slot)
+    for i in range(3):
+        cs(slot, cs.trees[slot], params, np.zeros(8, np.int32), 8 * i)
+    torch.cuda.synchronize()
+    cs.release(slot)
+    assert {k: v for k, v in ops.LAUNCHES.items() if v} == {
+        k: 3 * v for k, v in cs.launches.items() if v}
+
+
+def _extend_capture_checks_and_failures():
+    """A captured slot refuses a reallocated tree and reallocated
+    parameters; a step that reads the device back fails its capture, and
+    the engine raises instead of running the extend eagerly."""
+    from repro_torch.models.common import tree_map
+    from repro_torch.serve import AdmissionConfig, EngineConfig, ServeEngine, captured
+
+    model, params = _graph_family("qwen2.5-3b", "float32")
+    ecfg = EngineConfig(batch_slots=2, max_len=32,
+                        admission=AdmissionConfig(prefill_chunk=8, async_prefill=False))
+    slots = ServeEngine(model, params, ecfg, device="cuda").prefill_slots
+    toks = np.zeros(8, np.int32)
+    slots(0, slots.trees[0], params, toks, 0)
+    slots.trees[0] = tree_map(torch.clone, slots.trees[0])
+    for slot, p in ((0, params), (1, tree_map(torch.clone, params))):
+        try:
+            slots(slot, slots.trees[slot], p, toks, 8)
+        except RuntimeError as e:
+            assert "reallocated" in str(e)
+        else:
+            raise AssertionError("a reallocated slot or parameter set was not refused")
+    run = captured.CapturedExtend._run
+
+    def reads_back(self, slot, p):
+        run(self, slot, p)
+        if torch.cuda.is_current_stream_capturing():
+            int(self.rows[slot].argmax())
+
+    captured.CapturedExtend._run = reads_back
+    try:
+        ServeEngine(model, params, ecfg, device="cuda")
+    except RuntimeError:
+        pass
+    else:
+        raise AssertionError("a capture that read the device back did not raise")
+    finally:
+        captured.CapturedExtend._run = run
+
+
 def _router_on_card_matches_cpu(policy):
     """Reduced qwen2.5-3b in float32 routed over two cubes (``CubeRouter``)
     on the card and on the CPU, the same weights and waves of requests (for
@@ -1565,7 +1698,10 @@ _CHILD_CASES = ([("_captured_step_bit_equal_to_eager", [a, p, d]) for a in GRAPH
                  for p in ("paged", "gather") for d in ("float32", "bfloat16")]
                 + [("_capture_waits_for_no_collection", [])]
                 + [("_router_on_card_matches_cpu", [p]) for p in ROUTER_POLICIES]
-                + [("_migration_on_card_matches_cpu", [a]) for a in MIGRATION_ARCHS])
+                + [("_migration_on_card_matches_cpu", [a]) for a in MIGRATION_ARCHS]
+                + [("_captured_extend_bit_equal_to_eager", [a, d]) for a in EXTEND_ARCHS
+                   for d in ("float32", "bfloat16")]
+                + [("_extend_capture_checks_and_failures", [])])
 
 
 @pytest.fixture(scope="module")
@@ -1645,4 +1781,18 @@ def test_router_on_card_matches_cpu(card, _captured_in_child, policy):
 def test_migration_on_card_matches_cpu(card, _captured_in_child, arch):
     """``_migration_on_card_matches_cpu`` (run in the child process)."""
     got = _captured_in_child[f"_migration_on_card_matches_cpu{(arch,)!r}"]
+    assert got == "ok", got
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", EXTEND_ARCHS)
+def test_captured_extend_bit_equal_to_eager(card, _captured_in_child, arch, dtype):
+    """``_captured_extend_bit_equal_to_eager`` (run in the child process)."""
+    got = _captured_in_child[f"_captured_extend_bit_equal_to_eager{(arch, dtype)!r}"]
+    assert got == "ok", got
+
+
+def test_extend_capture_checks_and_failures(card, _captured_in_child):
+    """``_extend_capture_checks_and_failures`` (run in the child process)."""
+    got = _captured_in_child["_extend_capture_checks_and_failures()"]
     assert got == "ok", got
