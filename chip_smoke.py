@@ -30,8 +30,8 @@ slots' ``runs`` (the warm-up and one replay per full chunk) plus their
 ``eager_runs``.
 Every serving path runs at full width; all but the moe family's at full
 depth (``MOE_DEPTH``, ``MOE_TRAIN``: 671 B and 235 B parameters do not
-fit one card).  Phases, each fatal (phase 34 runs after phase 30, phases 32
-and 33 after phase 24, before phase 31):
+fit one card).  Phases, each fatal (phase 34 runs after phase 30 and phase
+35 after phase 34, phases 32 and 33 after phase 24, before phase 31):
 
 1. build the nine CUDA kernels from ``src/repro_torch/kernels/csrc``
    (``nvcc``, printing the ``-Xptxas -v`` register report) and name the card;
@@ -334,6 +334,29 @@ and 33 after phase 24, before phase 31):
     tail per prompt that has one, and one ``flash_attention`` launch per
     layer per chunk; tok/s of each; one 256-token chunk at offset 256 of
     each in turns (wall ms, device-busy share, kernels);
+35. (after phase 34) the kernel autotuner (``repro_torch.tune``) into a
+    table under ``chiprun_out/``, never the committed one: ``tune_kernel``
+    over the four canonical cutouts (full schema, winner <= default, each
+    entry's times logged with the card's name and power limit); every valid
+    config of each space against the default config (``lane_block``
+    bit-equal; ``chunk`` of ``flash_attention_xla`` and of ``ssd_chunked``'s
+    kernel form within the float32 tolerance, the SSD on phase 2's unclipped
+    draws at the cutout's shapes, its clipped canonical draws logged;
+    ``expert_block`` bit-equal or within the float32 tolerance, as cuBLAS
+    may take another GEMM for fewer experts); ``ssd_scan`` at mamba2-130m's
+    served widths at every chunk of the space against its plain version; a
+    full-width mamba2-130m prefill of its 256-token served slice under
+    ``capture()``, its ``ssd.chunked`` cutout materialized and tuned into
+    the table, the prefill rerun under it with ``ssd_scan`` at the winner's
+    chunk (``ops.PATHS``; an entry of chunk 64 as well where the winner is
+    the default's) and its logits against the untuned prefill's: bit-equal
+    at the default's chunk, within the bf16 tolerance where no 256-token
+    chunk's seg spans 120, logged where one does (the decay clip makes the
+    chunk part of the function, as in the reference); the same with
+    ``a_log`` setting the per-token decays in Mamba-2's dt range, where the
+    clip never engages, held to the bf16 tolerance; the host us of one
+    resolve (mean of 10,000) per kernel and
+    the phase's wall time;
 31. (last) ``CubeProcRouter`` with 2 worker processes on the card, reduced
     qwen2.5-3b as the JAX package's worker builds it: tokens equal to a card
     engine built the same way here, a ``drain_cube`` and a worker SIGKILLed
@@ -375,8 +398,8 @@ that drive it (serving, VGG16 inference, the gather path, the three
 training paths, recurrentgemma-9b serving and reduced training, the moe
 family's serving and training, the memory tiers' runs of phases 24-26,
 phases 27 and 28's runs, the routed, dense and migrated runs of phases 29
-and 30, phase 34's runs, phase 33's llava and whisper runs and phase 31's
-workers), each
+and 30, phase 34's runs, phase 35's tuning, config checks and prefills,
+phase 33's llava and whisper runs and phase 31's workers), each
 counted from 0 around its own run; a graph replay counts the launches its
 capture made.
 Then it prints one JSON line with each kernel's numbers, the card's name
@@ -385,6 +408,7 @@ card, or without the package beside it, it exits non-zero and prints no
 result.
 """
 import argparse
+import contextlib
 import dataclasses
 import gc
 import importlib.util
@@ -404,9 +428,11 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12                      # H100 SXM device memory
-PEAK_FLOPS = {"torch.bfloat16": 989e12,        # dense tensor-core bf16
-              "torch.float32": 67e12}          # float32 outside the tensor cores
+# the card's published peaks (``repro_torch.core.roofline.H100``: device
+# memory bytes/s, dense tensor-core bf16 and float32-outside-the-tensor-cores
+# FLOP/s), set by ``use_roofline``
+HBM_BYTES_PER_S = 0.0
+PEAK_FLOPS: dict[str, float] = {}
 TOL = {"torch.bfloat16": (2e-2, 2e-2),         # both sides round to bf16 (one ulp
        "torch.float32": (1e-4, 1e-4)}          # near 1 is 2^-8); f32: sum order
 H, HKV, D, PS = 16, 2, 128, 16                 # qwen2.5-3b attention widths
@@ -485,6 +511,20 @@ EAGER_STEP = {"qwen2.5-3b": (31.71, 16.8), "mamba2-130m": (20.71, 13.5),
 
 
 T_START = time.perf_counter()
+
+
+def use_roofline() -> None:
+    """Read the card's peaks from ``src/repro_torch/core/roofline.py`` beside
+    this script, the copy the tuner's prune reads (loaded as a file of its
+    own: ``--src`` may name a tree that has none)."""
+    global HBM_BYTES_PER_S, PEAK_FLOPS
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_roofline", ROOT / "src" / "repro_torch" / "core" / "roofline.py")
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    HBM_BYTES_PER_S = mod.H100.hbm_bw
+    PEAK_FLOPS = {"torch.bfloat16": mod.H100.peak_flops, "torch.float32": mod.H100.peak_flops_f32}
 
 
 def log(msg: str) -> None:
@@ -1028,9 +1068,10 @@ def ssd_kernel_name(dtype) -> str:
 def profiled_launches(fn) -> list[tuple[str, int]]:
     """(name, launches) of each device kernel one call of ``fn`` launches.  A
     profile that holds no kernel at all (the tracer now and then drops a
-    profile's kernel records) is taken again, up to three times."""
+    profile's kernel records, at times for several seconds in a row) is
+    taken again after a pause, up to eight times, each empty one logged."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(3):
+    for attempt in range(8):
         with torch.profiler.profile(activities=acts) as prof:
             fn()
             torch.cuda.synchronize()
@@ -1039,6 +1080,8 @@ def profiled_launches(fn) -> list[tuple[str, int]]:
                      if str(getattr(e, "device_type", "")).endswith("CUDA"))
         if got:
             return got
+        log(f"    (profile {attempt + 1} held no kernel record; taken again)")
+        time.sleep(0.5 * (attempt + 1))
     return got
 
 
@@ -3375,6 +3418,314 @@ def chunked_captured_vs_eager(model, params, prompts, smi) -> dict[str, int]:
 
 
 # ---------------------------------------------------------------------------
+# phase 35: the kernel autotuner on the card
+# ---------------------------------------------------------------------------
+
+
+def ssd_unclipped(args):
+    """The SSD cutout's shapes with phase 2's unclipped draws (x, B and C
+    N(0, 1) x 0.5, dt after the softplus in [0.01, 0.5], a in [-1.5, -0.5]),
+    so no chunk's seg spans 120 and the decay clip never engages: there the
+    chunk does not change the function."""
+    cfg, xh, bb, cc, dt, a_log, d_skip = args[:7]
+    gen = torch.Generator(device="cuda").manual_seed(35)
+
+    def rand(like):
+        return torch.rand(like.shape, generator=gen, device="cuda")
+
+    return (cfg, torch.randn_like(xh) * 0.5, torch.randn_like(bb) * 0.5,
+            torch.randn_like(cc) * 0.5, torch.log(torch.expm1(rand(dt) * 0.49 + 0.01)),
+            torch.log(rand(a_log) + 0.5), d_skip)
+
+
+def ssd_chunks_against_plain() -> str:
+    """Phase 35 (b): ``ssd_scan`` at mamba2-130m's served widths (H 24, P
+    64, N 128; a 256-token slice with a carried state, bf16, phase 2's
+    unclipped draws) at every chunk of ``ssd.chunked``'s space against its
+    plain version at the same chunk: ``ssd_plan``'s cluster and rows at the
+    small chunks.  Returns the log line's text."""
+    from repro_torch.kernels import ops, ref
+
+    h, p, n = SSM["h"], SSM["p"], SSM["n"]
+    gen = torch.Generator(device="cuda").manual_seed(35)
+    conv = (torch.randn(1, 256, h * p + 2 * n, generator=gen, device="cuda") * 0.5).to(
+        torch.bfloat16)
+    xh = conv[..., :h * p].reshape(1, 256, h, p)
+    bb, cc = conv[..., h * p:h * p + n], conv[..., h * p + n:]
+    dt = torch.rand(1, 256, h, generator=gen, device="cuda") * 0.49 + 0.01
+    a = -(torch.rand(h, generator=gen, device="cuda") + 0.5)
+    st = torch.randn(1, h, p, n, generator=gen, device="cuda")
+    parts = []
+    for q in (16, 32, 64, 128, 256):
+        (y, fin), (want_y, want_fin) = ops.ssd_scan(xh, bb, cc, dt, a, q, st), \
+            ref.ssd_scan(xh, bb, cc, dt, a, q, st)
+        err = max(check_close(f"ssd_scan chunk {q} y", y, want_y, torch.float32),
+                  check_close(f"ssd_scan chunk {q} final state", fin, want_fin, torch.float32))
+        parts.append(f"{q}: {err:.2e} ({ops.PATHS['ssd_scan']})")
+    return "; ".join(parts)
+
+
+def configs_against_default(name, args) -> str:
+    """Phase 35 (b): every valid config of ``name``'s space against the
+    default config on ``args``: bit-equal for ``lane_block``; ``chunk``
+    within the float32 tolerance; ``expert_block`` bit-equal or, where it is
+    not, within the float32 tolerance (a block of fewer experts is a
+    cuBLAS product of a smaller batch, for which cuBLAS may pick another
+    GEMM with another summation order).  Returns the log line's text."""
+    from repro_torch.tune import enumerate_space, registry
+
+    kern = registry.REGISTRY[name]
+    with torch.no_grad():
+        want = kern.fn(*args, **kern.defaults)
+        parts = []
+        for c in enumerate_space(kern.space):
+            if kern.validate is not None and not kern.validate(c, *args):
+                parts.append(f"{c} invalid")
+                continue
+            got = kern.fn(*args, **c)
+            torch.cuda.synchronize()
+            pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
+            if all(torch.equal(g, w) for g, w in pairs):
+                parts.append(f"{c} bit-equal")
+                continue
+            if "lane_block" in c:
+                raise SystemExit(f"chip_smoke: {name} {c} is not bit-equal to the default")
+            atol, rtol = TOL["torch.float32"]
+            err = max(float((g.float() - w.float()).abs().max()) for g, w in pairs)
+            if not all(bool(((g.float() - w.float()).abs() <= atol + rtol * w.float().abs()).all())
+                       and bool(torch.isfinite(g).all()) for g, w in pairs):
+                raise SystemExit(f"chip_smoke: {name} {c} is {err:.3e} from the default "
+                                 f"(atol {atol:g}, rtol {rtol:g})")
+            parts.append(f"{c} {err:.2e}" + (" (not bit-equal)" if "expert_block" in c else ""))
+    return "; ".join(parts)
+
+
+def tuner_on_card(smi) -> dict[str, int]:
+    """Phase 35: the autotuner (``repro_torch.tune``) on the card, into a
+    table of its own under ``chiprun_out/`` (never the committed one).
+    (a) ``tune_kernel`` over the four canonical cutouts: full schema,
+    winner <= default; (b) every valid config of each space against the
+    default config (``lane_block`` bit-equal; ``chunk`` within the float32
+    tolerance, the SSD on phase 2's unclipped draws at the cutout's shapes;
+    ``expert_block`` bit-equal or within it), and ``ssd_scan`` at the served
+    widths at every chunk against its plain version; (c) a full-width
+    mamba2-130m prefill of its 256-token served slice under ``capture()``:
+    its ``ssd.chunked`` cutout materialized on the card and tuned into the
+    table, the prefill rerun under it with ``ssd_scan`` at the winner's
+    chunk (``ops.PATHS``), its logits against the untuned prefill's
+    (``no_tuning``): bit-equal at the default's chunk, else within the bf16
+    tolerance where the decay clip does not engage (logged where it does);
+    where the winner is the default's chunk, an entry of chunk 64 is run
+    the same way; then the same model with ``a_log`` setting the per-token
+    decays in Mamba-2's dt range, where no chunk engages the clip, held to
+    the bf16 tolerance; (d) the host us of
+    one resolve over 10,000 calls.  Returns the phase's launches."""
+    import os
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_items
+    from repro_torch.tune import capture, cutouts, materialize, registry, table, tuner
+
+    t_phase = time.perf_counter()
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    path = out_dir / "phase35_tuned.json"
+    path.unlink(missing_ok=True)
+    prev = os.environ.get(table.ENV_VAR)
+    os.environ[table.ENV_VAR] = str(path)
+    table.reload_table()
+    run = dict.fromkeys(ops.LAUNCHES, 0)
+    fields = ("params", "default_us", "winner_us", "ratio", "space_size", "pruned", "measured")
+
+    def tune_into_table(name, args, sc):
+        entry = tuner.tune_kernel(name, args, log=lambda m: log(f"    {m}"))
+        if set(entry) != set(fields) or not entry["winner_us"] <= entry["default_us"]:
+            raise SystemExit(f"chip_smoke: {name} entry {entry} lacks the schema or its "
+                             "winner is slower than its default")
+        tab = table.load_table()
+        tab["entries"][table.entry_key(name, sc, "cuda")] = entry
+        table.save_table(tab)
+        log(f"  {name} [{sc}]: winner {entry['params']} {entry['winner_us']} us, default "
+            f"{entry['default_us']} us (ratio {entry['ratio']}; space {entry['space_size']}, "
+            f"pruned {entry['pruned']}, measured {entry['measured']}) ({smi})")
+        return entry
+
+    try:
+        ops.reset_launches()
+        built = {}
+        t0 = time.perf_counter()
+        for name in sorted(cutouts.CUTOUTS):
+            args = built[name] = cutouts.build(name, device="cuda")
+            tune_into_table(name, args, registry.REGISTRY[name].shape_class(*args))
+        log(f"  (a) four canonical cutouts tuned in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        for name, args in sorted(built.items()):
+            if name == "ssd.chunked":
+                fn = registry.REGISTRY[name].fn
+                want, errs = fn(*args, chunk=None), []
+                for c in registry.REGISTRY[name].space["chunk"]:
+                    errs.append(f"{c}: {float((fn(*args, chunk=c)[0] - want[0]).abs().max()):.3e}")
+                log(f"  (b) {name} (kernel form) on the canonical draws, which engage the decay "
+                    "clip, where the chunk changes the function (as in the reference): y's max "
+                    f"abs err against the default per chunk {', '.join(errs)}")
+                args = ssd_unclipped(args)
+            log(f"  (b) {name}: {configs_against_default(name, args)}")
+        log(f"  (b) every valid config against the default in {time.perf_counter() - t0:.1f} s")
+        for k, n in ops.LAUNCHES.items():
+            run[k] += n
+
+        t0 = time.perf_counter()
+        log(f"  (b) ssd_scan at mamba2-130m's served widths, every chunk of the space against "
+            f"its plain version at that chunk: {ssd_chunks_against_plain()}")
+        cfg = get_arch("mamba2-130m")
+        model = build_model(cfg)
+        params = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+        toks = torch.as_tensor(np.random.default_rng(35).integers(0, cfg.vocab_size, size=(1, 256)),
+                               device="cuda").long()
+        default_q = min(cfg.ssm.chunk, 256)
+
+        def prefill(tuned=True):
+            """The prefill's last logits, ``ssd_scan``'s chunk (``ops.PATHS``) and the
+            largest seg span of a default-sized chunk over its layers."""
+            spans, real = [], ops.ssd_scan
+
+            def spy(xh, b, c, dt, a, chunk, init_state=None):
+                span = (dt * a).reshape(dt.shape[0], -1, default_q, dt.shape[2]).sum(2)
+                spans.append(float(span.abs().max()))
+                return real(xh, b, c, dt, a, chunk, init_state)
+
+            ops.ssd_scan = spy
+            try:
+                with torch.no_grad(), contextlib.ExitStack() as stack:
+                    if not tuned:
+                        stack.enter_context(registry.no_tuning())
+                    logits, _ = model.prefill(params, toks)
+                torch.cuda.synchronize()
+            finally:
+                ops.ssd_scan = real
+            if not torch.isfinite(logits).all():
+                raise SystemExit("chip_smoke: a phase 35 prefill's logits are not finite")
+            return logits, int(ops.PATHS["ssd_scan"].rsplit(", ", 1)[1].split("-")[0]), max(spans)
+
+        def against_untuned(label, got, q, want, span):
+            """Logits at chunk ``q`` against the untuned prefill's: bit-equal at the
+            default's chunk.  Where no chunk of the default's size spans more than 120
+            (the decay clip never engages), the same greedy token and max |diff| <= the
+            bf16 rtol x max |logit|: another chunk sums in another order, and through 24
+            bf16 layers of random weights a last-bit change in one layer grows past an
+            elementwise atol + rtol x |logit| (logged).  Where a chunk spans more, the
+            chunk changes the function (as in the reference) and the gap is logged."""
+            if q == default_q:
+                if not torch.equal(got, want):
+                    raise SystemExit(f"chip_smoke: {label} at the default's chunk is not "
+                                     "bit-equal to the untuned prefill")
+                return "bit-equal to the untuned prefill's (the default's chunk)"
+            g, w = got.float(), want.float()
+            err = float((g - w).abs().max())
+            if span <= 120:
+                atol, rtol = TOL["torch.bfloat16"]
+                rel = err / float(w.abs().max())
+                inside = float(((g - w).abs() <= atol + rtol * w.abs()).float().mean())
+                same = bool((g.argmax(-1) == w.argmax(-1)).all())
+                if rel > rtol or not same:
+                    raise SystemExit(f"chip_smoke: {label} at {q}-token chunks is {rel:.3e} "
+                                     f"of max |logit| from the untuned prefill (bf16 rtol "
+                                     f"{rtol:g}), same greedy token: {same}")
+                return (f"{err:.3e} from the untuned prefill's, {rel:.3e} of max |logit| "
+                        f"(held: <= {rtol:g}), the same greedy token; {100 * inside:.2f} % of "
+                        f"the logits within atol {atol:g} + rtol {rtol:g} x |logit|")
+            return (f"{err:.3e} from the untuned prefill's: the decay clip engages (a "
+                    f"{default_q}-token chunk's seg spans more than 120), so the chunk changes "
+                    "the function, as in the reference; not held")
+
+        ops.reset_launches()
+        with capture() as caps:
+            before, q0, span = prefill(tuned=False)
+            before_path = ops.PATHS["ssd_scan"]
+            caps_untuned = list(caps)
+            prefill()                                    # the table has no entry yet
+        cuts = [c for c in caps if c.kernel == "ssd.chunked"]
+        if len(caps_untuned) or len(cuts) != cfg.n_layers or len({c.shape_class for c in cuts}) != 1 \
+                or ops.LAUNCHES["ssd_scan"] != 2 * cfg.n_layers or q0 != default_q:
+            raise SystemExit(f"chip_smoke: the prefill captured {len(cuts)} ssd.chunked "
+                             f"cutouts ({len(caps_untuned)} under no_tuning) and launched "
+                             f"ssd_scan {ops.LAUNCHES['ssd_scan']} times, expected "
+                             f"{cfg.n_layers} of one shape class per prefill")
+        sc = cuts[0].shape_class
+        log(f"  (c) full-width mamba2-130m prefill, 256 tokens (seeded random weights): "
+            f"{len(cuts)} ssd.chunked cutouts [{sc}], ssd_scan: {before_path}; the largest seg "
+            f"span of a {default_q}-token chunk {span:.1f}")
+        cut_args = materialize(cuts[0], device="cuda")
+        entry = tune_into_table("ssd.chunked", cut_args, sc)
+        key = table.entry_key("ssd.chunked", sc, "cuda")
+        want_q = min(entry["params"]["chunk"] or cfg.ssm.chunk, 256)
+        after, q, _ = prefill()
+        if registry.resolve_tuned("ssd.chunked", *cut_args) != entry["params"] or q != want_q:
+            raise SystemExit(f"chip_smoke: the tuned prefill ran ssd_scan as "
+                             f"{ops.PATHS['ssd_scan']}, expected {want_q}-token chunks")
+        log(f"  (c) rerun under the table: ssd_scan {ops.PATHS['ssd_scan']}; logits "
+            f"{against_untuned('the tuned prefill', after, q, before, span)}")
+        # where the winner is the default's chunk, an entry of chunk 64 shows the table
+        # driving the served path; either way the tuned entry is put back after (d)
+        show = entry if q != default_q else dict(entry, params={"chunk": 64})
+        tab = table.load_table()
+        tab["entries"][key] = show
+        table.save_table(tab)
+        show_q = min(show["params"]["chunk"], 256)
+        if q == default_q:
+            forced, fq, _ = prefill()
+            if fq != show_q:
+                raise SystemExit(f"chip_smoke: an entry of chunk 64 ran ssd_scan as "
+                                 f"{ops.PATHS['ssd_scan']}")
+            log(f"  (c) under an entry of chunk 64: ssd_scan {ops.PATHS['ssd_scan']}; logits "
+                f"{against_untuned('an entry of chunk 64', forced, fq, before, span)}")
+        # the same model with the per-token decays where Mamba-2's dt init puts them:
+        # neither package reads dt_bias, so a_log takes the scale (dt * |a| ~ 0.001-0.1
+        # at dt ~ softplus(0)); no chunk then spans 120, and the chunk must not change
+        # the function
+        gen = torch.Generator(device="cuda").manual_seed(36)
+        for leaf_path, leaf in tree_items(params):
+            if leaf_path[-1] == "a_log":
+                leaf.copy_(torch.rand(leaf.shape, generator=gen, device="cuda")
+                           * math.log(100.0) + math.log(1.5e-3))
+        base, _, span2 = prefill(tuned=False)
+        got, gq, _ = prefill()
+        if gq != show_q or span2 > 120:
+            raise SystemExit(f"chip_smoke: with small decays the table ran {gq}-token "
+                             f"chunks (expected {show_q}) and a chunk spans {span2:.1f}")
+        log(f"  (c) with decays of Mamba-2's dt range (a_log; largest span {span2:.1f}): the "
+            f"table's {gq}-token chunks against the untuned prefill: "
+            f"{against_untuned('the prefill with small decays', got, gq, base, span2)}")
+        tab["entries"][key] = entry
+        table.save_table(tab)
+        for k, n in ops.LAUNCHES.items():
+            run[k] += n
+        log(f"  (c) in {time.perf_counter() - t0:.1f} s")
+        del model, params
+
+        ops.reset_launches()
+        for name, args in sorted(built.items()) + [("ssd.chunked (mamba2-130m)", cut_args)]:
+            kname = name.split()[0]
+            registry.resolve_tuned(kname, *args)
+            t0 = time.perf_counter()
+            for _ in range(10_000):
+                registry.resolve_tuned(kname, *args)
+            log(f"  (d) resolve {name}: {(time.perf_counter() - t0) * 1e2:.3f} us per call "
+                "(host, mean of 10,000)")
+    finally:
+        if prev is None:
+            os.environ.pop(table.ENV_VAR, None)
+        else:
+            os.environ[table.ENV_VAR] = prev
+        table.reload_table()
+    log(f"  phase 35: {time.perf_counter() - t_phase:.1f} s; the table: {path.name} under "
+        "chiprun_out/")
+    return run
+
+
+# ---------------------------------------------------------------------------
 # phases 29-31: routing, migration and cube processes
 # ---------------------------------------------------------------------------
 
@@ -4630,6 +4981,7 @@ def main() -> int:
               "the root of a checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, str(args.src.resolve()))
+    use_roofline()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this script runs the port on "
               "the card", file=sys.stderr)
@@ -4884,6 +5236,12 @@ def main() -> int:
     for name, n in chunked_captured_vs_eager(model, params, qwen_prompts, smi).items():
         launches[name] += n
     del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("== phase 35: the kernel autotuner on the card (repro_torch.tune: four canonical "
+        "cutouts, every config against the default, a tuned full-width mamba2-130m prefill)")
+    for name, n in tuner_on_card(smi).items():
+        launches[name] += n
     gc.collect()
     torch.cuda.empty_cache()
 

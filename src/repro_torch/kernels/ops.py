@@ -598,7 +598,8 @@ def _ssd_plan(device: torch.device, code: int, b: int, s: int, h: int, p: int, n
     if got is None:
         plan = ssd_plan(_sm_count(device), b, h, p, n, q, bf16=code == 1)
         design = "mma.sync bf16 split x3" if code else "CUDA cores"
-        got = _ssd_plans[key] = (plan, f"{design}, cluster of {plan.cluster}")
+        got = _ssd_plans[key] = (plan, f"{design}, cluster of {plan.cluster}, "
+                                       f"{q}-token chunks")
     return got
 
 

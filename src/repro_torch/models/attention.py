@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ops as kops
+from repro_torch.tune.registry import dtype_code, tunable
 
 
 NEG_INF = -1e30
@@ -31,10 +32,38 @@ def _mask(qpos, kpos, causal: bool, window: int | None, kv_len):
     return m            # (Sq, Sk_chunk)
 
 
+def _flash_shape_class(q, k, *_a) -> str:
+    b, sq, h, d = q.shape
+    _, sk, hkv, _ = k.shape
+    return (f"b{b}.sq{sq}.sk{sk}.h{h}.hkv{hkv}.d{d}"
+            f".{dtype_code(q.dtype)}")
+
+
+def _flash_cost(params, q, k, *_a):
+    """(flops, HBM bytes) of the chunked streaming form as a function of
+    the chunk size: the score/PV contractions are chunk-invariant, but k/v
+    stream through once per q block — shrinking the chunk multiplies the
+    k/v read traffic by ceil(Sq/chunk)."""
+    b, sq, h, d = q.shape
+    _, sk, hkv, _ = k.shape
+    nq = -(-sq // min(params["chunk"], sq))
+    flops = 4.0 * b * h * sq * sk * d
+    bytes_ = float(q.dtype.itemsize) * (2 * b * sq * h * d
+                                        + nq * 2 * b * sk * hkv * d)
+    return flops, bytes_
+
+
+@tunable(
+    "attn.flash_xla",
+    space={"chunk": (64, 128, 256, 512, 1024)},
+    defaults={"chunk": 1024},
+    shape_class=_flash_shape_class,
+    cost_model=_flash_cost,
+)
 def flash_attention_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int | None = None,
                         scale: float | None = None, q_offset: int = 0,
-                        kv_len: int | None = None, chunk: int = 1024) -> torch.Tensor:
+                        kv_len: int | None = None, chunk: int | None = None) -> torch.Tensor:
     """Nested-chunk streaming attention in plain, differentiable torch: the
     port of ``repro/models/attention.py:flash_attention_xla`` with its
     numerics.  q (B, Sq, H, D), k/v (B, Sk, Hkv, D) → (B, Sq, H, D).  Each q
@@ -44,7 +73,9 @@ def flash_attention_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     causal / ``window`` / ``kv_len`` mask of ``_mask``), probabilities in
     v's type for the PV product, and a final division by max(l, 1e-30).
     The q blocks are not checkpointed one by one (JAX checkpoints them): the
-    model's per-layer remat bounds what a training step keeps."""
+    model's per-layer remat bounds what a training step keeps.
+    ``chunk=None`` resolves through the tuned table (``@tunable``, falls
+    back to 1024); ``attend`` and the model paths pass it explicitly."""
     b, sq, h, d = q.shape
     _, sk, hkv, _ = k.shape
     rep = h // hkv
@@ -182,15 +213,52 @@ def paged_write_step(pools, new, block_table: torch.Tensor, positions: torch.Ten
                      block_table, positions, active)
 
 
+def _paged_shape_class(q, k_pool, v_pool, block_table, *_a) -> str:
+    b, _, h, d = q.shape
+    n_pages, ps, hkv, _ = k_pool.shape
+    p = block_table.shape[1]
+    return (f"b{b}.h{h}.hkv{hkv}.d{d}.ps{ps}.p{p}.np{n_pages}"
+            f".{dtype_code(k_pool.dtype)}")
+
+
+def _paged_validate(params, q, *_a) -> bool:
+    lb = params["lane_block"]
+    return lb == 0 or (0 < lb <= q.shape[0] and q.shape[0] % lb == 0)
+
+
+@tunable(
+    "attn.paged_decode",
+    space={"lane_block": (0, 1, 2, 4, 8)},
+    defaults={"lane_block": 0},
+    shape_class=_paged_shape_class,
+    validate=_paged_validate,
+    # no cost model: the bytes gathered do not depend on lane_block (it
+    # trades the transient view's footprint against launches), so the
+    # roofline cannot separate configs — the whole space is measured
+)
 def paged_decode_windowed(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                           block_table: torch.Tensor, positions: torch.Tensor,
-                          window: int | None, scale: float | None = None) -> torch.Tensor:
+                          window: int | None = None, scale: float | None = None, *,
+                          lane_block: int | None = None) -> torch.Tensor:
     """Paged decode for windowed (local) attention layers, which the paged
     kernel does not mask: the port of ``paged_decode_attention_xla``.  Each
     lane's pages are gathered into transient views (``paged_lane_views``:
     one launch for k and v) and attended by ``decode_attention``
     with the window: q (B, 1, H, D) → (B, 1, H, D), bit-equal to the
     gather path's read.  As in the reference, a ``-1`` slot inside a lane's
-    length reads as a zero row (the engine leaves no such holes)."""
+    length reads as a zero row (the engine leaves no such holes).
+
+    ``lane_block`` > 0 gathers and attends that many lanes at a time (one
+    ``paged_gather`` launch per block of block-table rows; lanes are
+    independent, so each lane's result is the same); 0 = all lanes in one
+    pass (the pre-tuner behavior); ``None`` resolves through the tuned
+    table and falls back to 0."""
+    b = q.shape[0]
+    if lane_block and 0 < lane_block < b:
+        return torch.cat([
+            paged_decode_windowed(q[i:i + lane_block], k_pool, v_pool,
+                                  block_table[i:i + lane_block],
+                                  positions[i:i + lane_block], window, scale, lane_block=0)
+            for i in range(0, b, lane_block)])
     kc, vc = paged_lane_views([k_pool, v_pool], block_table)
     return decode_attention(q, kc, vc, positions, window=window, scale=scale)

@@ -17,12 +17,15 @@ by ``capacity_factor`` and drops the (token, rank) pairs past it;
 expert ``T`` slots, so nothing drops.  ``trim=True`` materialises only the
 slots some token fills: the same function (an empty slot's row is zero,
 and these gated FFNs map a zero row to zero), at the cost of one host read
-for the fill count.  The tuning registry that picks ``expert_block`` in
-the reference is not ported: ``expert_ffn`` keeps its default, 0.
+for the fill count.  ``expert_ffn``'s ``expert_block`` resolves through
+the tuned table (``repro_torch.tune``, as the reference's ``@tunable``
+does) where ``moe_ffn`` omits it, and falls back to 0.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.tune.registry import dtype_code, tunable
 
 from .common import PSpec, activation
 
@@ -92,6 +95,27 @@ def _expert_ffn_slab(xe, w_gate, w_up, w_down, act):
     return torch.bmm(h, w_down).view(e, g, c, d).transpose(0, 1)
 
 
+def _expert_shape_class(xe, w_gate, *_a) -> str:
+    g, e, c, d = xe.shape
+    f = w_gate.shape[-1]
+    return f"g{g}.e{e}.c{c}.d{d}.f{f}.{dtype_code(xe.dtype)}"
+
+
+def _expert_validate(params, xe, *_a) -> bool:
+    eb = params["expert_block"]
+    return eb == 0 or (0 < eb <= xe.shape[1] and xe.shape[1] % eb == 0)
+
+
+@tunable(
+    "moe.dispatch",
+    space={"expert_block": (0, 1, 2, 4)},
+    defaults={"expert_block": 0},
+    shape_class=_expert_shape_class,
+    validate=_expert_validate,
+    # no cost model: expert blocking doesn't change total flops/bytes (E is
+    # a batch dim of every contraction), it trades the (E_blk, G·C, F)
+    # intermediate footprint against launches — the space is all measured
+)
 def expert_ffn(xe: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor | None,
                w_down: torch.Tensor, *, act=activation("gelu"),
                expert_block: int | None = None) -> torch.Tensor:
@@ -99,7 +123,10 @@ def expert_ffn(xe: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor | None
     with w_gate/w_up (E, D, F) (``w_up`` None: a gate-only FFN) and w_down
     (E, F, D) → (G, E, C, D).  ``expert_block`` > 0 runs the experts in
     slabs of that many (E is a batch dim of every contraction, so the
-    result is the same); 0 or None, the default, runs them all at once."""
+    function is the same; cuBLAS may take another GEMM for a smaller batch
+    of experts, which sums in another order); 0 runs them all at once (the
+    pre-tuner behavior); ``None`` resolves through the tuned table and
+    falls back to 0."""
     e = xe.shape[1]
     if expert_block and 0 < expert_block < e:
         return torch.cat([

@@ -10,10 +10,12 @@ version itself (``kernels.ref.ssd_scan``: chunked cumulative decays
 clamped to ±60 around each chunk's midpoint, the masked intra-chunk
 product, the chunk states and a Python loop over chunks in place of
 ``lax.scan``), with autograd through it; the ``d_skip`` term follows
-either.  The chunk is
-``cfg.ssm.chunk`` (the port has no tuning registry; the JAX ``@tunable``
-lookup finds no tuned entry for these shapes and falls back to the same
-value).  The depthwise causal conv and the O(1) decode step
+either.  The chunk is ``ssd_chunked``'s ``chunk``, which ``None``
+resolves through the tuned table (``repro_torch.tune``, as the
+reference's ``@tunable`` does) and, where the table has no entry for the
+shapes, ``cfg.ssm.chunk``.  Where a chunk's cumulative decay spans more
+than 120 the ±60 clamp engages and the chunk changes the result, in the
+reference too.  The depthwise causal conv and the O(1) decode step
 (``ssm_decode``: h ← exp(dt·a)·h + dt·B⊗x, y = C·h) stay plain torch, as
 the JAX package leaves them to XLA.
 
@@ -28,6 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
+from repro_torch.tune.registry import dtype_code, tunable
 
 from .common import PSpec, TensorSpec, causal_conv, rms_norm
 
@@ -71,17 +74,68 @@ def _conv_split(cfg, conv_out):
     return conv_out[..., :di], conv_out[..., di: di + n], conv_out[..., di + n:]
 
 
-def ssd_chunked(cfg, xh, bb, cc, dt, a_log, d_skip, init_state=None, impl: str = "kernel"):
+def _ssd_shape_class(cfg, xh, bb, *_a) -> str:
+    b, sl, h, p = xh.shape
+    n = bb.shape[-1]
+    return f"b{b}.s{sl}.h{h}.p{p}.n{n}.{dtype_code(xh.dtype)}"
+
+
+def _ssd_validate(params, cfg, xh, bb, cc, dt, a_log, d_skip, init_state=None,
+                  impl: str = "kernel") -> bool:
+    """The reference's predicate (S a multiple of the chunk); on the
+    kernel form also a chunk that ``ops.ssd_plan`` refuses.  Its refusal
+    does not depend on the SM count, so any count serves."""
+    b, sl, h, p = xh.shape
+    q = min(params["chunk"] or cfg.ssm.chunk, sl)
+    if sl % q:
+        return False
+    if impl == "kernel":
+        try:
+            kops.ssd_plan(1, b, h, p, bb.shape[-1], q, bf16=xh.dtype == torch.bfloat16)
+        except ValueError:
+            return False
+    return True
+
+
+def _ssd_cost(params, cfg, xh, bb, *_a):
+    """(flops, bytes) vs chunk Q: the intra-chunk dual form is quadratic
+    per chunk — scores (B,NC,Q,Q) and the y_diag contraction scale as
+    NC·Q² = S·Q, so flops grow linearly in Q; the inter-chunk state path
+    is Q-free.  Bytes add the (B,NC,Q,Q) score intermediate (S·Q floats).
+    The sequential cost of the NC-step inter-chunk scan is not modeled
+    (it is what the measurement pass exposes for tiny chunks)."""
+    b, sl, h, p = xh.shape
+    n = bb.shape[-1]
+    q = min(params["chunk"] or cfg.ssm.chunk, sl)
+    flops = 2.0 * b * sl * (q * (n + h * p) + 2.0 * n * h * p)
+    bytes_ = 4.0 * b * sl * (h * p * 2 + 2 * n + 2 * h + q)
+    return flops, bytes_
+
+
+@tunable(
+    "ssd.chunked",
+    space={"chunk": (16, 32, 64, 128, 256)},
+    # None = "use cfg.ssm.chunk", the pre-tuner behavior — the declared
+    # default must stay shape-agnostic while the real default is config
+    defaults={"chunk": None},
+    shape_class=_ssd_shape_class,
+    cost_model=_ssd_cost,
+    validate=_ssd_validate,
+)
+def ssd_chunked(cfg, xh, bb, cc, dt, a_log, d_skip, init_state=None, impl: str = "kernel",
+                *, chunk: int | None = None):
     """SSD forward.  xh (B, S, H, P); bb/cc (B, S, N); dt (B, S, H) before
     the softplus → (y (B, S, H, P) in xh's dtype, final state (B, H, P, N)
     float32).  ``impl`` is ``"kernel"`` (``ssd_scan``, no backward) or
-    ``"xla"`` (differentiable plain torch).  S must be a multiple of
-    ``min(chunk, S)``: the JAX reference asserts it and the port raises
+    ``"xla"`` (differentiable plain torch).  ``chunk`` overrides the
+    sequence-tile size ``cfg.ssm.chunk``; ``None`` resolves through the
+    tuned table and falls back to the config value.  S must be a multiple
+    of ``min(chunk, S)``: the JAX reference asserts it and the port raises
     ``ValueError`` (it does not pad)."""
     if impl not in ("kernel", "xla"):
         raise ValueError(f"ssd_chunked: impl must be 'kernel' or 'xla', got {impl!r}")
     sl = xh.shape[1]
-    q = min(cfg.ssm.chunk, sl)
+    q = min(chunk or cfg.ssm.chunk, sl)
     if sl % q:
         raise ValueError(f"ssd_chunked: a {sl}-token sequence is not a multiple of "
                          f"the {q}-token chunk")
