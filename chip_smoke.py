@@ -30,8 +30,9 @@ slots' ``runs`` (the warm-up and one replay per full chunk) plus their
 ``eager_runs``.
 Every serving path runs at full width; all but the moe family's at full
 depth (``MOE_DEPTH``, ``MOE_TRAIN``: 671 B and 235 B parameters do not
-fit one card).  Phases, each fatal (phase 34 runs after phase 30 and phase
-35 after phase 34, phases 32 and 33 after phase 24, before phase 31):
+fit one card).  Phases, each fatal (phase 34 runs after phase 30, phase
+35 after phase 34 and phase 36 after phase 35, phases 32 and 33 after phase
+24, before phase 31):
 
 1. build the nine CUDA kernels from ``src/repro_torch/kernels/csrc``
    (``nvcc``, printing the ``-Xptxas -v`` register report) and name the card;
@@ -357,6 +358,19 @@ fit one card).  Phases, each fatal (phase 34 runs after phase 30 and phase
     clip never engages, held to the bf16 tolerance; the host us of one
     resolve (mean of 10,000) per kernel and
     the phase's wall time;
+36. (after phase 35, on phase 4's model) the port's repro-lint
+    (``python -m repro_torch.analysis.lint``) exits 0 over the checkout's
+    package on this machine's Python (rule count and wall time logged); an
+    engine with 256-token chunks and one prefill slot captures its decode
+    step and its chunked extend while ``sys.setprofile`` records the
+    functions of ``repro_torch.models``, ``repro_torch.kernels.ops`` and
+    ``repro_torch.serve.captured`` each captured step enters, and every one
+    lies in ``capture-safety``'s static closure (the captures hold
+    ``paged_decode_attention`` and ``paged_write`` once per layer and
+    ``flash_attention`` once per layer in its device-offset form); a small
+    ``@captured_step`` with an ``.item()`` is flagged ``graph-host-read``
+    and its capture raises, the same step without the read is not flagged,
+    captures and replays equal to its eager run;
 31. (last) ``CubeProcRouter`` with 2 worker processes on the card, reduced
     qwen2.5-3b as the JAX package's worker builds it: tokens equal to a card
     engine built the same way here, a ``drain_cube`` and a worker SIGKILLed
@@ -398,7 +412,8 @@ that drive it (serving, VGG16 inference, the gather path, the three
 training paths, recurrentgemma-9b serving and reduced training, the moe
 family's serving and training, the memory tiers' runs of phases 24-26,
 phases 27 and 28's runs, the routed, dense and migrated runs of phases 29
-and 30, phase 34's runs, phase 35's tuning, config checks and prefills,
+and 30, phase 34's runs, phase 35's tuning, config checks and prefills, phase
+36's capture warm-ups,
 phase 33's llava and whisper runs and phase 31's workers), each
 counted from 0 around its own run; a graph replay counts the launches its
 capture made.
@@ -3726,6 +3741,230 @@ def tuner_on_card(smi) -> dict[str, int]:
 
 
 # ---------------------------------------------------------------------------
+# phase 36: the port's repro-lint on the card machine
+# ---------------------------------------------------------------------------
+
+# the modules whose functions phase 36 records inside a captured step
+CAPTURE_MODULES = ("repro_torch.models", "repro_torch.kernels.ops", "repro_torch.serve.captured")
+
+SEEDED_STEP = """import torch
+
+from repro_torch.analysis.ownership import captured_step
+
+
+@captured_step
+def step(x, w):
+    y = torch.tanh(x * w)
+{read}    return y * 2 + 1
+"""
+
+# phase 36 (c) in a process of its own: after a failed capture the caching
+# allocator kept its cached blocks (48.5 GiB reserved and unallocated by phase
+# 19, whose 4 GiB allocation then failed), as if the capture were still open
+SEEDED_CAPTURE = """import importlib.util
+import json
+import sys
+
+import torch
+
+from repro_torch.serve.captured import _capturing
+
+
+def load(path):
+    spec = importlib.util.spec_from_file_location(path.rsplit("/", 1)[-1][:-3], path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.step
+
+
+bad, good = (load(p) for p in sys.argv[1:3])
+gen = torch.Generator(device="cuda").manual_seed(36)
+x = torch.randn(64, 1024, device="cuda", generator=gen)
+w = torch.randn(64, 1024, device="cuda", generator=gen)
+side = torch.cuda.Stream()
+
+
+def capture(step):
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step(x, w)                              # warm-up, as the engine's
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with _capturing(graph, side):
+        out = step(x, w)
+    return graph, out
+
+
+graph, out = capture(good)
+x.copy_(torch.randn(x.shape, device="cuda", generator=gen))
+graph.replay()
+equal = torch.equal(out, good(x, w))
+try:
+    capture(bad)
+    raised = None
+except RuntimeError as e:
+    while e.__context__ is not None:            # the read's own error, not the capture's end
+        e = e.__context__
+    raised = str(e).strip().splitlines()[0]
+print(json.dumps({"equal": equal, "raised": raised}))
+"""
+
+
+def entered_in_step(cls, pkg: Path, seen: set):
+    """``cls._capture`` with ``sys.setprofile`` on while the step it captures
+    runs (its warm-up and its capture), adding each function of
+    ``CAPTURE_MODULES`` entered there to ``seen`` as (path in the package,
+    qualname of the enclosing function).  Returns the original."""
+    import os
+
+    dirs = tuple(str(pkg.joinpath(*m.split(".")[1:])) + os.sep for m in CAPTURE_MODULES)
+    files = {d[:-1] + ".py" for d in dirs}
+    orig = cls._capture
+
+    def prof(frame, event, arg):
+        name = frame.f_code.co_filename
+        if event == "call" and (name.startswith(dirs) or name in files):
+            seen.add((Path(name).relative_to(pkg).as_posix(),
+                      frame.f_code.co_qualname.split(".<locals>")[0]))
+
+    def _capture(self, *args):
+        step = self._step
+
+        def traced(*a, **k):
+            sys.setprofile(prof)
+            try:
+                return step(*a, **k)
+            finally:
+                sys.setprofile(None)
+
+        self._step = traced
+        try:
+            return orig(self, *args)
+        finally:
+            self._step = step
+
+    cls._capture = _capture
+    return orig
+
+
+def lint_on_card(model, params, src: Path, smi) -> dict[str, int]:
+    """Phase 36 on phase 4's model: (a) ``python -m repro_torch.analysis.lint``
+    over the checkout's package exits 0 on this machine's Python; (b) the
+    functions entered inside the steps one ``CapturedDecode`` and one
+    ``CapturedExtend`` capture (a full-width engine with 256-token chunks
+    and one prefill slot) all lie in ``capture_safety``'s closure, and the
+    captures hold paged_decode_attention and paged_write once per layer and
+    flash_attention once per layer in its device-offset form
+    (``ops._offset_pair`` entered); (c) a seeded ``@captured_step`` with
+    an ``.item()`` is flagged ``graph-host-read`` by ``lint_paths`` and its
+    capture raises, the same step without the read is not flagged, captures
+    and replays equal to its eager run (both captured in a child process:
+    ``SEEDED_CAPTURE``).  Returns the phase's launches (the captures'
+    warm-up runs)."""
+    import os
+    import tempfile
+
+    from repro_torch.analysis.lint import lint_paths, load_files
+    from repro_torch.analysis.rules import ALL_RULE_IDS, capture_safety
+    from repro_torch.kernels import ops
+    from repro_torch.serve import AdmissionConfig, CacheConfig, EngineConfig, ServeEngine, captured
+
+    t_phase = time.perf_counter()
+    src = src.resolve()
+    pkg = src / "repro_torch"
+    # (a) the CLI, as a user runs it
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.analysis.lint"], cwd=ROOT,
+                          env=dict(os.environ, PYTHONPATH=str(src)), capture_output=True,
+                          text=True, timeout=120)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise SystemExit(f"chip_smoke: repro-lint exited {proc.returncode}:\n{proc.stdout}"
+                         f"{proc.stderr}")
+    log(f"  (a) python -m repro_torch.analysis.lint: exit 0, {len(ALL_RULE_IDS)} rules, "
+        f"{proc.stdout.strip().splitlines()[-1]!r}, {wall:.2f} s wall (the process's start "
+        f"included) ({smi})")
+    t0 = time.perf_counter()
+    files, errors = load_files([pkg], root=pkg)
+    if errors:
+        raise SystemExit(f"chip_smoke: repro-lint could not read {errors}")
+    static = capture_safety.closure(files)
+    log(f"  capture-safety's closure: {len(static)} functions "
+        f"({time.perf_counter() - t0:.3f} s in this process)")
+
+    # (b) what the card enters while it captures, against the closure
+    seen = {"decode": set(), "extend": set()}
+    origs = {cls: entered_in_step(cls, pkg, seen[key]) for cls, key in
+             ((captured.CapturedDecode, "decode"), (captured.CapturedExtend, "extend"))}
+    ops.reset_launches()
+    try:
+        eng = ServeEngine(model, params, EngineConfig(
+            batch_slots=8, max_len=1024, cache=CacheConfig(page_size=PS),
+            admission=AdmissionConfig(prefill_chunk=256, admission_inflight=1)), device="cuda")
+        torch.cuda.synchronize()
+    finally:
+        for cls, orig in origs.items():
+            cls._capture = orig
+    run = dict(ops.LAUNCHES)
+    n_layers = model.cfg.n_layers
+    dec, ext = eng.decode_graph, eng.prefill_slots
+    if dec.graph is None or ext is None or ext.graphs != [ext.graphs[0]] \
+            or ext.graphs[0] is None:
+        raise SystemExit("chip_smoke: phase 36's engine did not capture one decode step and "
+                         "one prefill slot")
+    want = {"paged_decode_attention": n_layers, "paged_write": n_layers}
+    if {k: dec.launches.get(k) for k in want} != want \
+            or ext.launches.get("flash_attention") != n_layers:
+        raise SystemExit(f"chip_smoke: the captures hold {dec.launches} and {ext.launches}")
+    roots = {"decode": ("models/transformer.py", "DecoderLM.decode_step_paged"),
+             "extend": ("models/transformer.py", "DecoderLM.extend_step")}
+    for key, got in seen.items():
+        if roots[key] not in got:
+            raise SystemExit(f"chip_smoke: the {key} capture never entered {roots[key]}")
+    if ("kernels/ops.py", "_offset_pair") not in seen["extend"]:
+        raise SystemExit("chip_smoke: the captured extend did not take flash_attention's "
+                         "device-offset form")
+    missing = sorted((seen["decode"] | seen["extend"]) - static)
+    if missing:
+        raise SystemExit(f"chip_smoke: the card entered functions outside capture-safety's "
+                         f"closure while capturing: {missing}")
+    log(f"  (b) the decode capture entered {len(seen['decode'])} functions, the extend "
+        f"capture {len(seen['extend'])} ({len(seen['decode'] | seen['extend'])} in all), every "
+        f"one in the closure; captured launches: decode {dec.launches}, extend {ext.launches}")
+    del eng, dec, ext
+    gc.collect()
+
+    # (c) the rule and the card agree on a seeded host read
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        paths = []
+        for name, read in (("seeded_bad", "    y = y + y.abs().max().item()\n"),
+                           ("seeded_good", "")):
+            paths.append(tmp / f"{name}.py")
+            paths[-1].write_text(SEEDED_STEP.format(read=read))
+        findings, errors = lint_paths([tmp], baseline=None, root=tmp)
+        got = sorted((f.rule, f.path, f.func) for f in findings)
+        if errors or got != [("graph-host-read", "seeded_bad.py", "step")]:
+            raise SystemExit(f"chip_smoke: repro-lint on the seeded steps gave {got} {errors}")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", SEEDED_CAPTURE, *map(str, paths)],
+                              cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(src)),
+                              capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise SystemExit(f"chip_smoke: the seeded captures failed:\n{proc.stdout}{proc.stderr}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    if res["raised"] is None:
+        raise SystemExit("chip_smoke: the step with an .item() captured without an error")
+    if not res["equal"]:
+        raise SystemExit("chip_smoke: the seeded step's replay differs from its eager run")
+    log(f"  (c) .item() in a @captured_step: flagged graph-host-read; its capture raised "
+        f"({res['raised']!r}); without it: not flagged, captured, the replay on new inputs "
+        f"bit-equal to the eager run (a process of its own, {time.perf_counter() - t0:.1f} s)")
+    log(f"  phase 36: {time.perf_counter() - t_phase:.1f} s ({smi})")
+    return run
+
+
+# ---------------------------------------------------------------------------
 # phases 29-31: routing, migration and cube processes
 # ---------------------------------------------------------------------------
 
@@ -5235,13 +5474,19 @@ def main() -> int:
         "admission), the captured extend against the eager one (cuda_graph=False)")
     for name, n in chunked_captured_vs_eager(model, params, qwen_prompts, smi).items():
         launches[name] += n
-    del model, params
     gc.collect()
     torch.cuda.empty_cache()
     log("== phase 35: the kernel autotuner on the card (repro_torch.tune: four canonical "
         "cutouts, every config against the default, a tuned full-width mamba2-130m prefill)")
     for name, n in tuner_on_card(smi).items():
         launches[name] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("== phase 36: the port's repro-lint on this machine, its capture closure against the "
+        "functions the card enters while capturing, a seeded host read")
+    for name, n in lint_on_card(model, params, args.src, smi).items():
+        launches[name] += n
+    del model, params
     gc.collect()
     torch.cuda.empty_cache()
 

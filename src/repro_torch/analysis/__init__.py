@@ -1,12 +1,14 @@
 """Ownership markers, the declared request state machine and the runtime
 sanitizer of the port's serving engine (``REPRO_SANITIZE=1`` turns the
-sanitizer on)."""
+sanitizer on), and the port's repro-lint, their static half
+(``python -m repro_torch.analysis.lint``; ``findings``, ``rules``)."""
 from . import sanitizer
-from .ownership import admission_api, decode_loop_only, pool_mutator
+from .ownership import admission_api, captured_step, decode_loop_only, pool_mutator
 from .phases import PHASE_EDGES, PHASE_WRITERS
 
 __all__ = [
     "admission_api",
+    "captured_step",
     "decode_loop_only",
     "pool_mutator",
     "sanitizer",

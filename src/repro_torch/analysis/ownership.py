@@ -1,8 +1,10 @@
 """Ownership markers for the two-loop serving engine (the port's copy of
-``repro/analysis/ownership.py``).
+``repro/analysis/ownership.py``) and the marker of the steps the card
+captures in CUDA graphs.
 
-The same decorator names as the JAX package's, so its ``sole-writer`` lint
-rule, which matches them by name, checks the port's ``serve`` modules too:
+The port's repro-lint (``python -m repro_torch.analysis.lint``) matches
+them by name: ``sole-writer`` and ``cube-boundary`` read the first four,
+``capture-safety`` (``analysis/rules/capture_safety.py``) the last:
 
 * ``@pool_mutator(kind)`` — mutates engine-shared state: ``"pools"`` (page
   pools, block tables and host-tier page buffers, owned by the decode loop)
@@ -18,6 +20,10 @@ rule, which matches them by name, checks the port's ``serve`` modules too:
   entry).  Landing a migration in the host tier (``migrate_put``, under the
   lock) is engine work, not transport: the wire moves bytes, the engine
   moves pages.
+* ``@captured_step`` — a step body the card records into a CUDA graph and
+  replays (``ServeEngine._decode_impl``, ``DecoderLM.extend_step``): it and
+  everything it calls must not read the device back or branch on a
+  tensor's value.  A marker only, as ``obs.trace.hot_path`` is.
 
 The runtime sanitizer (``REPRO_SANITIZE=1``, ``repro_torch.analysis.
 sanitizer``) enforces them with thread, lock and page-epoch tracking.  When
@@ -33,7 +39,7 @@ from typing import Any, TypeVar
 from . import sanitizer
 
 __all__ = ["pool_mutator", "decode_loop_only", "admission_api", "cube_transport",
-           "MUTATOR_KINDS"]
+           "captured_step", "MUTATOR_KINDS"]
 
 F = TypeVar("F", bound=Callable[..., Any])
 
@@ -125,3 +131,12 @@ def cube_transport(fn: F) -> F:
 
     wrapper._repro_cube_transport = True            # type: ignore[attr-defined]
     return wrapper                                  # type: ignore[return-value]
+
+
+def captured_step(fn: F) -> F:
+    """Declare a step body that is recorded into a CUDA graph and replayed
+    (``serve/captured.py``).  A marker only: the static ``capture-safety``
+    rule takes its call closure and checks it for host reads and for Python
+    control flow on tensor values.  At runtime it is a no-op."""
+    fn._repro_captured_step = True                  # type: ignore[attr-defined]
+    return fn

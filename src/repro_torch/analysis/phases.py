@@ -1,13 +1,14 @@
 """The declared ``RequestState.phase`` state machine — single source of truth
 (the port's copy of ``repro/analysis/phases.py``).
 
-Both halves of repro-lint consume this table:
+Both halves of the port's repro-lint consume this table:
 
-* the static rule (``repro.analysis.rules.phase_transitions``, which lints
-  the port's ``serve`` modules too) checks every
-  ``<obj>.phase = "<literal>"`` assignment in ``serve`` against
-  ``PHASE_WRITERS`` — each phase value may only be written by its declared
-  owner function, so moving/adding a phase write forces an edit here;
+* the static rule (``repro_torch.analysis.rules.phase_transitions``, run by
+  ``python -m repro_torch.analysis.lint``) checks every
+  ``<obj>.phase = "<literal>"`` assignment in the port's ``serve`` modules
+  against ``PHASE_WRITERS`` — each phase value may only be written by its
+  declared owner function, so moving/adding a phase write forces an edit
+  here;
 * the runtime sanitizer validates each actual transition against
   ``PHASE_EDGES`` via ``check_phase_edge`` (wired into
   ``RequestState.__setattr__`` when ``REPRO_SANITIZE=1``).

@@ -349,14 +349,15 @@ def flash_attention(
     if on_device:
         pair = _offset_pair(q_offset, kv_len, sk, q.device)
         q_offset, kv_len = 0, sk
+    # repro-lint: skip[graph-tensor-cast] ints here: a tensor pair was swapped for (0, sk) above
+    q_off, kv = int(q_offset), sk if kv_len is None else max(0, int(kv_len))
     # (B, Sq, H, D) storage: the model's next step merges heads for free
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
     lib, fn = _entry("flash_attention_launch")
     err = fn(code, FLASH_PATHS[path], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
              out.data_ptr(), b, h, h // hkv, sq, sk, *q.stride()[:3], *k.stride()[:3],
              *v.stride()[:3], *out.stride()[:3], int(causal),
-             0 if window is None else int(window), int(q_offset),
-             sk if kv_len is None else max(0, int(kv_len)), scale,
+             0 if window is None else int(window), q_off, kv, scale,
              None if pair is None else pair.data_ptr(), _raw_stream(q.device))
     _launched(lib, "flash_attention", err)
     PATHS["flash_attention"] = path

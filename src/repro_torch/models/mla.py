@@ -154,6 +154,7 @@ def mla_decode(cfg, p, x, cache: dict, position, tables):
         k_rope[rows, position] = new_krope[:, 0].to(k_rope.dtype)
         mask = (kpos[None, :] <= position[:, None])[:, None, None, :]
     else:
+        # repro-lint: skip[graph-tensor-cast] an int only: a (B,) tensor takes the branch above
         position = int(position)
         latent[:, position] = new_latent[:, 0].to(latent.dtype)
         k_rope[:, position] = new_krope[:, 0].to(k_rope.dtype)

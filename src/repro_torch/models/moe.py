@@ -72,6 +72,7 @@ def _dispatch_masks(gates: torch.Tensor, k: int, capacity: int, trim: bool = Fal
     keep = slot < capacity                                          # capacity drop
     width = capacity
     if trim:
+        # repro-lint: skip[graph-tensor-cast] the moe extend's trim: run eagerly, never captured
         width = max(1, min(capacity, int(flat.sum(1).max())))
     slot_oh = (slot[..., None] == torch.arange(width, device=gates.device)).float()
     kept = onehot * keep[..., None]

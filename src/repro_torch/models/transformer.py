@@ -58,6 +58,7 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.analysis.ownership import captured_step
 from repro_torch.device import resolve
 
 from . import mla as _mla
@@ -463,6 +464,7 @@ class DecoderLM:
                   for key, cs in seg.items()} for seg in per]
         return self._head(params, x[:, -1:]), cache
 
+    @captured_step
     @torch.no_grad()
     def extend_step(self, params, cache, tokens, position: int | torch.Tensor,
                     last_only: bool = False):

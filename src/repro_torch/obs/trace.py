@@ -1,8 +1,9 @@
 """Preallocated ring-buffer tracer for the two-loop serve engine (the port's
 copy of ``repro/obs/trace.py``).
 
-Design constraints (enforced by the `obs-hot-path` repro-lint rule on
-every function marked :func:`hot_path`):
+Design constraints (enforced by the port's `obs-hot-path` repro-lint rule,
+``repro_torch.analysis.rules.obs_hot_path``, on every function marked
+:func:`hot_path`):
 
 - **No allocation on the hot path.**  Events land in parallel preallocated
   numpy arrays (timestamp, thread id, event id, phase, two integer args,
@@ -54,9 +55,11 @@ _F = TypeVar("_F", bound=Callable)
 def hot_path(fn: _F) -> _F:
     """Mark a tracer method as hot-path.
 
-    The marker is consumed by the `obs-hot-path` repro-lint rule, which
-    forbids allocation-heavy and lock-taking constructs inside any
-    function carrying it.  At runtime it is a no-op.
+    The marker is consumed by the port's `obs-hot-path` and
+    `tune-lookup-in-hot-path` repro-lint rules
+    (``python -m repro_torch.analysis.lint``), which forbid allocation-heavy
+    and lock-taking constructs and tuned-table reads inside any function
+    carrying it.  At runtime it is a no-op.
     """
     fn.__obs_hot_path__ = True  # type: ignore[attr-defined]
     return fn

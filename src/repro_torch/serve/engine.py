@@ -96,7 +96,12 @@ import numpy as np
 import torch
 
 from repro_torch.analysis import sanitizer
-from repro_torch.analysis.ownership import admission_api, decode_loop_only, pool_mutator
+from repro_torch.analysis.ownership import (
+    admission_api,
+    captured_step,
+    decode_loop_only,
+    pool_mutator,
+)
 from repro_torch.device import resolve
 from repro_torch.obs import clock as obs_clock
 from repro_torch.obs.export import write_chrome_trace
@@ -539,6 +544,8 @@ class ServeEngine:
         with self._lock:
             for st in self.sched.running.values():
                 if st.req.uid == uid:
+                    # a router's shadow checkpoint, on the decode loop that owns the pages:
+                    # repro-lint: skip[no-device-work-under-lock] as the reference reads them
                     rows, state = self.cache.export_pages(st.pages, st.lane, st.length)
                     return self._pages_payload(st, rows, state, st.length, len(st.pages))
             for st in self.sched.waiting:
@@ -886,8 +893,10 @@ class ServeEngine:
             if copies:
                 # one batched copy of the forked rows under the lock, as the
                 # swap-out (the decode loop owns the pools: nothing races it)
+                # repro-lint: skip[no-device-work-under-lock] copy-on-write, as the reference
                 cache.fork_pages(copies)
 
+    @captured_step
     def _decode_impl(self, params, pools, bt, tokens, positions, active):
         """One decode token per lane over the pools, in place → (logits
         (B, 1, V), pools): the reference's ``_decode_impl``, which the card

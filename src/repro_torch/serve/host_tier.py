@@ -120,6 +120,8 @@ class HostPagePool:
         """Seq leaf path -> host buffer (layers, n_host_pages, PS, *row)."""
         with self._alloc_lock:
             if self._buffers is None:
+                # the host pages' one-time pinned allocation, under the tier's own lock:
+                # repro-lint: skip[no-device-work-under-lock] both threads wait for it anyway
                 self._buffers = {path: torch.empty(shape, dtype=dtype, pin_memory=self._pin)
                                  for path, (shape, dtype) in self._specs.items()}
             return self._buffers

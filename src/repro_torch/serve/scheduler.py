@@ -108,7 +108,7 @@ class RequestState:
         if name == "phase":
             # sanitizer mode: every phase write is checked against the
             # declared edges (analysis.phases), the runtime twin of the
-            # static phase-transitions lint rule
+            # static phase-transitions rule of the port's repro-lint
             if sanitizer.enabled():
                 err = check_phase_edge(getattr(self, "phase", None), value)
                 if err is not None:
