@@ -1,28 +1,34 @@
 """capture-safety: a step recorded into a CUDA graph reads nothing back.
 
 The port's counterpart of the reference's ``pallas-trace-safety``.  The card
-records the decode step and the chunked-prefill step into CUDA graphs once
-and replays them (``serve/captured.py``).  Inside the recording every
-tensor is a device value the host does not have: a read of it
-(``.item()``, ``.cpu()``, ``nonzero``, a Python ``if`` or ``int()`` on it)
-either fails the capture or, where the read happens to work, bakes the value
-it saw into every replay, the way a Python branch on a tracer bakes one
-branch into a compiled kernel.  The sanctioned forms are ``torch.where``,
-masks and device-side offsets, and branches on static facts: shapes, dtypes,
-the device, config flags and identity tests.
+records the decode step, the chunked-prefill step and the training step into
+CUDA graphs once and replays them (``serve/captured.py``,
+``train/captured.py``).  Inside the recording every tensor is a device value
+the host does not have: a read of it (``.item()``, ``.cpu()``, ``nonzero``,
+a Python ``if`` or ``int()`` on it) either fails the capture or, where the
+read happens to work, bakes the value it saw into every replay, the way a
+Python branch on a tracer bakes one branch into a compiled kernel.  The
+sanctioned forms are ``torch.where``, masks and device-side offsets, and
+branches on static facts: shapes, dtypes, the device, config flags and
+identity tests.
 
 The capture sites call an attribute (``self._step(...)``), so, unlike a
 ``pallas_call`` site, they do not name the body.  The bodies carry the
 ``@captured_step`` marker (``repro_torch.analysis.ownership``) instead:
-``ServeEngine._decode_impl`` and ``DecoderLM.extend_step``.  The rule takes
-their call closure by bare callee name (as ``sole_writer``: a name shared by
-several functions takes all of them), through the modules a step can reach:
-``models/``, ``configs/`` (the config's properties), ``kernels/ops.py``,
-``serve/captured.py`` and ``serve/paged_cache.py`` (the gather path's
-``gather_views``/``absorb_decode``).  It never follows ``kernels/ref.py``:
-the kernels' plain versions run only for CPU tensors, never under capture.
-Besides calls, a function named as a value (a callback) and a property read
-as an attribute are in the closure.
+``ServeEngine._decode_impl``, ``DecoderLM.extend_step`` and
+``TrainStep.__call__``.  The rule takes their call closure by bare callee
+name (as ``sole_writer``: a name shared by several functions takes all of
+them), through the modules a step can reach: ``models/``, ``configs/`` (the
+config's properties), ``kernels/ops.py``, ``serve/captured.py``,
+``serve/paged_cache.py`` (the gather path's ``gather_views``/
+``absorb_decode``), ``train/train_step.py``, ``train/captured.py``,
+``optim/optimizer.py`` and the tuned-table lookup (``tune/registry.py``,
+``tune/table.py``).  It never follows ``kernels/ref.py``: the kernels' plain
+versions run only for CPU tensors, never under capture.  Besides calls, a
+function named as a value (a callback), a property read as an attribute and
+a reached function's decorators (``@tunable``'s wrapper runs at every call)
+are in the closure, and so is a function in which a def named by an
+attribute call is nested (an optimizer's ``update``, handed out in a record).
 
 Taint works as in ``pallas_trace._analyze``: it is seeded from the roots'
 tensor parameters (positional, without a default, not annotated with a
@@ -76,7 +82,9 @@ RULES = [
 
 _MARKER = "captured_step"
 _FOLLOWED_DIRS = {"models", "configs"}
-_FOLLOWED_FILES = {"kernels/ops.py", "serve/captured.py", "serve/paged_cache.py"}
+_FOLLOWED_FILES = {"kernels/ops.py", "serve/captured.py", "serve/paged_cache.py",
+                   "train/train_step.py", "train/captured.py", "optim/optimizer.py",
+                   "tune/registry.py", "tune/table.py"}
 _NEVER = {"kernels/ref.py"}
 _STATIC_ATTRS = {"shape", "dtype", "ndim", "device", "is_cuda"}
 _STATIC_CALLS = {"size", "dim", "numel", "stride", "data_ptr", "is_contiguous",
@@ -157,10 +165,19 @@ def _target_names(t: ast.AST):
         yield from _target_names(t.value)
 
 
-def _collect(files: list[SourceFile]) -> tuple[list[_Fn], dict[str, list[_Fn]]]:
-    """(roots, followed functions by bare name)."""
+def _nested_defs(node: ast.FunctionDef):
+    for sub in ast.walk(node):
+        if sub is not node and isinstance(sub, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            yield sub
+
+
+def _collect(files: list[SourceFile]) -> tuple[list[_Fn], dict[str, list[_Fn]],
+                                                dict[str, list[tuple[_Fn, ast.FunctionDef]]]]:
+    """(roots, followed functions by bare name, functions nested in followed
+    functions by bare name with the function they are nested in)."""
     roots: list[_Fn] = []
     by_name: dict[str, list[_Fn]] = {}
+    nested: dict[str, list[tuple[_Fn, ast.FunctionDef]]] = {}
     for src in files:
         followed = _followed(src)
         for qual, cls, node in iter_functions(src.tree):
@@ -172,7 +189,9 @@ def _collect(files: list[SourceFile]) -> tuple[list[_Fn], dict[str, list[_Fn]]]:
                 roots.append(info)
             if followed:
                 by_name.setdefault(node.name, []).append(info)
-    return roots, by_name
+                for sub in _nested_defs(node):
+                    nested.setdefault(sub.name, []).append((info, sub))
+    return roots, by_name, nested
 
 
 class _Closure:
@@ -183,7 +202,7 @@ class _Closure:
     function, when any argument or the receiver is tainted)."""
 
     def __init__(self, files: list[SourceFile]):
-        roots, self.by_name = _collect(files)
+        roots, self.by_name, self.nested = _collect(files)
         self.generators = {name for name, fns in self.by_name.items()
                            if any(isinstance(n, (ast.Yield, ast.YieldFrom))
                                   for f in fns for n in ast.walk(f.node))}
@@ -209,11 +228,25 @@ class _Closure:
         names = self.local_taint(info)
         changed = False
         called: set[int] = set()
+        # a decorator's wrapper runs at every call (``@tunable``'s lookup)
+        decorators = [d.func if isinstance(d, ast.Call) else d for d in info.node.decorator_list]
+        for target in (t for d in decorators for t in self._targets(d)):
+            if target.key not in self.reached:
+                self.reached[target.key] = target
+                changed = True
         for sub in ast.walk(info.node):
             refs: list[tuple[_Fn, set[str]]] = []
             if isinstance(sub, ast.Call):
                 called.add(id(sub.func))
                 refs = [(t, self._bind(sub, t, names)) for t in self._targets(sub.func)]
+                if isinstance(sub.func, ast.Attribute) \
+                        and attr_root(sub.func) not in _LIBRARY_ROOTS:
+                    # a def nested in a followed function and handed out in a
+                    # record (an optimizer's ``update``): its enclosing function
+                    # is reached, with the def's parameters that receive a
+                    # tainted argument
+                    refs += [(t, self._bind(sub, t, names, entry))
+                             for t, entry in self.nested.get(sub.func.attr, ())]
             elif isinstance(sub, (ast.Name, ast.Attribute)) \
                     and isinstance(sub.ctx, ast.Load) and id(sub) not in called:
                 # a callback named as a value, a property read as an attribute
@@ -232,11 +265,13 @@ class _Closure:
             changed = True
         return changed
 
-    def _bind(self, call: ast.Call, target: _Fn, names: set[str]) -> set[str]:
-        """The target's parameters that receive a tainted argument at ``call``."""
-        node = target.node
+    def _bind(self, call: ast.Call, target: _Fn, names: set[str],
+              entry: ast.FunctionDef | None = None) -> set[str]:
+        """The target's parameters that receive a tainted argument at ``call``
+        (``entry``: the def nested in the target that the call enters)."""
+        node = entry or target.node
         params = [a.arg for a in _positional(node)]
-        if target.method and isinstance(call.func, ast.Attribute):
+        if entry is None and target.method and isinstance(call.func, ast.Attribute):
             params = params[1:]
         named = set(params) | {a.arg for a in node.args.kwonlyargs}
         out: set[str] = set()

@@ -788,10 +788,8 @@ STAGE1 = ref.STAGE1                # a stage-2 stream: stage 1's output of its l
 
 
 def coeffs_f32(coeffs) -> list[float]:
-    """The coefficients as Python floats rounded to float32 (what the kernel
-    gets, and what JAX makes of weak-typed scalars)."""
-    if isinstance(coeffs, torch.Tensor):
-        coeffs = coeffs.detach().float().cpu().tolist()
+    """The coefficients (numbers) as Python floats rounded to float32 (what
+    the kernel gets, and what JAX makes of weak-typed scalars)."""
     return [ctypes.c_float(float(c)).value for c in coeffs]
 
 
@@ -945,7 +943,11 @@ def stream_gd_into(out: torch.Tensor, streams, coeffs) -> torch.Tensor:
     equally shaped contiguous tensors, each float32 or bfloat16 on its own,
     summed in float32 in stream order and rounded once to ``out``'s type.
     ``out`` may be one of the streams.  A one-leaf, one-stage
-    ``stream_gd_foreach``; returns ``out``."""
+    ``stream_gd_foreach``; returns ``out``.  ``coeffs`` may be a tensor (the
+    JAX wrapper's form), read back here: the optimizers, whose updates a
+    CUDA graph captures, pass numbers to ``stream_gd_foreach``."""
+    if isinstance(coeffs, torch.Tensor):
+        coeffs = coeffs.detach().float().cpu().tolist()
     stream_gd_foreach([((out, streams),)], [coeffs])
     return out
 

@@ -5,7 +5,9 @@ one with ``cfg.train_microbatches`` microbatches) from seeded random
 weights on synthetic data, on the card unless ``--device cpu`` is given.
 The flags are those of ``python -m repro.launch.train`` that one card
 needs (no mesh, no overlap flags) plus ``--device``; ``--ckpt`` names a
-checkpoint directory to save into and resume from (none by default).
+checkpoint directory to save into and resume from (none by default).  On
+the card every step after the first replays one CUDA graph
+(``Trainer``'s captured step, ``TrainerConfig.cuda_graph``).
 Every registered family trains (the vlm's batches carry stub patch
 embeddings, the audio family's stub frames, as the JAX package's data
 makes them).  ``--full`` refuses a configuration

@@ -127,7 +127,8 @@ class EncDecLM:
     def _run(self, fn, *args):
         """One layer, recomputed in the backward under ``remat="full"``."""
         if self.cfg.remat == "full" and torch.is_grad_enabled():
-            return checkpoint(fn, *args, use_reentrant=False)
+            # no random numbers drawn: no RNG state to stash (see DecoderLM.forward)
+            return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
         return fn(*args)
 
     def _enc_layer(self, p, x, impl):

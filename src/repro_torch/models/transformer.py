@@ -394,8 +394,10 @@ class DecoderLM:
         for si, (pattern, reps) in enumerate(self.segments):
             for p in _unstack(params[f"seg{si}"], reps):
                 if cfg.remat == "full":
+                    # the forward draws no random numbers: no RNG state to
+                    # stash and restore, nor to read inside a captured step
                     x, aux = checkpoint(self._train_repeat, pattern, p, x, aux, tables, impl,
-                                        use_reentrant=False)
+                                        use_reentrant=False, preserve_rng_state=False)
                 else:
                     x, aux = self._train_repeat(pattern, p, x, aux, tables, impl)
         return self._head(params, x), aux

@@ -12,8 +12,11 @@ moments may be kept in bfloat16 (``state_dtype``).
 ``update(grads, state, params)`` runs under ``torch.no_grad()`` and writes
 the new parameters and state into the storage of ``params`` and ``state``,
 which it returns: the caller must not reuse the old trees, as with a
-donated buffer in JAX.  The coefficients are Python floats rounded to
-float32, as JAX's weak-typed scalars are.  ``state_axes_like`` (mesh
+donated buffer in JAX.  Every state tensor, the step count too, is written
+in place and never rebound, so a CUDA graph that captured an update
+(``train.captured``) reads and writes the same addresses on every replay.
+The coefficients are Python floats rounded to float32, as JAX's weak-typed
+scalars are.  ``state_axes_like`` (mesh
 sharding) has no counterpart: the port runs on one card.
 """
 from __future__ import annotations
@@ -40,7 +43,7 @@ def _count0(params) -> torch.Tensor:
 
 def _leaves(*trees):
     """Matching leaves of trees of one structure, in sorted-path order."""
-    return zip(*([t for _, t in tree_items(tree)] for tree in trees))
+    yield from zip(*([t for _, t in tree_items(tree)] for tree in trees))
 
 
 def sgd(lr: float = 1e-2, weight_decay: float = 0.0) -> Optimizer:
@@ -106,7 +109,7 @@ def adamw(
         if grad_clip is not None:
             gnorm = torch.sqrt(sum(g.float().square().sum() for _, g in tree_items(grads)))
             scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
-        cnt = state["count"] + 1
+        cnt = state["count"].add_(1)
         bc1 = 1.0 - b1 ** cnt.float()
         bc2 = 1.0 - b2 ** cnt.float()
         for w, g, m_, v_ in _leaves(params, grads, state["m"], state["v"]):
@@ -119,7 +122,6 @@ def adamw(
             w.copy_(w.float() - lr * step)
             m_.copy_(m32)
             v_.copy_(v32)
-        state["count"] = cnt
         return params, state
 
     return Optimizer(init, update)

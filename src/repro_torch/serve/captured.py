@@ -61,42 +61,17 @@ parameters: each call checks them.
 """
 from __future__ import annotations
 
-import contextlib
-import gc
-
 import numpy as np
 import torch
 
 from repro_torch.analysis.ownership import pool_mutator
+from repro_torch.capture import capturing, leaf_ptrs
 from repro_torch.kernels import ops
 from repro_torch.models.common import tree_items, tree_map
 
 
 def _first_leaf(pools) -> torch.Tensor:
     return next(tree_items(pools))[1]
-
-
-def _leaf_ptrs(tree) -> list[int]:
-    return [t.data_ptr() for _, t in tree_items(tree)]
-
-
-@contextlib.contextmanager
-def _capturing(graph, stream, pool=None):
-    """``torch.cuda.graph`` as the engine captures: thread_local, so the
-    admission pipeline's thread (prefill, host reads) cannot invalidate the
-    capture, and with the garbage collector held off, since a collection
-    that frees another engine's graph (engines are reference cycles)
-    destroys it on this thread, which is not permitted while a stream
-    captures and invalidates the capture."""
-    collecting = gc.isenabled()
-    gc.disable()
-    try:
-        with torch.cuda.graph(graph, pool=pool, stream=stream,
-                              capture_error_mode="thread_local"):
-            yield
-    finally:
-        if collecting:
-            gc.enable()
 
 
 class CapturedDecode:
@@ -146,7 +121,7 @@ class CapturedDecode:
         self.runs += 1
         torch.cuda.current_stream(self.device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with ops.captured_launches() as counts, _capturing(graph, side):
+        with ops.captured_launches() as counts, capturing(graph, side):
             self._run()
         self.graph, self.launches = graph, counts
 
@@ -190,7 +165,7 @@ class CapturedExtend:
         self.static = static
         self.trees = [tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype, device=device),
                                specs) for _ in range(slots)]
-        self._tree_ptrs = [_leaf_ptrs(t) for t in self.trees]
+        self._tree_ptrs = [leaf_ptrs(t) for t in self.trees]
         self._param_ptr = _first_leaf(params).data_ptr()
         # per slot: the chunk's tokens then its position, one int64 buffer,
         # and the last position's logits row
@@ -259,7 +234,7 @@ class CapturedExtend:
         pool = torch.cuda.graph_pool_handle()
         for slot in range(len(self.trees)):
             graph = torch.cuda.CUDAGraph()
-            with ops.captured_launches() as counts, _capturing(graph, side, pool):
+            with ops.captured_launches() as counts, capturing(graph, side, pool):
                 self._run(slot, params)
             self.graphs[slot], self.launches = graph, counts
 
@@ -269,7 +244,7 @@ class CapturedExtend:
         (``tree``, which must be that slot's) → the last position's logits
         row (V,), persistent for a full chunk (the slot's next chunk
         overwrites it)."""
-        if _leaf_ptrs(tree) != self._tree_ptrs[slot] \
+        if leaf_ptrs(tree) != self._tree_ptrs[slot] \
                 or _first_leaf(params).data_ptr() != self._param_ptr:
             raise RuntimeError("a prefill slot's tree or the parameters were reallocated "
                                "after the extend step was captured; they must stay in place")

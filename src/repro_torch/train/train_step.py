@@ -13,16 +13,24 @@ card: no sharding constraints.  The phases carry
 ``train_step.accumulate`` for the gradient sums, division and norm, and
 ``train_step.update``) so a profile can split a step; the backward's
 kernels are launched from autograd's own thread, outside the first range.
+
+The step is a :class:`TrainStep`, whose ``__call__`` is marked
+``@captured_step``: it reads nothing back from the device and branches on
+no tensor's value, so the card records it into a CUDA graph and replays it
+(``train.captured.CapturedTrainStep``, the counterpart of
+``jax.jit(make_train_step(...))``).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.analysis.ownership import captured_step
 from repro_torch.models.common import tree_items, tree_map_with_path
 from repro_torch.optim.optimizer import Optimizer
 
 
-def _split_microbatches(batch: dict, n: int) -> list[dict]:
+def _split_microbatches(batch: dict, n: int):
+    """The ``n`` microbatches of ``batch``, views along its first axis."""
     def sp(x):
         b = x.shape[0]
         if b % n:
@@ -30,7 +38,8 @@ def _split_microbatches(batch: dict, n: int) -> list[dict]:
         return x.reshape(n, b // n, *x.shape[1:])
 
     split = {k: sp(v) for k, v in batch.items()}
-    return [{k: v[i] for k, v in split.items()} for i in range(n)]
+    for i in range(n):
+        yield {k: v[i] for k, v in split.items()}
 
 
 def _rebuild(tree, leaves):
@@ -61,26 +70,37 @@ def global_norm(tree) -> torch.Tensor:
                           for _, g in tree_items(tree)))
 
 
-def make_train_step(model, optimizer: Optimizer, n_microbatches: int = 1,
-                    impl: str = "xla", accum_dtype: torch.dtype = torch.float32):
-    """Returns step(params, opt_state, batch) -> (params, opt_state,
-    {"loss", "grad_norm"}), both metrics float32 scalars on the device."""
+class TrainStep:
+    """``step(params, opt_state, batch) -> (params, opt_state, {"loss",
+    "grad_norm"})``, both metrics float32 scalars on the device: the body
+    the card captures as one CUDA graph (``train.captured``), as the JAX
+    package jits ``make_train_step``'s step."""
 
-    def forward_backward(params, batch):
+    def __init__(self, model, optimizer: Optimizer, n_microbatches: int = 1,
+                 impl: str = "xla", accum_dtype: torch.dtype = torch.float32):
+        self.model = model
+        self.optimizer = optimizer
+        self.n_microbatches = n_microbatches
+        self.impl = impl
+        self.accum_dtype = accum_dtype
+
+    def _forward_backward(self, params, batch):
         with torch.profiler.record_function("train_step.forward_backward"):
-            return value_and_grad(model.loss, params, batch, impl)
+            return value_and_grad(self.model.loss, params, batch, self.impl)
 
-    def step(params, opt_state, batch):
-        if n_microbatches == 1:
-            loss, grads = forward_backward(params, batch)
+    @captured_step
+    def __call__(self, params, opt_state, batch):
+        n = self.n_microbatches
+        if n == 1:
+            loss, grads = self._forward_backward(params, batch)
         else:
             acc, loss = None, None
-            for mb in _split_microbatches(batch, n_microbatches):
-                l, g = forward_backward(params, mb)
+            for mb in _split_microbatches(batch, n):
+                l, g = self._forward_backward(params, mb)
                 with torch.profiler.record_function("train_step.accumulate"):
                     g = [t for _, t in tree_items(g)]
                     if acc is None:
-                        acc = [torch.zeros(t.shape, dtype=accum_dtype, device=t.device)
+                        acc = [torch.zeros(t.shape, dtype=self.accum_dtype, device=t.device)
                                for t in g]
                         loss = torch.zeros((), dtype=torch.float32, device=l.device)
                     for a, gi in zip(acc, g):
@@ -88,15 +108,20 @@ def make_train_step(model, optimizer: Optimizer, n_microbatches: int = 1,
                     del g
                     loss = loss + l
             with torch.profiler.record_function("train_step.accumulate"):
-                grads = _rebuild(params, [a.div_(n_microbatches) for a in acc])
-                loss = loss / n_microbatches
+                grads = _rebuild(params, [a.div_(n) for a in acc])
+                loss = loss / n
         with torch.profiler.record_function("train_step.accumulate"):
             gnorm = global_norm(grads)
         with torch.profiler.record_function("train_step.update"):
-            params, opt_state = optimizer.update(grads, opt_state, params)
+            params, opt_state = self.optimizer.update(grads, opt_state, params)
         return params, opt_state, {"loss": loss, "grad_norm": gnorm}
 
-    return step
+
+def make_train_step(model, optimizer: Optimizer, n_microbatches: int = 1,
+                    impl: str = "xla", accum_dtype: torch.dtype = torch.float32) -> TrainStep:
+    """Returns step(params, opt_state, batch) -> (params, opt_state,
+    {"loss", "grad_norm"}), both metrics float32 scalars on the device."""
+    return TrainStep(model, optimizer, n_microbatches, impl, accum_dtype)
 
 
 def make_eval_step(model, impl: str = "xla"):

@@ -11,6 +11,14 @@ caller gives (``init_params``, e.g. JAX's weights through
 ``repro_torch.convert``), which is copied so the in-place updates never
 touch it.  With ``ckpt_dir=None`` nothing is saved or restored (the
 default: a full-width run would write ~18 GB per checkpoint).
+
+Each step goes through ``train.captured.CapturedTrainStep``: on the card,
+by default (``TrainerConfig.cuda_graph``), the first step of a state is a
+real step run eagerly, then the step is captured and every later step is
+the replay of that CUDA graph; on the CPU, or with ``cuda_graph=False``,
+the step runs on the same static buffers.  A new state (``init_state``:
+a restart, a restore) has other tensors, so the address check builds a new
+captured step for it.  The loss is read back outside the graph.
 """
 from __future__ import annotations
 
@@ -24,6 +32,7 @@ from repro_torch.dist.fault import FaultInjector, StragglerDetector
 from repro_torch.models.common import tree_map
 from repro_torch.optim.optimizer import Optimizer, get_optimizer
 from repro_torch.train import checkpoint as ckpt_lib
+from repro_torch.train.captured import CapturedTrainStep
 from repro_torch.train.train_step import make_train_step
 
 
@@ -38,6 +47,7 @@ class TrainerConfig:
     lr: float = 3e-4
     n_microbatches: int = 1
     max_restarts: int = 3
+    cuda_graph: bool = True     # on the card, replay each step as one CUDA graph
 
 
 @dataclass
@@ -63,6 +73,20 @@ class Trainer:
                       if tcfg.ckpt_dir else None)
         self.fault = fault_injector
         self.detector = StragglerDetector(n_hosts=1)
+        self.captured: CapturedTrainStep | None = None
+        self.builds = 0        # CapturedTrainSteps built: one per state the run steps
+
+    def _captured_for(self, state: TrainState) -> CapturedTrainStep:
+        """The captured step over ``state``'s trees: the current one while it
+        holds them, else (a restart, a restore) a new one, the old dropped
+        first so that its graph's memory goes back before the new capture."""
+        if self.captured is None or not self.captured.holds(state.params, state.opt_state):
+            self.captured = None
+            self.captured = CapturedTrainStep(
+                self.step_fn, state.params, state.opt_state, self.device,
+                capture=self.device.type == "cuda" and self.tcfg.cuda_graph)
+            self.builds += 1
+        return self.captured
 
     # -- state construction / restore ---------------------------------------
 
@@ -91,7 +115,7 @@ class Trainer:
             batch = self.data.next()
             if self.fault is not None:
                 self.fault.maybe_fail(state.step)
-            state.params, state.opt_state, metrics = self.step_fn(
+            state.params, state.opt_state, metrics = self._captured_for(state)(
                 state.params, state.opt_state, batch)
             state.step += 1
             self.detector.report(0, state.step)

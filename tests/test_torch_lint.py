@@ -16,8 +16,10 @@ fixtures, the shipped port, the JAX package's linter and the engine's run.
 * ``capture-safety``'s closure holds every port function the reduced
   qwen2.5-3b engine's ``_decode_impl`` (paged and gather) and
   ``extend_step`` enter on the CPU, outside ``kernels/ref.py``
-  (``sys.setprofile``); a host read or tensor-valued control flow seeded in
-  a copy of ``DecoderLM.decode_step_paged`` is flagged.
+  (``sys.setprofile``), and every one two CPU training steps of each family
+  enter through ``TrainStep.__call__`` (the training step's body, a root);
+  a host read or tensor-valued control flow seeded in a copy of
+  ``DecoderLM.decode_step_paged`` is flagged.
 """
 import dataclasses
 import functools
@@ -320,6 +322,66 @@ def test_closure_covers_the_engine_run(path, _one_thread):
             ("kernels/ops.py", "paged_write" if path == "paged" else "paged_gather_many"),
             ("kernels/ops.py", "flash_attention")}
     assert want <= seen
+    assert seen <= _shipped_closure(), sorted(seen - _shipped_closure())
+
+
+def test_captured_step_marks_the_train_step_body():
+    """The training step body is a root, and its closure holds the backward's
+    entry, the grad norm and the three optimizers' updates."""
+    from repro_torch.train.train_step import TrainStep
+
+    assert TrainStep.__call__._repro_captured_step
+    roots = {q for p, q in capture_safety.closure([SourceFile(PORT / "train" / "train_step.py")])}
+    assert "TrainStep.__call__" in roots
+    want = {("train/train_step.py", q) for q in ("TrainStep.__call__", "value_and_grad",
+                                                  "global_norm", "_split_microbatches")}
+    want |= {("optim/optimizer.py", q) for q in ("sgd", "momentum", "adamw")}
+    want |= {("kernels/ops.py", "stream_gd_foreach"), ("models/transformer.py", "DecoderLM.loss"),
+             ("models/encdec.py", "EncDecLM.loss"), ("models/api.py", "VLM.loss")}
+    assert want <= _shipped_closure(), sorted(want - _shipped_closure())
+
+
+# (arch, optimizer, microbatches, remat) of the training steps run on the CPU
+TRAIN_CASES = [("qwen2.5-3b", "sgd", 1, "none"), ("qwen2.5-3b", "momentum", 2, "full"),
+               ("qwen2.5-3b", "adamw", 2, "none"), ("mamba2-130m", "momentum", 1, "full"),
+               ("qwen3-moe-235b-a22b", "sgd", 2, "full"), ("deepseek-v3-671b", "sgd", 1, "none"),
+               ("recurrentgemma-9b", "sgd", 1, "full"),
+               ("llava-next-mistral-7b", "sgd", 1, "full"), ("whisper-large-v3", "adamw", 1, "full")]
+
+
+@pytest.mark.parametrize("arch,opt,n_micro,remat", TRAIN_CASES,
+                         ids=[f"{a.split('-')[0]}-{o}-{n}-{r}" for a, o, n, r in TRAIN_CASES])
+def test_closure_covers_the_training_step(arch, opt, n_micro, remat, _one_thread):
+    """Every port function two CPU training steps enter (through the static
+    buffers of ``CapturedTrainStep``; on the CPU the backward and its remat
+    recompute run on this thread) lies in the closure of
+    ``TrainStep.__call__``."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models import build_model
+    from repro_torch.optim import get_optimizer
+    from repro_torch.train.captured import CapturedTrainStep
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = dataclasses.replace(get_arch(arch).reduced(), dtype="float32", remat=remat)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    o = get_optimizer(opt, lr=1e-2)
+    state = o.init(params)
+    seen: set = set()
+    body = _entered(make_train_step(model, o, n_microbatches=n_micro), seen)
+    step = CapturedTrainStep(body, params, state, torch.device("cpu"), capture=False)
+    data = SyntheticLMData(cfg, batch=2, seq=8, device="cpu")
+    for _ in range(2):
+        params, state, m = step(params, state, data.next())
+    assert torch.isfinite(m["loss"]) and int(state["count"]) == 2
+    want = {("train/train_step.py", "TrainStep.__call__"), ("train/train_step.py", "value_and_grad"),
+            ("train/train_step.py", "global_norm"), ("optim/optimizer.py", opt)}
+    if opt != "adamw":
+        want.add(("kernels/ops.py", "stream_gd_foreach"))
+    assert want <= seen, sorted(want - seen)
     assert seen <= _shipped_closure(), sorted(seen - _shipped_closure())
 
 
