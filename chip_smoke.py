@@ -69,8 +69,13 @@ fit one card).  Phases, each fatal (phase 34 runs after phase 30, phase
    in turns beside the bound, and the
    the vlm and audio families' (``flash_attention`` at whisper-large-v3's
    non-causal encoder, 8 requests x 20 heads = KV heads of 64 over 1,500 x
-   1,500 frames, and its cross-attention, 4 queries over the 1,500 frames,
-   both on the mma.sync design; at llava-next-mistral-7b's image + text
+   1,500 frames, on the wgmma + TMA design, and its cross-attention, 4
+   queries over the 1,500 frames, on the split-key cluster design, each
+   logged beside the mma.sync design's figures it replaced; every bf16
+   head-dim-64 design's contract besides (``FLASH_D64``: causal with
+   q_offset, kv_len < Sk, the device pair bit-equal to host offsets, a
+   window, k and v expanded over the batch, fully masked rows, 16 and 17
+   query rows per KV head); at llava-next-mistral-7b's image + text
    prefill, 2,944 causal tokens, 32 over 8 heads of 128;
    ``paged_decode_attention`` at llava's rep 4 and served contexts, each
    timed in bf16 against SDPA), the
@@ -82,8 +87,9 @@ fit one card).  Phases, each fatal (phase 34 runs after phase 30, phase
    its served context of ~1,036 tokens over 128 slots), logged with their
    times but not in the JSON line; each paged case logs its design
    (``ops.PATHS``) and its launches per call (one); each flash case logs the design it took
-   (``ops.PATHS``) and must have launched its design's compiled kernel
-   by the profiler's name (``flash_kernel_name``); four flash cases run at
+   (``ops.PATHS``), must have launched its design's compiled kernel
+   by the profiler's name (``flash_kernel_name``) and must give the same
+   bits when called again; four flash cases run at
    batch 2, two of them with k and v one slice expanded over the batch;
    the served flash shapes (qwen2.5-3b's 512-token
    prefill, recurrentgemma's prompt and chunk, the MLA and qwen3-moe
@@ -530,6 +536,49 @@ FLASH_SERVED = {
                           q_offset=0, kv_len=LLAVA["image"] + LLAVA["text"], window=None,
                           h=LLAVA["h"], hkv=LLAVA["hkv"]),
 }
+# bf16 head dim 64 beyond whisper's served rows: each design's contract at
+# whisper's widths (20 heads = KV heads of 64), on wgmma + TMA (more than 16
+# query rows per KV head) and on the split-key cluster (at most 16); 16 and
+# 17 rows are the two sides of the threshold
+FLASH_D64 = {
+    "wgmma, causal, q_offset": dict(b=2, h=20, hkv=20, sq=300, sk=1000, q_offset=700,
+                                    kv_len=1000, window=None),
+    "wgmma, kv_len < Sk": dict(b=2, h=20, hkv=20, sq=500, sk=1500, q_offset=0, kv_len=1103,
+                               window=None, causal=False),
+    "wgmma, device pair": dict(b=1, h=20, hkv=20, sq=256, sk=1024, q_offset=256, kv_len=512,
+                               window=None, pair=True),
+    "wgmma, window": dict(b=1, h=20, hkv=20, sq=600, sk=600, q_offset=0, kv_len=600,
+                          window=128),
+    "wgmma, k/v expanded over the batch": dict(b=3, h=20, hkv=20, sq=200, sk=300, q_offset=0,
+                                               kv_len=300, window=None, causal=False,
+                                               expand=True),
+    "wgmma, fully masked rows": dict(b=1, h=16, hkv=2, sq=96, sk=160, q_offset=20, kv_len=30,
+                                     window=16),
+    "wgmma, 17 rows a KV head": dict(b=8, h=20, hkv=20, sq=17, sk=1500, q_offset=0,
+                                     kv_len=1500, window=None, causal=False),
+    "split, 16 rows a KV head (4 queries x rep 4)": dict(b=8, h=16, hkv=4, sq=4, sk=1500,
+                                                         q_offset=0, kv_len=1500, window=None,
+                                                         causal=False),
+    "split, causal, q_offset": dict(b=8, h=20, hkv=20, sq=4, sk=700, q_offset=696, kv_len=700,
+                                    window=None),
+    "split, kv_len < Sk": dict(b=8, h=20, hkv=20, sq=4, sk=1500, q_offset=0, kv_len=1103,
+                               window=None, causal=False),
+    "split, device pair": dict(b=8, h=20, hkv=20, sq=4, sk=1024, q_offset=297, kv_len=301,
+                               window=None, pair=True),
+    "split, window": dict(b=2, h=8, hkv=2, sq=2, sk=600, q_offset=580, kv_len=600, window=100),
+    "split, k/v expanded over the batch": dict(b=3, h=20, hkv=20, sq=4, sk=1500, q_offset=0,
+                                               kv_len=1500, window=None, causal=False,
+                                               expand=True),
+    "split, fully masked rows": dict(b=2, h=4, hkv=4, sq=4, sk=64, q_offset=80, kv_len=40,
+                                     window=8),
+    "split, whisper's decoder prompt": dict(b=8, h=20, hkv=20, sq=4, sk=4, q_offset=0,
+                                            kv_len=4, window=None),
+}
+# whisper's rows on the design they replaced (mma.sync 64x64): event, device
+# and host ms per call, and SDPA's event and device ms, as this script
+# measured them before the redesign (NVIDIA H100 80GB HBM3, 700.00 W)
+FLASH_D64_BEFORE = {"whisper encoder": (1.0635, 0.9623, 0.0483, 0.2558, 0.2400),
+                    "whisper cross": (0.1047, 0.1003, 0.0562, 0.0813, 0.0415)}
 # the full-width moe models served on one card, cut in depth only (their
 # published depths, 61 and 94 layers, take 1.3 TB and 470 GB in bf16):
 # deepseek-v3-671b keeps its 3 dense layers and 2 of its 58 MoE layers
@@ -609,7 +658,8 @@ def ptxas_report(text: str) -> list[str]:
              "j": "4 B", "t": "2 B", "h": "1 B", None: ""}
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '.*?(paged_decode_mma|paged_decode_fma|"
-                      r"flash_attn_fwd|flash_attn_mma|flash_attn_wgmma|conv_igemm_wgmma|conv_igemm|"
+                      r"flash_attn_fwd|flash_attn_mma|flash_attn_wgmma|flash_split_mma|"
+                      r"conv_igemm_wgmma|conv_igemm|"
                       r"maxpool_valid|matmul_tiled_stream|matmul_tiled|"
                       r"ssd_scan_mma|ssd_scan_fma|paged_gather_bulk|stream_gd_update|"
                       r"paged_write_rows)"
@@ -854,13 +904,17 @@ def paged_case(dtype, timed: bool, h=H, hkv=HKV, label="qwen2.5-3b", lens=None,
     return row
 
 
-def flash_kernel_name(dtype, d) -> str:
-    """The compiled kernel ``flash_attention`` must launch for ``dtype`` and
-    head dim ``d``: the CUDA-core loop in float32, mma.sync at bf16 D <= 64,
-    wgmma + TMA at the served bf16 head dims."""
+def flash_kernel_name(dtype, d, sq, rep) -> str:
+    """The compiled kernel ``flash_attention`` must launch for ``dtype``,
+    head dim ``d``, ``sq`` queries and ``rep`` query heads per KV head: the
+    CUDA-core loop in float32, mma.sync at bf16 D 32 and 48, the split-key
+    cluster at bf16 D 64 with at most 16 rows per KV head, wgmma + TMA
+    else."""
     if dtype == torch.float32:
         return f"flash_attn_fwd<float, {d}>"
-    return f"flash_attn_mma<{d}>" if d <= 64 else f"flash_attn_wgmma<{d}>"
+    if d < 64:
+        return f"flash_attn_mma<{d}>"
+    return "flash_split_mma<64>" if d == 64 and sq * rep <= 16 else f"flash_attn_wgmma<{d}>"
 
 
 def flash_mask(sq, sk, q_offset, kv_len, window, causal):
@@ -877,13 +931,15 @@ def flash_mask(sq, sk, q_offset, kv_len, window, causal):
 
 
 def flash_case(dtype, label, sq, sk, q_offset, kv_len, window, timed, h=H, hkv=HKV, d=D,
-               turns=False, b=1, expand=False, design=True, causal=True):
+               turns=False, b=1, expand=False, design=True, causal=True, pair=False):
     """One flash case at batch ``b`` against its plain version, logging the
-    design it took and (``design``) holding the profiled kernel to
-    ``flash_kernel_name``; ``expand``: k and v one slice expanded over the
-    batch (stride 0).  Timed, its row (``turns``: by ``in_turns`` against
-    SDPA, given no mask where every key is seen and ``is_causal`` where the
-    mask is the plain causal one, else the mask)."""
+    design it took, requiring the same bits from a second call and
+    (``design``) holding the profiled kernel to ``flash_kernel_name``;
+    ``expand``: k and v one slice expanded over the batch (stride 0);
+    ``pair``: q_offset and kv_len as an int32 pair on the card, whose call
+    must give the host-offset call's bits.  Timed, its row (``turns``: by
+    ``in_turns`` against SDPA, given no mask where every key is seen and
+    ``is_causal`` where the mask is the plain causal one, else the mask)."""
     from repro_torch.kernels import ops, ref
 
     F = torch.nn.functional
@@ -893,6 +949,10 @@ def flash_case(dtype, label, sq, sk, q_offset, kv_len, window, timed, h=H, hkv=H
     k, v = (torch.randn(1 if expand else b, sk, hkv, d, generator=gen, device="cuda")
             .to(dtype).expand(b, sk, hkv, d).transpose(1, 2) for _ in range(2))
     kw = dict(causal=causal, window=window, q_offset=q_offset, kv_len=kv_len)
+    host = ops.flash_attention(q, k, v, **kw) if pair else None
+    if pair:
+        offsets = torch.tensor([q_offset, kv_len], dtype=torch.int32, device="cuda")
+        kw.update(q_offset=offsets[0], kv_len=offsets[1])
 
     def kernel():
         return ops.flash_attention(q, k, v, **kw)
@@ -903,12 +963,19 @@ def flash_case(dtype, label, sq, sk, q_offset, kv_len, window, timed, h=H, hkv=H
     out, want = kernel(), plain()
     torch.cuda.synchronize()
     err = check_close(f"flash_attention[{label}]", out, want, dtype)
+    if not torch.equal(kernel(), out):
+        raise SystemExit(f"chip_smoke: flash_attention[{label}]: a second call gave other bits")
+    if pair and not torch.equal(out, host):
+        raise SystemExit(f"chip_smoke: flash_attention[{label}]: the device-offset form differs "
+                         "from the host-offset form")
     path = ops.PATHS.get("flash_attention")
     names = profiled_kernels(kernel)
-    log(f"    design: {path}; profiled kernel: {names}")
-    if design and names != [flash_kernel_name(dtype, d)]:
+    want_name = flash_kernel_name(dtype, d, sq, h // hkv)
+    log(f"    design: {path}; profiled kernel: {names}; a second call bit-equal"
+        + ("; device offsets bit-equal to host offsets" if pair else ""))
+    if design and names != [want_name]:
         raise SystemExit(f"chip_smoke: flash_attention[{label}] launched {names}, expected "
-                         f"{flash_kernel_name(dtype, d)}")
+                         f"{want_name}")
     if not timed:
         return None
     mask, keys, pairs = flash_mask(sq, sk, q_offset, kv_len, window, causal)
@@ -975,7 +1042,7 @@ def flash_offset_case(label, sq, sk, q_offset, window, h=H, hkv=HKV, d=D) -> dic
 
     err = check_close(f"flash_attention[{label}, device offsets]", got, plain(), dtype)
     names = profiled_kernels(device_form)
-    if names != [flash_kernel_name(dtype, d)]:
+    if names != [flash_kernel_name(dtype, d, sq, h // hkv)]:
         raise SystemExit(f"chip_smoke: flash_attention[{label}, device offsets] launched {names}")
     mask, keys, pairs = flash_mask(sq, sk, q_offset, kv_len, window, True)
     item = q.element_size()
@@ -1524,24 +1591,32 @@ def device_ms(fn, iters: int = 10, cold: bool = False) -> float:
     """Mean device time per call of the kernels ``fn`` launches, from the
     profiler: the host's issue of the call is not in it.  ``cold`` runs
     each call after a 64 MB write that evicts the 50 MB L2, as ``time_ms``
-    does, and leaves that write's own kernel out.  A profile that holds no
-    device time at all (the tracer now and then drops a profile's kernel
-    records) is taken again, up to three times."""
+    does, and leaves that write's own kernel out.  The tracer now and then
+    drops kernel records: a profile that holds no device time, or a count
+    of kernels that is no multiple of ``iters`` (records of some calls
+    lost, which would read as a faster call), is taken again, up to three
+    times; the third such profile's time is kept and logged as short."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda") if cold else None
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(3):
+    for attempt in range(3):
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(iters):
                 if cold:
                     flush.zero_()
                 fn()
             torch.cuda.synchronize()
-        total = sum(e.self_device_time_total for e in prof.key_averages()
-                    if str(getattr(e, "device_type", "")).endswith("CUDA")
-                    and not (cold and any(w in e.key.lower() for w in ("fill", "memset"))))
-        if total > 0:
+        kept = [e for e in prof.key_averages()
+                if str(getattr(e, "device_type", "")).endswith("CUDA")
+                and not (cold and any(w in e.key.lower() for w in ("fill", "memset")))]
+        total = sum(e.self_device_time_total for e in kept)
+        launches = sum(e.count for e in kept)
+        if total > 0 and launches % iters == 0:
+            return total / iters / 1e3
+        if total > 0 and attempt == 2:
+            log(f"    (profiles held {launches} kernel records for {iters} calls three times; "
+                "this device time counts only those)")
             return total / iters / 1e3
     raise SystemExit("chip_smoke: three profiles in a row recorded no device time")
 
@@ -1728,7 +1803,7 @@ def kernel_group(name: str) -> str:
     name = name.lower()
     if "paged_decode_mma" in name or "paged_decode_fma" in name:
         return "paged_decode_attention"
-    if "flash_attn" in name:
+    if "flash_attn" in name or "flash_split" in name:
         return "flash_attention"
     if "ssd_scan_m" in name or "ssd_scan_f" in name or "ssd_chunk_scan" in name:
         return "ssd_scan"
@@ -5865,10 +5940,21 @@ def main() -> int:
             row = flash_case(dtype, label, timed=timed, turns=True, **FLASH_SERVED[label])
             if row:                 # logged, not in the JSON line
                 log_row(row)
+            if row and label in FLASH_D64_BEFORE:
+                ev, dev, host, sdpa_ev, sdpa_dev = FLASH_D64_BEFORE[label]
+                log(f"    before, on mma.sync 64x64: event {ev:.4f}, device "
+                    f"{dev:.4f}, host {host:.4f} ms against SDPA's {sdpa_ev:.4f} / "
+                    f"{sdpa_dev:.4f}; now {ops.PATHS['flash_attention']}: device "
+                    f"{row['device_ms']:.4f} ms = {dev / row['device_ms']:.2f}x faster, "
+                    f"{row['device_ms'] / row['library_device_ms']:.3f} of SDPA's device time")
         row = paged_case(dtype, timed, LLAVA["h"], LLAVA["hkv"], "llava served",
                          lens=PAGED_SERVED_LLAVA, slots=1024 // PS, holes=False, floor=floor)
         if row:
             log_row(row)
+    log("  bf16 head dim 64, each design's contract (wgmma + TMA above 16 query rows per KV "
+        "head, the split-key cluster at or below):")
+    for label, case in FLASH_D64.items():
+        flash_case(torch.bfloat16, f"D 64 {label}", timed=False, d=64, **case)
     log("  flash_attention at batch 2 (a batched prefill, as make_eval_step gives it) at "
         "each served head dim; 'k/v expanded': one slice over the batch (stride 0):")
     for dtype in (torch.float32, torch.bfloat16):

@@ -31,8 +31,9 @@ launch into a CUDA graph being captured runs nothing: inside
 on the current stream (``_raw_stream``), which capture replaces with its
 own.
 ``stream_mac_conv`` and ``tiled_matmul`` choose between two designs by
-shape, ``flash_attention`` among three by dtype and head dim
-(``flash_path``), and ``paged_attention`` and ``ssd_scan`` by dtype and
+shape, ``flash_attention`` among four by dtype, head dim and query rows
+per KV head (``flash_path``, with ``flash_split_plan``'s cluster size for
+the few-query design), and ``paged_attention`` and ``ssd_scan`` by dtype and
 their cluster size (``paged_plan``, ``ssd_plan``); ``PATHS`` names the one
 their last card call took.  A
 ``stream_gd_foreach`` or ``paged_gather_many`` call whose list outgrows
@@ -63,7 +64,9 @@ CONV_PATHS = ("mma.sync 128x64", "wgmma+TMA 128x64", "wgmma+TMA 128x128", "wgmma
 MATMUL_PATHS = ("tiles 64x128", "TMA weight stream 16x128")
 # flash attention's designs (rows x keys per tile) and the code the launch takes
 FLASH_PATHS = {"CUDA cores": 0, "mma.sync 64x64": 1, "wgmma+TMA 128x128": 2,
-               "wgmma+TMA 128x64": 2}
+               "wgmma+TMA 128x64": 2, "wgmma+TMA 192x128": 2, "mma.sync split-K 16x16": 3}
+FLASH_SPLIT_ROWS = 16              # Sq * rep that one mma.sync tile of the split design holds
+FLASH_SPLIT_MAX_CLUSTER = 8        # blocks a split cluster may hold (the portable size)
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
@@ -74,7 +77,7 @@ _SIGNATURES = {
     "paged_decode_attention_max_cluster": ("paged_attn", [_I, _I, _I, _I]),
     "flash_attention_launch": (
         "flash_attention",
-        [_I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+        [_I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
          _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _I, _I, _I, _I, _F, _P, _P],
     ),
     "stream_mac_conv_launch": (
@@ -263,21 +266,44 @@ def _launched(lib, name: str, err: int, kernels: int = 1) -> None:
     _count(name, kernels)
 
 
-def flash_path(dtype: torch.dtype, head_dim: int) -> str:
-    """The design ``flash_attention`` launches on the card for ``dtype`` and
-    ``head_dim``: float32 on the CUDA cores (the card-against-CPU check
-    type), bf16 at the reduced head dims (32, 48, 64) on mma.sync, and bf16
-    at the served ones on wgmma + TMA, 128 query rows by 128 keys per tile
-    at 128 and by 64 at 192 and 256 (where O's registers leave room for no
-    more)."""
+def flash_path(dtype: torch.dtype, head_dim: int, sq: int, rep: int) -> str:
+    """The design ``flash_attention`` launches on the card for ``dtype``,
+    ``head_dim``, ``sq`` queries and ``rep`` query heads per KV head:
+    float32 on the CUDA cores (the card-against-CPU check type), bf16 at
+    head dims 32 and 48 on mma.sync, bf16 at 64 with at most
+    ``FLASH_SPLIT_ROWS`` rows per KV head (Sq * rep: whisper's
+    cross-attention and its decoder's prompt) on mma.sync with the keys split
+    over a cluster (``flash_split_plan``), and bf16 at 64 above that and at
+    128, 192 and 256 on wgmma + TMA: 192 query rows by 128 keys per tile at
+    64 (three consumer warpgroups), 128 by 128 at 128, and 128 by 64 at 192
+    and 256 (where O's registers leave room for no more)."""
     if head_dim not in FLASH_HEAD_DIMS or dtype not in _DTYPES:
         raise ValueError(f"flash_attention: no design for head_dim {head_dim} in {dtype} "
                          f"(head dims {FLASH_HEAD_DIMS}, float32 or bfloat16)")
     if dtype == torch.float32:
         return "CUDA cores"
-    if head_dim <= 64:
+    if head_dim < 64:
         return "mma.sync 64x64"
+    if head_dim == 64:
+        return ("mma.sync split-K 16x16" if sq * rep <= FLASH_SPLIT_ROWS
+                else "wgmma+TMA 192x128")
     return "wgmma+TMA 128x128" if head_dim == 128 else "wgmma+TMA 128x64"
+
+
+def flash_split_plan(sm_count: int, batch: int, hkv: int, sk: int) -> int:
+    """Blocks per (batch, KV head) pair of the few-query flash design, which
+    split the pair's keys and merge in one thread-block cluster: the
+    smallest power of two that puts at least two blocks on every SM, at most
+    ``FLASH_SPLIT_MAX_CLUSTER`` (the portable size, which every card fits)
+    and at most one per 64 keys (each of a block's four warps then has a
+    16-key tile); at least 1.  A pure function of the shape: with the
+    device-offset form the split still covers the Sk rows the kernel finds
+    visible, and a block that sees no key merges with weight 0."""
+    pairs, tiles, c = batch * hkv, -(-sk // 16), 1
+    while (2 * c <= FLASH_SPLIT_MAX_CLUSTER and pairs * c < 2 * sm_count
+           and 2 * c * 4 <= tiles):
+        c *= 2
+    return c
 
 
 def _on_device(q_offset, kv_len, device) -> bool:
@@ -344,7 +370,9 @@ def flash_attention(
             or k.shape[3] != d:
         raise ValueError(f"flash_attention: unsupported shapes q {tuple(q.shape)}"
                          f" k {tuple(k.shape)} v {tuple(v.shape)}")
-    path = flash_path(q.dtype, d)
+    path = flash_path(q.dtype, d, sq, h // hkv)
+    cluster = flash_split_plan(_sm_count(q.device), b, hkv, sk) \
+        if FLASH_PATHS[path] == 3 else 1
     pair = None
     if on_device:
         pair = _offset_pair(q_offset, kv_len, sk, q.device)
@@ -354,13 +382,14 @@ def flash_attention(
     # (B, Sq, H, D) storage: the model's next step merges heads for free
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
     lib, fn = _entry("flash_attention_launch")
-    err = fn(code, FLASH_PATHS[path], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    err = fn(code, FLASH_PATHS[path], cluster, d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
              out.data_ptr(), b, h, h // hkv, sq, sk, *q.stride()[:3], *k.stride()[:3],
              *v.stride()[:3], *out.stride()[:3], int(causal),
              0 if window is None else int(window), q_off, kv, scale,
              None if pair is None else pair.data_ptr(), _raw_stream(q.device))
     _launched(lib, "flash_attention", err)
-    PATHS["flash_attention"] = path
+    PATHS["flash_attention"] = (f"{path}, cluster of {cluster}" if FLASH_PATHS[path] == 3
+                                else path)
     return out
 
 

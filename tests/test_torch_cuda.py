@@ -6,7 +6,8 @@ thread), the ConvNet logits and the reduced qwen2.5-3b train step on the
 card against the CPU; a traced engine's tokens against an untraced one's,
 the sampler's draws on its generator's device, and a sanitized reduced run;
 ``flash_attention`` at whisper-large-v3's non-causal encoder and
-cross-attention shapes and at llava-next-mistral-7b's image prefill, and
+cross-attention shapes and at llava-next-mistral-7b's image prefill, each
+bf16 head-dim-64 design's masks, offsets and strides, and
 the reduced ``VLM`` and ``EncDecLM`` (prefill and greedy decode) on the
 card against the CPU.
 
@@ -56,15 +57,28 @@ def card(request):
     return torch.device("cuda")
 
 
-def _flash_design(dtype: str, d: int) -> tuple[str, str]:
-    """(compiled kernel, ``ops.PATHS`` entry) that a flash call must take:
-    float32 on the CUDA cores, bf16 on mma.sync at D <= 64 and on wgmma +
-    TMA at the served head dims (128 keys a tile at D 128, 64 above)."""
+def _flash_design(dtype: str, d: int, sq: int, rep: int) -> tuple[str, str]:
+    """(compiled kernel, ``ops.PATHS`` entry up to its cluster size) that a
+    flash call of ``sq`` queries and ``rep`` query heads per KV head must
+    take: float32 on the CUDA cores; bf16 on mma.sync at D 32 and 48; at
+    D 64 with at most 16 rows per KV head on mma.sync with the keys split
+    over a cluster, else on wgmma + TMA (192 rows by 128 keys a tile); at
+    the served head dims on wgmma + TMA (128 keys a tile at D 128, 64
+    above)."""
     if dtype == "float32":
         return f"flash_attn_fwd<float, {d}>", "CUDA cores"
-    if d <= 64:
+    if d < 64:
         return f"flash_attn_mma<{d}>", "mma.sync 64x64"
+    if d == 64 and sq * rep <= ops.FLASH_SPLIT_ROWS:
+        return "flash_split_mma<64>", "mma.sync split-K 16x16"
+    if d == 64:
+        return "flash_attn_wgmma<64>", "wgmma+TMA 192x128"
     return f"flash_attn_wgmma<{d}>", f"wgmma+TMA 128x{128 if d == 128 else 64}"
+
+
+def _design_of_last_call() -> str:
+    """``ops.PATHS["flash_attention"]`` without the split design's cluster size."""
+    return ops.PATHS["flash_attention"].split(",")[0]
 
 
 def _profile(fn, counted=None):
@@ -136,8 +150,8 @@ def test_flash_kernel_matches_plain(card, dtype, d, h, hkv, sq, sk, q_offset, kv
     got, names, launched = _profiled(lambda: ops.flash_attention(q, k, v, **kw),
                                      "flash_attention")
     assert launched == 1
-    kernel, design = _flash_design(dtype, d)
-    assert names == {kernel} and ops.PATHS["flash_attention"] == design
+    kernel, design = _flash_design(dtype, d, sq, h // hkv)
+    assert names == {kernel} and _design_of_last_call() == design
     want = ref.flash_attention(q, k, v, **kw)
     torch.testing.assert_close(got.float(), want.float(), **(F32 if dtype == "float32" else BF16))
     # rows that see no key are zeros, exactly
@@ -169,8 +183,8 @@ def test_flash_kernel_at_the_served_multimodal_shapes(card, dtype, b, h, hkv, d,
     got, names, launched = _profiled(lambda: ops.flash_attention(q, k, v, causal=causal),
                                      "flash_attention")
     assert launched == 1
-    kernel, design = _flash_design(dtype, d)
-    assert names == {kernel} and ops.PATHS["flash_attention"] == design
+    kernel, design = _flash_design(dtype, d, sq, h // hkv)
+    assert names == {kernel} and _design_of_last_call() == design
     want = ref.flash_attention(q, k, v, causal=causal)
     torch.testing.assert_close(got.float(), want.float(), **(F32 if dtype == "float32" else BF16))
 
@@ -193,8 +207,8 @@ def test_flash_kernel_reads_strided_views(card, dtype, d, h):
     v = v.transpose(1, 2)
     assert q.stride(1) == 2 * d and v.stride(1) == 0
     got, names, _ = _profiled(lambda: ops.flash_attention(q, k, v, causal=True))
-    kernel, design = _flash_design(dtype, d)
-    assert names == {kernel} and ops.PATHS["flash_attention"] == design
+    kernel, design = _flash_design(dtype, d, s, 1)
+    assert names == {kernel} and _design_of_last_call() == design
     want = ref.flash_attention(q, k, v, causal=True)
     torch.testing.assert_close(got.float(), want.float(), **(F32 if dtype == "float32" else BF16))
 
@@ -218,13 +232,14 @@ def test_flash_kernel_batch_of_two(card, dtype, d, h, hkv, window, expand):
     got, names, launched = _profiled(lambda: ops.flash_attention(q, k, v, **kw),
                                      "flash_attention")
     assert launched == 1
-    assert names == {_flash_design(dtype, d)[0]}
+    assert names == {_flash_design(dtype, d, sq, h // hkv)[0]}
     want = ref.flash_attention(q, k, v, **kw)
     torch.testing.assert_close(got.float(), want.float(), **(F32 if dtype == "float32" else BF16))
 
 
-# every design: bf16 at the served head dims on wgmma + TMA, bf16 D 64 on
-# mma.sync, float32 on the CUDA cores; a window on the recurrentgemma shape
+# every design: bf16 at the served head dims and at D 64 (64 queries x rep
+# 4) on wgmma + TMA, float32 on the CUDA cores; a window on the
+# recurrentgemma shape (the split design's device pair: test_flash_d64_designs)
 DEVICE_OFFSET_CASES = [("bfloat16", 128, 16, 2, None), ("bfloat16", 192, 8, 8, None),
                        ("bfloat16", 256, 16, 1, 64), ("bfloat16", 64, 8, 2, None),
                        ("float32", 128, 16, 2, None)]
@@ -251,7 +266,7 @@ def test_flash_device_offsets_bit_equal_to_host_offsets(card, dtype, d, h, hkv, 
     got, names, launched = _profiled(
         lambda: ops.flash_attention(q, k, v, window=window, q_offset=pair[0], kv_len=pair[1]),
         "flash_attention")
-    assert launched == 1 and names == {_flash_design(dtype, d)[0]}
+    assert launched == 1 and names == {_flash_design(dtype, d, sq, h // hkv)[0]}
     assert torch.equal(got, want)
     # the pair built from int64 scalars (one stack and cast) gives them too
     pos = torch.tensor(q_offset, device=card)
@@ -260,6 +275,50 @@ def test_flash_device_offsets_bit_equal_to_host_offsets(card, dtype, d, h, hkv, 
     torch.testing.assert_close(got.float(), ref.flash_attention(
         q, k, v, window=window, q_offset=q_offset, kv_len=kv_len).float(),
         **(F32 if dtype == "float32" else BF16))
+
+
+# bf16 at head dim 64: each design's contract.  b, h, hkv, sq, sk, q_offset,
+# kv_len, window, causal, k/v expanded over the batch, q_offset and kv_len
+# as an int32 pair on the card
+FLASH_D64 = {
+    "wgmma_causal_q_offset": (2, 8, 8, 300, 700, 400, None, None, True, False, False),
+    "wgmma_kv_len": (2, 4, 4, 200, 500, 0, 333, None, False, False, False),
+    "wgmma_device_pair": (1, 8, 2, 256, 1024, 256, 512, None, True, False, True),
+    "wgmma_window": (1, 8, 8, 500, 500, 0, None, 100, True, False, False),
+    "wgmma_batch_stride_0": (3, 4, 4, 200, 300, 0, None, None, False, True, False),
+    "wgmma_fully_masked_rows": (1, 16, 2, 96, 160, 20, 30, 16, True, False, False),
+    "wgmma_rows_17": (2, 4, 4, 17, 333, 316, None, None, True, False, False),
+    "split_rows_16": (2, 16, 4, 4, 700, 696, None, None, True, False, False),
+    "split_kv_len": (2, 4, 4, 3, 500, 0, 301, None, False, False, False),
+    "split_device_pair": (2, 4, 4, 3, 500, 297, 300, None, True, False, True),
+    "split_window": (2, 8, 2, 2, 600, 580, None, 100, True, False, False),
+    "split_batch_stride_0": (3, 4, 4, 4, 257, 0, None, None, False, True, False),
+    "split_fully_masked_rows": (2, 4, 4, 4, 64, 80, 40, 8, True, False, False),
+    "split_sk_below_a_tile": (2, 4, 1, 4, 5, 0, None, None, False, False, False),
+}
+
+
+@pytest.mark.parametrize("case", list(FLASH_D64))
+def test_flash_d64_designs(card, case):
+    """Each bf16 D 64 design against the plain version in one launch, the
+    same bits from a repeated call, and (device pair) the host-offset
+    call's bits."""
+    b, h, hkv, sq, sk, q_offset, kv_len, window, causal, expand, pair = FLASH_D64[case]
+    g = torch.Generator(device=card).manual_seed(7)
+    q = torch.randn(b, sq, h, 64, generator=g, device=card).bfloat16().transpose(1, 2)
+    k, v = (torch.randn(1 if expand else b, sk, hkv, 64, generator=g, device=card).bfloat16()
+            .expand(b, sk, hkv, 64).transpose(1, 2) for _ in range(2))
+    kw = dict(causal=causal, window=window, q_offset=q_offset, kv_len=kv_len)
+    host = ops.flash_attention(q, k, v, **kw)
+    if pair:
+        offsets = torch.tensor([q_offset, kv_len], dtype=torch.int32, device=card)
+        kw.update(q_offset=offsets[0], kv_len=offsets[1])
+    got, names, launched = _profiled(lambda: ops.flash_attention(q, k, v, **kw),
+                                     "flash_attention")
+    kernel, design = _flash_design("bfloat16", 64, sq, h // hkv)
+    assert launched == 1 and names == {kernel} and _design_of_last_call() == design
+    assert torch.equal(got, host) and torch.equal(ops.flash_attention(q, k, v, **kw), got)
+    torch.testing.assert_close(got.float(), ref.flash_attention(q, k, v, **kw).float(), **BF16)
 
 
 def _paged_design(dtype: str, d: int) -> tuple[str, str]:

@@ -66,25 +66,43 @@ def test_flash_attention_matches_jax(case):
         assert np.all(got == 0.0)
 
 
-# (dtype, head dim) -> the design the card launches; the table ``flash_path`` holds
-FLASH_DESIGNS = [(torch.float32, d, "CUDA cores") for d in tops.FLASH_HEAD_DIMS] + [
-    (torch.bfloat16, 32, "mma.sync 64x64"), (torch.bfloat16, 48, "mma.sync 64x64"),
-    (torch.bfloat16, 64, "mma.sync 64x64"), (torch.bfloat16, 128, "wgmma+TMA 128x128"),
-    (torch.bfloat16, 192, "wgmma+TMA 128x64"), (torch.bfloat16, 256, "wgmma+TMA 128x64")]
+# (dtype, head dim, Sq, rep) -> the design the card launches; the table
+# ``flash_path`` holds.  At bf16 D 64 it counts a KV head's query rows: at
+# most 16 (whisper's 4-token cross-attention, rep 16 x 1) split the keys
+# over a cluster, 17 and more (its 1,500-frame encoder) run wgmma + TMA
+MANY = (512, 1)
+FLASH_DESIGNS = [(torch.float32, d, *MANY, "CUDA cores") for d in tops.FLASH_HEAD_DIMS] + [
+    (torch.bfloat16, 32, *MANY, "mma.sync 64x64"), (torch.bfloat16, 48, *MANY, "mma.sync 64x64"),
+    (torch.bfloat16, 64, *MANY, "wgmma+TMA 192x128"),
+    (torch.bfloat16, 128, *MANY, "wgmma+TMA 128x128"),
+    (torch.bfloat16, 192, *MANY, "wgmma+TMA 128x64"),
+    (torch.bfloat16, 256, *MANY, "wgmma+TMA 128x64"),
+    (torch.bfloat16, 64, 4, 1, "mma.sync split-K 16x16"),
+    (torch.bfloat16, 64, 16, 1, "mma.sync split-K 16x16"),
+    (torch.bfloat16, 64, 1, 16, "mma.sync split-K 16x16"),
+    (torch.bfloat16, 64, 4, 4, "mma.sync split-K 16x16"),
+    (torch.bfloat16, 64, 17, 1, "wgmma+TMA 192x128"),
+    (torch.bfloat16, 64, 1, 17, "wgmma+TMA 192x128"),
+    (torch.bfloat16, 64, 9, 2, "wgmma+TMA 192x128"),
+    (torch.bfloat16, 32, 4, 1, "mma.sync 64x64"),
+    (torch.bfloat16, 128, 4, 1, "wgmma+TMA 128x128"),
+    (torch.float32, 64, 4, 1, "CUDA cores")]
 
 
-@pytest.mark.parametrize("dtype,d,path", FLASH_DESIGNS,
-                         ids=[f"{str(t)[6:]}-{d}" for t, d, _ in FLASH_DESIGNS])
-def test_flash_design_table(dtype, d, path):
-    assert tops.flash_path(dtype, d) == path
-    assert path in tops.FLASH_PATHS
+@pytest.mark.parametrize("dtype,d,sq,rep,path", FLASH_DESIGNS,
+                         ids=[f"{str(t)[6:]}-{d}" + ("" if (sq, rep) == MANY else f"-sq{sq}-rep{rep}")
+                              for t, d, sq, rep, _ in FLASH_DESIGNS])
+def test_flash_design_table(dtype, d, sq, rep, path):
+    assert tops.flash_path(dtype, d, sq, rep) == path
+    assert tops.FLASH_PATHS[path] == (3 if "split" in path else 2 if "wgmma" in path
+                                      else 1 if "mma" in path else 0)
 
 
 @pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 96), (torch.float32, 512),
                                      (torch.float16, 128)])
 def test_flash_design_table_refuses_what_has_no_design(dtype, d):
     with pytest.raises(ValueError, match="no design"):
-        tops.flash_path(dtype, d)
+        tops.flash_path(dtype, d, 4, 1)
 
 
 def _paged_inputs(h, hkv, d=32, ps=4, lens=(5, 0, 11), seed=0):
